@@ -1,0 +1,1 @@
+"""analysis layer of the PyTorch port (mirrors frontistr_tpu/analysis)."""

@@ -1,0 +1,1 @@
+"""assembly layer of the PyTorch port (mirrors frontistr_tpu/assembly)."""

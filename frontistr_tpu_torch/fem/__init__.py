@@ -1,0 +1,1 @@
+"""fem layer of the PyTorch port (mirrors frontistr_tpu/fem)."""

@@ -1,0 +1,1 @@
+"""solver layer of the PyTorch port (mirrors frontistr_tpu/solver)."""
