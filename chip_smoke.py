@@ -1,20 +1,26 @@
 """Smoke run of the PyTorch/CUDA port on one card: builds the kernels,
-holds each against its plain PyTorch version, drives the linear-static
-tet path once through ``frontistr_tpu_torch.run.run_directory`` (the
-function behind ``python -m frontistr_tpu_torch``), checks the answer and
-prints the result.
+holds each against its plain PyTorch version, drives the two main paths
+once, checks the answers and prints the result.
 
-    python3 chip_smoke.py [--n N]
+    python3 chip_smoke.py [--n N] [--hex H]
 
-``--n`` sets the box: ``box_tet4(n, n, n)`` has 3*(n+1)^3 dofs and 6*n^3
-tets (default n=69: 1,029,000 dofs, 1,971,054 tets; n=40: 206,763
-dofs).  The run needs a CUDA card
-and exits non-zero without one, or when any phase fails.  Work
-directories and the kernel build go under ``build/`` of the checkout.
-The last line of standard output is
+- The linear-static tet path through
+  ``frontistr_tpu_torch.run.run_directory`` (the function behind
+  ``python -m frontistr_tpu_torch``): a shuffled ``box_tet4(n, n, n)``
+  deck, 3*(n+1)^3 dofs and 6*n^3 tets (default n=69: 1,029,000 dofs,
+  1,971,054 tets; n=40: 206,763 dofs), cluster-ELL assembly through K1.
+- The structured hex8 path through the library entry points
+  ``build_struct_model`` + ``run_linear_static``: ``box_hex8(h, h, h)``
+  (default h=69: 1,029,000 dofs, 328,509 elements), stencil operator
+  with its element products through K2, in float32 and float64.
+
+The run needs a CUDA card and exits non-zero without one, or when any
+phase fails.  Work directories and the kernel build go under ``build/``
+of the checkout.  The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
-the line before it lists the kernels, the line before that the card's
-name and power limit.
+the line before it lists the kernels (time, plain time, one library call
+for the same function, launches on the main path, the least time the
+card could take), the line before that the card's name and power limit.
 """
 
 import argparse
@@ -33,6 +39,9 @@ CNT = ("!VERSION\n 3\n!SOLUTION, TYPE=STATIC\n!BOUNDARY\n X0, 1, 3, 0.0\n"
        "!SOLVER, METHOD=CG, ITERLOG=NO, TIMELOG=NO\n 10000, 1\n"
        " 1.0e-8, 1.0, 0.0\n!END\n")
 F32_TOL, F64_TOL = 1e-4, 1e-12      # x max|plain|
+# NVIDIA H100 SXM data sheet: HBM3 bytes/s; non-tensor-core flop/s
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 
 def log(msg: str) -> None:
@@ -53,27 +62,49 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_k1(sm, plan, kes, nns, dtype, label: str) -> float:
-    """Kernel vs plain version on the same inputs; two launches must be
+def bound(nbytes: float, flops: float, dtype) -> tuple:
+    """(least ms, "bytes" or "operations"): the larger of bytes over the
+    HBM rate and operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tol_for(dtype) -> float:
+    return F32_TOL if dtype == torch.float32 else F64_TOL
+
+
+def check_same(name: str, got, again, want, dtype, label: str) -> float:
+    """Kernel output against the plain version's; a relaunch must be
     bit-equal.  Returns max |kernel - plain|."""
-    kes = [k.to(dtype) for k in kes]
-    got = sm.segsum(plan, kes, nns, 3)
-    again = sm.segsum(plan, kes, nns, 3)
-    want = sm.segsum_reference(plan, kes, nns, 3)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    scale = float(want.abs().max())
-    tol = (F32_TOL if dtype == torch.float32 else F64_TOL) * scale
-    log(f"  K1 {label} {str(dtype)[6:]}: max_abs_err={err!r} "
+    tol = tol_for(dtype) * float(want.abs().max())
+    log(f"  {name} {label} {str(dtype)[6:]}: max_abs_err={err!r} "
         f"(tol {tol!r}), bit-equal relaunch={torch.equal(got, again)}")
     if not err <= tol:
-        raise AssertionError(f"K1 disagrees with its plain version ({label})")
+        raise AssertionError(f"{name} disagrees with its plain version "
+                             f"({label})")
     if not torch.equal(got, again):
-        raise AssertionError(f"K1 relaunch not bit-equal ({label})")
+        raise AssertionError(f"{name} relaunch not bit-equal ({label})")
     return err
 
 
-def phase_kernels(sm, bell, box_tet4):
+def check_k1(sm, plan, kes, nns, dtype, label: str) -> float:
+    kes = [k.to(dtype) for k in kes]
+    return check_same("K1", sm.segsum(plan, kes, nns, 3),
+                      sm.segsum(plan, kes, nns, 3),
+                      sm.segsum_reference(plan, kes, nns, 3), dtype, label)
+
+
+def check_k2(em, keT, xeT, label: str) -> float:
+    return check_same("K2", em.element_matvec_soa(keT, xeT),
+                      em.element_matvec_soa(keT, xeT),
+                      em.element_matvec_soa_reference(keT, xeT), keT.dtype,
+                      label)
+
+
+def phase_k1_check(sm, bell, box_tet4, box_hex8):
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     # random sorted segments: empty slots and segments past 1024 entries
@@ -87,13 +118,26 @@ def phase_kernels(sm, bell, box_tet4):
     ke = torch.as_tensor(rng.standard_normal((P, 3, 3)), device=dev)
     for dt in (torch.float32, torch.float64):
         check_k1(sm, plan, [ke], [1], dt, "random segments")
-    mesh = box_tet4(20, 20, 20)
-    conn = mesh.blocks[0].conn
-    cprof = bell.build_cluster_profile([conn], mesh.n_node, 3)
-    kes = [torch.as_tensor(rng.standard_normal((conn.shape[0], 12, 12)),
-                           device=dev)]
+    for label, mesh, nn in (("box_tet4(20) cluster", box_tet4(20, 20, 20), 4),
+                            ("box_hex8(20) cluster", box_hex8(20, 20, 20),
+                             8)):
+        conn = mesh.blocks[0].conn
+        cprof = bell.build_cluster_profile([conn], mesh.n_node, 3)
+        m = 3 * nn
+        kes = [torch.as_tensor(rng.standard_normal((conn.shape[0], m, m)),
+                               device=dev)]
+        for dt in (torch.float32, torch.float64):
+            check_k1(sm, cprof.plan(dev), kes, [nn], dt, label)
+
+
+def phase_k2_check(em):
+    """Random inputs with E = 100,003 (no multiple of any block size)."""
+    rng = np.random.default_rng(1)
+    E = 100003
+    keT = torch.as_tensor(rng.standard_normal((24, 24, E)), device="cuda")
+    xeT = torch.as_tensor(rng.standard_normal((24, E)), device="cuda")
     for dt in (torch.float32, torch.float64):
-        check_k1(sm, cprof.plan(dev), kes, [4], dt, "box_tet4(20) cluster")
+        check_k2(em, keT.to(dt), xeT.to(dt), f"random E={E}")
 
 
 def write_workdir(path: str, dims, ordering, box_tet4, write_workdir_fn):
@@ -105,7 +149,8 @@ def write_workdir(path: str, dims, ordering, box_tet4, write_workdir_fn):
 
 def true_relres(model, u: np.ndarray, kes) -> float:
     """||b_c - A_c u|| / ||b_c|| with the element matrices scattered by
-    index_add_ (independent of the cluster and incidence operators)."""
+    index_add_ (independent of the cluster, stencil and incidence
+    operators)."""
     dev = kes[0].device
     n = model.n_dof_total
     x = torch.as_tensor(u.reshape(-1), device=dev)
@@ -129,54 +174,32 @@ def true_relres(model, u: np.ndarray, kes) -> float:
     return float(torch.linalg.norm(r) / torch.linalg.norm(b_c))
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--n", type=int, default=69,
-                    help="box_tet4(n, n, n) for the main path (default 69)")
-    args = ap.parse_args(argv)
+def check_result(res, model, kes, policy="mixed") -> float:
+    """Policy, finite displacements of the right shape, solver relres and
+    independent true relres <= 1e-8.  Returns the true relres."""
+    if res.policy != policy:
+        raise AssertionError(f"policy {res.policy}, expected {policy}")
+    if not (res.u.shape == (model.n_node, 3) and np.isfinite(res.u).all()):
+        raise AssertionError("displacements not finite / wrong shape")
+    rr = true_relres(model, res.u, kes)
+    log(f"  true f64 relres (index_add_ residual) = {rr!r}")
+    if not (res.relres <= 1e-8 and rr <= 1e-8):
+        raise AssertionError("relative residual above 1e-8")
+    return rr
 
-    # 1. device
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false",
-              file=sys.stderr)
-        return 1
-    sys.path.insert(0, ROOT)
-    from frontistr_tpu_torch import ordering
-    from frontistr_tpu_torch.analysis import static as stmod
-    from frontistr_tpu_torch.assembly import bell
-    from frontistr_tpu_torch.assembly import segsum as sm
-    from frontistr_tpu_torch.io.neu import write_static_workdir
-    from frontistr_tpu_torch.meshgen import box_tet4
-    from frontistr_tpu_torch.run import run_directory
-    kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-    log(f"phase device: torch {torch.__version__} (CUDA "
-        f"{torch.version.cuda}), {kind}, {torch.cuda.device_count()} "
-        f"device(s)")
 
-    # 2. build
-    t0 = time.perf_counter()
-    lib = sm.build()
-    log(f"phase build: K1 {os.path.relpath(lib, ROOT)} in "
-        f"{time.perf_counter() - t0:.2f} s")
-
-    # 3. K1 against its plain version
-    log("phase k1_check:")
-    phase_kernels(sm, bell, box_tet4)
-
-    # 4. main path through run_directory on the card
+def phase_tet_main_path(args, mods):
+    """The tet deck through run_directory; returns (model, K1 launches)."""
+    sm, stmod = mods["segsum"], mods["static"]
     wd = os.path.join(ROOT, "build", "smoke", f"tet{args.n}")
     t0 = time.perf_counter()
-    ndof = write_workdir(wd, (args.n,) * 3, ordering, box_tet4,
-                         write_static_workdir)
+    ndof = write_workdir(wd, (args.n,) * 3, mods["ordering"],
+                         mods["box_tet4"], mods["write_static_workdir"])
     log(f"phase workdir: box_tet4({args.n}) shuffled, {ndof} dofs, "
         f"written in {time.perf_counter() - t0:.2f} s")
     sm.segsum.launches = 0
     t0 = time.perf_counter()
-    out = run_directory(wd, device="cuda")
+    out = mods["run_directory"](wd, device="cuda")
     wall = time.perf_counter() - t0
     launches = sm.segsum.launches
     res, model = out["static"], out["model"]
@@ -186,69 +209,253 @@ def main(argv=None) -> int:
         f"refine_passes={res.passes} relres={res.relres!r} "
         f"K1 launches={launches}")
     if launches < 1:
-        raise AssertionError("the main path did not launch K1")
-    if res.policy != "mixed":
-        raise AssertionError(f"policy {res.policy}, expected mixed")
-    if not (res.u.shape == (model.n_node, 3) and np.isfinite(res.u).all()):
-        raise AssertionError("displacements not finite / wrong shape")
-    kes = stmod.compute_element_stiffness(model)
-    rr = true_relres(model, res.u, kes)
-    log(f"  true f64 relres (index_add_ residual) = {rr!r}")
-    if not (res.relres <= 1e-8 and rr <= 1e-8):
-        raise AssertionError("true relative residual above 1e-8")
+        raise AssertionError("the tet main path did not launch K1")
+    check_result(res, model, stmod.compute_element_stiffness(model))
     with open(os.path.join(wd, "0.log")) as fh:
         if "Global Summary" not in fh.read():
             raise AssertionError("0.log holds no Global Summary")
+    return model, launches
 
-    # 5. K1 time and error at the main path's shapes (after the counts)
-    cprof = bell.cluster_profile_from_model(model)
-    plan = cprof.plan("cuda")
+
+def phase_k1_time(sm, bell, stmod, model, launches) -> dict:
+    """K1 at the tet main path's shapes, float32 (the mixed policy)."""
+    kes = stmod.compute_element_stiffness(model)
+    plan = bell.cluster_profile_from_model(model).plan("cuda")
     nns = [b.conn.shape[1] for b in model.blocks]
     k32 = [k.to(torch.float32) for k in kes]
+    del kes
     err = check_k1(sm, plan, k32, nns, torch.float32, "main path")
     ms = cuda_ms(lambda: sm.segsum(plan, k32, nns, 3))
     plain_ms = cuda_ms(lambda: sm.segsum_reference(plan, k32, nns, 3))
-    log(f"phase k1_time: P={plan.perm.numel()} pairs, "
-        f"n_slots={plan.n_slots}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-        f"ms (f32)")
-    del k32, kes
+    # one library call: index_add_ of the entries already in slot order
+    ent = sm.entry_planes(k32, nns, 3)[:, plan.perm.long()]
+    seg = plan.seg_sorted.long()
+    out = torch.zeros((9, plan.n_slots), dtype=torch.float32, device="cuda")
+    library_ms = cuda_ms(lambda: out.index_add_(1, seg, ent))
+    del ent, seg, out
+    P = plan.perm.numel()
+    nbytes = (sum(k.numel() for k in k32) * 4 + P * 4
+              + (plan.n_slots + 1) * 4 + 9 * plan.n_slots * 4)
+    bound_ms, bound_by = bound(nbytes, 9 * P, torch.float32)
+    log(f"phase k1_time: P={P} pairs, n_slots={plan.n_slots}: kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, index_add_ {library_ms:.3f} "
+        f"ms, bound {bound_ms:.3f} ms ({nbytes / 1e9:.3f} GB) (f32)")
+    return {"name": "segsum", "route": "cuda",
+            "source": "frontistr_tpu_torch/csrc/segsum.cu",
+            "replaces": "frontistr_tpu/assembly/segsum_pallas.py:121",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
-    # 6. a small deck through the AMG arm in the mixed policy, on the card
-    # and on the CPU (which the CPU tests hold to the JAX package).  In
-    # box_tet4(30, 30, 2), shuffled and RCM-ordered, one level-1 AMG block
-    # is singular up to rounding, the case that once broke the V-cycle on
-    # the card; a V-cycle that differs shows in the CG iteration count.
-    small = os.path.join(ROOT, "build", "smoke", "tet30x30x2")
-    write_workdir(small, (30, 30, 2), ordering, box_tet4,
-                  write_static_workdir)
-    saved = {k: os.environ.get(k) for k in ("FRONTISTR_TPU_PRECOND",
-                                            "FRONTISTR_TPU_PRECISION")}
-    os.environ.update(FRONTISTR_TPU_PRECOND="amg",
-                      FRONTISTR_TPU_PRECISION="mixed")
+
+def hex_model(mods, dims, device):
+    path = os.path.join(ROOT, "build", "smoke", "hex.cnt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as fh:
+        fh.write(CNT)
+    return mods["build_struct_model"](mods["box_hex8"](*dims),
+                                      mods["read_cnt"](path), device=device)
+
+
+def phase_hex_main_path(args, mods):
+    """box_hex8(h) through build_struct_model + run_linear_static;
+    returns (model, result, K2 launches)."""
+    em, stmod = mods["element_mv"], mods["static"]
+    t0 = time.perf_counter()
+    model = hex_model(mods, (args.hex,) * 3, "cuda")
+    t_model = time.perf_counter() - t0
+    if not stmod.is_structured(model):
+        raise AssertionError("the hex model does not take the stencil arm")
+    em.element_matvec_soa.launches = 0
+    t0 = time.perf_counter()
+    res = stmod.run_linear_static(model)
+    wall = time.perf_counter() - t0
+    launches = em.element_matvec_soa.launches
+    times = " ".join(f"{k}={v:.3f}" for k, v in res.timings.items())
+    log(f"phase hex_main_path: box_hex8({args.hex}) {model.n_dof_total} "
+        f"dofs, {model.blocks[0].conn.shape[0]} elements, "
+        f"formulation={model.blocks[0].formulation}: model {t_model:.3f} s, "
+        f"run_linear_static {wall:.2f} s; {times}")
+    log(f"  policy={res.policy} cg_iters={res.iters} "
+        f"refine_passes={res.passes} relres={res.relres!r} "
+        f"K2 launches={launches}")
+    if launches < 1:
+        raise AssertionError("the hex main path did not launch K2")
+    check_result(res, model, stmod.compute_element_stiffness(model))
+    return model, res, launches
+
+
+def phase_k2_time(mods, model, res, launches) -> dict:
+    """K2 at the hex main path's shapes, float32 and float64, on the
+    element values of its solution."""
+    em, stmod = mods["element_mv"], mods["static"]
+    st = mods["structured"]
+    ke = stmod.compute_element_stiffness(model)[0]
+    sop = st.StructuredHexOperator(*model.mesh.structured,
+                                   st.soa_from_blocks(ke),
+                                   torch.ones(model.n_dof_total,
+                                              dtype=torch.float64,
+                                              device="cuda"))
+    del ke
+    xe64 = sop._gather_stencil(torch.as_tensor(res.u.reshape(-1),
+                                               device="cuda"))
+    E = xe64.shape[1]
+    row = {"name": "element_mv", "route": "cuda",
+           "source": "frontistr_tpu_torch/csrc/element_mv.cu",
+           "replaces": "frontistr_tpu/ops/pallas_mv.py:18",
+           "launches": launches}
+    for dt in (torch.float64, torch.float32):
+        keT = sop.keT.to(dt)
+        xeT = xe64.to(dt)
+        err = check_k2(em, keT, xeT, "main path")
+        ms = cuda_ms(lambda: em.element_matvec_soa(keT, xeT))
+        plain_ms = cuda_ms(
+            lambda: em.element_matvec_soa_reference(keT, xeT))
+        keB = keT.permute(2, 0, 1)
+        xeB = xeT.t()[:, :, None]
+        library_ms = cuda_ms(lambda: torch.bmm(keB, xeB))
+        isz = keT.element_size()
+        nbytes = (24 * 24 + 2 * 24) * E * isz
+        bound_ms, bound_by = bound(nbytes, 2 * 24 * 24 * E, dt)
+        log(f"phase k2_time: E={E} {str(dt)[6:]}: kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, bmm {library_ms:.3f} ms, bound "
+            f"{bound_ms:.3f} ms ({nbytes / 1e9:.3f} GB)")
+        nums = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms}
+        if dt == torch.float32:
+            row.update(nums)                 # the CG hot loop's type
+        else:
+            row["f64"] = nums                # the refinement residuals
+        del keT, xeT, keB, xeB
+    return row
+
+
+def with_env(env: dict, fn):
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     try:
-        r_gpu = run_directory(small, device="cuda")["static"]
-        r_cpu = run_directory(small, device="cpu")["static"]
+        return fn()
     finally:
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def phase_small_reference(mods):
+    """A small deck through the AMG arm in the mixed policy, on the card
+    and on the CPU (which the CPU tests hold to the JAX package).  In
+    box_tet4(30, 30, 2), shuffled and RCM-ordered, one level-1 AMG block
+    is singular up to rounding, the case that once broke the V-cycle on
+    the card; a V-cycle that differs shows in the CG iteration count."""
+    small = os.path.join(ROOT, "build", "smoke", "tet30x30x2")
+    write_workdir(small, (30, 30, 2), mods["ordering"], mods["box_tet4"],
+                  mods["write_static_workdir"])
+    run = mods["run_directory"]
+    r_gpu, r_cpu = with_env(
+        {"FRONTISTR_TPU_PRECOND": "amg", "FRONTISTR_TPU_PRECISION": "mixed"},
+        lambda: (run(small, device="cuda")["static"],
+                 run(small, device="cpu")["static"]))
+    compare_runs("small_reference", "box_tet4(30,30,2) AMG mixed", r_gpu,
+                 r_cpu)
+
+
+def phase_hex_small_reference(mods):
+    """box_hex8(8, 6, 5) through the stencil arm in the mixed policy, on
+    the card (K2) and on the CPU (its plain version)."""
+    stmod = mods["static"]
+
+    def run():
+        return [stmod.run_linear_static(hex_model(mods, (8, 6, 5), dev))
+                for dev in ("cuda", "cpu")]
+    r_gpu, r_cpu = with_env({"FRONTISTR_TPU_PRECISION": "mixed"}, run)
+    compare_runs("hex_small_reference", "box_hex8(8,6,5) stencil mixed",
+                 r_gpu, r_cpu)
+
+
+def compare_runs(phase: str, label: str, r_gpu, r_cpu):
     rel = float(np.abs(r_gpu.u - r_cpu.u).max() / np.abs(r_cpu.u).max())
-    log(f"phase small_reference: box_tet4(30,30,2) AMG mixed, cuda vs cpu "
-        f"max rel diff {rel!r}, cg_iters {r_gpu.iters} vs {r_cpu.iters}")
+    log(f"phase {phase}: {label}, cuda vs cpu max rel diff {rel!r}, "
+        f"cg_iters {r_gpu.iters} vs {r_cpu.iters}")
+    if not (r_gpu.relres <= 1e-8 and r_cpu.relres <= 1e-8):
+        raise AssertionError(f"{phase}: a run did not converge")
     if not rel <= 1e-6:
-        raise AssertionError("cuda and cpu runs disagree on a small deck")
+        raise AssertionError(f"{phase}: cuda and cpu runs disagree")
     if not abs(r_gpu.iters - r_cpu.iters) <= 2 + 0.05 * r_cpu.iters:
-        raise AssertionError("cuda and cpu AMG solves take different paths")
+        raise AssertionError(f"{phase}: cuda and cpu solves take "
+                             "different paths")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--n", type=int, default=69,
+                    help="box_tet4(n, n, n) for the tet path (default 69)")
+    ap.add_argument("--hex", type=int, default=69,
+                    help="box_hex8(h, h, h) for the hex path (default 69)")
+    args = ap.parse_args(argv)
+
+    # 1. device
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from frontistr_tpu_torch import kernels, ordering
+    from frontistr_tpu_torch.analysis import static as stmod
+    from frontistr_tpu_torch.assembly import bell, structured
+    from frontistr_tpu_torch.assembly import segsum as sm
+    from frontistr_tpu_torch.assembly.model import build_struct_model
+    from frontistr_tpu_torch.io.ctrlio import read_cnt
+    from frontistr_tpu_torch.io.neu import write_static_workdir
+    from frontistr_tpu_torch.meshgen import box_hex8, box_tet4
+    from frontistr_tpu_torch.ops import element_mv as em
+    from frontistr_tpu_torch.run import run_directory
+    mods = dict(segsum=sm, element_mv=em, static=stmod, bell=bell,
+                structured=structured, ordering=ordering,
+                box_tet4=box_tet4, box_hex8=box_hex8,
+                build_struct_model=build_struct_model, read_cnt=read_cnt,
+                write_static_workdir=write_static_workdir,
+                run_directory=run_directory)
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(f"phase device: torch {torch.__version__} (CUDA "
+        f"{torch.version.cuda}), {kind}, {torch.cuda.device_count()} "
+        f"device(s); {smi}")
+
+    # 2. build: one nvcc per kernel source, all at once
+    t0 = time.perf_counter()
+    libs = kernels.build(verbose=True)
+    log(f"phase build: {', '.join(os.path.relpath(p, ROOT) for p in libs.values())} "
+        f"in {time.perf_counter() - t0:.2f} s")
+
+    # 3. each kernel against its plain version
+    log("phase k1_check:")
+    phase_k1_check(sm, bell, box_tet4, box_hex8)
+    log("phase k2_check:")
+    phase_k2_check(em)
+
+    # 4. the tet path (K1), then K1 at its shapes (after the counts)
+    model, k1_launches = phase_tet_main_path(args, mods)
+    k1_row = phase_k1_time(sm, bell, stmod, model, k1_launches)
+    del model
+
+    # 5. the hex path (K2), then K2 at its shapes (after the counts)
+    model, res, k2_launches = phase_hex_main_path(args, mods)
+    k2_row = phase_k2_time(mods, model, res, k2_launches)
+    del model, res
+    torch.cuda.empty_cache()
+
+    # 6. small decks on the card and on the CPU
+    phase_small_reference(mods)
+    phase_hex_small_reference(mods)
 
     log(smi)
-    log(json.dumps({"kernels": [{
-        "name": "segsum", "route": "cuda",
-        "source": "frontistr_tpu_torch/csrc/segsum.cu",
-        "replaces": "frontistr_tpu/assembly/segsum_pallas.py:121",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms}]}))
+    log(json.dumps({"kernels": [k1_row, k2_row]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -3,11 +3,20 @@ arm of ``frontistr_tpu/analysis/static.py``).
 
 assemble -> apply BC -> Krylov solve -> stress recovery
 (fstr_static_analysis, fistr1/src/main/fistr_main.f90:288, one linear
-step).  The solve is the JAX package's cluster-ELL path: the f32
-cluster operator assembled through the K1 segment-sum kernel,
-AMG-preconditioned (block-Jacobi below FRONTISTR_TPU_AMG_MIN dofs), with
-f64 refinement on the matrix-free operator ("mixed", the default on
-CUDA) or a plain f64 CG ("f64", the default on the CPU).
+step).  Two solve arms, chosen as the JAX package chooses them:
+
+- a structured hex8 box (``mesh.structured`` set, as ``meshgen.box_hex8``
+  sets it; one solid 361 block) takes the stencil operator
+  (``assembly/structured.py``, element products through kernel K2),
+  block-Jacobi preconditioned;
+- any other mesh takes the cluster-ELL path: the cluster operator
+  assembled through the K1 segment-sum kernel, AMG-preconditioned
+  (block-Jacobi below FRONTISTR_TPU_AMG_MIN dofs).
+
+Either runs in the "mixed" policy (f32 CG + f64 refinement on the f64
+operator, the default on CUDA; the cluster arm's f64 operator is the
+matrix-free ``FEOperator``) or the "f64" policy (a plain f64 CG, the
+default on the CPU).
 """
 
 from __future__ import annotations
@@ -23,6 +32,8 @@ import torch
 from frontistr_tpu_torch.assembly import bell, ell, femop
 from frontistr_tpu_torch.assembly import operators as ops
 from frontistr_tpu_torch.assembly.model import StructModel
+from frontistr_tpu_torch.assembly.structured import (StructuredHexOperator,
+                                                     soa_from_blocks)
 from frontistr_tpu_torch.device import Phase
 from frontistr_tpu_torch.elements.tables import get_table
 from frontistr_tpu_torch.fem import solid
@@ -64,8 +75,12 @@ def compute_element_stiffness(model: StructModel):
     for b in model.blocks:
         coords_e = torch.as_tensor(model.coords[b.conn], device=model.device)
         D = torch.as_tensor(b.D, device=model.device)
-        kes.append(solid.stiffness_linear(get_table(b.etype), coords_e, D,
-                                          thick=b.thick))
+        table = get_table(b.etype)
+        if b.etype == 361 and b.formulation == "IC":
+            kes.append(solid.stiffness_hex8ic(table, coords_e, D))
+        else:
+            kes.append(solid.stiffness_linear(table, coords_e, D,
+                                              thick=b.thick))
     return kes
 
 
@@ -111,24 +126,34 @@ def _check_solver(sv) -> str:
     return method
 
 
-def solve_linear(model: StructModel, kes,
-                 timings: Optional[dict] = None) -> LinearSolve:
-    """Assemble + constrained CG solve on ``model.device``."""
-    sv = model.cfg.solver
-    method = _check_solver(sv)
-    timings = {} if timings is None else timings
+def is_structured(model: StructModel) -> bool:
+    """The stencil arm's condition (``static.py:265-268`` of the JAX
+    package): a structured box of one solid hex8 block.  The port runs
+    no MPC or extras, so those conditions hold already."""
+    return (getattr(model.mesh, "structured", None) is not None
+            and len(model.blocks) == 1 and model.blocks[0].etype == 361
+            and model.blocks[0].kind == "solid")
+
+
+def _stencil_operators(model: StructModel, kes, free_mask, mixed: bool,
+                       timings: dict):
+    """(f64 operator, CG operator, preconditioner) of the stencil arm."""
+    with Phase(timings, "assembly", model.device):
+        sop = StructuredHexOperator(*model.mesh.structured,
+                                    soa_from_blocks(kes[0]), free_mask)
+        work = dataclasses.replace(
+            sop, keT=sop.keT.to(torch.float32),
+            free_mask=free_mask.to(torch.float32)) if mixed else sop
+        M = work.block_jacobi()
+    return sop.apply_constrained, work.apply_constrained, M
+
+
+def _cluster_operators(model: StructModel, kes, op: femop.FEOperator,
+                       mixed: bool, timings: dict):
+    """(f64 operator, CG operator, preconditioner) of the cluster-ELL
+    arm."""
     dev = model.device
     n = model.n_dof_total
-    t0 = time.perf_counter()
-    u_fix = torch.as_tensor(ops.full_fixed_vector(n, model.fixed_dofs,
-                                                  model.fixed_vals),
-                            device=dev)
-    f = torch.as_tensor(model.f_ext, device=dev)
-    op = femop.from_model(model, kes)
-    b_c = op.constrained_rhs(f, u_fix)
-    hl = 2000 if sv.iterlog else 0
-    policy = solve_policy(dev)
-    mixed = policy == "mixed" and method == "CG"
     with Phase(timings, "profile", dev):
         prof = ell.profile_from_model(model)
         amaps = amgmod.eligible_maps(prof, n)
@@ -151,16 +176,41 @@ def solve_linear(model: StructModel, kes,
                                            device=dev),
                 torch.as_tensor(model.coords, dtype=dtype, device=dev),
                 cop.free_mask, cop.apply_constrained, cop.block_jacobi())
+    return op.apply_constrained, cop.apply_constrained, M
+
+
+def solve_linear(model: StructModel, kes,
+                 timings: Optional[dict] = None) -> LinearSolve:
+    """Assemble + constrained CG solve on ``model.device``."""
+    sv = model.cfg.solver
+    method = _check_solver(sv)
+    timings = {} if timings is None else timings
+    dev = model.device
+    n = model.n_dof_total
+    t0 = time.perf_counter()
+    u_fix = torch.as_tensor(ops.full_fixed_vector(n, model.fixed_dofs,
+                                                  model.fixed_vals),
+                            device=dev)
+    f = torch.as_tensor(model.f_ext, device=dev)
+    op = femop.from_model(model, kes)
+    b_c = op.constrained_rhs(f, u_fix)
+    hl = 2000 if sv.iterlog else 0
+    policy = solve_policy(dev)
+    mixed = policy == "mixed" and method == "CG"
+    if is_structured(model):
+        A64, A, M = _stencil_operators(model, kes, op.free_mask, mixed,
+                                       timings)
+    else:
+        A64, A, M = _cluster_operators(model, kes, op, mixed, timings)
     t1 = time.perf_counter()
     with Phase(timings, "solve", dev):
         if mixed:
-            res = refined_cg(op.apply_constrained, cop.apply_constrained,
-                             M, b_c, tol=sv.resid, inner_tol=1e-6,
+            res = refined_cg(A64, A, M, b_c, tol=sv.resid, inner_tol=1e-6,
                              maxiter=sv.nier, hist_len=hl)
             passes = res.passes
         else:
-            res = pcg(cop.apply_constrained, b_c, M=M, tol=sv.resid,
-                      maxiter=sv.nier, hist_len=hl)
+            res = pcg(A, b_c, M=M, tol=sv.resid, maxiter=sv.nier,
+                      hist_len=hl)
             passes = 0
         x = res.x.cpu().numpy()
     t2 = time.perf_counter()
@@ -180,9 +230,13 @@ def recover_stress(model: StructModel, u_flat: np.ndarray):
     for b in model.blocks:
         coords_e = torch.as_tensor(model.coords[b.conn], device=dev)
         u_e = torch.as_tensor(u[b.conn], device=dev)
-        eps = solid.strains_at_gauss(get_table(b.etype), coords_e, u_e)
-        sig = torch.einsum("ekl,eql->eqk",
-                           torch.as_tensor(b.D, device=dev), eps)
+        D = torch.as_tensor(b.D, device=dev)
+        table = get_table(b.etype)
+        if b.etype == 361 and b.formulation == "IC":
+            eps = solid.strains_at_gauss_hex8ic(table, coords_e, u_e, D)
+        else:
+            eps = solid.strains_at_gauss(table, coords_e, u_e)
+        sig = torch.einsum("ekl,eql->eqk", D, eps)
         block_data.append(dict(etype=b.etype, conn=b.conn,
                                gauss_strain=eps, gauss_stress=sig))
     return u, postnodal.smooth(model.n_node, block_data, model.dim)

@@ -17,6 +17,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from frontistr_tpu_torch.device import resolve
 from frontistr_tpu_torch.elements.tables import get_table
 from frontistr_tpu_torch.fem import material as mat
 from frontistr_tpu_torch.io.ctrlio import AnalysisConfig, Card, CntMaterial
@@ -163,7 +164,8 @@ def collect_cload(mesh: Mesh, cards: List[Card], ndof: int, n_node: int,
     return f
 
 
-SLICE_ETYPES = (341,)     # element types the ported slice runs
+SLICE_ETYPES = (341, 361)     # element types the ported slice runs
+SLICE_FORMS_361 = ("FI", "IC")  # 361 formulations it runs
 
 
 def check_slice(mesh: Mesh, cfg: AnalysisConfig) -> None:
@@ -179,11 +181,34 @@ def check_slice(mesh: Mesh, cfg: AnalysisConfig) -> None:
     for b in mesh.blocks:
         if b.etype not in SLICE_ETYPES:
             raise NotImplementedError(
-                f"element type {b.etype} (the port runs tet4, 341, so far)")
+                f"element type {b.etype} (the port runs tet4, 341, and "
+                "hex8, 361, so far)")
+
+
+def formulation_361(cfg: AnalysisConfig, section_id: int) -> str:
+    """The hex8 formulation: IC for linear STATIC, B-bar under nlgeom
+    (fstr_setup.f90:365-379), overridden by ``!ELEMOPT, 361=`` and then
+    by the block section's ``FORM361`` (fstr_ctrl_common.f90:311-320);
+    IC under nlgeom falls back to B-bar (fstr_setup.f90:841-845)."""
+    form = "BBAR" if cfg.nlgeom else "IC"
+    if cfg.elemopt361:
+        form = {1: "FI", 2: "BBAR", 3: "IC", 4: "FBAR"}.get(cfg.elemopt361,
+                                                          form)
+    for c in cfg.sections:
+        if c.iparam("SECNUM", 0) == section_id + 1:
+            f361 = (c.param("FORM361") or "").upper()
+            if f361 in ("FI", "BBAR", "IC", "FBAR"):
+                form = f361
+    if cfg.nlgeom and form == "IC":
+        form = "BBAR"
+    return form
 
 
 def build_struct_model(mesh: Mesh, cfg: AnalysisConfig,
-                       device="cpu") -> StructModel:
+                       device="cuda") -> StructModel:
+    """The model on ``device`` (default the card; without one, an
+    error)."""
+    dev = resolve(device)
     check_slice(mesh, cfg)
     dim = ndof = 3
     n_node = mesh.n_node
@@ -202,9 +227,17 @@ def build_struct_model(mesh: Mesh, cfg: AnalysisConfig,
         nn = table.nn
         dofs = (b.conn[:, :, None] * ndof +
                 np.arange(ndof)[None, None, :]).reshape(E, nn * ndof)
+        form = "FI"
+        if b.etype == 361:
+            form = formulation_361(cfg, b.section_id)
+            if form not in SLICE_FORMS_361:
+                raise NotImplementedError(
+                    f"361 formulation {form} (the port runs "
+                    f"{'/'.join(SLICE_FORMS_361)} so far)")
         blocks.append(KBlock(b.etype, b.elem_ids, b.conn,
                              dofs.astype(np.int32), D, 1.0, mat.D3,
-                             np.full(E, m.density), m, b.section_id))
+                             np.full(E, m.density), m, b.section_id,
+                             formulation=form))
 
     step = cfg.steps[0]
     grpid = set(step.boundary_groups) if step.boundary_groups else None
@@ -214,4 +247,4 @@ def build_struct_model(mesh: Mesh, cfg: AnalysisConfig,
     f_ext = collect_cload(mesh, cfg.cloads, ndof, n_node, lgrp)
     return StructModel(mesh, cfg, ndof, dim, n_node, coords, blocks,
                        fixed_dofs, fixed_vals, f_ext,
-                       device=torch.device(device), nlgeom=cfg.nlgeom)
+                       device=dev, nlgeom=cfg.nlgeom)

@@ -16,9 +16,9 @@ are 0.
 ``segsum`` is the wrapper: a CPU tensor takes the plain version
 (``segsum_reference``: ``index_add_`` of the gathered entries by
 ``seg_sorted``), a CUDA tensor launches the hand-written kernel
-``csrc/segsum.cu`` or raises.  The kernel is CUDA C++ built with
-``nvcc`` for ``sm_90a`` at first use into ``build/kernels`` and bound
-through a plain C interface with ctypes.  It is bound by device-memory
+``csrc/segsum.cu`` or raises.  The kernel is CUDA C++ built at first
+use by ``frontistr_tpu_torch.kernels`` and bound through a plain C
+interface with ctypes.  It is bound by device-memory
 bytes; see the source for what it reads and writes and how its design
 (one thread per slot, perm gather and plane relayout fused, no atomics)
 keeps them few and deterministic.
@@ -28,19 +28,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from typing import Sequence
 
 import numpy as np
 import torch
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG_DIR, "csrc", "segsum.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+from frontistr_tpu_torch import kernels
+
 _MAX_BLOCKS = 8            # kMaxBlocks in csrc/segsum.cu
 
 
@@ -161,7 +155,7 @@ def _check(plan: SegsumPlan, kes, nns, nd: int) -> torch.dtype:
 
 def _launch(plan: SegsumPlan, kes, nns, nd: int,
             dtype: torch.dtype) -> torch.Tensor:
-    lib = _library()
+    lib = kernels.load("segsum", _SIGNATURES)
     dev = kes[0].device
     out = torch.empty((nd * nd, plan.n_slots), dtype=dtype, device=dev)
     nblk = len(kes)
@@ -183,60 +177,9 @@ def _launch(plan: SegsumPlan, kes, nns, nd: int,
     return out
 
 
-_LIB = None
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    cand = os.path.join(home, "bin", "nvcc")
-    path = cand if os.path.exists(cand) else shutil.which("nvcc")
-    if path is None:
-        raise RuntimeError("segsum: nvcc not found (set CUDA_HOME)")
-    return path
-
-
-def build(verbose: bool = False) -> str:
-    """Compile ``csrc/segsum.cu`` for sm_90a into ``build/kernels``
-    (named by the source's hash, so an edited source rebuilds); returns
-    the library path."""
-    with open(_SRC, "rb") as fh:
-        tag = hashlib.sha1(fh.read()).hexdigest()[:12]
-    lib = os.path.join(_BUILD_DIR, f"libfstr_segsum_{tag}.so")
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", tmp, _SRC]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True,
-                             timeout=600)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}{res.stderr}")
-        if verbose:
-            print(res.stdout + res.stderr)
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return lib
-
-
-def _library():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(build())
-        vp = ctypes.c_void_p
-        lib.fstr_segsum.argtypes = [
-            ctypes.c_int, ctypes.c_int, vp, vp, ctypes.c_longlong,
-            ctypes.POINTER(ctypes.c_void_p),
-            ctypes.POINTER(ctypes.c_longlong),
-            ctypes.POINTER(ctypes.c_longlong),
-            ctypes.POINTER(ctypes.c_int), ctypes.c_int, vp, vp]
-        lib.fstr_segsum.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+_SIGNATURES = {"fstr_segsum": (
+    [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_longlong, ctypes.POINTER(ctypes.c_void_p),
+     ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
+     ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p,
+     ctypes.c_void_p], ctypes.c_int)}

@@ -17,16 +17,19 @@ import numpy as np
 import torch
 
 from frontistr_tpu_torch.assembly.model import KBlock, StructModel
+from frontistr_tpu_torch.device import resolve
 from frontistr_tpu_torch.fem import material as mat
 
 
-def model_from_numpy(src, device="cpu",
+def model_from_numpy(src, device="cuda",
                      kes: Optional[Sequence[np.ndarray]] = None):
-    """Port ``StructModel`` on ``device`` from ``src``'s numpy fields.
+    """Port ``StructModel`` on ``device`` (default the card; without one,
+    an error) from ``src``'s numpy fields.  The mesh is carried as it is,
+    ``mesh.structured`` included.
 
     Returns the model, or ``(model, kes)`` with the element matrices as
     float64 tensors on ``device`` when ``kes`` is given."""
-    dev = torch.device(device)
+    dev = resolve(device)
     blocks = []
     for b in src.blocks:
         m = mat.Material(b.material.name, youngs=b.material.youngs,

@@ -10,10 +10,10 @@ on the host in float64:
 
 Shape functions, node orderings and quadrature rules are the reference's
 (fistr1/src/lib/element/*.f90, quadrature.f90), exactly as in the JAX
-package.  Natural derivatives come from forward-mode autodiff
-(``torch.func.jacfwd``) of the shape functions, as the JAX package takes
-them with ``jax.jacfwd``; ``tests/test_torch_elements.py`` holds every
-table to the JAX one.
+package.  Natural derivatives come from autodiff of the shape functions
+(``torch.autograd.functional.jacobian``), as the JAX package takes them
+with ``jax.jacfwd``; ``tests/test_torch_elements.py`` holds every table
+to the JAX one.
 """
 
 from __future__ import annotations
@@ -316,10 +316,12 @@ def shape_func(etype: int, xi) -> np.ndarray:
 
 
 def shape_deriv(etype: int, xi) -> np.ndarray:
-    """Natural derivatives (nn, dim) at one natural point, float64."""
+    """Natural derivatives (nn, dim) at one natural point, float64.
+    (Not ``torch.func.jacfwd``: for some element types, hex8 among them,
+    its first call imports ``torch._dynamo``, seconds of host time.)"""
     _, _, sf, _ = ETYPE_INFO[etype]
     x = torch.as_tensor(np.asarray(xi, np.float64))
-    return torch.func.jacfwd(sf)(x).numpy()
+    return torch.autograd.functional.jacobian(sf, x).numpy()
 
 
 @lru_cache(maxsize=None)

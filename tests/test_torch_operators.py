@@ -3,6 +3,8 @@ JAX package.  Profiles and maps must be bit-equal; float64 operator
 outputs agree to 1e-12 of their max magnitude (sums in another order).
 """
 
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -52,7 +54,8 @@ def test_model_build_matches_jax(tmp_path, models):
     jmodel = models[0]
     p = tmp_path / "case.cnt"
     p.write_text(CNT)
-    model = build_struct_model(box_tet4(*SIZE), read_cnt(str(p)))
+    model = build_struct_model(box_tet4(*SIZE), read_cnt(str(p)),
+                               device="cpu")
     for name in ("coords", "fixed_dofs", "fixed_vals", "f_ext"):
         assert np.array_equal(getattr(model, name), getattr(jmodel, name))
     for b, jb in zip(model.blocks, jmodel.blocks):
@@ -69,14 +72,17 @@ def test_unported_cards_raise(tmp_path, extra):
     p = tmp_path / "case.cnt"
     p.write_text(CNT.replace("!END\n", extra + "!END\n"))
     with pytest.raises(NotImplementedError):
-        build_struct_model(box_tet4(2, 2, 2), read_cnt(str(p)))
+        build_struct_model(box_tet4(2, 2, 2), read_cnt(str(p)),
+                           device="cpu")
 
 
 def test_unported_element_type_raises(tmp_path):
     p = tmp_path / "case.cnt"
     p.write_text(CNT)
-    with pytest.raises(NotImplementedError, match="element type 361"):
-        build_struct_model(box_hex8(2, 2, 2), read_cnt(str(p)))
+    mesh = box_hex8(2, 2, 2)
+    mesh.blocks = [dataclasses.replace(mesh.blocks[0], etype=362)]
+    with pytest.raises(NotImplementedError, match="element type 362"):
+        build_struct_model(mesh, read_cnt(str(p)), device="cpu")
 
 
 def test_profiles_and_maps_bit_equal(models):
