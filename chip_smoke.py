@@ -1,18 +1,23 @@
 """Smoke run of the PyTorch/CUDA port on one card: builds the kernels,
-holds each against its plain PyTorch version, drives the two main paths
+holds each against its plain PyTorch version, drives the main paths
 once, checks the answers and prints the result.
 
-    python3 chip_smoke.py [--n N] [--hex H]
+    python3 chip_smoke.py [--n N] [--hex H] [--newton-n M]
 
-- The linear-static tet path through
+- The nonlinear static (Newton) tet path through
   ``frontistr_tpu_torch.run.run_directory`` (the function behind
-  ``python -m frontistr_tpu_torch``): a shuffled ``box_tet4(n, n, n)``
-  deck, 3*(n+1)^3 dofs and 6*n^3 tets (default n=69: 1,029,000 dofs,
-  1,971,054 tets; n=40: 206,763 dofs), cluster-ELL assembly through K1.
+  ``python -m frontistr_tpu_torch``): the deck of ``bench.py:83-88``
+  (NLSTATIC, total Lagrange) on a shuffled ``box_tet4(m, m, m)``,
+  3*(m+1)^3 dofs and 6*m^3 tets (default m=69: 1,029,000 dofs, 1,971,054
+  tets), one K1 assembly per Newton iteration.
+- The linear-static tet path through ``run_directory``: the STATIC deck
+  on a shuffled ``box_tet4(n, n, n)`` (default n=40: 206,763 dofs).
 - The structured hex8 path through the library entry points
   ``build_struct_model`` + ``run_linear_static``: ``box_hex8(h, h, h)``
   (default h=69: 1,029,000 dofs, 328,509 elements), stencil operator
   with its element products through K2, in float32 and float64.
+- The gather microbenchmark ``frontistr_tpu_torch.microbench.gather``
+  (K3-K6 on the shapes of ``scripts/microbench_pallas_gather.py``).
 
 The run needs a CUDA card and exits non-zero without one, or when any
 phase fails.  Work directories and the kernel build go under ``build/``
@@ -38,6 +43,12 @@ CNT = ("!VERSION\n 3\n!SOLUTION, TYPE=STATIC\n!BOUNDARY\n X0, 1, 3, 0.0\n"
        "!CLOAD\n X1, 3, -1.0\n!MATERIAL, NAME=M1\n!ELASTIC\n 210000.0, 0.3\n"
        "!SOLVER, METHOD=CG, ITERLOG=NO, TIMELOG=NO\n 10000, 1\n"
        " 1.0e-8, 1.0, 0.0\n!END\n")
+# the deck of bench.py:83-88 (NLSTATIC: total Lagrange, Newton to 1e-6)
+NLCNT = ("!VERSION\n 3\n!SOLUTION, TYPE=NLSTATIC\n!BOUNDARY\n X0, 1, 3, 0.0\n"
+         "!CLOAD\n X1, 3, {load}\n!MATERIAL, NAME=M1\n!ELASTIC\n"
+         " 210000.0, 0.3\n!STEP, SUBSTEPS=1\n BOUNDARY, 1\n LOAD, 1\n"
+         "!SOLVER, METHOD=CG, ITERLOG=NO, TIMELOG=NO\n 10000, 1\n"
+         " 1.0e-8, 1.0, 0.0\n!END\n")
 F32_TOL, F64_TOL = 1e-4, 1e-12      # x max|plain|
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s; non-tensor-core flop/s
 HBM_BYTES_S = 3.35e12
@@ -140,20 +151,22 @@ def phase_k2_check(em):
         check_k2(em, keT.to(dt), xeT.to(dt), f"random E={E}")
 
 
-def write_workdir(path: str, dims, ordering, box_tet4, write_workdir_fn):
+def write_workdir(path: str, dims, ordering, box_tet4, write_workdir_fn,
+                  cnt: str = CNT):
     mesh = box_tet4(*dims)
     order = np.random.default_rng(3).permutation(mesh.n_node)
-    write_workdir_fn(path, ordering.permute_mesh(mesh, order), CNT)
+    write_workdir_fn(path, ordering.permute_mesh(mesh, order), cnt)
     return mesh.n_node * 3
 
 
-def true_relres(model, u: np.ndarray, kes) -> float:
-    """||b_c - A_c u|| / ||b_c|| with the element matrices scattered by
-    index_add_ (independent of the cluster, stencil and incidence
-    operators)."""
+def constrained_relres(model, kes, f, u_fix, free, x) -> float:
+    """||b_c - A_c x|| / ||b_c|| of the system P K P x + (I-P) x =
+    P (f - K u_fix) + (I-P) u_fix, with K applied by scattering the
+    element matrices with index_add_ (independent of the cluster,
+    stencil and incidence operators).  f, u_fix, free, x: float64 device
+    vectors."""
     dev = kes[0].device
     n = model.n_dof_total
-    x = torch.as_tensor(u.reshape(-1), device=dev)
 
     def K(v):
         y = torch.zeros(n, dtype=torch.float64, device=dev)
@@ -162,16 +175,25 @@ def true_relres(model, u: np.ndarray, kes) -> float:
             y.index_add_(0, d.reshape(-1),
                          torch.einsum("eij,ej->ei", ke, v[d]).reshape(-1))
         return y
-    free = torch.ones(n, dtype=torch.float64, device=dev)
-    free[torch.as_tensor(model.fixed_dofs, device=dev)] = 0.0
-    u_fix = torch.zeros(n, dtype=torch.float64, device=dev)
-    u_fix[torch.as_tensor(model.fixed_dofs, device=dev)] = \
-        torch.as_tensor(model.fixed_vals, device=dev)
-    f_eff = torch.as_tensor(model.f_ext, device=dev) - K(u_fix)
-    # b_c = P (f - K u_fix) + (I-P) u_fix;  A_c x = P K P x + (I-P) x
+    f_eff = f - K(u_fix)
     b_c = f_eff * free + u_fix * (1 - free)
     r = (f_eff - K(x * free)) * free + (u_fix - x) * (1 - free)
     return float(torch.linalg.norm(r) / torch.linalg.norm(b_c))
+
+
+def true_relres(model, u: np.ndarray, kes) -> float:
+    """The linear static solution's relres (``constrained_relres``)."""
+    dev = kes[0].device
+    n = model.n_dof_total
+    fixed = torch.as_tensor(model.fixed_dofs, device=dev)
+    free = torch.ones(n, dtype=torch.float64, device=dev)
+    free[fixed] = 0.0
+    u_fix = torch.zeros(n, dtype=torch.float64, device=dev)
+    u_fix[fixed] = torch.as_tensor(model.fixed_vals, device=dev)
+    return constrained_relres(model, kes,
+                              torch.as_tensor(model.f_ext, device=dev),
+                              u_fix, free,
+                              torch.as_tensor(u.reshape(-1), device=dev))
 
 
 def check_result(res, model, kes, policy="mixed") -> float:
@@ -217,35 +239,136 @@ def phase_tet_main_path(args, mods):
     return model, launches
 
 
+def phase_newton_main_path(args, mods):
+    """The NLSTATIC bench deck through run_directory in the float64
+    policy (FRONTISTR_TPU_PRECISION=f64): at m=69 the mixed policy's
+    float32 CG stalls on the stressed tangents of Newton iterations 2 and
+    later (PERF.md, ``microbench/newton_trace.py``).  Every linear
+    solve's answer is held to an independent index_add_ residual.
+    Returns (model, K1 launches)."""
+    nl, sm = mods["nonlinear"], mods["segsum"]
+    m = args.newton_n
+    wd = os.path.join(ROOT, "build", "smoke", f"newton{m}")
+    t0 = time.perf_counter()
+    ndof = write_workdir(wd, (m,) * 3, mods["ordering"], mods["box_tet4"],
+                         mods["write_static_workdir"],
+                         NLCNT.format(load=-1.0))
+    log(f"phase newton_workdir: box_tet4({m}) shuffled, NLSTATIC, {ndof} "
+        f"dofs, written in {time.perf_counter() - t0:.2f} s")
+    solves = []
+    real = nl.make_constrained_solver
+
+    def checked_solver(model, free, gather, mixed, timings=None):
+        solve = real(model, free, gather, mixed, timings)
+
+        def checked(kes, B, dirichlet_inc):
+            x = solve(kes, B, dirichlet_inc)
+            for k in ("last_iters", "last_passes", "last_relres"):
+                setattr(checked, k, getattr(solve, k))
+            solves.append(dict(
+                cg_iters=solve.last_iters, passes=solve.last_passes,
+                relres=solve.last_relres,
+                true_relres=constrained_relres(model, kes, B, dirichlet_inc,
+                                               free, x)))
+            return x
+        return checked
+
+    nl.make_constrained_solver = checked_solver
+    sm.segsum.launches = 0
+    try:
+        t0 = time.perf_counter()
+        out = with_env({"FRONTISTR_TPU_PRECISION": "f64"},
+                       lambda: mods["run_directory"](wd, device="cuda"))
+        wall = time.perf_counter() - t0
+    finally:
+        nl.make_constrained_solver = real
+    launches = sm.segsum.launches
+    res, model = out["static"], out["model"]
+    nw = res.newton
+    tm = res.timings
+    once = " ".join(f"{k}={tm.get(k, 0.0):.3f}"
+                    for k in ("read", "reorder", "model", "profile", "post"))
+    log(f"phase newton_main_path: {wall:.2f} s; once: {once}")
+    log(f"  policy={res.policy} substeps={nw.substeps} "
+        f"newton_iters={nw.total_iters} cutbacks={nw.cutbacks} "
+        f"K1 launches={launches}")
+    keys = ("tangent", "assembly", "amg_setup", "solve", "update")
+    for h, sv in zip(nw.history, solves):
+        step = sum(h[k] for k in keys[:4])
+        log(f"  step {h['step']} substep {h['substep']} it {h['iter']}: "
+            f"rres={h['rres']!r} rxnrm={h['rxnrm']!r} "
+            f"cg_iters={sv['cg_iters']} passes={sv['passes']} "
+            f"relres={sv['relres']!r} true_relres={sv['true_relres']!r}; "
+            + " ".join(f"{k}={h[k]:.3f}" for k in keys)
+            + f" newton_step={step:.3f}")
+    if len(solves) != len(nw.history) or not solves:
+        raise AssertionError("newton_main_path: solves and iterations "
+                             "do not pair up")
+    steps = [sum(h[k] for k in keys[:4]) for h in nw.history]
+    log(f"  newton step (tangent + assembly + amg_setup + solve) over "
+        f"{len(steps)} iterations: median={float(np.median(steps)):.3f} "
+        f"min={min(steps):.3f} max={max(steps):.3f} s")
+    if res.policy != "f64":
+        raise AssertionError(f"policy {res.policy}, expected f64")
+    last = nw.history[-1]
+    if nw.cutbacks or min(last["rres"], last["rxnrm"]) >= 1e-6:
+        raise AssertionError("newton_main_path: Newton did not converge "
+                             "without cutbacks")
+    if launches != nw.total_iters:
+        raise AssertionError(f"K1 launches {launches} != Newton "
+                             f"iterations {nw.total_iters}")
+    if not all(sv["true_relres"] <= 1e-8 for sv in solves):
+        raise AssertionError("a linear solve's true relres is above 1e-8")
+    if not (res.u.shape == (model.n_node, 3) and np.isfinite(res.u).all()):
+        raise AssertionError("displacements not finite / wrong shape")
+    with open(os.path.join(wd, "0.log")) as fh:
+        if "Global Summary" not in fh.read():
+            raise AssertionError("0.log holds no Global Summary")
+    with open(os.path.join(wd, "FSTR.sta")) as fh:
+        if "HAS COMPLETED SUCCESSFULLY" not in fh.read():
+            raise AssertionError("FSTR.sta does not report success")
+    return model, launches
+
+
 def phase_k1_time(sm, bell, stmod, model, launches) -> dict:
-    """K1 at the tet main path's shapes, float32 (the mixed policy)."""
+    """K1 at the Newton main path's shapes, in float64 (the type its f64
+    policy assembles in) and float32 (the mixed policy's)."""
     kes = stmod.compute_element_stiffness(model)
     plan = bell.cluster_profile_from_model(model).plan("cuda")
     nns = [b.conn.shape[1] for b in model.blocks]
-    k32 = [k.to(torch.float32) for k in kes]
-    del kes
-    err = check_k1(sm, plan, k32, nns, torch.float32, "main path")
-    ms = cuda_ms(lambda: sm.segsum(plan, k32, nns, 3))
-    plain_ms = cuda_ms(lambda: sm.segsum_reference(plan, k32, nns, 3))
-    # one library call: index_add_ of the entries already in slot order
-    ent = sm.entry_planes(k32, nns, 3)[:, plan.perm.long()]
-    seg = plan.seg_sorted.long()
-    out = torch.zeros((9, plan.n_slots), dtype=torch.float32, device="cuda")
-    library_ms = cuda_ms(lambda: out.index_add_(1, seg, ent))
-    del ent, seg, out
     P = plan.perm.numel()
-    nbytes = (sum(k.numel() for k in k32) * 4 + P * 4
-              + (plan.n_slots + 1) * 4 + 9 * plan.n_slots * 4)
-    bound_ms, bound_by = bound(nbytes, 9 * P, torch.float32)
-    log(f"phase k1_time: P={P} pairs, n_slots={plan.n_slots}: kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, index_add_ {library_ms:.3f} "
-        f"ms, bound {bound_ms:.3f} ms ({nbytes / 1e9:.3f} GB) (f32)")
-    return {"name": "segsum", "route": "cuda",
-            "source": "frontistr_tpu_torch/csrc/segsum.cu",
-            "replaces": "frontistr_tpu/assembly/segsum_pallas.py:121",
-            "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+    seg = plan.seg_sorted.long()
+    row = {"name": "segsum", "route": "cuda",
+           "source": "frontistr_tpu_torch/csrc/segsum.cu",
+           "replaces": "frontistr_tpu/assembly/segsum_pallas.py:121",
+           "launches": launches}
+    for dt in (torch.float32, torch.float64):
+        kd = [k.to(dt) for k in kes]
+        err = check_k1(sm, plan, kd, nns, dt, "main path")
+        ms = cuda_ms(lambda: sm.segsum(plan, kd, nns, 3))
+        plain_ms = cuda_ms(lambda: sm.segsum_reference(plan, kd, nns, 3))
+        # one library call: index_add_ of the entries already in slot order
+        ent = sm.entry_planes(kd, nns, 3)[:, plan.perm.long()]
+        out = torch.zeros((9, plan.n_slots), dtype=dt, device="cuda")
+        library_ms = cuda_ms(lambda: out.index_add_(1, seg, ent))
+        del ent, out
+        isz = kd[0].element_size()
+        nbytes = (sum(k.numel() for k in kd) * isz + P * 4
+                  + (plan.n_slots + 1) * 4 + 9 * plan.n_slots * isz)
+        bound_ms, bound_by = bound(nbytes, 9 * P, dt)
+        log(f"phase k1_time: P={P} pairs, n_slots={plan.n_slots} "
+            f"{str(dt)[6:]}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"index_add_ {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
+            f"({nbytes / 1e9:.3f} GB)")
+        nums = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms}
+        if dt == torch.float64:
+            row.update(nums)                 # the Newton path's type
+        else:
+            row["f32"] = nums                # the mixed policy's
+        del kd
+    return row
 
 
 def hex_model(mods, dims, device):
@@ -331,6 +454,115 @@ def phase_k2_time(mods, model, res, launches) -> dict:
     return row
 
 
+GATHER_NAMES = {"K3": "gather_rows", "K4": "gather_cols",
+                "K5": "window_gather", "K6": "window_gather_tiled"}
+GATHER_SOURCE = "frontistr_tpu_torch/csrc/gather.cu"
+GATHER_REPLACES = {"K3": "scripts/microbench_pallas_gather.py:44",
+                   "K4": "scripts/microbench_pallas_gather.py:65",
+                   "K5": "scripts/microbench_pallas_gather.py:84",
+                   "K6": "scripts/microbench_pallas_gather.py:114"}
+
+
+def phase_gather_check(g, mb, device="cuda") -> dict:
+    """K3-K6 against their plain versions on the card: the script's
+    inputs, ragged shapes (K6 at 1 and 3 tiles and a ragged last tile),
+    indices out of range (NaN) and out of the window (0).  A gather
+    copies values, so both outputs and a relaunch must be bit-equal.
+    Returns max |kernel - plain| by kernel id (finite entries)."""
+    dev = torch.device(device)
+    rng = np.random.default_rng(2)
+    data = mb.inputs(dev)
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+
+    def f32(shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=dev)
+
+    def win(S, rows):
+        return (i32(rng.integers(-24, rows + 24, (S, 128))),
+                i32(rng.integers(-140, 140, (S, 128))))
+
+    cases = [
+        ("K3", "G1", g.gather_rows, g.gather_rows_reference, data["G1"]),
+        ("K3", "out of range", g.gather_rows, g.gather_rows_reference,
+         (f32((8, 1000)), i32(rng.integers(-12, 12, (9, 1000))))),
+        ("K4", "G2", g.gather_cols, g.gather_cols_reference, data["G2"]),
+        ("K4", "G3", g.gather_cols, g.gather_cols_reference, data["G3"]),
+        ("K4", "out of range", g.gather_cols, g.gather_cols_reference,
+         (f32((5, 300)), i32(rng.integers(-330, 330, (5, 700))))),
+        ("K5", "G4", g.window_gather, g.window_gather_reference,
+         data["G4"]),
+        ("K5", "out of window", g.window_gather, g.window_gather_reference,
+         (f32((64, 128)),) + win(8, 64)),
+        ("K6", "G5", g.window_gather_tiled, g.window_gather_tiled_reference,
+         data["G5"])]
+    for S in (256, 768, 700):
+        cases.append(("K6", f"S={S} out of window", g.window_gather_tiled,
+                      g.window_gather_tiled_reference,
+                      (f32((256, 128)),) + win(S, 64)))
+    errs = {}
+    for kid, label, kern, plain, args in cases:
+        extra = (256, 64) if kid == "K6" else ()
+        got = kern(*args)
+        again = kern(*args)
+        want = plain(*args, *extra)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        same = got.shape == want.shape and torch.equal(
+            got.view(torch.int32), want.view(torch.int32))
+        fin = torch.isfinite(want)
+        err = float((got[fin] - want[fin]).abs().max()) if fin.any() \
+            else 0.0
+        n_nan = int((~fin).sum())
+        n_zero = int((want == 0).sum())
+        log(f"  {kid} {label} {tuple(want.shape)}: bit-equal={same}, "
+            f"relaunch bit-equal="
+            f"{torch.equal(got.view(torch.int32), again.view(torch.int32))}"
+            f", NaN entries {n_nan}, zero entries {n_zero}")
+        if not same or not torch.equal(got.view(torch.int32),
+                                       again.view(torch.int32)):
+            raise AssertionError(f"{kid} ({label}) is not bit-equal to its "
+                                 "plain version")
+        if "window" in label and n_zero == 0:
+            raise AssertionError(f"{kid} ({label}): no out-of-window entry")
+        errs[kid] = max(errs.get(kid, 0.0), err)
+    return errs
+
+
+def phase_gather_time(g, mb, errs) -> list:
+    """The microbenchmark's rows (its run is the gathers' main path:
+    launch counts set to 0 before, read after); returns the K3-K6 rows of
+    the kernels line."""
+    wrappers = {"K3": g.gather_rows, "K4": g.gather_cols,
+                "K5": g.window_gather, "K6": g.window_gather_tiled}
+    for w in wrappers.values():
+        w.launches = 0
+    rows = mb.run("cuda")
+    counts = {k: w.launches for k, w in wrappers.items()}
+    log("phase gather_time: " + json.dumps(rows))
+    log(f"  launches: {counts}")
+    out = {}
+    for r in rows:
+        nums = {"ms": r["ms"], "graph_ms": r["graph_ms"],
+                "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": "bytes",
+                "library_ms": r["library_ms"]}
+        if r["kernel"] in out:                 # K4's second row (G3)
+            out[r["kernel"]][r["row"]] = nums
+            continue
+        out[r["kernel"]] = {
+            "name": GATHER_NAMES[r["kernel"]], "route": "cuda",
+            "source": GATHER_SOURCE,
+            "replaces": GATHER_REPLACES[r["kernel"]],
+            "launches": counts[r["kernel"]],
+            "max_abs_err": errs[r["kernel"]], **nums}
+    if any(c < 1 for c in counts.values()):
+        raise AssertionError(f"a gather kernel was not launched: {counts}")
+    return [out[k] for k in ("K3", "K4", "K5", "K6")]
+
+
 def with_env(env: dict, fn):
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
@@ -375,6 +607,33 @@ def phase_hex_small_reference(mods):
                  r_gpu, r_cpu)
 
 
+def phase_newton_small_reference(mods):
+    """A small NLSTATIC deck (shuffled box_tet4(10, 8, 6), a load that
+    takes several Newton iterations) through the AMG in the mixed
+    policy, on the card and on the CPU: the same Newton iterations, and
+    displacements within 1e-8 of max|u|."""
+    small = os.path.join(ROOT, "build", "smoke", "newton10x8x6")
+    write_workdir(small, (10, 8, 6), mods["ordering"], mods["box_tet4"],
+                  mods["write_static_workdir"], NLCNT.format(load=-100.0))
+    run = mods["run_directory"]
+    r_gpu, r_cpu = with_env(
+        {"FRONTISTR_TPU_PRECOND": "amg", "FRONTISTR_TPU_PRECISION": "mixed"},
+        lambda: (run(small, device="cuda")["static"],
+                 run(small, device="cpu")["static"]))
+    rel = float(np.abs(r_gpu.u - r_cpu.u).max() / np.abs(r_cpu.u).max())
+    its = [[h["iter"] for h in r.newton.history] for r in (r_gpu, r_cpu)]
+    cg = [[h["cg_iters"] for h in r.newton.history] for r in (r_gpu, r_cpu)]
+    log(f"phase newton_small_reference: box_tet4(10,8,6) NLSTATIC AMG "
+        f"mixed, newton iterations {r_gpu.iters} vs {r_cpu.iters}, cg "
+        f"{cg[0]} vs {cg[1]}, cuda vs cpu max rel diff {rel!r}")
+    if r_gpu.iters < 3 or its[0] != its[1]:
+        raise AssertionError("newton_small_reference: Newton iterations "
+                             "differ (or fewer than 3)")
+    if not rel <= 1e-8:
+        raise AssertionError("newton_small_reference: cuda and cpu "
+                             "displacements disagree")
+
+
 def compare_runs(phase: str, label: str, r_gpu, r_cpu):
     rel = float(np.abs(r_gpu.u - r_cpu.u).max() / np.abs(r_cpu.u).max())
     log(f"phase {phase}: {label}, cuda vs cpu max rel diff {rel!r}, "
@@ -390,11 +649,16 @@ def compare_runs(phase: str, label: str, r_gpu, r_cpu):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--n", type=int, default=69,
-                    help="box_tet4(n, n, n) for the tet path (default 69)")
+    ap.add_argument("--n", type=int, default=40,
+                    help="box_tet4(n, n, n) for the linear static tet path "
+                         "(default 40)")
     ap.add_argument("--hex", type=int, default=69,
                     help="box_hex8(h, h, h) for the hex path (default 69)")
+    ap.add_argument("--newton-n", type=int, default=69,
+                    help="box_tet4(m, m, m) for the Newton path "
+                         "(default 69)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     # 1. device
     if not torch.cuda.is_available():
@@ -403,6 +667,7 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, ROOT)
     from frontistr_tpu_torch import kernels, ordering
+    from frontistr_tpu_torch.analysis import nonlinear
     from frontistr_tpu_torch.analysis import static as stmod
     from frontistr_tpu_torch.assembly import bell, structured
     from frontistr_tpu_torch.assembly import segsum as sm
@@ -410,11 +675,13 @@ def main(argv=None) -> int:
     from frontistr_tpu_torch.io.ctrlio import read_cnt
     from frontistr_tpu_torch.io.neu import write_static_workdir
     from frontistr_tpu_torch.meshgen import box_hex8, box_tet4
+    from frontistr_tpu_torch.microbench import gather as mb
     from frontistr_tpu_torch.ops import element_mv as em
+    from frontistr_tpu_torch.ops import gather as g
     from frontistr_tpu_torch.run import run_directory
     mods = dict(segsum=sm, element_mv=em, static=stmod, bell=bell,
                 structured=structured, ordering=ordering,
-                box_tet4=box_tet4, box_hex8=box_hex8,
+                nonlinear=nonlinear, box_tet4=box_tet4, box_hex8=box_hex8,
                 build_struct_model=build_struct_model, read_cnt=read_cnt,
                 write_static_workdir=write_static_workdir,
                 run_directory=run_directory)
@@ -438,24 +705,37 @@ def main(argv=None) -> int:
     phase_k1_check(sm, bell, box_tet4, box_hex8)
     log("phase k2_check:")
     phase_k2_check(em)
+    log("phase gather_check:")
+    gather_errs = phase_gather_check(g, mb)
 
-    # 4. the tet path (K1), then K1 at its shapes (after the counts)
-    model, k1_launches = phase_tet_main_path(args, mods)
+    # 4. the Newton tet path (K1 once per Newton iteration), then K1 at
+    #    its shapes (after the counts)
+    model, k1_launches = phase_newton_main_path(args, mods)
     k1_row = phase_k1_time(sm, bell, stmod, model, k1_launches)
     del model
+    torch.cuda.empty_cache()
 
-    # 5. the hex path (K2), then K2 at its shapes (after the counts)
+    # 5. the linear static tet path (K1)
+    model, _ = phase_tet_main_path(args, mods)
+    del model
+
+    # 6. the hex path (K2), then K2 at its shapes (after the counts)
     model, res, k2_launches = phase_hex_main_path(args, mods)
     k2_row = phase_k2_time(mods, model, res, k2_launches)
     del model, res
     torch.cuda.empty_cache()
 
-    # 6. small decks on the card and on the CPU
+    # 7. the gather microbenchmark (K3-K6)
+    gather_rows = phase_gather_time(g, mb, gather_errs)
+
+    # 8. small decks on the card and on the CPU
     phase_small_reference(mods)
     phase_hex_small_reference(mods)
+    phase_newton_small_reference(mods)
 
+    log(f"phase total: {time.perf_counter() - t_start:.2f} s")
     log(smi)
-    log(json.dumps({"kernels": [k1_row, k2_row]}))
+    log(json.dumps({"kernels": [k1_row, k2_row] + gather_rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -26,8 +26,14 @@ def main(argv=None):
     from frontistr_tpu_torch.run import run_directory
     out = run_directory(args.workdir, device=args.device)
     res = out["static"]
-    print(f"### solve: policy={res.policy} iters={res.iters} "
-          f"passes={res.passes} relres={res.relres:.3e}")
+    if res.newton is not None:
+        nw = res.newton
+        print(f"### newton: policy={res.policy} substeps={nw.substeps} "
+              f"iterations={nw.total_iters} cutbacks={nw.cutbacks} "
+              f"cg_iters={sum(h['cg_iters'] for h in nw.history)}")
+    else:
+        print(f"### solve: policy={res.policy} iters={res.iters} "
+              f"passes={res.passes} relres={res.relres:.3e}")
     print(f"### frontistr_tpu_torch completed ({out['total_time']:.2f} s)")
     return 0
 

@@ -1,0 +1,686 @@
+"""Nonlinear static analysis: Newton-Raphson with load substepping (torch
+port of the single-device solid-elastic slice of
+``frontistr_tpu/analysis/nonlinear.py``; reference FSTR_SOLVE_NLGEOM +
+fstr_Newton, fistr1/src/analysis/static/fstr_solve_NLGEOM.f90:28-253,
+fstr_solve_NonLinear.f90:29-167).
+
+- per-gauss state (strain, stress and the rest of ``init_block_state``)
+  lives in one dict of batched tensors per element block;
+- each Newton iteration runs TANGENT (batched element stiffness) and
+  UPDATE (strain/stress integration + internal force) per block, then
+  the constrained solve of ``make_constrained_solver``: the cluster
+  operator assembled through the K1 kernel, AMG (or block-Jacobi), and
+  the mixed-precision refined CG or the float64 CG;
+- convergence: rres = |B|/|Q| < CONVERG or rxnrm = |du|/|Du| < CONVERG
+  (fstr_solve_NonLinear.f90:110-135), the four norms read back in one
+  host transfer per iteration;
+- divergence (MAXITER, MAXRES) cuts the substep back by Rc and restarts
+  it from the committed state (fstr_solve_NLGEOM.f90:151-195).
+
+The slice: 3-D solid blocks but hex8 (whose NLSTATIC formulations,
+B-bar and F-bar, are not ported) of an isotropic ELASTIC material with
+the INFINITESIMAL, TOTALLAG or UPDATELAG flag, CLOAD loads, steps,
+substeps, AUTOINC, TIME_POINTS.  Anything else the JAX driver handles
+(contact, MPC, springs, DLOAD and temperature loads, rotational BCs,
+other materials, hex8, restart, result writers, direct solvers,
+sharding) raises ``NotImplementedError`` naming itself.  The
+JAX package's jit-argument carry (a TPU remote-compile workaround) has no
+counterpart: PyTorch runs eagerly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from frontistr_tpu_torch.analysis.static import (StaticResult, check_solver,
+                                                 cluster_operator,
+                                                 cluster_setup, solve_policy)
+from frontistr_tpu_torch.assembly import femop
+from frontistr_tpu_torch.assembly import operators as old_ops
+from frontistr_tpu_torch.assembly.model import (StructModel, collect_boundary,
+                                                collect_cload)
+from frontistr_tpu_torch.device import Phase
+from frontistr_tpu_torch.elements.tables import get_table
+from frontistr_tpu_torch.fem import material as mat
+from frontistr_tpu_torch.fem import solid
+from frontistr_tpu_torch.fem.isoparam import jacobians, strain_selector_3d
+from frontistr_tpu_torch.io import logio
+from frontistr_tpu_torch.io.stafile import sta_final, sta_init, sta_status
+from frontistr_tpu_torch.post import nodal as postnodal
+from frontistr_tpu_torch.solver.cg import pcg
+from frontistr_tpu_torch.solver.mixed import refined_cg
+
+
+def init_block_state(block, table, device="cpu") -> dict:
+    """Zero gauss state of a solid block (the JAX package's keys)."""
+    if block.kind != "solid" or table is None:
+        raise NotImplementedError(f"{block.kind} blocks in the Newton "
+                                  "driver")
+    E, nq = len(block.elem_ids), table.nq
+    ns = 6 if table.dim == 3 else 4
+    z = torch.zeros((E, nq, ns), dtype=torch.float64, device=device)
+    zs = torch.zeros((E, nq), dtype=torch.float64, device=device)
+    return dict(strain=z, stress=z, strain_bak=z, stress_bak=z,
+                pstrain=zs, pstrain_new=zs,
+                yielded=torch.zeros((E, nq), dtype=torch.bool,
+                                    device=device), back=z)
+
+
+class BlockPrograms:
+    """TANGENT / UPDATE for one solid ELASTIC element block."""
+
+    def __init__(self, model: StructModel, block):
+        self.block = block
+        m = block.material
+        if block.kind != "solid":
+            raise NotImplementedError(f"{block.kind} blocks in the Newton "
+                                      "driver")
+        if m.mtype != mat.ELASTIC or m.ortho_consts is not None:
+            name = m.mtype if m.mtype != mat.ELASTIC else "ORTHOTROPIC"
+            raise NotImplementedError(f"material {name} in the Newton "
+                                      "driver")
+        if block.etype == 361:
+            raise NotImplementedError("hex8 (361) in the Newton driver "
+                                      "(B-bar/F-bar not ported)")
+        self.table = get_table(block.etype)
+        if self.table.dim != 3:
+            raise NotImplementedError(f"element type {block.etype} in the "
+                                      "Newton driver")
+        self.mtype = m.mtype
+        self.flag = m.nlgeom
+        dev = model.device
+        self.conn = torch.as_tensor(block.conn, dtype=torch.int64,
+                                    device=dev)
+        self.coords_e = torch.as_tensor(model.coords[block.conn],
+                                        device=dev)
+        # one material over the block: keep one (1, ns, ns) matrix
+        D_np = np.asarray(block.D)
+        self._De_shape = D_np.shape
+        if D_np.shape[0] > 1 and not np.any(D_np[1:] != D_np[:1]):
+            D_np = D_np[:1]
+        self.D_e = torch.as_tensor(D_np, dtype=torch.float64, device=dev)
+        self.iso_lm = None
+        if D_np.shape[0] == 1:
+            E_, nu = float(m.youngs), float(m.poisson)
+            self.iso_lm = (E_ * nu / ((1 + nu) * (1 - 2 * nu)),
+                           E_ / (2 * (1 + nu)))
+
+    def _De(self) -> torch.Tensor:
+        """Full-shape elastic D (a broadcast view if compressed)."""
+        return self.D_e.expand(self._De_shape)
+
+    def _material_D(self, state) -> torch.Tensor:
+        return self.D_e
+
+    # ---------------- tangent (fstr_StiffMatrix / STF_C3) ----------------
+    def tangent(self, u_e, ddu_e, state):
+        table, flag = self.table, self.flag
+        total = u_e + ddu_e
+        D = self._material_D(state)
+        if flag == mat.INFINITESIMAL:
+            if self.iso_lm is not None:
+                return solid.stiffness_linear_iso(table, self.coords_e,
+                                                  *self.iso_lm)
+            return solid.stiffness_linear(table, self.coords_e, D)
+        if flag == mat.UPDATELAG:
+            # D <- D - geomat(sigma) (STF_C3:117-120)
+            D = D[:, None] - _geomat(state["stress"])
+        return solid.stiffness_nlgeom(table, self.coords_e, total, D,
+                                      state["stress"], flag)
+
+    # ---------------- update (fstr_UpdateNewton / UPDATE_C3) -------------
+    def update(self, u_e, ddu_e, state):
+        table, flag = self.table, self.flag
+        dt = self.coords_e.dtype
+        total = u_e + ddu_e
+        if flag == mat.UPDATELAG:
+            elem = self.coords_e + u_e + 0.5 * ddu_e   # midpoint config
+            elem1 = self.coords_e + total
+            disp = ddu_e
+        else:
+            elem = self.coords_e
+            elem1 = None
+            disp = total
+        dN = torch.as_tensor(table.dN, dtype=dt, device=elem.device)
+        det, gderiv = jacobians(dN, elem)
+        S = torch.as_tensor(strain_selector_3d(), dtype=dt,
+                            device=elem.device)
+        # displacement gradient at the quadrature points: (E, nq, dim, dim)
+        dudx = torch.einsum("end,eqnj->eqdj", disp, gderiv)
+        # small-strain part (UPDATE_C3:131-139)
+        eps = torch.einsum("kdj,eqdj->eqk", S, dudx)
+        new_state = dict(state)
+        if flag == mat.TOTALLAG:
+            # Green-Lagrange quadratic terms (UPDATE_C3:154-168)
+            eps = eps + torch.einsum("kij,eqdi,eqdj->eqk", 0.5 * S, dudx,
+                                     dudx)
+            new_state["strain"] = eps
+            new_state["stress"] = self._stress_total(eps)
+        elif flag == mat.INFINITESIMAL:
+            new_state["strain"] = eps
+            new_state["stress"] = self._stress_total(eps)
+        else:  # UPDATELAG: incremental with Jaumann rotation
+            new_state["strain"] = state["strain_bak"] + eps
+            dsig = self._stress_total(eps)
+            rot = 0.5 * (dudx - dudx.transpose(-1, -2))
+            sig_b = solid._stress_tensor(state["stress_bak"])
+            dum = rot @ sig_b - sig_b @ rot
+            new_state["stress"] = state["stress_bak"] + dsig + \
+                _tensor_to_voigt(dum)
+
+        # internal force (UPDATE_C3 tail): B evaluated per flag
+        if flag == mat.TOTALLAG:
+            qf = _qf_totallag(table, S, gderiv, det, dudx,
+                              new_state["stress"])
+        elif flag == mat.UPDATELAG:
+            qf = solid.internal_force(table, elem1, new_state["stress"])
+        else:
+            qf = solid.internal_force(table, self.coords_e,
+                                      new_state["stress"])
+        return new_state, qf
+
+    def _stress_total(self, eps):
+        """Stress from strain, sigma = D eps (per quadrature point)."""
+        D = self._De()
+        if D.dim() == 4:
+            return torch.einsum("eqkl,eql->eqk", D, eps)
+        return torch.einsum("ekl,eql->eqk", D, eps)
+
+
+def _geomat(stress):
+    """GEOMAT_C3 (static_LIB_3d.f90): the UL material-matrix
+    correction, (E, nq, 6, 6)."""
+    s11, s22, s33 = stress[..., 0], stress[..., 1], stress[..., 2]
+    s12, s23, s31 = stress[..., 3], stress[..., 4], stress[..., 5]
+    G = stress.new_zeros(stress.shape[:2] + (6, 6))
+    entries = {(0, 0): 2 * s11, (1, 1): 2 * s22, (2, 2): 2 * s33,
+               (0, 3): s12, (1, 3): s12, (1, 4): s23, (2, 4): s23,
+               (0, 5): s31, (2, 5): s31,
+               (3, 3): 0.5 * (s11 + s22), (4, 4): 0.5 * (s22 + s33),
+               (5, 5): 0.5 * (s11 + s33), (3, 4): 0.5 * s31,
+               (4, 5): 0.5 * s12, (3, 5): 0.5 * s23}
+    for (i, j), v in entries.items():
+        G[..., i, j] = v
+        G[..., j, i] = v
+    return G
+
+
+def _tensor_to_voigt(t):
+    """3x3 tensor -> Voigt (11, 22, 33, 12, 23, 31)."""
+    return torch.stack([t[..., 0, 0], t[..., 1, 1], t[..., 2, 2],
+                        t[..., 0, 1], t[..., 1, 2], t[..., 2, 0]], -1)
+
+
+def _qf_totallag(table, S, gderiv, det, dudx, stress):
+    """qf = (B0 + B1)^T S integrated on the reference configuration
+    (UPDATE_C3:252-297)."""
+    w = torch.as_tensor(table.weights, dtype=det.dtype, device=det.device)
+    wdet = w[None, :] * det
+    qf0 = torch.einsum("kdj,eqnj,eqk,eq->end", S, gderiv, stress, wdet)
+    # B1[k, (n, d)] = S[k, i, j] dudx[d, i] g[n, j]
+    qf1 = torch.einsum("kij,eqdi,eqnj,eqk,eq->end", S, dudx, gderiv, stress,
+                       wdet)
+    E, nn = gderiv.shape[0], gderiv.shape[2]
+    return (qf0 + qf1).reshape(E, nn * 3)
+
+
+# ---------------- the linear solve of each Newton iteration ---------------
+
+def _precond_policy(sv) -> Optional[str]:
+    """The JAX package's preconditioner choice: FRONTISTR_TPU_PRECOND,
+    else the .cnt PRECOND id (3: block-Jacobi; 10-12, 20, 21: block-SSOR,
+    not in the port; others: AMG when the deck is large enough)."""
+    pol = os.environ.get("FRONTISTR_TPU_PRECOND") or \
+        {3: "jacobi", 10: "ssor", 11: "ssor", 12: "ssor", 20: "ssor",
+         21: "ssor"}.get(getattr(sv, "precond", 1))
+    if pol in ("ssor", "cheby"):
+        raise NotImplementedError(f"{pol} preconditioner in the Newton "
+                                  "driver")
+    return pol
+
+
+def make_constrained_solver(model: StructModel, free: torch.Tensor,
+                            gather: torch.Tensor, mixed: bool,
+                            timings: Optional[dict] = None):
+    """The constrained solve of the whole analysis: the symbolic profiles,
+    AMG maps and incidence are built here, once; each call
+    ``solve(kes, B, dirichlet_inc)`` assembles the element tangents
+    through K1, sets the preconditioner up and solves
+
+        P K P x + (I-P) x = (B - K d) * P + d * (I-P),  d = dirichlet_inc
+
+    with the refined CG (mixed: float32 cluster CG, float64 matrix-free
+    residuals, at most 6 passes) or the float64 CG.  ``solve.last_iters``,
+    ``solve.last_passes`` and ``solve.last_relres`` describe the last
+    call.  ``gather`` is the incidence gather of
+    ``femop.incidence_gather``."""
+    sv = model.cfg.solver
+    check_solver(sv)
+    timings = {} if timings is None else timings
+    dev = model.device
+    setup = cluster_setup(model, timings, policy=_precond_policy(sv))
+    dofs = [torch.as_tensor(b.dofs, dtype=torch.int64, device=dev)
+            for b in model.blocks]
+    dtype = torch.float32 if mixed else torch.float64
+
+    def solve(kes, B, dirichlet_inc):
+        op = femop.FEOperator(list(kes), dofs, gather, model.n_node,
+                              model.ndof, free)
+        b_c = op.constrained_rhs(B, dirichlet_inc)
+        A, M = cluster_operator(setup, model, kes, free, dtype, timings)
+        with Phase(timings, "solve", dev):
+            if mixed:
+                res = refined_cg(op.apply_constrained, A, M, b_c,
+                                 tol=sv.resid, inner_tol=1e-6,
+                                 maxiter=sv.nier, max_passes=6)
+                solve.last_passes = res.passes
+            else:
+                res = pcg(A, b_c, M=M, tol=sv.resid, maxiter=sv.nier)
+                solve.last_passes = 0
+        solve.last_iters = int(res.iters)
+        solve.last_relres = float(res.relres)
+        return res.x
+
+    solve.last_iters = solve.last_passes = 0
+    solve.last_relres = float("nan")
+    return solve
+
+
+# ---------------- the substep / Newton driver ------------------------------
+
+def _load_group_universe(cfg):
+    """All GRPIDs on load cards (CLOAD; DLOAD and TEMPERATURE decks are
+    refused by the model build)."""
+    return {c.iparam("GRPID", 1) for c in cfg.cloads}
+
+
+def _active_sets(cfg, cstep):
+    """Per-!STEP active load groups split by the reference's cross-step
+    factor rule (fstr_ass_load.f90:69-70): groups active in this step and
+    the previous one are held at factor 1.0, groups new in this step ramp
+    0 -> 1.  A step without LOAD lines activates everything.
+
+    Returns (sel_held, sel_ramp) as sets of GRPIDs."""
+    universe = _load_group_universe(cfg)
+
+    def active(step_idx):
+        if step_idx < 1:
+            return set()
+        lg = cfg.steps[step_idx - 1].load_groups
+        return set(lg) if lg else set(universe)
+
+    cur = active(cstep)
+    prev = active(cstep - 1)
+    return cur & prev, cur - prev
+
+
+def _assemble_loads_sel(model, cfg, sel) -> np.ndarray:
+    """External load vector (CLOAD) of the load groups in ``sel``."""
+    if not sel:
+        return np.zeros(model.n_dof_total)
+    return collect_cload(model.mesh, cfg.cloads, model.ndof, model.n_node,
+                         sel)
+
+
+@dataclasses.dataclass
+class NewtonStats:
+    substeps: int = 0
+    total_iters: int = 0
+    max_iters: int = 0
+    cutbacks: int = 0
+    # one dict per Newton iteration: step, substep, iter, rres, rxnrm,
+    # cg_iters, passes, relres and the seconds of its phases
+    history: List[dict] = dataclasses.field(default_factory=list)
+
+
+def _check_request(model: StructModel) -> None:
+    if os.environ.get("FRONTISTR_TPU_SHARDS", "") not in ("", "0"):
+        raise NotImplementedError("sharded Newton (FRONTISTR_TPU_SHARDS)")
+    cfg = model.cfg
+    for name, cards in (("!CONTACT", cfg.contacts), ("!DLOAD", cfg.dloads),
+                        ("!TEMPERATURE", cfg.temperatures),
+                        ("!SPRING", cfg.springs),
+                        ("!EQUATION", model.mesh.equations)):
+        if cards:
+            raise NotImplementedError(f"{name} in the Newton driver")
+    if cfg.restart is not None:
+        raise NotImplementedError("!RESTART in the Newton driver")
+
+
+def run_nonlinear_static(model: StructModel, log_path: Optional[str] = None,
+                         timings: Optional[dict] = None) -> StaticResult:
+    """Substep / Newton driver on ``model.device``.  Returns the final
+    ``StaticResult``; ``result.newton`` holds the ``NewtonStats``,
+    ``result.iters`` the total Newton iterations.  With ``log_path`` it
+    writes the 0.log block of every substep and FSTR.sta beside it."""
+    _check_request(model)
+    timings = {} if timings is None else timings
+    cfg = model.cfg
+    ndof = model.ndof
+    n = model.n_dof_total
+    dev = model.device
+    u = torch.zeros(n, dtype=torch.float64, device=dev)
+    programs = [BlockPrograms(model, b) for b in model.blocks]
+    states = [init_block_state(b, p.table, dev)
+              for b, p in zip(model.blocks, programs)]
+
+    def tensor(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=dev)
+
+    u_fix_total = tensor(old_ops.full_fixed_vector(n, model.fixed_dofs,
+                                                   model.fixed_vals))
+    free = tensor(old_ops.make_free_mask(n, model.fixed_dofs))
+    gather = femop.incidence_gather(model, dev)
+    f_total = tensor(model.f_ext)
+    sta_path = None
+    if log_path is not None:
+        sta_path = os.path.join(os.path.dirname(os.path.abspath(log_path))
+                                or ".", "FSTR.sta")
+        sta_init(sta_path)
+    stats = NewtonStats()
+    policy = solve_policy(dev)
+    mixed = policy == "mixed"
+    solver = None
+    step_count = 0
+    result = None
+    Q_last = None
+
+    multi = len(cfg.steps) > 1
+    f_held = None
+    f_ramp = f_total
+    for cstep, step in enumerate(cfg.steps, start=1):
+        if multi:
+            # per-!STEP BC/load bookkeeping: this step's Dirichlet set,
+            # loads split into held (active in the previous step too ->
+            # factor 1.0, fstr_ass_load.f90:69-70) and ramped parts
+            bgrp = set(step.boundary_groups) if step.boundary_groups \
+                else None
+            fx_d, fx_v = collect_boundary(model.mesh, cfg.boundaries,
+                                          ndof, bgrp)
+            u_fix_total = tensor(old_ops.full_fixed_vector(n, fx_d, fx_v))
+            free = tensor(old_ops.make_free_mask(n, fx_d))
+            sel_held, sel_ramp = _active_sets(cfg, cstep)
+            f_held = tensor(_assemble_loads_sel(model, cfg, sel_held))
+            f_ramp = tensor(_assemble_loads_sel(model, cfg, sel_ramp))
+        if multi or solver is None:
+            solver = make_constrained_solver(model, free, gather, mixed,
+                                             timings)
+        t_end = step.elapsetime
+        dt = step.initdt
+        ainc = _ainc_params(cfg, step)
+        ainc_stat = 0
+        tpoints = _time_points(cfg, step)
+        t = 0.0
+        sub = 0
+        cb_count = 0
+        while t < t_end - 1e-12:
+            dt = min(dt, t_end - t)
+            if tpoints is not None:
+                # land substeps exactly on !TIME_POINTS
+                # (get_remain_to_next_timepoints, fstr_Ctrl_TimeInc.f90:219)
+                nxt = tpoints[tpoints > t + 1e-12 * t_end]
+                if len(nxt):
+                    dt = min(dt, float(nxt[0]) - t)
+            lam2 = (t + dt) / t_end
+            lam1 = t / t_end
+            sub += 1
+            converged, du, new_states, iters, Q_last = _newton_substep(
+                model, programs, states, u, f_ramp, free, u_fix_total,
+                lam1, lam2, step, gather, solver, f_held=f_held,
+                timings=timings, stats=stats, tag=(cstep, sub))
+            stats.total_iters += iters
+            stats.max_iters = max(stats.max_iters, iters)
+            if not converged:
+                cb_count += 1
+                stats.cutbacks += 1
+                if sta_path:
+                    sta_status(sta_path, cstep, sub, 1, iters, iters, t,
+                               dt, cutback=cb_count,
+                               message="Failed to converge due to "
+                               "MAXITER.")
+                ainc_stat = -1
+                if cb_count > ainc["CBbound"] or dt <= step.mindt:
+                    if sta_path:
+                        sta_final(sta_path, False)
+                    raise RuntimeError(
+                        f"Newton failed to converge at step {cstep} "
+                        f"substep {sub} (dt={dt})")
+                # cutback ratio Rc (fstr_TimeInc_SetTimeIncrement)
+                dt = dt * ainc["Rc"]
+                sub -= 1
+                continue
+            cb_count = 0
+            if sta_path:
+                sta_status(sta_path, cstep, sub, 1, iters,
+                           stats.total_iters, t, dt)
+            t += dt
+            u = u + du
+            # commit state (fstr_UpdateState)
+            states = [_commit_state(s) for s in new_states]
+            stats.substeps += 1
+            step_count += 1
+            if log_path is not None:
+                with Phase(timings, "post", dev):
+                    result = _postprocess(model, states, u, Q=Q_last)
+                    _append_log(log_path, model, result, step_count)
+            if step.inc_type == "AUTO":
+                # !AUTOINC_PARAM heuristics (fstr_Ctrl_TimeInc.f90:168-210)
+                dec = iters > min(ainc["bound_s"])
+                inc_ok = iters <= min(ainc["bound_l"])
+                if dec:
+                    ainc_stat = min(ainc_stat, 0) - 1
+                elif inc_ok:
+                    ainc_stat = max(ainc_stat, 0) + 1
+                else:
+                    ainc_stat = 0
+                if ainc_stat >= ainc["NRtimes_l"]:
+                    dt = min(dt * ainc["Rl"], step.maxdt)
+                elif ainc_stat <= -ainc["NRtimes_s"]:
+                    dt = max(dt * ainc["Rs"], step.mindt)
+
+    if result is None:
+        with Phase(timings, "post", dev):
+            result = _postprocess(model, states, u, Q=Q_last)
+            if log_path is not None:
+                _append_log(log_path, model, result, max(step_count, 1))
+    if sta_path:
+        sta_final(sta_path, True)
+    result.iters = stats.total_iters
+    result.policy = policy
+    result.passes = sum(h["passes"] for h in stats.history)
+    result.newton = stats
+    result.timings = timings
+    return result
+
+
+def _time_points(cfg, step):
+    """!TIME_POINTS NAME=..., TIME=STEP|TOTAL [,GENERATE] -> sorted array
+    of step-relative times (fstr_ctrl_get_TIMEPOINTS,
+    fstr_ctrl_common.f90:655-690)."""
+    name = (getattr(step, "timepoints", "") or "").upper()
+    cards = getattr(cfg, "time_points", [])
+    if not cards:
+        return None
+    for c in cards:
+        if name and (c.param("NAME") or "").upper() != name:
+            continue
+        rows = c.rows_f()
+        if c.param("GENERATE") is not None:
+            r = rows[0] + [0.0]
+            ts = np.arange(r[0], r[1] + 1e-12, max(r[2], 1e-30))
+        else:
+            ts = np.asarray([r[0] for r in rows if r])
+        return np.sort(ts)
+    return None
+
+
+def _ainc_params(cfg, step):
+    """!AUTOINC_PARAM card (fstr_get_AUTOINC, fstr_ctrl_common.f90:572-640)
+    with init_AincParam defaults (m_step.f90:160-180)."""
+    p = dict(Rs=0.25, Rl=1.25, bound_s=(10, 50, 10), bound_l=(1, 1, 1),
+             NRtimes_s=1, NRtimes_l=2, Rc=0.25, CBbound=5)
+    name = (step.aincparam or "").upper()
+    for c in getattr(cfg, "autoinc_params", []):
+        if name and (c.param("NAME") or "").upper() != name:
+            continue
+        rows = c.rows_f()
+        if len(rows) > 0 and rows[0]:
+            r = rows[0] + [0] * 5
+            p["Rs"] = r[0] or p["Rs"]
+            p["bound_s"] = tuple(int(v) for v in r[1:4])
+            p["NRtimes_s"] = int(r[4]) or 1
+        if len(rows) > 1 and rows[1]:
+            r = rows[1] + [0] * 5
+            p["Rl"] = r[0] or p["Rl"]
+            p["bound_l"] = tuple(int(v) for v in r[1:4])
+            p["NRtimes_l"] = int(r[4]) or 1
+        if len(rows) > 2 and rows[2]:
+            r = rows[2] + [0] * 2
+            p["Rc"] = r[0] or p["Rc"]
+            p["CBbound"] = int(r[1]) or p["CBbound"]
+        break
+    return p
+
+
+def _commit_state(s):
+    out = dict(s)
+    out["strain_bak"] = s["strain"]
+    out["stress_bak"] = s["stress"]
+    out["pstrain"] = s["pstrain_new"]
+    return out
+
+
+def _element_values(v: torch.Tensor, p: BlockPrograms, n_node: int,
+                    ndof: int) -> torch.Tensor:
+    return v.reshape(n_node, ndof)[p.conn]
+
+
+def _newton_substep(model, programs, states, u, f_total, free, u_fix_total,
+                    lam1, lam2, step, gather, solve, f_held=None,
+                    timings=None, stats=None, tag=(1, 1)):
+    """One substep's Newton loop from the committed ``(u, states)``.
+    Returns (converged, du, states, iterations, Q)."""
+    n_node, ndof = model.n_node, model.ndof
+    dev = model.device
+    timings = {} if timings is None else timings
+    du = torch.zeros_like(u)
+    # prescribed displacement increment of this substep (fstr_AddBC)
+    dufix = u_fix_total * (lam2 - lam1)
+    # multi-step decks: a held part (factor 1.0) plus the ramped part
+    gl = f_total * lam2 if f_held is None else f_held + f_total * lam2
+    states_cur = states
+    conv = False
+    iters = 0
+    with Phase(timings, "update", dev):
+        Q_cur = _qforce(model, programs, states_cur, u, du, gather)
+    for it in range(1, step.max_iter + 1):
+        iters = it
+        t0 = dict(timings)
+        with Phase(timings, "tangent", dev):
+            kes = [p.tangent(_element_values(u, p, n_node, ndof),
+                             _element_values(du, p, n_node, ndof), s)
+               for p, s in zip(programs, states_cur)]
+        B = gl - Q_cur
+        dirichlet_inc = dufix if it == 1 else torch.zeros_like(dufix)
+        dx = solve(kes, B, dirichlet_inc)
+        del kes
+        with Phase(timings, "update", dev):
+            du = du + dx
+            # stress/state update + internal force, one pass per block
+            new_states, qfs = [], []
+            for p, s in zip(programs, states_cur):
+                ns_, qf = p.update(_element_values(u, p, n_node, ndof),
+                                   _element_values(du, p, n_node, ndof), s)
+                new_states.append(ns_)
+                qfs.append(qf)
+            states_cur = new_states
+            Q = femop.gather_sum(qfs, gather)
+            Q_cur = Q
+            Bres = (gl - Q) * free
+            # one device->host transfer per Newton iteration
+            res_n, qnrm, xnrm, dunrm = _conv_norms(Bres, Q, dx, du)
+        if qnrm < 1e-8:
+            qnrm = 1.0
+        if it == 1:
+            dunrm = xnrm
+        rres = res_n / qnrm
+        rxnrm = xnrm / max(dunrm, 1e-300)
+        if stats is not None:
+            rec = dict(step=tag[0], substep=tag[1], iter=it, rres=rres,
+                       rxnrm=rxnrm, cg_iters=solve.last_iters,
+                       passes=solve.last_passes, relres=solve.last_relres)
+            for k in ("tangent", "assembly", "amg_setup", "solve",
+                      "update"):
+                rec[k] = timings.get(k, 0.0) - t0.get(k, 0.0)
+            stats.history.append(rec)
+        if os.environ.get("FRONTISTR_TPU_DEBUG_NEWTON"):
+            # per-iteration Newton residual trace (the reference prints
+            # these at fstr_solve_NonLinear.f90 loglevel ILOG)
+            print(f" Newton it={it:3d}  rres={rres:.6e}  "
+                  f"rxnrm={rxnrm:.6e}")
+        if not model.nlgeom and _all_linear(programs):
+            conv = True
+            break
+        if rres < step.converg or rxnrm < step.converg:
+            conv = True
+            break
+        if rres > step.maxres:
+            return False, du, states_cur, iters, Q_cur
+    return conv, du, states_cur, iters, Q_cur
+
+
+def _conv_norms(Bres, Q, dx, du):
+    """|Bres|, |Q|, |dx|, |du| in one host transfer."""
+    v = torch.stack([torch.dot(Bres, Bres), torch.dot(Q, Q),
+                     torch.dot(dx, dx), torch.dot(du, du)])
+    return [float(x) for x in torch.sqrt(v).cpu()]
+
+
+def _all_linear(programs):
+    return all(p.flag == mat.INFINITESIMAL and p.mtype == mat.ELASTIC
+               for p in programs)
+
+
+def _qforce(model, programs, states, u, du, gather):
+    """Global internal force QFORCE from the per-block updates."""
+    qfs = [p.update(_element_values(u, p, model.n_node, model.ndof),
+                    _element_values(du, p, model.n_node, model.ndof),
+                    s)[1]
+           for p, s in zip(programs, states)]
+    return femop.gather_sum(qfs, gather)
+
+
+def _postprocess(model, states, u, Q=None) -> StaticResult:
+    un = u.cpu().numpy().reshape(model.n_node, model.ndof)
+    # REACTION = the converged internal force minus the applied load
+    # (fstrSOLID%REACTION, static_make_result.f90:97-102)
+    reaction = None
+    if Q is not None:
+        reaction = Q.cpu().numpy().reshape(model.n_node, model.ndof) - \
+            np.asarray(model.f_ext).reshape(model.n_node, model.ndof)
+    block_data = [dict(etype=b.etype, conn=b.conn,
+                       gauss_strain=s["strain"], gauss_stress=s["stress"])
+                  for b, s in zip(model.blocks, states)]
+    sm = postnodal.smooth(model.n_node, block_data, model.dim)
+    return StaticResult(
+        u=un, nodal_strain=sm["strain"], nodal_stress=sm["stress"],
+        nodal_mises=sm["mises"], node_count=sm["count"],
+        elem_strain=np.concatenate(sm["estrain"]),
+        elem_stress=np.concatenate(sm["estress"]),
+        elem_mises=np.concatenate(sm["emises"]),
+        elem_ids=np.concatenate([b.elem_ids for b in model.blocks]),
+        iters=0, relres=0.0, policy="", passes=0, reaction=reaction)
+
+
+def _append_log(log_path, model, result, step_no):
+    logio.write_static_log(
+        log_path, step_no, model.dim, result.u, result.nodal_strain,
+        result.nodal_stress, result.nodal_mises, result.elem_strain,
+        result.elem_stress, result.elem_mises, model.mesh.node_ids,
+        result.elem_ids, append=os.path.exists(log_path) and step_no > 1,
+        node_count=result.node_count)

@@ -59,6 +59,8 @@ class StaticResult:
     passes: int                        # refinement passes (mixed)
     node_count: np.ndarray = None      # elements touching each node
     timings: dict = dataclasses.field(default_factory=dict)  # seconds
+    reaction: np.ndarray = None        # (n_node, ndof), Newton driver
+    newton: object = None              # NewtonStats of the Newton driver
 
 
 class LinearSolve(NamedTuple):
@@ -113,7 +115,7 @@ def print_timelog(t_setup: float, t_solve: float) -> None:
     print(f"   Total   : {t_solve:.6f}")
 
 
-def _check_solver(sv) -> str:
+def check_solver(sv) -> str:
     method = sv.method.upper()
     if method not in ("CG", "1"):
         raise NotImplementedError(f"!SOLVER METHOD={sv.method}")
@@ -148,42 +150,57 @@ def _stencil_operators(model: StructModel, kes, free_mask, mixed: bool,
     return sop.apply_constrained, work.apply_constrained, M
 
 
-def _cluster_operators(model: StructModel, kes, op: femop.FEOperator,
-                       mixed: bool, timings: dict):
-    """(f64 operator, CG operator, preconditioner) of the cluster-ELL
-    arm."""
+@dataclasses.dataclass
+class ClusterSetup:
+    """The cluster-ELL arm's symbolic part, built once per analysis."""
+    prof: ell.ELLProfile                # scalar ELL profile
+    amaps: Optional[amgmod.AMGMaps]     # None: block-Jacobi
+    cprof: bell.ClusterProfile
+    cols: torch.Tensor                  # (N, W) int64 scalar ELL columns
+    coords: torch.Tensor                # (N, dim) float64
+
+
+def cluster_setup(model: StructModel, timings: dict,
+                  policy: Optional[str] = None) -> ClusterSetup:
+    """Profiles and AMG maps of the model's mesh (``policy`` as in
+    ``amg.eligible_maps``)."""
     dev = model.device
-    n = model.n_dof_total
     with Phase(timings, "profile", dev):
         prof = ell.profile_from_model(model)
-        amaps = amgmod.eligible_maps(prof, n)
+        amaps = amgmod.eligible_maps(prof, model.n_dof_total, policy=policy)
         cprof = bell.cluster_profile_from_model(model, scalar=prof)
+        cols = torch.as_tensor(prof.cols, dtype=torch.int64, device=dev)
+        coords = torch.as_tensor(model.coords, device=dev)
+    return ClusterSetup(prof, amaps, cprof, cols, coords)
+
+
+def cluster_operator(setup: ClusterSetup, model: StructModel, kes,
+                     free_mask: torch.Tensor, dtype, timings: dict):
+    """One numeric pass: the element matrices assembled in ``dtype``
+    through K1, then the preconditioner.  Returns (constrained cluster
+    operator, preconditioner)."""
+    dev = model.device
     with Phase(timings, "assembly", dev):
-        dtype = torch.float32 if mixed else torch.float64
-        if amaps is not None:
-            cop, sb = bell.from_model(model, kes, dtype=dtype,
-                                      profile=cprof, want_scalar=True,
-                                      scalar=prof)
-        else:
-            cop, sb = bell.from_model(model, kes, dtype=dtype,
-                                      profile=cprof), None
+        want = setup.amaps is not None
+        out = bell.from_model(model, kes, dtype=dtype, profile=setup.cprof,
+                              want_scalar=want, scalar=setup.prof)
+        cop, sb = out if want else (out, None)
+        cop = dataclasses.replace(cop, free_mask=free_mask.to(dtype))
     with Phase(timings, "amg_setup", dev):
-        if amaps is None:
+        if not want:
             M = cop.block_jacobi()
         else:
-            M = amgmod.setup_amg(
-                amaps, sb, torch.as_tensor(prof.cols, dtype=torch.int64,
-                                           device=dev),
-                torch.as_tensor(model.coords, dtype=dtype, device=dev),
-                cop.free_mask, cop.apply_constrained, cop.block_jacobi())
-    return op.apply_constrained, cop.apply_constrained, M
+            M = amgmod.setup_amg(setup.amaps, sb, setup.cols,
+                                 setup.coords.to(dtype), cop.free_mask,
+                                 cop.apply_constrained, cop.block_jacobi())
+    return cop.apply_constrained, M
 
 
 def solve_linear(model: StructModel, kes,
                  timings: Optional[dict] = None) -> LinearSolve:
     """Assemble + constrained CG solve on ``model.device``."""
     sv = model.cfg.solver
-    method = _check_solver(sv)
+    method = check_solver(sv)
     timings = {} if timings is None else timings
     dev = model.device
     n = model.n_dof_total
@@ -201,7 +218,11 @@ def solve_linear(model: StructModel, kes,
         A64, A, M = _stencil_operators(model, kes, op.free_mask, mixed,
                                        timings)
     else:
-        A64, A, M = _cluster_operators(model, kes, op, mixed, timings)
+        A, M = cluster_operator(cluster_setup(model, timings), model, kes,
+                                op.free_mask,
+                                torch.float32 if mixed else torch.float64,
+                                timings)
+        A64 = op.apply_constrained
     t1 = time.perf_counter()
     with Phase(timings, "solve", dev):
         if mixed:

@@ -59,11 +59,9 @@ class FEOperator:
         return self.n_node * self.ndof
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        fes = [torch.einsum("eij,ej->ei", ke, x[dofs]).reshape(-1)
-               for ke, dofs in zip(self.kes, self.dofs)]
-        fes.append(x.new_zeros(self.ndof))      # the pad slot
-        flat = torch.cat(fes)
-        return flat[self.gather].sum(dim=1).reshape(-1)
+        return gather_sum([torch.einsum("eij,ej->ei", ke, x[dofs])
+                           for ke, dofs in zip(self.kes, self.dofs)],
+                          self.gather)
 
     def apply_constrained(self, x: torch.Tensor) -> torch.Tensor:
         """P A P x + (I-P) x — projection equivalent of hecmw_mat_ass_bc."""
@@ -76,15 +74,30 @@ class FEOperator:
         return (f - y) * self.free_mask + u_fix * (1.0 - self.free_mask)
 
 
+def gather_sum(rows, gather: torch.Tensor) -> torch.Tensor:
+    """Per-block element rows (E, nn*ndof) summed per node through the
+    incidence ``gather``: the global (n_node*ndof,) vector."""
+    flat = torch.cat([r.reshape(-1) for r in rows]
+                     + [rows[0].new_zeros(gather.shape[2])])  # the pad slot
+    return flat[gather].sum(dim=1).reshape(-1)
+
+
+def incidence_gather(model, device) -> torch.Tensor:
+    """(n_node, maxinc, ndof) int64 indices into the concatenated element
+    force rows (plus one zero row at the end): a node's force is the sum
+    over its incidences."""
+    inc, _ = build_incidence([b.conn for b in model.blocks], model.n_node)
+    nd = model.ndof
+    return (torch.as_tensor(inc, dtype=torch.int64, device=device)[:, :, None]
+            * nd + torch.arange(nd, device=device))
+
+
 def from_model(model, kes) -> FEOperator:
     """Build the operator from a StructModel + per-block element matrices
     (on the matrices' device and dtype)."""
-    conns = [b.conn for b in model.blocks]
-    inc, _ = build_incidence(conns, model.n_node)
     dev, dt = kes[0].device, kes[0].dtype
     nd = model.ndof
-    gather = (torch.as_tensor(inc, dtype=torch.int64, device=dev)[:, :, None]
-              * nd + torch.arange(nd, device=dev))
+    gather = incidence_gather(model, dev)
     free = old_ops.make_free_mask(model.n_dof_total, model.fixed_dofs)
     return FEOperator(
         kes=list(kes),

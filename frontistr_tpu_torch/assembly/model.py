@@ -97,6 +97,11 @@ def _resolve_material(mesh: Mesh, cnt_mats: Dict[str, CntMaterial],
         if len(rows) > 1:
             raise NotImplementedError("temperature-dependent !ELASTIC")
         m.youngs, m.poisson = rows[0][0], rows[0][1]
+        # strain measure under nlgeom (fstr_ctrl_material.f90):
+        # INFINITE, CAUCHY (updated Lagrange), else total Lagrange
+        m.nlgeom = (mat.INFINITESIMAL if cm.elastic.has("INFINITE") else
+                    mat.UPDATELAG if cm.elastic.has("CAUCHY") else
+                    mat.TOTALLAG)
     if cm.density is not None:
         m.density = cm.density.rows_f()[0][0]
     if cm.expansion is not None:
@@ -220,7 +225,13 @@ def build_struct_model(mesh: Mesh, cfg: AnalysisConfig,
         sec = mesh.sections[b.section_id] if mesh.sections else None
         mname = sec.material if sec else next(iter(mesh.materials), "")
         m = _resolve_material(mesh, cfg.materials, mname)
-        m.nlgeom = mat.TOTALLAG if cfg.nlgeom else mat.INFINITESIMAL
+        # the JAX package's rule: under nlgeom an INFINITESIMAL flag
+        # becomes TOTALLAG; linear STATIC runs infinitesimal
+        if cfg.nlgeom:
+            m.nlgeom = mat.TOTALLAG if m.nlgeom == mat.INFINITESIMAL \
+                else m.nlgeom
+        else:
+            m.nlgeom = mat.INFINITESIMAL
         E = len(b.elem_ids)
         D1 = mat.elastic_D(m.youngs, m.poisson, mat.D3)
         D = np.broadcast_to(D1, (E,) + D1.shape).copy()

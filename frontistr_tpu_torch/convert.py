@@ -1,11 +1,13 @@
-"""Carry a model built elsewhere into the port.
+"""Carry a model and its Newton state built elsewhere into the port.
 
 ``model_from_numpy`` takes the numpy fields of a model of the JAX
 package (``frontistr_tpu.assembly.model.StructModel``: coords, block
 connectivity, dofs and elastic matrices, Dirichlet dofs and values,
 external force) and builds the port's ``StructModel`` on a device, plus
-the element matrices as device tensors when given.  It reads attributes
-only and imports nothing of JAX, so the parity tests can feed both
+the element matrices as device tensors when given.  ``states_from_numpy``
+turns per-block Newton states (dicts of arrays: stress, strain and the
+rest of ``init_block_state``) into the port's.  Both read attributes and
+arrays only and import nothing of JAX, so the parity tests can feed both
 packages identical inputs.
 """
 
@@ -34,7 +36,8 @@ def model_from_numpy(src, device="cuda",
     for b in src.blocks:
         m = mat.Material(b.material.name, youngs=b.material.youngs,
                          poisson=b.material.poisson,
-                         density=b.material.density)
+                         density=b.material.density,
+                         nlgeom=int(b.material.nlgeom))
         blocks.append(KBlock(
             int(b.etype), np.asarray(b.elem_ids),
             np.asarray(b.conn, np.int32), np.asarray(b.dofs, np.int32),
@@ -53,3 +56,18 @@ def model_from_numpy(src, device="cuda",
         return model
     return model, [torch.tensor(np.asarray(k, np.float64), device=dev)
                    for k in kes]
+
+
+def states_from_numpy(states, device="cuda"):
+    """Per-block Newton states on ``device``: each array of each dict as
+    a tensor, float64 (bool arrays stay bool)."""
+    dev = resolve(device)
+    out = []
+    for st in states:
+        d = {}
+        for k, v in st.items():
+            a = np.array(v)
+            d[k] = torch.as_tensor(a if a.dtype == np.bool_ else
+                                   a.astype(np.float64), device=dev)
+        out.append(d)
+    return out

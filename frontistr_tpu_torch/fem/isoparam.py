@@ -86,3 +86,20 @@ def strain_selector_2d() -> np.ndarray:
     S[1, 1, 1] = 1.0
     S[2, 0, 1] = S[2, 1, 0] = 1.0
     return S
+
+
+def b_matrix(S: torch.Tensor, gderiv_q: torch.Tensor) -> torch.Tensor:
+    """Strain-displacement matrix at one quadrature point, batched.
+
+    Args:
+      S: (ns, ndof, dim) constant selector.
+      gderiv_q: (E, nn, dim) global derivatives at this point.
+
+    Returns:
+      B: (E, ns, nn*ndof), dof-within-node fastest (the reference's
+      3*j-2 ... 3*j column layout).
+    """
+    E, nn, _ = gderiv_q.shape
+    ns, ndof, _ = S.shape
+    B = torch.einsum("kdj,enj->eknd", S, gderiv_q)
+    return B.reshape(E, ns, nn * ndof)

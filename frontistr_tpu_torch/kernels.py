@@ -22,7 +22,7 @@ from typing import Dict, Sequence, Tuple
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-KERNELS = ("segsum", "element_mv")      # csrc/<name>.cu
+KERNELS = ("segsum", "element_mv", "gather")      # csrc/<name>.cu
 _TIMEOUT_S = 600
 
 _LIBS: Dict[str, ctypes.CDLL] = {}      # loaded libraries, by kernel name

@@ -1,0 +1,1 @@
+"""Microbenchmarks of the port's kernels on the card."""

@@ -1,0 +1,155 @@
+"""Gather microbenchmark on the card: the counterpart of
+``scripts/microbench_pallas_gather.py``'s ``main()``.
+
+    python -m frontistr_tpu_torch.microbench.gather
+
+The same five rows on the same shapes, with the inputs drawn from
+``np.random.default_rng(0)`` in the script's order:
+
+- G1 K3 ``gather_rows``: x (8, 1024), i (8, 1024) in [0, 8);
+- G2/G3 K4 ``gather_cols``: sources (8, 128) and (8, 512);
+- G4 K5 ``window_gather``: window (64, 128), iq/ip (8, 128);
+- G5 K6 ``window_gather_tiled``: 64 tiles of (256, 128), window blocks
+  t % 4 of (256, 128).
+
+Each row is timed with CUDA events (mean of the script's 50 launches,
+20 for G5, after 3 warm-ups) beside its bytes bound (inputs, indices and
+output once at 3.35 TB/s), its plain version's time and, for K3/K4,
+``torch.gather``'s (one library call for the same function, timed only).
+At these sizes the eager time is mostly the host's cost of issuing a
+launch, so each row also times the same launches replayed from one CUDA
+graph (``graph_ms``: the kernel on the device, without that cost).
+It needs a card: without one, or when a launch fails, it exits non-zero
+(no row is skipped).
+"""
+
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+
+from frontistr_tpu_torch.ops import gather as g
+
+HBM_BYTES_S = 3.35e12   # NVIDIA H100 SXM data sheet
+WARMUP = 3
+
+
+def inputs(device) -> dict:
+    """The script's inputs, drawn in its order from default_rng(0)."""
+    rng = np.random.default_rng(0)
+
+    def f32(shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=device)
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+    out = {}
+    out["G1"] = (f32((8, 1024)), i32(rng.integers(0, 8, (8, 1024))))
+    out["G2"] = (f32((8, 128)), i32(rng.integers(0, 128, (8, 128))))
+    out["G3"] = (f32((8, 512)), i32(rng.integers(0, 512, (8, 512))))
+    w = f32((64, 128))
+    flat = rng.integers(0, 8 * 1024, (8, 128))
+    out["G4"] = (w, i32(flat // 128), i32(flat % 128))
+    wb = f32((4 * 64, 128))
+    flatb = rng.integers(0, 8 * 1024, (64 * 256, 128))
+    out["G5"] = (wb, i32(flatb // 128), i32(flatb % 128))
+    return out
+
+
+# row: (label, kernel id, wrapper, plain version, library call or None)
+ROWS = (
+    ("G1 taa axis=0 src (8,1024)", "K3", g.gather_rows,
+     g.gather_rows_reference, lambda x, i: torch.gather(x, 0, i)),
+    ("G2 taa axis=1 src (8,128)", "K4", g.gather_cols,
+     g.gather_cols_reference, lambda x, i: torch.gather(x, 1, i)),
+    ("G3 taa axis=1 src (8,512)", "K4", g.gather_cols,
+     g.gather_cols_reference, lambda x, i: torch.gather(x, 1, i)),
+    ("G4 cascade shuffle win=8K out (8,128)", "K5", g.window_gather,
+     g.window_gather_reference, None),
+    ("G5 cascade tiles 64x(256,128) win 8K", "K6", g.window_gather_tiled,
+     lambda w, iq, ip: g.window_gather_tiled_reference(w, iq, ip, 256, 64),
+     None),
+)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over reps launches (CUDA events), after
+    WARMUP untimed launches."""
+    for _ in range(WARMUP):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time per launch of fn() when reps launches are
+    replayed from one captured CUDA graph."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(WARMUP):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, 5) / reps
+
+
+def run(device="cuda") -> list:
+    """Time every row on ``device`` (a card); returns one dict a row."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        raise RuntimeError("the gather microbenchmark needs a CUDA card")
+    data = inputs(dev)
+    rows = []
+    for label, kid, kern, plain, library in ROWS:
+        gid = label[:2]
+        args = data[gid]
+        reps = 20 if gid == "G5" else 50
+        out = kern(*args)
+        nbytes = sum(a.numel() * a.element_size() for a in args) \
+            + out.numel() * out.element_size()
+        row = {"row": gid, "kernel": kid, "label": label,
+               "shape": list(out.shape), "bytes": nbytes,
+               "ms": cuda_ms(lambda: kern(*args), reps),
+               "graph_ms": graph_ms(lambda: kern(*args), reps),
+               "bound_ms": nbytes / HBM_BYTES_S * 1e3,
+               "plain_ms": cuda_ms(lambda: plain(*args), reps),
+               "library_ms": None}
+        if library is not None:
+            x, i64 = args[0], args[1].long()
+            row["library_ms"] = cuda_ms(lambda: library(x, i64), reps)
+        rows.append(row)
+    return rows
+
+
+def main(argv=None) -> int:
+    rows = run("cuda")
+    for r in rows:
+        lib = "" if r["library_ms"] is None else \
+            f"  torch.gather {r['library_ms']:9.4f} ms"
+        print(f"{r['label']:48s} {r['ms']:9.4f} ms, from a graph "
+              f"{r['graph_ms'] * 1e3:8.3f} us  (bound "
+              f"{r['bound_ms'] * 1e3:8.3f} us, {r['bytes']} B; plain "
+              f"{r['plain_ms']:9.4f} ms{lib})")
+    dt = rows[-1]["ms"] / 1e3
+    vals = 64 * 256 * 128
+    print(f"   -> {vals / dt / 1e9:.2f} G gathered f32/s "
+          f"(SpMV needs ~32M: {32e6 * dt / vals * 1e3:.1f} ms)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

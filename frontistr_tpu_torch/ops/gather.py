@@ -1,0 +1,207 @@
+"""In-shared-memory gathers: the K3-K6 kernel wrappers and their plain
+PyTorch versions.
+
+They replace the four TPU kernels of ``scripts/microbench_pallas_gather.py``
+(``k1``, ``k2``, ``k4``, ``k5``), a probe of the TPU's in-VMEM gather,
+and compute what those kernels compute, float32 values and int32
+indices:
+
+- ``gather_rows`` (K3): ``out[s, l] = x[i[s, l], l]``;
+- ``gather_cols`` (K4): ``out[s, l] = x[s, i[s, l]]``;
+- ``window_gather`` (K5) and ``window_gather_tiled`` (K6), on 128 lanes
+  and a window of ``WINV*8`` rows: with ``v = iq[s, l] // 8`` and
+  ``p = ip[s, l]``, ``out[s, l] = w[8*v + iq[s, p] % 8, p]`` where
+  ``0 <= v < WINV``, else 0.  K6 cuts the rows into tiles of
+  ``tile_rows``; tile ``t`` reads window block ``t % nwin`` of ``w``.
+
+Indices follow ``jnp.take_along_axis``: ``-n <= k < 0`` counts from the
+end, anything outside ``[-n, n)`` gathers NaN.  ``//`` and ``%`` are the
+floor operations.
+
+Each wrapper takes the plain version for CPU tensors and launches its
+kernel (``csrc/gather.cu``, built at first use by
+``frontistr_tpu_torch.kernels``) for CUDA tensors, or raises.  The
+kernels have no arithmetic: gathered values are copied, so kernel and
+plain version agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from frontistr_tpu_torch import kernels
+
+LANES = 128          # K5/K6 lanes (kLanes in csrc/gather.cu)
+MAX_ROWS_K3 = 64     # rows K3 stages per block
+MAX_WIDTH_K4 = 12288
+MAX_WIN_ROWS = 64    # window rows K5/K6 stage
+
+_NAN = float("nan")
+
+
+def _take(src: torch.Tensor, k: torch.Tensor, dim: int) -> torch.Tensor:
+    """``take_along_axis`` with its index rule: wrap [-n, 0), NaN
+    outside [-n, n)."""
+    n = src.shape[dim]
+    k = k.long()
+    k = torch.where(k < 0, k + n, k)
+    ok = (k >= 0) & (k < n)
+    got = torch.gather(src, dim, torch.where(ok, k, torch.zeros_like(k)))
+    return torch.where(ok, got, torch.full_like(got, _NAN))
+
+
+def gather_rows_reference(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    return _take(x, i, 0)
+
+
+def gather_cols_reference(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    return _take(x, i, 1)
+
+
+def window_gather_tiled_reference(w: torch.Tensor, iq: torch.Tensor,
+                                  ip: torch.Tensor, tile_rows: int,
+                                  win_rows: int) -> torch.Tensor:
+    S = iq.shape[0]
+    nwin = w.shape[0] // win_rows
+    tile = torch.arange(S, device=iq.device) // tile_rows
+    base = (tile % nwin) * win_rows                       # (S,)
+    iql = iq.long()
+    v = torch.div(iql, 8, rounding_mode="floor")
+    p = ip.long()
+    p = torch.where(p < 0, p + LANES, p)
+    p_ok = (p >= 0) & (p < LANES)
+    pc = torch.where(p_ok, p, torch.zeros_like(p))
+    sub = torch.remainder(torch.gather(iql, 1, pc), 8)
+    row = base[:, None] + 8 * v + sub
+    in_win = (v >= 0) & (v < win_rows // 8)
+    got = w[torch.where(in_win & p_ok, row, torch.zeros_like(row)), pc]
+    got = torch.where(p_ok, got, torch.full_like(got, _NAN))
+    return torch.where(in_win, got, torch.zeros_like(got))
+
+
+def window_gather_reference(w: torch.Tensor, iq: torch.Tensor,
+                            ip: torch.Tensor) -> torch.Tensor:
+    return window_gather_tiled_reference(w, iq, ip, max(iq.shape[0], 1),
+                                         w.shape[0])
+
+
+def gather_rows(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """K3: ``out[s, l] = x[i[s, l], l]``; x (R, L), i (S, L), R <= 64."""
+    _check("gather_rows", x, i)
+    if not (1 <= x.shape[0] <= MAX_ROWS_K3 and i.shape[1] == x.shape[1]):
+        raise ValueError(f"gather_rows: x {tuple(x.shape)}, i "
+                         f"{tuple(i.shape)} (1 <= R <= {MAX_ROWS_K3}, "
+                         "same columns)")
+    if x.device.type == "cpu":
+        return gather_rows_reference(x, i)
+    out = torch.empty(i.shape, dtype=x.dtype, device=x.device)
+    _launch("fstr_gather_rows", x, x.data_ptr(), x.shape[0], x.shape[1],
+            i.data_ptr(), i.shape[0], out.data_ptr())
+    gather_rows.launches += 1
+    return out
+
+
+def gather_cols(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """K4: ``out[s, l] = x[s, i[s, l]]``; x (R, W), i (R, L),
+    W <= 12288."""
+    _check("gather_cols", x, i)
+    if not (1 <= x.shape[1] <= MAX_WIDTH_K4 and i.shape[0] == x.shape[0]):
+        raise ValueError(f"gather_cols: x {tuple(x.shape)}, i "
+                         f"{tuple(i.shape)} (1 <= W <= {MAX_WIDTH_K4}, "
+                         "same rows)")
+    if x.device.type == "cpu":
+        return gather_cols_reference(x, i)
+    out = torch.empty(i.shape, dtype=x.dtype, device=x.device)
+    _launch("fstr_gather_cols", x, x.data_ptr(), x.shape[0], x.shape[1],
+            i.data_ptr(), i.shape[1], out.data_ptr())
+    gather_cols.launches += 1
+    return out
+
+
+def window_gather(w: torch.Tensor, iq: torch.Tensor,
+                  ip: torch.Tensor) -> torch.Tensor:
+    """K5: the windowed gather over one window w (WINV*8, 128), WINV <= 8,
+    iq/ip (S, 128)."""
+    _check_window("window_gather", w, iq, ip, w.shape[0])
+    if w.device.type == "cpu":
+        return window_gather_reference(w, iq, ip)
+    out = torch.empty(iq.shape, dtype=w.dtype, device=w.device)
+    _launch("fstr_window_gather", w, w.data_ptr(), w.shape[0],
+            iq.data_ptr(), ip.data_ptr(), iq.shape[0], out.data_ptr())
+    window_gather.launches += 1
+    return out
+
+
+def window_gather_tiled(w: torch.Tensor, iq: torch.Tensor, ip: torch.Tensor,
+                        tile_rows: int = 256,
+                        win_rows: int = 64) -> torch.Tensor:
+    """K6: tiles of ``tile_rows`` rows (the last may be ragged), tile t
+    on window block ``t % nwin`` of w (nwin*win_rows, 128)."""
+    _check_window("window_gather_tiled", w, iq, ip, win_rows)
+    if tile_rows < 1 or w.shape[0] % win_rows:
+        raise ValueError(f"window_gather_tiled: tile_rows={tile_rows}, w "
+                         f"rows {w.shape[0]} not a multiple of {win_rows}")
+    if w.device.type == "cpu":
+        return window_gather_tiled_reference(w, iq, ip, tile_rows, win_rows)
+    out = torch.empty(iq.shape, dtype=w.dtype, device=w.device)
+    _launch("fstr_window_gather_tiled", w, w.data_ptr(), win_rows,
+            w.shape[0] // win_rows, iq.data_ptr(), ip.data_ptr(),
+            iq.shape[0], tile_rows, out.data_ptr())
+    window_gather_tiled.launches += 1
+    return out
+
+
+gather_rows.launches = 0            # kernel launches (plain calls excluded)
+gather_cols.launches = 0
+window_gather.launches = 0
+window_gather_tiled.launches = 0
+
+
+def _check(name: str, x: torch.Tensor, *idx: torch.Tensor) -> None:
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: values {x.dtype} (float32 only)")
+    for i in idx:
+        if i.dtype != torch.int32:
+            raise TypeError(f"{name}: indices {i.dtype} (int32 only)")
+        if i.device != x.device:
+            raise ValueError(f"{name}: values on {x.device}, indices on "
+                             f"{i.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if any(t.dim() != 2 for t in (x,) + idx):
+        raise ValueError(f"{name}: 2-D tensors only")
+    if not all(t.is_contiguous() for t in (x,) + idx):
+        raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def _check_window(name: str, w, iq, ip, win_rows: int) -> None:
+    _check(name, w, iq, ip)
+    if not (8 <= win_rows <= MAX_WIN_ROWS and win_rows % 8 == 0):
+        raise ValueError(f"{name}: window of {win_rows} rows (a multiple "
+                         f"of 8 up to {MAX_WIN_ROWS})")
+    if w.shape[1] != LANES or iq.shape[1] != LANES \
+            or ip.shape != iq.shape:
+        raise ValueError(f"{name}: w {tuple(w.shape)}, iq "
+                         f"{tuple(iq.shape)}, ip {tuple(ip.shape)} "
+                         f"({LANES} lanes, iq and ip alike)")
+
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "fstr_gather_rows": ([_P, _I, _I, _P, _I, _P, _P], _I),
+    "fstr_gather_cols": ([_P, _I, _I, _P, _I, _P, _P], _I),
+    "fstr_window_gather": ([_P, _I, _P, _P, _L, _P, _P], _I),
+    "fstr_window_gather_tiled": ([_P, _I, _I, _P, _P, _L, _I, _P, _P], _I),
+}
+
+
+def _launch(fn: str, like: torch.Tensor, *args) -> None:
+    lib = kernels.load("gather", _SIGNATURES)
+    dev = like.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, fn)(*[int(a) for a in args], stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn} kernel launch failed (code {rc})")

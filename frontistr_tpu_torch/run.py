@@ -1,13 +1,15 @@
-"""Top-level analysis runner (torch port of the STATIC dispatch of
-``frontistr_tpu/run.py``; reference fstr_main,
+"""Top-level analysis runner (torch port of the STATIC / NLSTATIC
+dispatch of ``frontistr_tpu/run.py``; reference fstr_main,
 fistr1/src/main/fistr_main.f90:38-114): read the control files, reorder,
-run the linear static analysis on the chosen device, write ``0.log`` and
-``FSTR.msg``.
+run the analysis on the chosen device, write ``0.log`` and ``FSTR.msg``
+(and ``FSTR.sta`` for the Newton driver).
 
-This slice runs the linear-elastic STATIC analysis.  Everything else the
-JAX runner dispatches (nonlinear, heat, eigen, dynamic, result and
-visualization output, restart, sharding, profiling, user modules) raises
-``NotImplementedError`` naming what was asked for.
+A linear-elastic STATIC deck runs the linear static analysis; NLSTATIC
+(or any deck with geometric nonlinearity) runs the Newton driver of
+``analysis/nonlinear.py``.  Everything else the JAX runner dispatches
+(heat, eigen, dynamic, result and visualization output, restart,
+sharding, profiling, user modules) raises ``NotImplementedError`` naming
+what was asked for.
 """
 
 from __future__ import annotations
@@ -34,9 +36,7 @@ def _check_request(ctrl, cfg) -> None:
         if os.environ.get(name, "") not in ("", "0"):
             raise NotImplementedError(f"{name} (not in the torch port yet)")
     sol = cfg.solution_type.upper()
-    if sol == "NLSTATIC" or cfg.nlgeom:
-        raise NotImplementedError("nonlinear static (Newton driver)")
-    if sol != "STATIC":
+    if sol not in ("STATIC", "NLSTATIC"):
         raise NotImplementedError(f"solution type {sol}")
     for flag, card in ((cfg.write_result and ctrl.result() is not None,
                         "!WRITE, RESULT"),
@@ -51,7 +51,10 @@ def run_directory(workdir: str, log_name: str = "0.log",
                   device="cuda") -> dict:
     """Run the analysis configured by ``workdir/hecmw_ctrl.dat`` on
     ``device``.  Returns a dict with the mesh, deck, model, the
-    ``StaticResult`` under "static" and "total_time"."""
+    ``StaticResult`` under "static" (its ``timings`` hold every phase's
+    seconds, its ``newton`` the Newton driver's stats) and
+    "total_time"."""
+    from frontistr_tpu_torch.analysis.nonlinear import run_nonlinear_static
     from frontistr_tpu_torch.analysis.static import run_linear_static
     from frontistr_tpu_torch.assembly.model import build_struct_model
     dev = devmod.resolve(device)
@@ -73,12 +76,17 @@ def run_directory(workdir: str, log_name: str = "0.log",
     with devmod.Phase(timings, "model", dev):
         model = build_struct_model(mesh, cfg, device=dev)
     t_pre = time.time()
-    res = run_linear_static(model, timings)
-    logio.write_static_log(
-        os.path.join(workdir, log_name), 1, model.dim, np.asarray(res.u),
-        res.nodal_strain, res.nodal_stress, res.nodal_mises,
-        res.elem_strain, res.elem_stress, res.elem_mises,
-        mesh.node_ids, res.elem_ids, node_count=res.node_count)
+    log_path = os.path.join(workdir, log_name)
+    if cfg.solution_type.upper() == "NLSTATIC" or cfg.nlgeom:
+        res = run_nonlinear_static(model, log_path=log_path,
+                                   timings=timings)
+    else:
+        res = run_linear_static(model, timings)
+        logio.write_static_log(
+            log_path, 1, model.dim, np.asarray(res.u), res.nodal_strain,
+            res.nodal_stress, res.nodal_mises, res.elem_strain,
+            res.elem_stress, res.elem_mises, mesh.node_ids, res.elem_ids,
+            node_count=res.node_count)
     total = time.time() - t_start
     _write_msg(workdir, t_pre - t_start, total)
     return {"mesh": mesh, "cfg": cfg, "ctrl": ctrl, "model": model,
