@@ -546,9 +546,11 @@ def phase_gather_time(g, mb, errs) -> list:
     out = {}
     for r in rows:
         nums = {"ms": r["ms"], "graph_ms": r["graph_ms"],
-                "plain_ms": r["plain_ms"],
+                "host_us": r["host_us"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": "bytes",
-                "library_ms": r["library_ms"]}
+                "library_ms": r["library_ms"],
+                "library_graph_ms": r["library_graph_ms"],
+                "library_host_us": r["library_host_us"]}
         if r["kernel"] in out:                 # K4's second row (G3)
             out[r["kernel"]][r["row"]] = nums
             continue

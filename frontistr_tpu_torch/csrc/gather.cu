@@ -1,20 +1,21 @@
-// In-shared-memory gathers for Hopper (sm_90a): K3-K6.
+// Gathers for Hopper (sm_90a): K3-K6.
 //
 // Replace the four TPU kernels of scripts/microbench_pallas_gather.py, a
 // probe of Mosaic's in-VMEM `dynamic_gather` written for a future ELL
-// SpMV.  On the TPU each kernel gathers inside VMEM; here a block stages
-// its source in shared memory with coalesced loads and every thread
-// writes one output element read from shared memory.  All four are
-// float32 with int32 indices.
+// SpMV.  On the TPU each kernel gathers inside VMEM.  Here K3 and K4 give
+// every output element its own thread, which reads its source value
+// straight from global memory; K5 and K6 stage their window in shared
+// memory with coalesced loads and every thread writes one output element
+// read from shared memory.  All four are float32 with int32 indices.
 //
 // Index rule (that of jnp.take_along_axis, which the TPU kernels call): an
 // index k into an axis of n entries is used as k + n when -n <= k < 0;
 // outside [-n, n) the gathered value is NaN.
 //
 //   K3 gather_rows   (`k1`, :44):  out[s,l] = x[i[s,l], l]
-//      x (R, L), i (S, L) -> (S, L); the block stages x's column tile.
+//      x (R, L), i (S, L) -> (S, L).
 //   K4 gather_cols   (`k2`, :65):  out[s,l] = x[s, i[s,l]]
-//      x (R, W), i (R, L) -> (R, L); the block stages x's row s.
+//      x (R, W), i (R, L) -> (R, L).
 //   K5 window_gather (`k4`, :84) and K6 window_gather_tiled (`k5`, :114),
 //      on 128 lanes, a window w of WINV*8 rows:
 //          v = floor(iq[s,l] / 8)
@@ -37,18 +38,31 @@
 // count: each input read once and the output written once, at the
 // script's shapes K3 98,304 B, K4 12,288 / 49,152 B, K5 45,056 B and K6
 // 25,296,896 B, i.e. 0.029, 0.004 / 0.015, 0.013 and 7.55 us at
-// 3.35 TB/s.  Every shape but K6's is far below one launch (a few us),
-// so K3-K5 are launch-bound.
+// 3.35 TB/s.  Every shape but K6's is far below one launch (1.4-2.1 us
+// from a CUDA graph), so K3-K5 are bound by launch latency: on the
+// device, the time from the launch to the last block's last store.
 //
 // What the design does about it:
-//   - global loads and stores are coalesced (neighbouring threads on
-//     neighbouring lanes); only shared-memory reads are indexed;
-//   - K3 stages a column tile, so a thread reads its own column and the
-//     random row index never causes a bank conflict; the random lane
-//     reads of K4-K6 do conflict (measured, not tuned);
+//   - K3 and K4: one thread per output over the flattened (S, L) or
+//     (R, L), 256 threads a block (32 blocks at K3's (8,1024), 16 at
+//     K4's (8,512)): only the last block has idle threads, whatever L is.
+//     A thread reads its index (coalesced), then its source value
+//     through the read-only path (__ldg): a K4 row is at most 48 KB and
+//     K3's source at the script's shape 32 KB, so it stays in L1/L2.  No
+//     shared memory and no barrier, so a thread's latency is two dependent
+//     loads and a store.  The staged design before it (8 blocks; K3
+//     staged a column tile and walked the S rows in series, K4 staged a
+//     row) waited at a barrier for the whole stage before its first
+//     output: from a CUDA graph on an H100 it took 1.84 us at (8,1024)
+//     and (8,512) where this one takes 1.50-1.54 us (both 1.45 us at
+//     (8,128)).  An eager call also pays the host's cost of issuing the
+//     launch; ops/gather.py keeps that short (see its docstring).
 //   - K5/K6 keep a thread's second read, iq[s, p], inside its own row:
 //     the block stages the rows it is writing, so one staged row serves
-//     every lane of that row;
+//     every lane of that row; their random lane reads of shared memory
+//     conflict (not measured, not tuned);
+//   - global loads and stores are coalesced (neighbouring threads on
+//     neighbouring outputs); only the source reads are indexed;
 //   - every output has one writer: relaunches are bit-equal.
 
 #include <cuda_runtime.h>
@@ -56,9 +70,9 @@
 
 namespace {
 
-constexpr int kTile = 128;          // K3 columns per block
-constexpr int kMaxRowsK3 = 64;      // K3 rows staged: 32 KB
-constexpr int kMaxWidthK4 = 12288;  // K4 row staged: 48 KB (dynamic)
+constexpr int kThreads = 256;       // K3/K4 block: one thread an output
+constexpr int kMaxRowsK3 = 64;      // K3 source rows taken
+constexpr int kMaxWidthK4 = 12288;  // K4 source width taken (a 48 KB row)
 constexpr int kLanes = 128;         // K5/K6 lanes
 constexpr int kMaxWinRows = 64;     // K5/K6 window rows staged: 32 KB
 constexpr int kWinThreads = 1024;   // 8 rows of 128 lanes per pass
@@ -73,35 +87,25 @@ __device__ __forceinline__ int wrap(int k, int n) {
   return k < 0 ? k + n : k;         // valid iff the result is in [0, n)
 }
 
+// Output t of n = S*L is (s, l) = (t / L, t % L).
 __global__ void gather_rows_kernel(const float* __restrict__ x, int R,
                                    int L, const int* __restrict__ idx,
-                                   int S, float* __restrict__ out) {
-  __shared__ float xs[kMaxRowsK3 * kTile];
-  const int l = blockIdx.x * kTile + threadIdx.x;
-  if (l < L) {
-    for (int r = 0; r < R; ++r)
-      xs[r * kTile + threadIdx.x] = x[(long long)r * L + l];
-  }
-  __syncthreads();
-  if (l >= L) return;
-  for (int s = 0; s < S; ++s) {
-    const int k = wrap(idx[(long long)s * L + l], R);
-    out[(long long)s * L + l] =
-        (k >= 0 && k < R) ? xs[k * kTile + threadIdx.x] : nan_f();
-  }
+                                   long long n, float* __restrict__ out) {
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t >= n) return;
+  const int l = (int)(t % L);
+  const int k = wrap(__ldg(idx + t), R);
+  out[t] = (k >= 0 && k < R) ? __ldg(x + (long long)k * L + l) : nan_f();
 }
 
+// Output t of n = R*L is (s, l) = (t / L, t % L).
 __global__ void gather_cols_kernel(const float* __restrict__ x, int W,
                                    const int* __restrict__ idx, int L,
-                                   float* __restrict__ out) {
-  extern __shared__ float row[];
-  const long long s = blockIdx.x;
-  for (int j = threadIdx.x; j < W; j += blockDim.x) row[j] = x[s * W + j];
-  __syncthreads();
-  for (int l = threadIdx.x; l < L; l += blockDim.x) {
-    const int k = wrap(idx[s * L + l], W);
-    out[s * L + l] = (k >= 0 && k < W) ? row[k] : nan_f();
-  }
+                                   long long n, float* __restrict__ out) {
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t >= n) return;
+  const int k = wrap(__ldg(idx + t), W);
+  out[t] = (k >= 0 && k < W) ? __ldg(x + (t / L) * W + k) : nan_f();
 }
 
 // One block writes rows [row0, row1) from window `w` (win_rows x 128).
@@ -165,49 +169,84 @@ __global__ void window_gather_tiled_kernel(const float* __restrict__ w,
   window_rows(wt, win_rows, iq, ip, row0, row1, out);
 }
 
+// Runs `launch` with `device` current, then restores the caller's device;
+// returns the first CUDA error (the launch's included) or 0.
+template <class Launch>
+int on_device(int device, Launch launch) {
+  int caller = -1;
+  cudaError_t err = cudaGetDevice(&caller);
+  if (err != cudaSuccess) return (int)err;
+  if (caller != device && (err = cudaSetDevice(device)) != cudaSuccess)
+    return (int)err;
+  launch();
+  err = cudaGetLastError();
+  if (caller != device) {
+    const cudaError_t back = cudaSetDevice(caller);
+    if (err == cudaSuccess) err = back;
+  }
+  return (int)err;
+}
+
+// The blocks of kThreads threads that cover n outputs, or -1 if they are
+// more than a grid takes.
+long long blocks_for(long long n) {
+  const long long b = (n + kThreads - 1) / kThreads;
+  return b > 0x7fffffffLL ? -1 : b;
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  Every pointer is to device
 // memory, contiguous row-major: float32 values, int32 indices.  Each
-// returns 0, the cudaError_t of its launch, or -2 for sizes it does not
-// take.
+// launches on `stream` of device `device` and returns 0, the cudaError_t
+// of its launch, or -2 for sizes it does not take.
 
 // K3: x (R, L), idx (S, L) -> out (S, L); R <= 64.
 extern "C" int fstr_gather_rows(const void* x, int R, int L, const void* idx,
-                                int S, void* out, void* stream) {
+                                int S, void* out, void* stream, int device) {
   if (R < 1 || R > kMaxRowsK3 || L < 0 || S < 0) return -2;
-  if (L == 0 || S == 0) return 0;
-  gather_rows_kernel<<<(L + kTile - 1) / kTile, kTile, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), R, L, static_cast<const int*>(idx), S,
-      static_cast<float*>(out));
-  return (int)cudaGetLastError();
+  const long long n = (long long)S * L;
+  const long long blocks = blocks_for(n);
+  if (blocks < 0) return -2;
+  if (n == 0) return 0;
+  return on_device(device, [&] {
+    gather_rows_kernel<<<(unsigned)blocks, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), R, L, static_cast<const int*>(idx), n,
+        static_cast<float*>(out));
+  });
 }
 
 // K4: x (R, W), idx (R, L) -> out (R, L); W <= 12288.
 extern "C" int fstr_gather_cols(const void* x, int R, int W, const void* idx,
-                                int L, void* out, void* stream) {
+                                int L, void* out, void* stream, int device) {
   if (R < 0 || W < 1 || W > kMaxWidthK4 || L < 0) return -2;
-  if (R == 0 || L == 0) return 0;
-  const size_t smem = (size_t)W * sizeof(float);
-  gather_cols_kernel<<<R, 256, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), W, static_cast<const int*>(idx), L,
-      static_cast<float*>(out));
-  return (int)cudaGetLastError();
+  const long long n = (long long)R * L;
+  const long long blocks = blocks_for(n);
+  if (blocks < 0) return -2;
+  if (n == 0) return 0;
+  return on_device(device, [&] {
+    gather_cols_kernel<<<(unsigned)blocks, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), W, static_cast<const int*>(idx), L, n,
+        static_cast<float*>(out));
+  });
 }
 
 // K5: w (win_rows, 128), iq/ip (S, 128) -> out (S, 128); one block.
 extern "C" int fstr_window_gather(const void* w, int win_rows,
                                   const void* iq, const void* ip,
-                                  long long S, void* out, void* stream) {
+                                  long long S, void* out, void* stream,
+                                  int device) {
   if (win_rows < 8 || win_rows > kMaxWinRows || win_rows % 8 || S < 0)
     return -2;
   if (S == 0) return 0;
-  window_gather_kernel<<<1, kWinThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(w), win_rows, static_cast<const int*>(iq),
-      static_cast<const int*>(ip), S, static_cast<float*>(out));
-  return (int)cudaGetLastError();
+  return on_device(device, [&] {
+    window_gather_kernel<<<1, kWinThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(w), win_rows, static_cast<const int*>(iq),
+        static_cast<const int*>(ip), S, static_cast<float*>(out));
+  });
 }
 
 // K6: w (nwin * win_rows, 128), iq/ip (S, 128) -> out (S, 128); one block
@@ -217,17 +256,18 @@ extern "C" int fstr_window_gather_tiled(const void* w, int win_rows,
                                         int nwin, const void* iq,
                                         const void* ip, long long S,
                                         int tile_rows, void* out,
-                                        void* stream) {
+                                        void* stream, int device) {
   if (win_rows < 8 || win_rows > kMaxWinRows || win_rows % 8 || nwin < 1 ||
       tile_rows < 1 || S < 0)
     return -2;
   if (S == 0) return 0;
   const long long tiles = (S + tile_rows - 1) / tile_rows;
   if (tiles > 0x7fffffffLL) return -2;
-  window_gather_tiled_kernel<<<(unsigned)tiles, kWinThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(w), win_rows, nwin,
-      static_cast<const int*>(iq), static_cast<const int*>(ip), S, tile_rows,
-      static_cast<float*>(out));
-  return (int)cudaGetLastError();
+  return on_device(device, [&] {
+    window_gather_tiled_kernel<<<(unsigned)tiles, kWinThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(w), win_rows, nwin,
+        static_cast<const int*>(iq), static_cast<const int*>(ip), S,
+        tile_rows, static_cast<float*>(out));
+  });
 }

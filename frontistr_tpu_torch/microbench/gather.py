@@ -15,10 +15,16 @@ The same five rows on the same shapes, with the inputs drawn from
 Each row is timed with CUDA events (mean of the script's 50 launches,
 20 for G5, after 3 warm-ups) beside its bytes bound (inputs, indices and
 output once at 3.35 TB/s), its plain version's time and, for K3/K4,
-``torch.gather``'s (one library call for the same function, timed only).
-At these sizes the eager time is mostly the host's cost of issuing a
-launch, so each row also times the same launches replayed from one CUDA
-graph (``graph_ms``: the kernel on the device, without that cost).
+``torch.gather``'s (one library call for the same function, timed only:
+``library_ms``).  At these sizes the eager time is mostly the host's
+cost of issuing a launch, so each row also times the same launches
+replayed from one CUDA graph (``graph_ms``, and ``library_graph_ms`` for
+``torch.gather``: the work on the device, without that cost), and the
+host's wall time per eager call (``host_us``, ``library_host_us``:
+HOST_CALLS calls each, synchronised only at the end of each of HOST_ROUNDS
+rounds, the wrapper's and ``torch.gather``'s rounds taken in turn so the
+host's drift falls on both alike).  Where the device time of a launch
+exceeds its issue cost (K6), ``host_us`` is the device's rate.
 It needs a card: without one, or when a launch fails, it exits non-zero
 (no row is skipped).
 """
@@ -26,6 +32,7 @@ It needs a card: without one, or when a launch fails, it exits non-zero
 from __future__ import annotations
 
 import sys
+import time
 
 import numpy as np
 import torch
@@ -34,6 +41,8 @@ from frontistr_tpu_torch.ops import gather as g
 
 HBM_BYTES_S = 3.35e12   # NVIDIA H100 SXM data sheet
 WARMUP = 3
+HOST_CALLS = 4000
+HOST_ROUNDS = 8
 
 
 def inputs(device) -> dict:
@@ -107,6 +116,26 @@ def graph_ms(fn, reps: int) -> float:
     return cuda_ms(graph.replay, 5) / reps
 
 
+def host_us(fns) -> list:
+    """Host wall time (us) per eager call of each of ``fns``, over
+    HOST_CALLS calls each in HOST_ROUNDS rounds taken in turn, each round
+    synchronised only at its end."""
+    for fn in fns:
+        for _ in range(WARMUP):
+            fn()
+    torch.cuda.synchronize()
+    per = HOST_CALLS // HOST_ROUNDS
+    total = [0] * len(fns)
+    for _ in range(HOST_ROUNDS):
+        for j, fn in enumerate(fns):
+            t0 = time.perf_counter_ns()
+            for _ in range(per):
+                fn()
+            torch.cuda.synchronize()
+            total[j] += time.perf_counter_ns() - t0
+    return [t / (per * HOST_ROUNDS) / 1e3 for t in total]
+
+
 def run(device="cuda") -> list:
     """Time every row on ``device`` (a card); returns one dict a row."""
     dev = torch.device(device)
@@ -127,10 +156,16 @@ def run(device="cuda") -> list:
                "graph_ms": graph_ms(lambda: kern(*args), reps),
                "bound_ms": nbytes / HBM_BYTES_S * 1e3,
                "plain_ms": cuda_ms(lambda: plain(*args), reps),
-               "library_ms": None}
-        if library is not None:
+               "library_ms": None, "library_graph_ms": None,
+               "library_host_us": None}
+        if library is None:
+            row["host_us"], = host_us([lambda: kern(*args)])
+        else:
             x, i64 = args[0], args[1].long()
             row["library_ms"] = cuda_ms(lambda: library(x, i64), reps)
+            row["library_graph_ms"] = graph_ms(lambda: library(x, i64), reps)
+            row["host_us"], row["library_host_us"] = host_us(
+                [lambda: kern(*args), lambda: library(x, i64)])
         rows.append(row)
     return rows
 
@@ -139,11 +174,13 @@ def main(argv=None) -> int:
     rows = run("cuda")
     for r in rows:
         lib = "" if r["library_ms"] is None else \
-            f"  torch.gather {r['library_ms']:9.4f} ms"
+            (f"  torch.gather {r['library_ms']:9.4f} ms, from a graph "
+             f"{r['library_graph_ms'] * 1e3:8.3f} us, host "
+             f"{r['library_host_us']:7.3f} us")
         print(f"{r['label']:48s} {r['ms']:9.4f} ms, from a graph "
-              f"{r['graph_ms'] * 1e3:8.3f} us  (bound "
-              f"{r['bound_ms'] * 1e3:8.3f} us, {r['bytes']} B; plain "
-              f"{r['plain_ms']:9.4f} ms{lib})")
+              f"{r['graph_ms'] * 1e3:8.3f} us, host {r['host_us']:7.3f} us"
+              f"  (bound {r['bound_ms'] * 1e3:8.3f} us, {r['bytes']} B; "
+              f"plain {r['plain_ms']:9.4f} ms{lib})")
     dt = rows[-1]["ms"] / 1e3
     vals = 64 * 256 * 128
     print(f"   -> {vals / dt / 1e9:.2f} G gathered f32/s "

@@ -1,4 +1,4 @@
-"""In-shared-memory gathers: the K3-K6 kernel wrappers and their plain
+"""Gathers on the card: the K3-K6 kernel wrappers and their plain
 PyTorch versions.
 
 They replace the four TPU kernels of ``scripts/microbench_pallas_gather.py``
@@ -22,7 +22,35 @@ Each wrapper takes the plain version for CPU tensors and launches its
 kernel (``csrc/gather.cu``, built at first use by
 ``frontistr_tpu_torch.kernels``) for CUDA tensors, or raises.  The
 kernels have no arithmetic: gathered values are copied, so kernel and
-plain version agree bit for bit.
+plain version agree bit for bit.  An empty output launches nothing.
+
+The launch path.  At the script's shapes K3-K5 take 1.4-2.1 us on the
+device (from a CUDA graph), so an eager call costs what the host takes
+to issue it.  On an H100 host the wrappers' first design took 28-36 us
+of host time a call (medians of 4,000 calls), of which ``torch.empty``
+with a ``device`` argument 6-8 us, ``torch.cuda.current_stream(dev)``
+for its handle 3.6-5.2 us, the ctypes call with the launch 4.5-5.9 us
+(the launch itself 3-3.5 us, the host-side floor of any launch), the
+input and shape checks 3.2-4.2 us, the ``torch.cuda.device`` context
+2.3-3.4 us and the ``int(...)`` list 0.5-0.7 us.  So every call now:
+
+- validates once per plan: ``_plan`` keys the checks by what they read
+  (the tensors' shapes, strides, dtypes and devices, and K6's ints), so
+  a call of a seen key skips them, and a tensor of a seen shape with
+  other strides, dtype or device is checked anew and refused;
+- allocates with ``torch.empty_like`` of the (contiguous) indices;
+- reads PyTorch's current stream as a raw handle, so capture into a
+  CUDA graph and side streams keep working;
+- enters no device context: the C entry makes the tensor's device
+  current only when it is not, and restores it;
+- hands ctypes the ``data_ptr()`` ints and the plan's sizes, with the
+  argument types set once at load, and raises if the launch's
+  ``cudaGetLastError`` is not 0.
+
+That leaves 10-13 us a call, of which the launch through ctypes is
+about 5 us, the allocation about 2 us and the plan lookup 1.5-2 us
+(PERF.md has the measurements and the comparison with
+``torch.gather``).
 """
 
 from __future__ import annotations
@@ -34,8 +62,8 @@ import torch
 from frontistr_tpu_torch import kernels
 
 LANES = 128          # K5/K6 lanes (kLanes in csrc/gather.cu)
-MAX_ROWS_K3 = 64     # rows K3 stages per block
-MAX_WIDTH_K4 = 12288
+MAX_ROWS_K3 = 64     # source rows K3 takes
+MAX_WIDTH_K4 = 12288  # source width K4 takes
 MAX_WIN_ROWS = 64    # window rows K5/K6 stage
 
 _NAN = float("nan")
@@ -89,34 +117,28 @@ def window_gather_reference(w: torch.Tensor, iq: torch.Tensor,
 
 def gather_rows(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """K3: ``out[s, l] = x[i[s, l], l]``; x (R, L), i (S, L), R <= 64."""
-    _check("gather_rows", x, i)
-    if not (1 <= x.shape[0] <= MAX_ROWS_K3 and i.shape[1] == x.shape[1]):
-        raise ValueError(f"gather_rows: x {tuple(x.shape)}, i "
-                         f"{tuple(i.shape)} (1 <= R <= {MAX_ROWS_K3}, "
-                         "same columns)")
-    if x.device.type == "cpu":
+    plan = _plan(_plan_rows, x, i)
+    if plan is None:
         return gather_rows_reference(x, i)
-    out = torch.empty(i.shape, dtype=x.dtype, device=x.device)
-    _launch("fstr_gather_rows", x, x.data_ptr(), x.shape[0], x.shape[1],
-            i.data_ptr(), i.shape[0], out.data_ptr())
-    gather_rows.launches += 1
+    fn, dev, R, L, S = plan
+    out = torch.empty_like(i, dtype=torch.float32)
+    if out.numel():
+        _launch(fn, dev, x.data_ptr(), R, L, i.data_ptr(), S, out.data_ptr())
+        gather_rows.launches += 1
     return out
 
 
 def gather_cols(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """K4: ``out[s, l] = x[s, i[s, l]]``; x (R, W), i (R, L),
     W <= 12288."""
-    _check("gather_cols", x, i)
-    if not (1 <= x.shape[1] <= MAX_WIDTH_K4 and i.shape[0] == x.shape[0]):
-        raise ValueError(f"gather_cols: x {tuple(x.shape)}, i "
-                         f"{tuple(i.shape)} (1 <= W <= {MAX_WIDTH_K4}, "
-                         "same rows)")
-    if x.device.type == "cpu":
+    plan = _plan(_plan_cols, x, i)
+    if plan is None:
         return gather_cols_reference(x, i)
-    out = torch.empty(i.shape, dtype=x.dtype, device=x.device)
-    _launch("fstr_gather_cols", x, x.data_ptr(), x.shape[0], x.shape[1],
-            i.data_ptr(), i.shape[1], out.data_ptr())
-    gather_cols.launches += 1
+    fn, dev, R, W, L = plan
+    out = torch.empty_like(i, dtype=torch.float32)
+    if out.numel():
+        _launch(fn, dev, x.data_ptr(), R, W, i.data_ptr(), L, out.data_ptr())
+        gather_cols.launches += 1
     return out
 
 
@@ -124,13 +146,15 @@ def window_gather(w: torch.Tensor, iq: torch.Tensor,
                   ip: torch.Tensor) -> torch.Tensor:
     """K5: the windowed gather over one window w (WINV*8, 128), WINV <= 8,
     iq/ip (S, 128)."""
-    _check_window("window_gather", w, iq, ip, w.shape[0])
-    if w.device.type == "cpu":
+    plan = _plan(_plan_window, w, iq, ip)
+    if plan is None:
         return window_gather_reference(w, iq, ip)
-    out = torch.empty(iq.shape, dtype=w.dtype, device=w.device)
-    _launch("fstr_window_gather", w, w.data_ptr(), w.shape[0],
-            iq.data_ptr(), ip.data_ptr(), iq.shape[0], out.data_ptr())
-    window_gather.launches += 1
+    fn, dev, win_rows, S = plan
+    out = torch.empty_like(iq, dtype=torch.float32)
+    if out.numel():
+        _launch(fn, dev, w.data_ptr(), win_rows, iq.data_ptr(),
+                ip.data_ptr(), S, out.data_ptr())
+        window_gather.launches += 1
     return out
 
 
@@ -139,17 +163,15 @@ def window_gather_tiled(w: torch.Tensor, iq: torch.Tensor, ip: torch.Tensor,
                         win_rows: int = 64) -> torch.Tensor:
     """K6: tiles of ``tile_rows`` rows (the last may be ragged), tile t
     on window block ``t % nwin`` of w (nwin*win_rows, 128)."""
-    _check_window("window_gather_tiled", w, iq, ip, win_rows)
-    if tile_rows < 1 or w.shape[0] % win_rows:
-        raise ValueError(f"window_gather_tiled: tile_rows={tile_rows}, w "
-                         f"rows {w.shape[0]} not a multiple of {win_rows}")
-    if w.device.type == "cpu":
+    plan = _plan(_plan_tiled, w, iq, ip, extra=(tile_rows, win_rows))
+    if plan is None:
         return window_gather_tiled_reference(w, iq, ip, tile_rows, win_rows)
-    out = torch.empty(iq.shape, dtype=w.dtype, device=w.device)
-    _launch("fstr_window_gather_tiled", w, w.data_ptr(), win_rows,
-            w.shape[0] // win_rows, iq.data_ptr(), ip.data_ptr(),
-            iq.shape[0], tile_rows, out.data_ptr())
-    window_gather_tiled.launches += 1
+    fn, dev, nwin, S = plan
+    out = torch.empty_like(iq, dtype=torch.float32)
+    if out.numel():
+        _launch(fn, dev, w.data_ptr(), win_rows, nwin, iq.data_ptr(),
+                ip.data_ptr(), S, tile_rows, out.data_ptr())
+        window_gather_tiled.launches += 1
     return out
 
 
@@ -157,6 +179,70 @@ gather_rows.launches = 0            # kernel launches (plain calls excluded)
 gather_cols.launches = 0
 window_gather.launches = 0
 window_gather_tiled.launches = 0
+
+
+# The launch path.  Every check of a call reads only the tensors'
+# shapes, strides, dtypes and devices and the wrapper's int arguments, so
+# a call validates once per such key: ``_plan`` looks the key up, and on
+# a miss runs the wrapper's ``_plan_*``, which checks the inputs (and
+# raises) and returns what the launch needs: the C function, the device
+# index and the sizes, or None for the plain path on the CPU.
+_PLANS: dict = {}
+_MAX_PLANS = 256
+_MISS = object()
+
+
+def _plan(make, *tensors, extra=()):
+    key = (make, extra,
+           *[(t.shape, t.stride(), t.dtype, t.device) for t in tensors])
+    plan = _PLANS.get(key, _MISS)
+    if plan is _MISS:
+        plan = make(*tensors, *extra)
+        if len(_PLANS) >= _MAX_PLANS:
+            _PLANS.clear()
+        _PLANS[key] = plan
+    return plan
+
+
+def _cuda_plan(fn: str, x: torch.Tensor, *sizes):
+    if x.device.type == "cpu":
+        return None
+    return (getattr(kernels.load("gather", _SIGNATURES), fn),
+            x.device.index) + sizes
+
+
+def _plan_rows(x, i):
+    _check("gather_rows", x, i)
+    if not (1 <= x.shape[0] <= MAX_ROWS_K3 and i.shape[1] == x.shape[1]):
+        raise ValueError(f"gather_rows: x {tuple(x.shape)}, i "
+                         f"{tuple(i.shape)} (1 <= R <= {MAX_ROWS_K3}, "
+                         "same columns)")
+    return _cuda_plan("fstr_gather_rows", x, x.shape[0], x.shape[1],
+                      i.shape[0])
+
+
+def _plan_cols(x, i):
+    _check("gather_cols", x, i)
+    if not (1 <= x.shape[1] <= MAX_WIDTH_K4 and i.shape[0] == x.shape[0]):
+        raise ValueError(f"gather_cols: x {tuple(x.shape)}, i "
+                         f"{tuple(i.shape)} (1 <= W <= {MAX_WIDTH_K4}, "
+                         "same rows)")
+    return _cuda_plan("fstr_gather_cols", x, x.shape[0], x.shape[1],
+                      i.shape[1])
+
+
+def _plan_window(w, iq, ip):
+    _check_window("window_gather", w, iq, ip, w.shape[0])
+    return _cuda_plan("fstr_window_gather", w, w.shape[0], iq.shape[0])
+
+
+def _plan_tiled(w, iq, ip, tile_rows, win_rows):
+    _check_window("window_gather_tiled", w, iq, ip, win_rows)
+    if tile_rows < 1 or w.shape[0] % win_rows:
+        raise ValueError(f"window_gather_tiled: tile_rows={tile_rows}, w "
+                         f"rows {w.shape[0]} not a multiple of {win_rows}")
+    return _cuda_plan("fstr_window_gather_tiled", w,
+                      w.shape[0] // win_rows, iq.shape[0])
 
 
 def _check(name: str, x: torch.Tensor, *idx: torch.Tensor) -> None:
@@ -189,19 +275,20 @@ def _check_window(name: str, w, iq, ip, win_rows: int) -> None:
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# each ends in (stream, device index)
 _SIGNATURES = {
-    "fstr_gather_rows": ([_P, _I, _I, _P, _I, _P, _P], _I),
-    "fstr_gather_cols": ([_P, _I, _I, _P, _I, _P, _P], _I),
-    "fstr_window_gather": ([_P, _I, _P, _P, _L, _P, _P], _I),
-    "fstr_window_gather_tiled": ([_P, _I, _I, _P, _P, _L, _I, _P, _P], _I),
+    "fstr_gather_rows": ([_P, _I, _I, _P, _I, _P, _P, _I], _I),
+    "fstr_gather_cols": ([_P, _I, _I, _P, _I, _P, _P, _I], _I),
+    "fstr_window_gather": ([_P, _I, _P, _P, _L, _P, _P, _I], _I),
+    "fstr_window_gather_tiled": ([_P, _I, _I, _P, _P, _L, _I, _P, _P, _I],
+                                 _I),
 }
 
 
-def _launch(fn: str, like: torch.Tensor, *args) -> None:
-    lib = kernels.load("gather", _SIGNATURES)
-    dev = like.device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, fn)(*[int(a) for a in args], stream)
+def _launch(fn, dev: int, *args) -> None:
+    # The raw handle of PyTorch's current stream on ``dev``, read without
+    # building a ``torch.cuda.Stream`` (what PyTorch's generated launchers
+    # call); the C entry makes ``dev`` current only if it is not already.
+    rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev), dev)
     if rc != 0:
-        raise RuntimeError(f"{fn} kernel launch failed (code {rc})")
+        raise RuntimeError(f"{fn.__name__} kernel launch failed (code {rc})")

@@ -230,3 +230,39 @@ def test_cpu_calls_count_no_launch():
     before = g.gather_rows.launches
     g.gather_rows(torch.zeros(8, 4), torch.zeros(8, 4, dtype=torch.int32))
     assert g.gather_rows.launches == before
+
+
+def _good_args(name):
+    """A call each wrapper takes on the CPU: (wrapper, args, kwargs)."""
+    z = torch.zeros(8, 128, dtype=torch.int32)
+    return {"gather_rows": (g.gather_rows, (torch.zeros(8, 128), z), {}),
+            "gather_cols": (g.gather_cols, (torch.zeros(8, 128), z), {}),
+            "window_gather": (g.window_gather,
+                              (torch.zeros(64, 128), z, z), {}),
+            "window_gather_tiled": (g.window_gather_tiled,
+                                    (torch.zeros(64, 128), z, z),
+                                    dict(tile_rows=4))}[name]
+
+
+@pytest.mark.parametrize("fault,error", [("dtype", TypeError),
+                                         ("strides", ValueError),
+                                         ("device", ValueError)])
+@pytest.mark.parametrize("name", ["gather_rows", "gather_cols",
+                                  "window_gather", "window_gather_tiled"])
+def test_cached_plan_still_raises(name, fault, error):
+    """After good calls have cached their plan, a call with the same
+    shapes but another values dtype, non-contiguous values or indices on
+    another device is checked anew and raises."""
+    fn, args, kw = _good_args(name)
+    fn(*args, **kw)
+    fn(*args, **kw)
+    vals, idx = args[0], args[1]
+    if fault == "dtype":
+        vals = vals.double()
+    elif fault == "strides":
+        vals = torch.zeros(vals.shape[::-1]).t()
+        assert vals.shape == args[0].shape and not vals.is_contiguous()
+    else:
+        idx = idx.to("meta")
+    with pytest.raises(error):
+        fn(vals, idx, *args[2:], **kw)

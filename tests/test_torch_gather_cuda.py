@@ -129,3 +129,98 @@ def test_bad_inputs_raise(cuda_device, bad):
     with pytest.raises((TypeError, ValueError)):
         g.window_gather(x, i, i)
     assert g.window_gather.launches == n0
+
+
+def _widened(dev):
+    """(name, wrapper, plain version, args): K3 at R = 1 and 64, S = 0 and
+    L no multiple of the 256-thread block; K4 at W = 12288 and 1 and L no
+    multiple of the block."""
+    rng = np.random.default_rng(11)
+    out = []
+    for R, L, S in ((1, 1000, 3), (64, 1000, 5), (8, 300, 0), (64, 1, 7)):
+        out.append((f"K3 R={R} L={L} S={S}", g.gather_rows,
+                    g.gather_rows_reference,
+                    (_f32(rng, (R, L), dev),
+                     _i32(rng.integers(-R - 3, R + 3, (S, L)), dev))))
+    for W, L in ((12288, 1000), (1, 300), (12288, 1)):
+        out.append((f"K4 W={W} L={L}", g.gather_cols,
+                    g.gather_cols_reference,
+                    (_f32(rng, (3, W), dev),
+                     _i32(rng.integers(-W - 3, W + 3, (3, L)), dev))))
+    return out
+
+
+@pytest.mark.cuda
+def test_widened_shapes_bit_equal(cuda_device):
+    """An empty output launches nothing and counts no launch."""
+    for name, kern, plain, args in _widened(cuda_device):
+        n0 = kern.launches
+        got = kern(*args)
+        again = kern(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        assert _bit_equal(got, want), name
+        assert _bit_equal(got, again), name
+        assert kern.launches - n0 == (2 if want.numel() else 0), name
+
+
+@pytest.mark.cuda
+def test_graph_replay_equals_eager(cuda_device):
+    """A launch captured in a CUDA graph reads its inputs at replay."""
+    data = mb.inputs(cuda_device)
+    for kern, plain, (x, i) in ((g.gather_rows, g.gather_rows_reference,
+                                 data["G1"]),
+                                (g.gather_cols, g.gather_cols_reference,
+                                 data["G3"])):
+        kern(x, i)                       # plan and build outside the capture
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = kern(x, i)
+        x.mul_(-2.0).add_(1.0)
+        graph.replay()
+        eager = kern(x, i)
+        torch.cuda.synchronize()
+        assert _bit_equal(captured, eager), kern.__name__
+        assert _bit_equal(eager, plain(x, i)), kern.__name__
+
+
+@pytest.mark.cuda
+def test_side_stream_ordered_after_write(cuda_device):
+    """A launch on a side stream is queued on that stream (PyTorch's
+    current one), after a delayed write to its input there."""
+    rng = np.random.default_rng(13)
+    for kern, plain, shape, hi in ((g.gather_rows, g.gather_rows_reference,
+                                    (64, 4096), 64),
+                                   (g.gather_cols, g.gather_cols_reference,
+                                    (64, 4096), 4096)):
+        x = _f32(rng, shape, cuda_device)
+        i = _i32(rng.integers(0, hi, shape), cuda_device)
+        fresh = _f32(rng, shape, cuda_device)
+        kern(x, i)
+        torch.cuda.synchronize()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(50_000_000)    # tens of ms before the write
+            x.copy_(fresh)
+            got = kern(x, i)
+        side.synchronize()
+        assert _bit_equal(got, plain(fresh, i)), kern.__name__
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kern", [g.gather_rows, g.gather_cols])
+def test_cached_plan_still_raises(cuda_device, kern):
+    """After a good call, tensors of the same shapes but other strides
+    are checked anew and raise, launching nothing."""
+    x = torch.zeros(8, 128, device=cuda_device)
+    i = torch.zeros(8, 128, dtype=torch.int32, device=cuda_device)
+    kern(x, i)
+    n0 = kern.launches
+    with pytest.raises(ValueError):
+        kern(torch.zeros(128, 8, device=cuda_device).t(), i)
+    with pytest.raises(ValueError):
+        kern(x, torch.zeros(128, 8, dtype=torch.int32,
+                            device=cuda_device).t())
+    assert kern.launches == n0
