@@ -13,7 +13,13 @@ where raw pair entries run in pair order (a, b, e), e fastest, per block
 (``ell.build_profile`` / ``bell.build_cluster_profile``).  Empty slots
 are 0.
 
-``segsum`` is the wrapper: a CPU tensor takes the plain version
+``segsum_planes`` is K1's generic entry, the counterpart of
+``make_segsum``: it sums V value planes (V, R) over any sorted map into
+(V, n_slots).  The AMG's Galerkin products and the nodal smoothing sum
+through it, in a fixed order, so on the card their results repeat bit
+for bit.
+
+``segsum`` is the element wrapper: a CPU tensor takes the plain version
 (``segsum_reference``: ``index_add_`` of the gathered entries by
 ``seg_sorted``), a CUDA tensor launches the hand-written kernel
 ``csrc/segsum.cu`` or raises.  The kernel is CUDA C++ built at first
@@ -33,39 +39,43 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from frontistr_tpu_torch import kernels
+from frontistr_tpu_torch import kernels, launch
 
 _MAX_BLOCKS = 8            # kMaxBlocks in csrc/segsum.cu
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(eq=False)
 class SegsumPlan:
-    """A profile's segment-sum maps on one device."""
-    perm: torch.Tensor        # (P,) int32: slot order -> raw pair entry
+    """A sorted map's segment-sum plan on one device."""
+    perm: torch.Tensor        # (P,) int32: slot order -> raw entry
     seg_sorted: torch.Tensor  # (P,) int32 destination slots, ascending
     slot_ptr: torch.Tensor    # (n_slots+1,) int32 CSR pointer
     n_slots: int
-    pair_counts: tuple        # raw entries per element block
+    pair_counts: tuple        # raw entries per element block (sum P)
+    # the launch path's validated keys (frontistr_tpu_torch.launch)
+    cache: dict = dataclasses.field(default_factory=dict, repr=False)
 
 
-def make_plan(perm: np.ndarray, seg_sorted: np.ndarray, n_slots: int,
-              pair_counts, device) -> SegsumPlan:
-    """Host: the CSR pointer over ``seg_sorted`` (segment s is
-    ``[slot_ptr[s], slot_ptr[s+1])``), then every map onto ``device``."""
-    P = int(perm.size)
-    if P >= 2 ** 31 or sum(pair_counts) != P:
-        raise ValueError(f"bad profile: P={P}, pair_counts={pair_counts}")
-    slot_ptr = np.searchsorted(seg_sorted, np.arange(n_slots + 1),
-                               side="left").astype(np.int32)
+def make_plan(perm, seg_sorted, n_slots: int, pair_counts,
+              device) -> SegsumPlan:
+    """The plan of a sorted map: ``seg_sorted`` (P,) ascending slot ids
+    in [0, n_slots) and ``perm`` (P,), raw entry of each sorted position
+    (numpy arrays or tensors).  Every map goes onto ``device``, where the
+    CSR pointer over ``seg_sorted`` (segment s is ``[slot_ptr[s],
+    slot_ptr[s+1])``) is computed."""
     dev = torch.device(device)
-    return SegsumPlan(
-        perm=torch.as_tensor(np.ascontiguousarray(perm, np.int32),
-                             device=dev),
-        seg_sorted=torch.as_tensor(np.ascontiguousarray(seg_sorted,
-                                                        np.int32),
-                                   device=dev),
-        slot_ptr=torch.as_tensor(slot_ptr, device=dev),
-        n_slots=int(n_slots), pair_counts=tuple(int(c) for c in pair_counts))
+    perm = torch.as_tensor(perm).to(dev, torch.int32).contiguous()
+    seg = torch.as_tensor(seg_sorted).to(dev, torch.int32).contiguous()
+    P = int(perm.numel())
+    if P >= 2 ** 31 or sum(pair_counts) != P or seg.numel() != P:
+        raise ValueError(f"bad sorted map: P={P}, {seg.numel()} slot ids, "
+                         f"pair_counts={pair_counts}")
+    slot_ptr = torch.searchsorted(
+        seg, torch.arange(n_slots + 1, device=dev, dtype=torch.int32),
+        side="left").to(torch.int32)
+    return SegsumPlan(perm=perm, seg_sorted=seg, slot_ptr=slot_ptr,
+                      n_slots=int(n_slots),
+                      pair_counts=tuple(int(c) for c in pair_counts))
 
 
 def cached_plan(profile, device) -> SegsumPlan:
@@ -116,6 +126,63 @@ def segsum(plan: SegsumPlan, kes: Sequence[torch.Tensor],
 
 
 segsum.launches = 0     # K1 kernel launches (plain-version calls excluded)
+
+
+def segsum_planes_reference(values: torch.Tensor,
+                            plan: SegsumPlan) -> torch.Tensor:
+    """Plain PyTorch version of ``segsum_planes`` (any device):
+    ``index_add_`` of the values gathered into slot order by
+    ``seg_sorted``."""
+    out = values.new_zeros((values.shape[0], plan.n_slots))
+    out.index_add_(1, plan.seg_sorted.long(), values[:, plan.perm.long()])
+    return out
+
+
+def segsum_planes(values: torch.Tensor, plan: SegsumPlan) -> torch.Tensor:
+    """(V, n_slots) planes ``out[v, s] = sum over k in segment s of
+    values[v, perm[k]]`` of values (V, R), R = the plan's P; empty slots
+    are 0 (the counterpart of ``make_segsum``).  CPU tensors: the plain
+    version; CUDA tensors: K1's planes kernel (``csrc/segsum.cu``), or an
+    exception.  Each slot's sum runs in ascending k, so on the card a
+    relaunch is bit-equal."""
+    got = launch.cached(plan.cache, _plan_planes, values, plan.perm,
+                        plan.slot_ptr)
+    if got is None:
+        return segsum_planes_reference(values, plan)
+    fn, dev, is_double = got
+    V, R = values.shape
+    out = values.new_empty((V, plan.n_slots))
+    launch.launch(fn, dev, is_double, values.data_ptr(), V, R,
+                  plan.slot_ptr.data_ptr(), plan.perm.data_ptr(),
+                  plan.n_slots, out.data_ptr())
+    segsum_planes.launches += 1
+    return out
+
+
+segsum_planes.launches = 0  # planes kernel launches (plain calls excluded)
+
+
+def _plan_planes(values, perm, slot_ptr):
+    dev = values.device
+    if values.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"segsum_planes: dtype {values.dtype} "
+                        "(float32/float64 only)")
+    if values.dim() != 2 or values.shape[0] < 1 \
+            or values.shape[1] != perm.numel():
+        raise ValueError(f"segsum_planes: values {tuple(values.shape)}, "
+                         f"want (V >= 1, {perm.numel()})")
+    if not values.is_contiguous():
+        raise ValueError("segsum_planes: values not contiguous")
+    if perm.device != dev or slot_ptr.device != dev:
+        raise ValueError(f"segsum_planes: values on {dev}, plan on "
+                         f"{perm.device}")
+    if dev.type == "cpu":
+        return None
+    if dev.type != "cuda":
+        raise ValueError(f"segsum_planes: unsupported device {dev}")
+    lib = kernels.load("segsum", _SIGNATURES)
+    return lib.fstr_segsum_planes, dev.index, int(values.dtype ==
+                                                  torch.float64)
 
 
 def _check(plan: SegsumPlan, kes, nns, nd: int) -> torch.dtype:
@@ -177,9 +244,11 @@ def _launch(plan: SegsumPlan, kes, nns, nd: int,
     return out
 
 
-_SIGNATURES = {"fstr_segsum": (
-    [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_longlong, ctypes.POINTER(ctypes.c_void_p),
-     ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
-     ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p,
-     ctypes.c_void_p], ctypes.c_int)}
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "fstr_segsum": (
+        [_I, _I, _P, _P, _L, ctypes.POINTER(_P), ctypes.POINTER(_L),
+         ctypes.POINTER(_L), ctypes.POINTER(_I), _I, _P, _P], _I),
+    # ends in (stream, device index)
+    "fstr_segsum_planes": ([_I, _P, _I, _L, _P, _P, _L, _P, _P, _I], _I),
+}

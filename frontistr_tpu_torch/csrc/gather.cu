@@ -68,6 +68,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "on_device.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;       // K3/K4 block: one thread an output
@@ -167,24 +169,6 @@ __global__ void window_gather_tiled_kernel(const float* __restrict__ w,
   const long long row1 = row0 + tile_rows < S ? row0 + tile_rows : S;
   const float* wt = w + (t % nwin) * (long long)win_rows * kLanes;
   window_rows(wt, win_rows, iq, ip, row0, row1, out);
-}
-
-// Runs `launch` with `device` current, then restores the caller's device;
-// returns the first CUDA error (the launch's included) or 0.
-template <class Launch>
-int on_device(int device, Launch launch) {
-  int caller = -1;
-  cudaError_t err = cudaGetDevice(&caller);
-  if (err != cudaSuccess) return (int)err;
-  if (caller != device && (err = cudaSetDevice(device)) != cudaSuccess)
-    return (int)err;
-  launch();
-  err = cudaGetLastError();
-  if (caller != device) {
-    const cudaError_t back = cudaSetDevice(caller);
-    if (err == cudaSuccess) err = back;
-  }
-  return (int)err;
 }
 
 // The blocks of kThreads threads that cover n outputs, or -1 if they are

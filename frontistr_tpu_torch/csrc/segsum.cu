@@ -35,6 +35,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "on_device.cuh"
+
 namespace {
 
 constexpr int kMaxBlocks = 8;
@@ -113,6 +115,57 @@ int dispatch(int nd, const int* slot_ptr, const int* perm,
   return launch<T, 3>(slot_ptr, perm, n_slots, bt, out, stream);
 }
 
+// The generic planes entry (`make_segsum` of the TPU kernel, without the
+// element decode): out[v, s] = sum_{k in segment s} values[v, perm[k]]
+// over V value planes of R entries each.  One thread per (slot, plane):
+// threads of a block take neighbouring slots of one plane, so the plane-
+// major stores coalesce; the plane runs along the grid's y axis.  Each
+// thread adds its segment's values in ascending k, so a relaunch is
+// bit-equal.  The perm loads of a batch of four entries are issued before
+// their value loads, which keeps four loads of a thread in flight.
+template <typename T>
+__global__ void planes_kernel(const T* __restrict__ values, long long R,
+                              const int* __restrict__ slot_ptr,
+                              const int* __restrict__ perm,
+                              long long n_slots, int V,
+                              T* __restrict__ out) {
+  const long long s = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (s >= n_slots) return;
+  const int k0 = __ldg(slot_ptr + s);
+  const int k1 = __ldg(slot_ptr + s + 1);
+  for (int v = blockIdx.y; v < V; v += gridDim.y) {
+    const T* __restrict__ x = values + (long long)v * R;
+    T sum = T(0);
+    int k = k0;
+    for (; k + 4 <= k1; k += 4) {
+      const int p0 = __ldg(perm + k), p1 = __ldg(perm + k + 1);
+      const int p2 = __ldg(perm + k + 2), p3 = __ldg(perm + k + 3);
+      const T x0 = __ldg(x + p0), x1 = __ldg(x + p1);
+      const T x2 = __ldg(x + p2), x3 = __ldg(x + p3);
+      sum += x0;
+      sum += x1;
+      sum += x2;
+      sum += x3;
+    }
+    for (; k < k1; ++k) sum += __ldg(x + __ldg(perm + k));
+    out[(long long)v * n_slots + s] = sum;
+  }
+}
+
+template <typename T>
+int launch_planes(const void* values, int V, long long R, const int* slot_ptr,
+                  const int* perm, long long n_slots, void* out,
+                  cudaStream_t stream, int device) {
+  const long long gx = (n_slots + kThreads - 1) / kThreads;
+  if (gx > 0x7fffffffLL) return -2;
+  const dim3 grid((unsigned)gx, (unsigned)(V < 65535 ? V : 65535));
+  return on_device(device, [&] {
+    planes_kernel<T><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(values), R, slot_ptr, perm, n_slots, V,
+        static_cast<T*>(out));
+  });
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  Pointers to device memory:
@@ -134,4 +187,22 @@ extern "C" int fstr_segsum(int is_double, int nd, const int* slot_ptr,
                             E, nn, nblk, out, st);
   return dispatch<float>(nd, slot_ptr, perm, n_slots, ke_ptrs, pair_off, E,
                          nn, nblk, out, st);
+}
+
+// The planes entry: values (V, R) and out (V, n_slots) of the element
+// type, slot_ptr (n_slots+1) and perm (P) int32, all on device `device`;
+// launches on `stream`.  Returns 0, the launch's cudaError_t, or -2 for
+// sizes it does not take.
+extern "C" int fstr_segsum_planes(int is_double, const void* values, int V,
+                                  long long R, const int* slot_ptr,
+                                  const int* perm, long long n_slots,
+                                  void* out, void* stream, int device) {
+  if (V < 1 || R < 0 || n_slots < 0) return -2;
+  if (n_slots == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_double)
+    return launch_planes<double>(values, V, R, slot_ptr, perm, n_slots, out,
+                                 st, device);
+  return launch_planes<float>(values, V, R, slot_ptr, perm, n_slots, out, st,
+                              device);
 }

@@ -33,10 +33,17 @@ def source(name: str) -> str:
 
 
 def library_path(name: str) -> str:
-    """Where ``build`` puts the kernel's library (by the source's hash)."""
-    with open(source(name), "rb") as fh:
-        tag = hashlib.sha1(fh.read()).hexdigest()[:12]
-    return os.path.join(_BUILD_DIR, f"libfstr_{name}_{tag}.so")
+    """Where ``build`` puts the kernel's library (by the hash of its
+    source and of the shared headers ``csrc/*.cuh``)."""
+    csrc = os.path.join(_PKG_DIR, "csrc")
+    digest = hashlib.sha1()
+    for path in [source(name)] + sorted(
+            os.path.join(csrc, f) for f in os.listdir(csrc)
+            if f.endswith(".cuh")):
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
+    return os.path.join(_BUILD_DIR,
+                        f"libfstr_{name}_{digest.hexdigest()[:12]}.so")
 
 
 def _nvcc() -> str:

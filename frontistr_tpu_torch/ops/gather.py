@@ -32,7 +32,9 @@ with a ``device`` argument 6-8 us, ``torch.cuda.current_stream(dev)``
 for its handle 3.6-5.2 us, the ctypes call with the launch 4.5-5.9 us
 (the launch itself 3-3.5 us, the host-side floor of any launch), the
 input and shape checks 3.2-4.2 us, the ``torch.cuda.device`` context
-2.3-3.4 us and the ``int(...)`` list 0.5-0.7 us.  So every call now:
+2.3-3.4 us and the ``int(...)`` list 0.5-0.7 us.  So every call now
+takes the lean launch path of ``frontistr_tpu_torch.launch``, which K1
+shares:
 
 - validates once per plan: ``_plan`` keys the checks by what they read
   (the tensors' shapes, strides, dtypes and devices, and K6's ints), so
@@ -59,7 +61,7 @@ import ctypes
 
 import torch
 
-from frontistr_tpu_torch import kernels
+from frontistr_tpu_torch import kernels, launch
 
 LANES = 128          # K5/K6 lanes (kLanes in csrc/gather.cu)
 MAX_ROWS_K3 = 64     # source rows K3 takes
@@ -123,7 +125,8 @@ def gather_rows(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     fn, dev, R, L, S = plan
     out = torch.empty_like(i, dtype=torch.float32)
     if out.numel():
-        _launch(fn, dev, x.data_ptr(), R, L, i.data_ptr(), S, out.data_ptr())
+        launch.launch(fn, dev, x.data_ptr(), R, L, i.data_ptr(), S,
+                      out.data_ptr())
         gather_rows.launches += 1
     return out
 
@@ -137,7 +140,8 @@ def gather_cols(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     fn, dev, R, W, L = plan
     out = torch.empty_like(i, dtype=torch.float32)
     if out.numel():
-        _launch(fn, dev, x.data_ptr(), R, W, i.data_ptr(), L, out.data_ptr())
+        launch.launch(fn, dev, x.data_ptr(), R, W, i.data_ptr(), L,
+                      out.data_ptr())
         gather_cols.launches += 1
     return out
 
@@ -152,8 +156,8 @@ def window_gather(w: torch.Tensor, iq: torch.Tensor,
     fn, dev, win_rows, S = plan
     out = torch.empty_like(iq, dtype=torch.float32)
     if out.numel():
-        _launch(fn, dev, w.data_ptr(), win_rows, iq.data_ptr(),
-                ip.data_ptr(), S, out.data_ptr())
+        launch.launch(fn, dev, w.data_ptr(), win_rows, iq.data_ptr(),
+                      ip.data_ptr(), S, out.data_ptr())
         window_gather.launches += 1
     return out
 
@@ -169,8 +173,9 @@ def window_gather_tiled(w: torch.Tensor, iq: torch.Tensor, ip: torch.Tensor,
     fn, dev, nwin, S = plan
     out = torch.empty_like(iq, dtype=torch.float32)
     if out.numel():
-        _launch(fn, dev, w.data_ptr(), win_rows, nwin, iq.data_ptr(),
-                ip.data_ptr(), S, tile_rows, out.data_ptr())
+        launch.launch(fn, dev, w.data_ptr(), win_rows, nwin,
+                      iq.data_ptr(), ip.data_ptr(), S, tile_rows,
+                      out.data_ptr())
         window_gather_tiled.launches += 1
     return out
 
@@ -181,27 +186,16 @@ window_gather.launches = 0
 window_gather_tiled.launches = 0
 
 
-# The launch path.  Every check of a call reads only the tensors'
-# shapes, strides, dtypes and devices and the wrapper's int arguments, so
-# a call validates once per such key: ``_plan`` looks the key up, and on
-# a miss runs the wrapper's ``_plan_*``, which checks the inputs (and
-# raises) and returns what the launch needs: the C function, the device
-# index and the sizes, or None for the plain path on the CPU.
+# The launch path (``frontistr_tpu_torch.launch``): each wrapper's
+# ``_plan_*`` checks the inputs (and raises) and returns the C function,
+# the device index and the sizes, or None for the plain path on the CPU;
+# it runs once per key of the tensors' shapes, strides, dtypes and
+# devices (and K6's ints).
 _PLANS: dict = {}
-_MAX_PLANS = 256
-_MISS = object()
 
 
 def _plan(make, *tensors, extra=()):
-    key = (make, extra,
-           *[(t.shape, t.stride(), t.dtype, t.device) for t in tensors])
-    plan = _PLANS.get(key, _MISS)
-    if plan is _MISS:
-        plan = make(*tensors, *extra)
-        if len(_PLANS) >= _MAX_PLANS:
-            _PLANS.clear()
-        _PLANS[key] = plan
-    return plan
+    return launch.cached(_PLANS, make, *tensors, extra=extra)
 
 
 def _cuda_plan(fn: str, x: torch.Tensor, *sizes):
@@ -284,11 +278,3 @@ _SIGNATURES = {
                                  _I),
 }
 
-
-def _launch(fn, dev: int, *args) -> None:
-    # The raw handle of PyTorch's current stream on ``dev``, read without
-    # building a ``torch.cuda.Stream`` (what PyTorch's generated launchers
-    # call); the C entry makes ``dev`` current only if it is not already.
-    rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev), dev)
-    if rc != 0:
-        raise RuntimeError(f"{fn.__name__} kernel launch failed (code {rc})")

@@ -3,8 +3,9 @@
 fstr_NodalStress2D, fistr1/src/analysis/static/fstr_NodalStress.f90).
 
 One precomputed extrapolation matrix per element type maps gauss values
-to element-node values; a global scatter-add and a per-node count then
-average them, exactly as the reference does:
+to element-node values; a global sum per node (K1's planes entry, in a
+fixed order) and a per-node count then average them, exactly as the
+reference does:
   - tri3/tet4/prism6: gauss mean broadcast to all nodes (NodalStress_C2/C3)
   - quad4/tri6/quad8/tet10/hex8/prism15/hex20: inverse shape-function
     extrapolation on corner gauss subsets, midside nodes = average of
@@ -21,6 +22,8 @@ from typing import List
 import numpy as np
 import torch
 
+from frontistr_tpu_torch.assembly.segsum import (SegsumPlan, make_plan,
+                                                 segsum_planes)
 from frontistr_tpu_torch.elements.tables import (ETYPE_INFO, get_table,
                                                  shape_func)
 
@@ -87,6 +90,15 @@ def mises_2d(s: torch.Tensor) -> torch.Tensor:
                       + 3.0 * s12 ** 2)
 
 
+def node_plan(conn: np.ndarray, n_node: int, device) -> SegsumPlan:
+    """Segment-sum plan of element-node entries onto nodes: a stable sort
+    of the flat connectivity ``conn`` on ``device``, so each node sums
+    its entries in their order."""
+    seg, perm = torch.sort(torch.as_tensor(conn, device=device),
+                           stable=True)
+    return make_plan(perm, seg, n_node, (conn.size,), device)
+
+
 def smooth(n_node: int, block_data: List[dict], dim: int):
     """Average per-element nodal values onto mesh nodes.
 
@@ -102,27 +114,30 @@ def smooth(n_node: int, block_data: List[dict], dim: int):
     ns = 6 if dim == 3 else 3
     dev = block_data[0]["gauss_strain"].device
     dt = block_data[0]["gauss_strain"].dtype
-    acc_eps = torch.zeros((n_node, ns), dtype=dt, device=dev)
-    acc_sig = torch.zeros((n_node, ns), dtype=dt, device=dev)
-    count = torch.zeros(n_node, dtype=dt, device=dev)
     mises = mises_3d if dim == 3 else mises_2d
     est, ess, ems = [], [], []
+    planes, conns = [], []
     for bd in block_data:
-        conn = torch.as_tensor(np.asarray(bd["conn"], np.int64),
-                               device=dev).reshape(-1)
+        conn = np.asarray(bd["conn"], np.int64)
         geps = bd["gauss_strain"][..., :ns]
         gsig = bd["gauss_stress"][..., :ns]
         Ex = torch.as_tensor(extrapolation_matrix(bd["etype"]), dtype=dt,
                              device=dev)
         nd_eps = torch.einsum("nq,eqs->ens", Ex, geps)
         nd_sig = torch.einsum("nq,eqs->ens", Ex, gsig)
-        acc_eps.index_add_(0, conn, nd_eps.reshape(-1, ns))
-        acc_sig.index_add_(0, conn, nd_sig.reshape(-1, ns))
-        count.index_add_(0, conn, torch.ones_like(conn, dtype=dt))
+        planes.append(torch.cat([nd_eps.reshape(-1, ns).T,
+                                 nd_sig.reshape(-1, ns).T,
+                                 nd_eps.new_ones((1, conn.size))]))
+        conns.append(conn.reshape(-1))
         e_sig = gsig.mean(dim=1)
         est.append(geps.mean(dim=1).cpu().numpy())
         ess.append(e_sig.cpu().numpy())
         ems.append(mises(e_sig).cpu().numpy())
+    # strains, stresses and counts of every block's element nodes summed
+    # per node in one K1 planes launch, in the entries' order
+    acc = segsum_planes(torch.cat(planes, dim=1),
+                        node_plan(np.concatenate(conns), n_node, dev))
+    acc_eps, acc_sig, count = acc[:ns].T, acc[ns:2 * ns].T, acc[2 * ns]
     cnt = torch.where(count == 0, torch.ones_like(count), count)
     nd_eps = acc_eps / cnt[:, None]
     nd_sig = acc_sig / cnt[:, None]

@@ -13,7 +13,9 @@ Trilinos-ML (hecmw_precond_SSOR_33.f90, hecmw_ML_wrapper_33.c):
            coarsest operator is dense and explicitly inverted
 
 The Galerkin products P^T A P run on the device from the scalar ELL
-block planes with host-built sorted maps.  The V-cycle is symmetric, so
+block planes, summed by K1's planes entry (``assembly/segsum.py``
+``segsum_planes``) over the host-built sorted maps, in a fixed order, as
+the JAX package's sorted ``segment_sum`` does.  The V-cycle is symmetric, so
 it is a valid SPD preconditioner for CG.
 """
 
@@ -25,6 +27,8 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+
+from frontistr_tpu_torch.assembly import segsum as segmod
 
 
 def _n_modes(nd: int) -> int:
@@ -57,8 +61,22 @@ class AMGMaps:
             cache[key] = {
                 name: torch.as_tensor(np.asarray(getattr(self, name),
                                                  np.int64), device=device)
-                for name in ("cols1", "diag_slot1", "perm01", "seg01",
-                             "perm12", "seg12")}
+                for name in ("cols1", "diag_slot1")}
+        return cache[key]
+
+    def plans(self, device) -> Tuple[segmod.SegsumPlan, segmod.SegsumPlan]:
+        """The Galerkin sums' segment-sum plans on ``device``, built once:
+        fine (N*W) slots -> level-1 (Na*Wc) slots, and level-1 slots ->
+        dense level-2 (Na2*Na2) entries."""
+        cache = self.__dict__.setdefault("_plans", {})
+        key = str(torch.device(device))
+        if key not in cache:
+            cache[key] = (
+                segmod.make_plan(self.perm01, self.seg01, self.Na * self.Wc,
+                                 (len(self.perm01),), device),
+                segmod.make_plan(self.perm12, self.seg12,
+                                 self.Na2 * self.Na2, (len(self.perm12),),
+                                 device))
         return cache[key]
 
 
@@ -230,6 +248,73 @@ def start_vectors(n0: int, n1: int, dtype, device,
     return v0.to(device), v1.to(device)
 
 
+@dataclasses.dataclass
+class CoarseLevels:
+    """The V-cycle's coarse operators, from ``coarse_levels``."""
+    Bo: torch.Tensor        # (Na, S0, nd, nv) tentative prolongator
+    blocks1: torch.Tensor   # (nv*nv, Na*Wc) level-1 slot planes
+    Dinv1: torch.Tensor     # (Na, nv, nv) level-1 diagonal block inverses
+    dense2: torch.Tensor    # (nv*nv, Na2*Na2) dense level-2 planes
+    A2inv: torch.Tensor     # (Na2*nv, Na2*nv) inverse of the ridged level 2
+    w1: torch.Tensor        # (Na2,) level-2 aggregate weights
+
+
+def coarse_levels(maps: AMGMaps, blocks: torch.Tensor, cols: torch.Tensor,
+                  coords: torch.Tensor,
+                  free_mask: torch.Tensor) -> CoarseLevels:
+    """The Galerkin products P^T A P of both coarse levels, each level's
+    sums in one K1 planes launch (``segsum_planes``, plans cached on the
+    maps): on the card, equal inputs give bit-equal levels."""
+    nd, nv, Na, Wc, S0, S1, Na2, N = (maps.nd, maps.nv, maps.Na, maps.Wc,
+                                      maps.S0, maps.S1, maps.Na2,
+                                      maps.n_node)
+    dt = blocks.dtype
+    dev = blocks.device
+    mt = maps.tensors(dev)
+    plan01, plan12 = maps.plans(dev)
+    Bo = _rigid_modes(maps, coords, free_mask, dt)        # (Na,S0,nd,nv)
+    Bn = Bo.reshape(Na * S0, nd, nv)[:N]
+    Bpl = Bn.permute(1, 2, 0)                             # (nd, nv, N)
+    # Galerkin level-1 blocks:
+    #   C[n,w,p,q] = sum_ij Bn[n,i,p] A[n,w,i,j] Bn[cols[n,w],j,q]
+    # as nv*nv (N, W) planes, segment-summed into the coarse slots:
+    # blocks1[p*nv+q, a*Wc+w]
+    S_jp = [[sum(Bpl[i, p][:, None] * blocks[i * nd + j] for i in range(nd))
+             for p in range(nv)] for j in range(nd)]
+    Bcols = Bpl[:, :, cols]                               # (nd, nv, N, W)
+    C = torch.stack([sum(S_jp[j][p] * Bcols[j, q] for j in range(nd))
+                     .reshape(-1) for p in range(nv) for q in range(nv)])
+    del Bcols, S_jp
+    blocks1 = segmod.segsum_planes(C, plan01)
+    del C
+    ar1 = torch.arange(nv, device=dev)
+    D1 = blocks1.T[torch.arange(Na, device=dev) * Wc
+                   + mt["diag_slot1"]].reshape(Na, nv, nv)
+    tr1 = D1[:, ar1, ar1].sum(dim=1)
+    # level 2 (dense coarsest): piecewise-constant over S1 coarse nodes
+    cnt1 = torch.clamp(Na - torch.arange(Na2, device=dev) * S1,
+                       min=1, max=S1).to(dt)
+    w1 = 1.0 / torch.sqrt(cnt1)                           # (Na2,)
+    wnode = w1[torch.clamp(torch.arange(Na, device=dev) // S1,
+                           max=Na2 - 1)]
+    sblk = (wnode[torch.arange(Na, device=dev).repeat_interleave(Wc)]
+            * wnode[mt["cols1"].reshape(-1)])             # (Na*Wc,)
+    dense2 = segmod.segsum_planes(blocks1 * sblk, plan12)
+    A2 = dense2.reshape(nv, nv, Na2, Na2).permute(2, 0, 3, 1) \
+        .reshape(Na2 * nv, Na2 * nv)
+    d2 = torch.diagonal(A2)
+    trs = tr1.sum()
+    ridge = torch.where(trs > 0, trs / (Na * nv),
+                        torch.ones_like(trs)) * 1e-6
+    A2 = A2 + ridge * torch.eye(Na2 * nv, dtype=dt, device=dev)
+    A2 = A2 + torch.diag((d2 == 0).to(dt))
+    # inverted in float64 and rounded: in float32 an LU of this matrix
+    # (condition up to ~1/ridge) loses the near-null modes' digits
+    A2inv = torch.linalg.inv(A2.to(torch.float64)).to(dt)
+    return CoarseLevels(Bo=Bo, blocks1=blocks1, Dinv1=_block_inv(D1),
+                        dense2=dense2, A2inv=A2inv, w1=w1)
+
+
 def setup_amg(maps: AMGMaps, blocks: torch.Tensor, cols: torch.Tensor,
               coords: torch.Tensor, free_mask: torch.Tensor,
               A0: Callable, Dinv0_apply: Callable,
@@ -251,32 +336,12 @@ def setup_amg(maps: AMGMaps, blocks: torch.Tensor, cols: torch.Tensor,
                                       maps.n_node)
     dt = blocks.dtype
     dev = blocks.device
-    mt = maps.tensors(dev)
-    cols1 = mt["cols1"]
-    Bo = _rigid_modes(maps, coords, free_mask, dt)        # (Na,S0,nd,nv)
-    Bn = Bo.reshape(Na * S0, nd, nv)[:N]
-    Bpl = Bn.permute(1, 2, 0)                             # (nd, nv, N)
-    # Galerkin level-1 blocks:
-    #   C[n,w,p,q] = sum_ij Bn[n,i,p] A[n,w,i,j] Bn[cols[n,w],j,q]
-    # as nv*nv (N, W) planes, each segment-summed into its coarse slot
-    S_jp = [[sum(Bpl[i, p][:, None] * blocks[i * nd + j] for i in range(nd))
-             for p in range(nv)] for j in range(nd)]
-    seg01 = mt["seg01"]
-    perm01 = mt["perm01"]
-    Bcols = Bpl[:, :, cols]                               # (nd, nv, N, W)
-    blocks1f = torch.zeros((Na * Wc, nv * nv), dtype=dt, device=dev)
-    for p in range(nv):
-        for q in range(nv):
-            Cpq = sum(S_jp[j][p] * Bcols[j, q] for j in range(nd))
-            blocks1f[:, p * nv + q].index_add_(
-                0, seg01, Cpq.reshape(-1)[perm01])
-    del Bcols, S_jp
-    ar1 = torch.arange(nv, device=dev)
-    D1 = blocks1f[torch.arange(Na, device=dev) * Wc
-                  + mt["diag_slot1"]].reshape(Na, nv, nv)
-    tr1 = D1[:, ar1, ar1].sum(dim=1)
-    Dinv1 = _block_inv(D1)
-    blocks1 = blocks1f.T.reshape(nv, nv, Na, Wc)
+    cols1 = maps.tensors(dev)["cols1"]
+    lv = coarse_levels(maps, blocks, cols, coords, free_mask)
+    Bo, Dinv1, A2inv, w1 = lv.Bo, lv.Dinv1, lv.A2inv, lv.w1
+    blocks1 = lv.blocks1.reshape(nv, nv, Na, Wc)
+    del lv
+    npad1 = Na2 * S1
 
     def A1(x):
         xg = x.reshape(Na, nv).T[:, cols1]                # (nv, Na, Wc)
@@ -285,30 +350,6 @@ def setup_amg(maps: AMGMaps, blocks: torch.Tensor, cols: torch.Tensor,
     def M1(r):
         return torch.einsum("apq,aq->ap", Dinv1,
                             r.reshape(Na, nv)).reshape(-1)
-
-    # level 2 (dense coarsest): piecewise-constant over S1 coarse nodes
-    npad1 = Na2 * S1
-    cnt1 = torch.clamp(Na - torch.arange(Na2, device=dev) * S1,
-                       min=1, max=S1).to(dt)
-    w1 = 1.0 / torch.sqrt(cnt1)                           # (Na2,)
-    wnode = w1[torch.clamp(torch.arange(Na, device=dev) // S1,
-                           max=Na2 - 1)]
-    sblk = (wnode[torch.arange(Na, device=dev).repeat_interleave(Wc)]
-            * wnode[cols1.reshape(-1)])                   # (Na*Wc,)
-    ent2 = (blocks1f * sblk[:, None])[mt["perm12"]]
-    dense2 = torch.zeros((Na2 * Na2, nv * nv), dtype=dt, device=dev)
-    dense2.index_add_(0, mt["seg12"], ent2)
-    A2 = dense2.reshape(Na2, Na2, nv, nv).permute(0, 2, 1, 3) \
-        .reshape(Na2 * nv, Na2 * nv)
-    d2 = torch.diagonal(A2)
-    trs = tr1.sum()
-    ridge = torch.where(trs > 0, trs / (Na * nv),
-                        torch.ones_like(trs)) * 1e-6
-    A2 = A2 + ridge * torch.eye(Na2 * nv, dtype=dt, device=dev)
-    A2 = A2 + torch.diag((d2 == 0).to(dt))
-    # inverted in float64 and rounded: in float32 an LU of this matrix
-    # (condition up to ~1/ridge) loses the near-null modes' digits
-    A2inv = torch.linalg.inv(A2.to(torch.float64)).to(dt)
 
     # transfer operators, mode-major: (nv, Na, S0*nd)
     Bt = Bo.reshape(Na, S0 * nd, nv).permute(2, 0, 1).contiguous()

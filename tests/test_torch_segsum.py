@@ -1,7 +1,8 @@
-"""K1 sorted segment-sum: the port's plain version against the JAX
-package's assembly (XLA segment_sum and the Pallas kernel in interpret
-mode).  The CUDA kernel is held to the plain version on the card in
-tests/test_torch_segsum_cuda.py.
+"""K1 sorted segment-sum: the port's plain versions (the element
+assembly ``segsum`` and the generic planes entry ``segsum_planes``)
+against the JAX package (XLA segment_sum and the Pallas kernel of
+``make_segsum`` in interpret mode).  The CUDA kernels are held to the
+plain versions on the card in tests/test_torch_segsum_cuda.py.
 
 Tolerances: float32 within 1e-4 x max|ref| (the bar of
 tests/test_segsum_pallas.py); float64 within 1e-12 x max|ref| (sums of
@@ -9,6 +10,7 @@ the same entries in another order).
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -18,9 +20,12 @@ from frontistr_tpu.assembly import ell as jell
 from frontistr_tpu.assembly.model import build_struct_model as jbuild
 from frontistr_tpu.io.ctrlio import read_cnt as jread_cnt
 from frontistr_tpu.io.meshio import ElemBlock as JElemBlock
+from frontistr_tpu.assembly.segsum_pallas import make_segsum
 from frontistr_tpu.meshgen import box_tet4 as jbox_tet4
+from frontistr_tpu.solver import amg as jamg
 from frontistr_tpu_torch.assembly import bell, ell
 from frontistr_tpu_torch.assembly import segsum as sm
+from frontistr_tpu_torch.post import nodal
 
 TOL = {torch.float32: 1e-4, torch.float64: 1e-12}
 CNT = ("!VERSION\n 3\n!SOLUTION, TYPE=STATIC\n!BOUNDARY\n X0, 1, 3, 0.0\n"
@@ -147,3 +152,124 @@ def test_from_model_matches_jax_pallas_interpret(tmp_path, monkeypatch):
     tol = 1e-4 * np.abs(want).max()
     assert np.abs(op.blocks.numpy() - want).max() <= tol
     assert np.abs(op.diag.numpy() - np.asarray(jop.diag)).max() <= tol
+
+
+# --- the planes entry (segsum_planes), the counterpart of make_segsum
+
+
+def _planes_case(seg: np.ndarray, n_slots: int, V: int, seed: int):
+    """V random value planes over P = len(seg) raw entries and a random
+    perm: (plan, values (V, P) float64 numpy, values in slot order)."""
+    rng = np.random.default_rng(seed)
+    P = len(seg)
+    perm = rng.permutation(P).astype(np.int32)
+    values = rng.standard_normal((V, P))
+    return (sm.make_plan(perm, seg, n_slots, (P,), "cpu"), values,
+            values[:, perm])
+
+
+def _jax_make_segsum(sorted_vals: np.ndarray, seg: np.ndarray,
+                     n_slots: int) -> np.ndarray:
+    """The Pallas kernel of ``make_segsum`` (interpret mode off the TPU)
+    on values already in slot order, (V <= 15, P) float32."""
+    V, P = sorted_vals.shape
+    run, aux = make_segsum(seg, n_slots, c_ent=512)
+    ent_pad = np.zeros((P + 1, 16), np.float32)
+    ent_pad[:P, :V] = sorted_vals.T
+    fm = np.asarray(aux["ent_map"])
+    entT = jnp.asarray(ent_pad[np.where(fm < P, fm, P)].T.copy())
+    return np.asarray(run(entT, aux["seg_pad"], aux["slot_src"]))[:V]
+
+
+def _jax_segment_sum(sorted_vals: np.ndarray, seg: np.ndarray,
+                     n_slots: int) -> np.ndarray:
+    return np.asarray(jax.ops.segment_sum(
+        jnp.asarray(sorted_vals.T), jnp.asarray(seg), num_segments=n_slots,
+        indices_are_sorted=True)).T
+
+
+@pytest.mark.parametrize("case", ["random", "empty_slots", "long_segment"])
+def test_planes_matches_jax_pallas_interpret(case):
+    seg, n_slots = _seg_cases()[case]
+    plan, values, sorted_vals = _planes_case(seg, n_slots, 7, 11)
+    want = _jax_make_segsum(sorted_vals.astype(np.float32), seg, n_slots)
+    got = sm.segsum_planes(torch.as_tensor(values, dtype=torch.float32),
+                           plan).numpy()
+    assert got.shape == want.shape == (7, n_slots)
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("case", ["random", "empty_slots", "long_segment"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_planes_matches_jax_segment_sum(case, dtype):
+    seg, n_slots = _seg_cases()[case]
+    plan, values, sorted_vals = _planes_case(seg, n_slots, 5, 12)
+    want = _jax_segment_sum(sorted_vals, seg, n_slots)
+    got = sm.segsum_planes(torch.as_tensor(values, dtype=dtype),
+                           plan).numpy()
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= TOL[dtype] * np.abs(want).max()
+    occupied = np.zeros(n_slots, bool)
+    occupied[seg] = True
+    assert (got[:, ~occupied] == 0).all()
+
+
+@pytest.mark.parametrize("level", ["01", "12"])
+def test_planes_on_amg_maps_match_jax(level):
+    """The AMG's Galerkin maps of a small tet deck, built by the JAX
+    package: float64 against segment_sum (36 planes, as the AMG sums),
+    float32 against the Pallas kernel (9 planes)."""
+    mesh = jbox_tet4(6, 4, 4)
+    jprof = jell.build_profile([mesh.blocks[0].conn], mesh.n_node, 3)
+    jm = jamg.build_maps(jprof.cols, jprof.n_node, 3)
+    perm, seg = getattr(jm, "perm" + level), getattr(jm, "seg" + level)
+    n_slots = jm.Na * jm.Wc if level == "01" else jm.Na2 * jm.Na2
+    P = len(perm)
+    plan = sm.make_plan(perm, seg, n_slots, (P,), "cpu")
+    values = np.random.default_rng(13).standard_normal((36, P))
+    want = _jax_segment_sum(values[:, perm], seg, n_slots)
+    got = sm.segsum_planes(torch.as_tensor(values), plan).numpy()
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+    want = _jax_make_segsum(values[:9, perm].astype(np.float32), seg,
+                            n_slots)
+    got = sm.segsum_planes(torch.as_tensor(values[:9], dtype=torch.float32),
+                           plan).numpy()
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def test_node_plan_sums_in_index_add_order():
+    """Nodal smoothing's plan (a stable sort of the flat connectivity of
+    two blocks): on the CPU the planes entry is bit-equal to index_add_
+    block by block, the sum it replaced."""
+    rng = np.random.default_rng(14)
+    conns = [rng.integers(0, 60, (40, 4)), rng.integers(0, 60, (30, 8))]
+    vals = [torch.as_tensor(rng.standard_normal((c.size, 13)))
+            for c in conns]
+    want = torch.zeros((60, 13), dtype=torch.float64)
+    for c, v in zip(conns, vals):
+        want.index_add_(0, torch.as_tensor(c.reshape(-1)), v)
+    plan = nodal.node_plan(np.concatenate([c.reshape(-1) for c in conns]),
+                           60, "cpu")
+    got = sm.segsum_planes(torch.cat(vals).T.contiguous(), plan)
+    assert torch.equal(got.T, want)
+
+
+@pytest.mark.parametrize("fault,error", [("dtype", TypeError),
+                                         ("length", ValueError),
+                                         ("strides", ValueError),
+                                         ("device", ValueError)])
+def test_planes_rejects_bad_input(fault, error):
+    """After good calls have cached their key, a call with another dtype,
+    another length, other strides or another device is checked anew and
+    raises."""
+    seg, n_slots = _seg_cases()["random"]
+    plan, values, _ = _planes_case(seg, n_slots, 3, 15)
+    good = torch.as_tensor(values)
+    sm.segsum_planes(good, plan)
+    sm.segsum_planes(good, plan)
+    bad = {"dtype": lambda: good.to(torch.float16),
+           "length": lambda: good[:, 1:].contiguous(),
+           "strides": lambda: good.T.contiguous().T,
+           "device": lambda: good.to("meta")}[fault]()
+    with pytest.raises(error):
+        sm.segsum_planes(bad, plan)

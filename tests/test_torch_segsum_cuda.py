@@ -1,6 +1,8 @@
-"""K1 on the card: the CUDA segment-sum kernel against its plain PyTorch
-version on the same inputs.  The file imports nothing of JAX, so it also
-runs where JAX is not installed:
+"""K1 on the card: the CUDA segment-sum kernels (the element assembly
+``segsum`` and the planes entry ``segsum_planes``) against their plain
+PyTorch versions on the same inputs, and the AMG setup and the nodal
+smoothing that sum through the planes entry, run twice.  The file
+imports nothing of JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_segsum_cuda.py
 
@@ -8,16 +10,28 @@ Every test skips, inside the test, where ``torch.cuda.is_available()`` is
 false: the kernel has no CPU mode.  Tolerances: float32 within
 1e-4 x max|plain| (the bar of tests/test_segsum_pallas.py); float64
 within 1e-12 x max|plain| (the same sums in another order).  Two
-launches are bit-equal (no atomics).
+launches are bit-equal (no atomics), and so are two AMG setups and two
+nodal smoothings on the same inputs.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from frontistr_tpu_torch.assembly import bell
+from frontistr_tpu_torch.analysis import static as stmod
+from frontistr_tpu_torch.assembly import bell, femop
 from frontistr_tpu_torch.assembly import segsum as sm
+from frontistr_tpu_torch.assembly.model import build_struct_model
+from frontistr_tpu_torch.io.ctrlio import read_cnt
 from frontistr_tpu_torch.meshgen import box_tet4
+from frontistr_tpu_torch.post import nodal
+from frontistr_tpu_torch.solver import amg
+
+CNT = ("!VERSION\n 3\n!SOLUTION, TYPE=STATIC\n!BOUNDARY\n X0, 1, 3, 0.0\n"
+       "!CLOAD\n X1, 3, -1.0\n!MATERIAL, NAME=M1\n!ELASTIC\n 210000.0, 0.3\n"
+       "!SOLVER, METHOD=CG\n 10000, 1\n 1.0e-8, 1.0, 0.0\n!END\n")
 
 TOL = {torch.float32: 1e-4, torch.float64: 1e-12}
 
@@ -35,6 +49,11 @@ def _seg_case(case: str):
         return np.sort(rng.integers(0, 3000, 20000)).astype(np.int32), 3000
     if case == "empty_slots":
         return np.asarray([0, 0, 5, 5, 5], np.int32), 10     # slots 1-4
+    if case == "lengths":
+        # segments of 0, 1, 24 and 1,500 entries, each several times
+        lens = np.tile([0, 1, 24, 0, 1500, 1, 24, 0], 5)
+        return (np.repeat(np.arange(len(lens)), lens).astype(np.int32),
+                len(lens))
     long = np.r_[np.zeros(50, np.int64), np.full(1500, 3),
                  rng.integers(4, 40, 400)]
     return np.sort(long).astype(np.int32), 40
@@ -99,3 +118,105 @@ def test_kernel_rejects_bad_input(cuda_device):
         sm.segsum(plan, [ke.transpose(1, 2)], [1], 3)
     with pytest.raises(ValueError):
         sm.segsum(plan, [ke.cpu()], [1], 3)
+
+
+# --- the planes entry, and its callers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "empty_slots", "lengths"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_planes_kernel_matches_plain_on_card(cuda_device, case, dtype):
+    seg, n_slots = _seg_case(case)
+    rng = np.random.default_rng(8)
+    P = len(seg)
+    plan = sm.make_plan(rng.permutation(P).astype(np.int32), seg, n_slots,
+                        (P,), cuda_device)
+    values = torch.as_tensor(rng.standard_normal((13, P)), dtype=dtype,
+                             device=cuda_device)
+    before = sm.segsum_planes.launches
+    got = sm.segsum_planes(values, plan)
+    again = sm.segsum_planes(values, plan)
+    want = sm.segsum_planes_reference(values, plan)
+    torch.cuda.synchronize()
+    assert sm.segsum_planes.launches == before + 2
+    assert torch.equal(got, again)
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_planes_rejects_bad_input_on_card(cuda_device):
+    """After a good call, values of the same shape with another dtype,
+    other strides or on the CPU are checked anew and raise, launching
+    nothing."""
+    seg, n_slots = _seg_case("random")
+    P = len(seg)
+    plan = sm.make_plan(np.arange(P, dtype=np.int32), seg, n_slots, (P,),
+                        cuda_device)
+    values = torch.ones((4, P), dtype=torch.float64, device=cuda_device)
+    sm.segsum_planes(values, plan)
+    n0 = sm.segsum_planes.launches
+    for bad, error in ((values.half(), TypeError),
+                       (values.T.contiguous().T, ValueError),
+                       (values.cpu(), ValueError)):
+        with pytest.raises(error):
+            sm.segsum_planes(bad, plan)
+    assert sm.segsum_planes.launches == n0
+
+
+def _amg_inputs(tmp_path, device):
+    """A small tet deck's AMG setup inputs on ``device``."""
+    p = tmp_path / "case.cnt"
+    p.write_text(CNT)
+    model = build_struct_model(box_tet4(12, 10, 8), read_cnt(str(p)),
+                               device=device)
+    kes = stmod.compute_element_stiffness(model)
+    setup = stmod.cluster_setup(model, {}, policy="amg")
+    cop, sb = bell.from_model(model, kes, dtype=torch.float64,
+                              profile=setup.cprof, want_scalar=True,
+                              scalar=setup.prof)
+    cop = dataclasses.replace(cop,
+                              free_mask=femop.from_model(model,
+                                                         kes).free_mask)
+    return (setup.amaps, sb, setup.cols, setup.coords, cop.free_mask,
+            cop.apply_constrained, cop.block_jacobi())
+
+
+@pytest.mark.cuda
+def test_amg_setup_repeats_bit_equal_on_card(cuda_device, tmp_path):
+    """Two setups on the same inputs: bit-equal coarse levels and a
+    bit-equal V-cycle on a fixed vector."""
+    args = _amg_inputs(tmp_path, cuda_device)
+    before = sm.segsum_planes.launches
+    lv, again = amg.coarse_levels(*args[:5]), amg.coarse_levels(*args[:5])
+    assert sm.segsum_planes.launches == before + 4
+    for name in ("Bo", "blocks1", "Dinv1", "dense2", "A2inv"):
+        assert torch.equal(getattr(lv, name), getattr(again, name)), name
+    r = torch.as_tensor(np.random.default_rng(9).standard_normal(
+        args[4].numel()), device=cuda_device)
+    assert torch.equal(amg.setup_amg(*args)(r), amg.setup_amg(*args)(r))
+
+
+@pytest.mark.cuda
+def test_nodal_smoothing_repeats_bit_equal_on_card(cuda_device):
+    rng = np.random.default_rng(10)
+    conns = [rng.integers(0, 500, (900, 4)), rng.integers(0, 500, (300, 8))]
+    block_data = [dict(etype=et, conn=c,
+                       gauss_strain=torch.as_tensor(
+                           rng.standard_normal((c.shape[0], nq, 6)),
+                           device=cuda_device),
+                       gauss_stress=torch.as_tensor(
+                           rng.standard_normal((c.shape[0], nq, 6)),
+                           device=cuda_device))
+                  for et, nq, c in ((341, 1, conns[0]), (361, 8, conns[1]))]
+    before = sm.segsum_planes.launches
+    a = nodal.smooth(500, block_data, 3)
+    b = nodal.smooth(500, block_data, 3)
+    assert sm.segsum_planes.launches == before + 2
+    for k in ("strain", "stress", "mises", "count"):
+        assert np.array_equal(a[k], b[k]), k
+    cpu = nodal.smooth(500, [dict(d, gauss_strain=d["gauss_strain"].cpu(),
+                                  gauss_stress=d["gauss_stress"].cpu())
+                             for d in block_data], 3)
+    scale = np.abs(cpu["stress"]).max()
+    assert np.abs(a["stress"] - cpu["stress"]).max() <= 1e-12 * scale

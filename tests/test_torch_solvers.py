@@ -5,6 +5,9 @@ package, on the constrained cluster operator of a small tet box.
 - setup_amg in float64, fed the JAX package's power-iteration start
   vectors: M(r) within 1e-10 of max|M(r)| (Cholesky/inverse of the small
   mode Gram matrices come from different LAPACK paths).
+- the Galerkin sums, now K1's planes entry (``coarse_levels``): on the
+  CPU bit-equal to the per-plane ``index_add_`` sums they replaced, and
+  from call to call.
 - refined_cg (float32 inner CG + float64 refinement): inner float32 sums
   run in another order, so the total iteration count may differ by 2;
   both meet the true relative residual 1e-8, and the solutions agree to
@@ -108,6 +111,52 @@ def test_amg_vcycle_matches_jax(system):
     want = np.asarray(jM(jnp.asarray(r)))
     got = M(torch.as_tensor(r)).numpy()
     assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
+
+
+def _index_add_levels(maps, sb, cols, Bo):
+    """The level-1 blocks (nv*nv, Na*Wc) and dense level 2 (nv*nv,
+    Na2*Na2) summed plane by plane with index_add_ over the sorted maps,
+    as the setup did before K1's planes entry."""
+    nd, nv, Na, Wc, Na2, S1 = (maps.nd, maps.nv, maps.Na, maps.Wc,
+                               maps.Na2, maps.S1)
+    Bpl = Bo.reshape(Na * maps.S0, nd, nv)[:maps.n_node].permute(1, 2, 0)
+    seg01, perm01, seg12, perm12 = (
+        torch.as_tensor(getattr(maps, k).astype(np.int64))
+        for k in ("seg01", "perm01", "seg12", "perm12"))
+    S_jp = [[sum(Bpl[i, p][:, None] * sb[i * nd + j] for i in range(nd))
+             for p in range(nv)] for j in range(nd)]
+    Bcols = Bpl[:, :, cols]
+    blocks1f = torch.zeros((Na * Wc, nv * nv), dtype=sb.dtype)
+    for p in range(nv):
+        for q in range(nv):
+            Cpq = sum(S_jp[j][p] * Bcols[j, q] for j in range(nd))
+            blocks1f[:, p * nv + q].index_add_(0, seg01,
+                                               Cpq.reshape(-1)[perm01])
+    cnt1 = torch.clamp(Na - torch.arange(Na2) * S1, min=1, max=S1).to(
+        sb.dtype)
+    w1 = 1.0 / torch.sqrt(cnt1)
+    wnode = w1[torch.clamp(torch.arange(Na) // S1, max=Na2 - 1)]
+    cols1 = torch.as_tensor(maps.cols1.astype(np.int64))
+    sblk = wnode[torch.arange(Na).repeat_interleave(Wc)] \
+        * wnode[cols1.reshape(-1)]
+    dense2 = torch.zeros((Na2 * Na2, nv * nv), dtype=sb.dtype)
+    dense2.index_add_(0, seg12, (blocks1f * sblk[:, None])[perm12])
+    return blocks1f.T, dense2.T
+
+
+def test_coarse_levels_equal_index_add_sums(system):
+    _, _, op, sb = _ops(system, jnp.float64, torch.float64)
+    prof, model = system["prof"], system["model"]
+    maps = amg.build_maps(prof.cols, prof.n_node, 3)
+    cols = torch.as_tensor(prof.cols.astype(np.int64))
+    args = (maps, sb, cols, torch.as_tensor(model.coords), op.free_mask)
+    lv = amg.coarse_levels(*args)
+    again = amg.coarse_levels(*args)
+    for name in ("Bo", "blocks1", "Dinv1", "dense2", "A2inv"):
+        assert torch.equal(getattr(lv, name), getattr(again, name)), name
+    blocks1, dense2 = _index_add_levels(maps, sb, cols, lv.Bo)
+    assert torch.equal(lv.blocks1, blocks1)
+    assert torch.equal(lv.dense2, dense2)
 
 
 def test_amg_default_generator_is_seeded(system):
