@@ -44,6 +44,12 @@ class ClusterProfile:
     def n_slots(self) -> int:
         return self.C * self.Wc * self.G * self.G
 
+    @property
+    def slot_shape(self) -> tuple:
+        """Slot (aoff, boff, wc, c) of the plane layout, c fastest: the
+        shape the element kernel tiles by (``segsum.element_schedule``)."""
+        return (self.G, self.G, self.Wc, self.C)
+
     def plan(self, device) -> segmod.SegsumPlan:
         return segmod.cached_plan(self, device)
 

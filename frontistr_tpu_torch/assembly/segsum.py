@@ -19,22 +19,24 @@ are 0.
 through it, in a fixed order, so on the card their results repeat bit
 for bit.
 
-``segsum`` is the element wrapper: a CPU tensor takes the plain version
-(``segsum_reference``: ``index_add_`` of the gathered entries by
-``seg_sorted``), a CUDA tensor launches the hand-written kernel
-``csrc/segsum.cu`` or raises.  The kernel is CUDA C++ built at first
-use by ``frontistr_tpu_torch.kernels`` and bound through a plain C
-interface with ctypes.  It is bound by device-memory
-bytes; see the source for what it reads and writes and how its design
-(one thread per slot, perm gather and plane relayout fused, no atomics)
-keeps them few and deterministic.
+Both wrappers take the plain version for CPU tensors (``index_add_``
+of the values gathered into slot order, by ``seg_sorted``) and for CUDA
+tensors launch the hand-written kernel ``csrc/segsum.cu`` or raise.  The
+kernel is CUDA C++ built at first use by ``frontistr_tpu_torch.kernels``
+and bound through a plain C interface with ctypes, on the lean launch
+path of ``frontistr_tpu_torch.launch`` (checks once per key, the raw
+stream, no device context).  The element kernel reads, besides the
+plan's ``slot_ptr``, a schedule built on the device once per plan
+(``element_schedule``: each entry's source offset, the non-empty slots
+by tile); the source says how that design answers what bounds it,
+device-memory bytes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -52,12 +54,17 @@ class SegsumPlan:
     slot_ptr: torch.Tensor    # (n_slots+1,) int32 CSR pointer
     n_slots: int
     pair_counts: tuple        # raw entries per element block (sum P)
-    # the launch path's validated keys (frontistr_tpu_torch.launch)
+    # the slot space (A, B, W, C), slot ((a*B + b)*W + w)*C + c, or None:
+    # how the element kernel tiles the slots (``element_schedule``)
+    shape: Optional[tuple] = None
+    # the launch path's validated keys (frontistr_tpu_torch.launch) and
+    # the element kernel's schedules, by (nns, nd)
     cache: dict = dataclasses.field(default_factory=dict, repr=False)
+    schedules: dict = dataclasses.field(default_factory=dict, repr=False)
 
 
-def make_plan(perm, seg_sorted, n_slots: int, pair_counts,
-              device) -> SegsumPlan:
+def make_plan(perm, seg_sorted, n_slots: int, pair_counts, device,
+              shape: Optional[tuple] = None) -> SegsumPlan:
     """The plan of a sorted map: ``seg_sorted`` (P,) ascending slot ids
     in [0, n_slots) and ``perm`` (P,), raw entry of each sorted position
     (numpy arrays or tensors).  Every map goes onto ``device``, where the
@@ -73,9 +80,14 @@ def make_plan(perm, seg_sorted, n_slots: int, pair_counts,
     slot_ptr = torch.searchsorted(
         seg, torch.arange(n_slots + 1, device=dev, dtype=torch.int32),
         side="left").to(torch.int32)
+    if shape is not None and int(np.prod(shape)) != n_slots:
+        raise ValueError(f"slot shape {shape} holds {int(np.prod(shape))} "
+                         f"slots, not {n_slots}")
     return SegsumPlan(perm=perm, seg_sorted=seg, slot_ptr=slot_ptr,
                       n_slots=int(n_slots),
-                      pair_counts=tuple(int(c) for c in pair_counts))
+                      pair_counts=tuple(int(c) for c in pair_counts),
+                      shape=None if shape is None
+                      else tuple(int(v) for v in shape))
 
 
 def cached_plan(profile, device) -> SegsumPlan:
@@ -85,8 +97,109 @@ def cached_plan(profile, device) -> SegsumPlan:
     key = str(torch.device(device))
     if key not in plans:
         plans[key] = make_plan(profile.perm, profile.seg_sorted,
-                               profile.n_slots, profile.pair_counts, device)
+                               profile.n_slots, profile.pair_counts, device,
+                               getattr(profile, "slot_shape", None))
     return plans[key]
+
+
+TILE_SLOTS = 512           # kTileSlots in csrc/segsum.cu
+
+
+@dataclasses.dataclass(eq=False)
+class ElementSchedule:
+    """What the element kernel reads besides the plan's ``slot_ptr``,
+    built on the plan's device once per (nns, nd): see
+    ``element_schedule``."""
+    src: torch.Tensor          # (P,) int32/int64 flat offsets, slot order
+    items: torch.Tensor        # (n_nonempty,) int32 tile-local slots
+    tile_ptr: torch.Tensor     # (n_tiles+1,) int32 CSR over items
+    bw: int                    # runs (b, w) of a tile
+    C: int                     # slots of a run's row
+    ct_log2: int               # a run holds 1 << ct_log2 slots
+    n_chunks: int              # chunks of C a row
+    n_tiles: int
+    starts: tuple              # flat offset of each block's first value
+    ms: tuple                  # each block's element-matrix width
+    c_starts: ctypes.Array = dataclasses.field(init=False, repr=False)
+    c_ms: ctypes.Array = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.c_starts = (ctypes.c_longlong * len(self.starts))(*self.starts)
+        self.c_ms = (ctypes.c_int * len(self.ms))(*self.ms)
+
+
+def element_schedule(plan: SegsumPlan, nns: Sequence[int],
+                     nd: int) -> ElementSchedule:
+    """The element kernel's per-plan arrays, on the plan's device (built
+    at the first call of ``segsum`` with these ``nns``, then kept on the
+    plan):
+
+    - ``src``: for each entry in slot order, the flat offset of its
+      sub-block's (0, 0) value in the blocks' element matrices laid end
+      to end (block b from ``starts[b]``): raw entry p of block b is
+      pair (a, c) of element e, (a, c, e) with e fastest, at
+      ``starts[b] + e*m*m + a*nd*m + c*nd``, m = nn*nd.  int32 while the
+      blocks hold fewer than 2**31 values, else int64.
+    - the tiles: the slot space (A, B, W, C) of the plan's ``shape``
+      (slot ((a*B + b)*W + w)*C + c), or (1, 1, 1, n_slots), or that too
+      when B*W > TILE_SLOTS.  A tile is one a, every (b, w) and CT
+      consecutive c, CT the largest power of two with B*W*CT <=
+      TILE_SLOTS; tile t = a * n_chunks + c // CT.
+    - ``items``: the non-empty slots by tile as tile-local indices
+      ((b*W + w)*CT + c % CT), longest segment first within a tile;
+      ``tile_ptr`` the CSR pointer of the tiles over them."""
+    key = (tuple(nns), nd)
+    got = plan.schedules.get(key)
+    if got is not None:
+        return got
+    dev = plan.slot_ptr.device
+    ms = [nn * nd for nn in nns]
+    Es = [cnt // (nn * nn) for cnt, nn in zip(plan.pair_counts, nns)]
+    starts = np.zeros(len(nns) + 1, np.int64)
+    np.cumsum([E * m * m for E, m in zip(Es, ms)], out=starts[1:])
+    poff = np.zeros(len(nns) + 1, np.int64)
+    np.cumsum(plan.pair_counts, out=poff[1:])
+
+    def per_block(vals):
+        return torch.as_tensor(np.asarray(vals, np.int64), device=dev)
+
+    p = plan.perm.long()
+    b = torch.bucketize(p, per_block(poff[1:]), right=True)
+    E, nn, m = per_block(Es)[b], per_block(nns)[b], per_block(ms)[b]
+    q = p - per_block(poff)[b]
+    a, r = q // (nn * E), q % (nn * E)
+    c, e = r // E, r % E
+    src = per_block(starts)[b] + e * m * m + (a * m + c) * nd
+    del p, b, E, nn, m, q, a, r, c, e
+    idx = torch.int32 if starts[-1] < 2 ** 31 else torch.int64
+
+    A, B, W, C = plan.shape or (1, 1, 1, plan.n_slots)
+    if B * W > TILE_SLOTS:
+        A, B, W, C = 1, 1, 1, plan.n_slots
+    bw = B * W
+    ct_log2 = (TILE_SLOTS // bw).bit_length() - 1
+    n_chunks = -(-C // (1 << ct_log2))
+    n_tiles = A * n_chunks
+    ptr = plan.slot_ptr.long()
+    lens = ptr[1:] - ptr[:-1]
+    s = torch.nonzero(lens).squeeze(1)
+    lens = lens[s]
+    cs, rows = s % C, s // C
+    tile = (rows // bw) * n_chunks + (cs >> ct_log2)
+    local = (rows % bw) * (1 << ct_log2) + (cs & ((1 << ct_log2) - 1))
+    longest = int(lens.max()) if lens.numel() else 0
+    order = torch.argsort(tile * (longest + 1) + (longest - lens),
+                          stable=True)
+    tile_ptr = torch.zeros(n_tiles + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(torch.bincount(tile, minlength=n_tiles), 0,
+                 out=tile_ptr[1:])
+    got = ElementSchedule(
+        src=src.to(idx), items=local[order].to(torch.int32),
+        tile_ptr=tile_ptr.to(torch.int32), bw=bw, C=int(C),
+        ct_log2=ct_log2, n_chunks=int(n_chunks), n_tiles=int(n_tiles),
+        starts=tuple(int(v) for v in starts), ms=tuple(ms))
+    plan.schedules[key] = got
+    return got
 
 
 def entry_planes(kes: Sequence[torch.Tensor], nns: Sequence[int],
@@ -116,13 +229,23 @@ def segsum(plan: SegsumPlan, kes: Sequence[torch.Tensor],
            nns: Sequence[int], nd: int) -> torch.Tensor:
     """(nd*nd, n_slots) slot planes.  CPU tensors: the plain version;
     CUDA tensors: the K1 kernel (``csrc/segsum.cu``), or an exception."""
-    dtype = _check(plan, kes, nns, nd)
-    dev = kes[0].device
-    if dev.type == "cpu":
+    got = launch.cached(plan.cache, _plan_elements, *kes, plan.perm,
+                        plan.slot_ptr,
+                        extra=(tuple(nns), nd, plan.pair_counts))
+    if got is None:
         return segsum_reference(plan, kes, nns, nd)
-    if dev.type != "cuda":
-        raise ValueError(f"segsum: unsupported device {dev}")
-    return _launch(plan, kes, nns, nd, dtype)
+    fn, dev, is_double = got
+    sc = element_schedule(plan, nns, nd)
+    out = kes[0].new_empty((nd * nd, plan.n_slots))
+    launch.launch(fn, dev, is_double, sc.src.dtype == torch.int64,
+                  sc.src.data_ptr(), sc.items.data_ptr(),
+                  sc.tile_ptr.data_ptr(), plan.slot_ptr.data_ptr(),
+                  sc.n_tiles, sc.n_chunks, sc.bw, sc.C, sc.ct_log2,
+                  plan.n_slots,
+                  (ctypes.c_void_p * len(kes))(*[k.data_ptr() for k in kes]),
+                  sc.c_starts, sc.c_ms, len(kes), out.data_ptr())
+    segsum.launches += 1
+    return out
 
 
 segsum.launches = 0     # K1 kernel launches (plain-version calls excluded)
@@ -185,7 +308,10 @@ def _plan_planes(values, perm, slot_ptr):
                                                   torch.float64)
 
 
-def _check(plan: SegsumPlan, kes, nns, nd: int) -> torch.dtype:
+def _plan_elements(*args):
+    """The element wrapper's checks: args = (*kes, perm, slot_ptr, nns,
+    nd, pair_counts)."""
+    *kes, perm, slot_ptr, nns, nd, pair_counts = args
     dev = kes[0].device
     dtype = kes[0].dtype
     if dtype not in (torch.float32, torch.float64):
@@ -195,9 +321,9 @@ def _check(plan: SegsumPlan, kes, nns, nd: int) -> torch.dtype:
     if not 1 <= len(kes) <= _MAX_BLOCKS or len(kes) != len(nns):
         raise ValueError(f"segsum: {len(kes)} element blocks "
                          f"(1..{_MAX_BLOCKS} supported)")
-    if len(plan.pair_counts) != len(kes):
+    if len(pair_counts) != len(kes):
         raise ValueError("segsum: plan and element blocks disagree")
-    for ke, nn, cnt in zip(kes, nns, plan.pair_counts):
+    for ke, nn, cnt in zip(kes, nns, pair_counts):
         m = nn * nd
         if ke.device != dev or ke.dtype != dtype:
             raise ValueError("segsum: element blocks on mixed "
@@ -209,46 +335,22 @@ def _check(plan: SegsumPlan, kes, nns, nd: int) -> torch.dtype:
             raise ValueError("segsum: element matrices not contiguous")
         if ke.shape[0] * nn * nn != cnt:
             raise ValueError("segsum: element count disagrees with plan")
-    for name in ("perm", "seg_sorted", "slot_ptr"):
-        t = getattr(plan, name)
-        if t.device != dev or t.dtype != torch.int32 \
-                or not t.is_contiguous():
-            raise ValueError(f"segsum: plan.{name} must be contiguous "
-                             f"int32 on {dev}")
-    if plan.slot_ptr.numel() != plan.n_slots + 1:
-        raise ValueError("segsum: slot_ptr length != n_slots + 1")
-    return dtype
-
-
-def _launch(plan: SegsumPlan, kes, nns, nd: int,
-            dtype: torch.dtype) -> torch.Tensor:
+    if perm.device != dev or slot_ptr.device != dev:
+        raise ValueError(f"segsum: element matrices on {dev}, plan on "
+                         f"{perm.device}")
+    if dev.type == "cpu":
+        return None
+    if dev.type != "cuda":
+        raise ValueError(f"segsum: unsupported device {dev}")
     lib = kernels.load("segsum", _SIGNATURES)
-    dev = kes[0].device
-    out = torch.empty((nd * nd, plan.n_slots), dtype=dtype, device=dev)
-    nblk = len(kes)
-    off = np.zeros(nblk + 1, np.int64)
-    off[1:] = np.cumsum(plan.pair_counts)
-    ke_ptrs = (ctypes.c_void_p * nblk)(*[k.data_ptr() for k in kes])
-    E = (ctypes.c_longlong * nblk)(*[int(k.shape[0]) for k in kes])
-    nn = (ctypes.c_int * nblk)(*[int(n) for n in nns])
-    pair_off = (ctypes.c_longlong * (nblk + 1))(*[int(v) for v in off])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fstr_segsum(int(dtype == torch.float64), nd,
-                             plan.slot_ptr.data_ptr(), plan.perm.data_ptr(),
-                             plan.n_slots, ke_ptrs, pair_off, E, nn, nblk,
-                             out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"segsum kernel launch failed (code {rc})")
-    segsum.launches += 1
-    return out
+    return lib.fstr_segsum, dev.index, int(dtype == torch.float64)
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# each ends in (stream, device index)
 _SIGNATURES = {
     "fstr_segsum": (
-        [_I, _I, _P, _P, _L, ctypes.POINTER(_P), ctypes.POINTER(_L),
-         ctypes.POINTER(_L), ctypes.POINTER(_I), _I, _P, _P], _I),
-    # ends in (stream, device index)
+        [_I, _I, _P, _P, _P, _P, _L, _L, _I, _L, _I, _L, ctypes.POINTER(_P),
+         ctypes.POINTER(_L), ctypes.POINTER(_I), _I, _P, _P, _I], _I),
     "fstr_segsum_planes": ([_I, _P, _I, _L, _P, _P, _L, _P, _P, _I], _I),
 }

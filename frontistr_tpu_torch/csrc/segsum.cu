@@ -1,36 +1,71 @@
-// Sorted segment-sum assembly for Hopper (sm_90a).
+// Sorted segment-sum assembly for Hopper (sm_90a): kernel K1, two entries.
 //
 // Replaces the TPU kernel frontistr_tpu/assembly/segsum_pallas.py
 // (`_kernel`, launched from `make_segsum.run` and wrapped by
-// `make_planes_segsum`).  For every destination slot s and each of the
-// nd*nd value planes v = i*nd + j it computes
+// `make_planes_segsum`).  The TPU design (one-hot MXU matmuls over
+// slot-aligned chunks, window rows gathered back to slots) answers the
+// TPU's lack of fast scatter and is not carried over.  Both entries sum
+// each slot's sorted segment in ascending k in one thread, with no
+// atomics, so a relaunch is bit-equal, like the reference's sorted
+// assembly.
 //
-//     out[v, s] = sum_{k in [slot_ptr[s], slot_ptr[s+1])} ke(perm[k])[i, j]
+// 1. The element assembly (`make_planes_segsum`).  For every destination
+//    slot s and each of the 9 value planes v = i*3 + j (3-D solids):
 //
-// where perm lists the raw element pair entries in slot order and a raw
-// entry p decodes, inside its element block, in pair order (a, b, e)
-// with e fastest, to the (i, j) entry of the nd x nd sub-block (a, b) of
-// that block's element matrix: ke_b[e, a*nd + i, b*nd + j].  Empty slots
-// come out 0.
+//      out[v, s] = sum_{k in [slot_ptr[s], slot_ptr[s+1])} ke(perm[k])[i, j]
 //
-// What bounds it on an H100: device-memory bytes.  Per call it reads
-// P*(4+4) bytes of index (perm, plus slot_ptr once per slot), P*nd*nd
-// element-matrix values that are scattered at the granularity of one
-// nd-wide row (perm order is slot order, not element order), and writes
-// nd*nd*n_slots values.  There is no arithmetic worth counting.
+//    where perm lists the raw element pair entries in slot order and raw
+//    entry p is, inside its element block, pair (a, b) of element e in
+//    pair order (a, b, e) with e fastest: ke_b[e, a*3 + i, b*3 + j].
+//    Empty slots come out 0.
 //
-// What the design does about it:
-//   - one thread per slot walks its own sorted segment, so the sums need
-//     no atomics and no second pass: the result is deterministic and
-//     bit-equal from run to run, like the reference's sorted assembly;
-//   - the perm gather and the plane relayout are fused: entries are read
-//     straight from the (E, m, m) element matrices, so the (nd*nd, P)
-//     entry planes the TPU path materializes never exist in memory;
-//   - outputs are plane-major (nd*nd, n_slots), so neighbouring threads
-//     (neighbouring slots) store to neighbouring addresses.
-// The TPU design (one-hot MXU matmuls over slot-aligned chunks, window
-// rows gathered back to slots) answers the TPU's lack of fast scatter and
-// is not carried over.
+// 2. The planes entry (`make_segsum`): out[v, s] = sum over the segment
+//    of values[v, perm[k]] for V value planes of R entries.
+//
+// What bounds the element assembly on an H100: device-memory bytes, and
+// no arithmetic worth counting.  It must read every element-matrix value
+// once (P*9 values), the index of the P entries and the slot pointer,
+// and write 9*n_slots values, most of them zeros: on the Newton path's
+// box_tet4(69) cluster profile 88% of the 41,160,000 slots are empty,
+// and a non-empty segment holds 6.1 entries on average, 24 at most.
+//
+// What the design does about it (the first design, one thread per slot
+// over all slots with a decode of perm[k] per entry, reached 31-39% of
+// the bytes bound):
+//   - Work over the non-empty slots only.  A block owns a tile of at
+//     most kTileSlots slots and gets its tile's non-empty slots as a list
+//     of tile-local indices, built once per plan (assembly/segsum.py) and
+//     sorted by segment length, longest first, so the lanes of a warp
+//     walk segments of about one length.  The block zeroes the tile's
+//     sums in shared memory, its lanes write the non-empty sums there,
+//     and then it stores all of the tile's slots, zeros included, plane
+//     by plane to the plane-major output: no lane waits on empty slots
+//     and every store is part of a run of consecutive slots.
+//   - No decode.  Per plan, every entry in slot order carries the flat
+//     offset of its sub-block's (0, 0) value, counted over the blocks'
+//     element matrices laid end to end: int32 while the blocks hold
+//     fewer than 2^31 values (284M at box_tet4(69)), int64 beyond.  With
+//     one element block the kernel adds it to the block's pointer; with
+//     several it finds the block in a table of at most 8 starts.
+//   - Cooperating lanes.  Nine neighbouring lanes share one slot, lane v
+//     owning value (i, j): a row's 3 values are read by 3 neighbouring
+//     lanes in one request, and each lane's sum stays a sequential
+//     ascending-k sum.  The offsets of four entries are loaded before
+//     their values, so each lane keeps four loads in flight.
+//   - Tiles that follow the slot layout.  A plan may give its slot space
+//     as (A, B, W, C), slot ((a*B + b)*W + w)*C + c; a tile is then one
+//     a, all (b, w) and CT consecutive c.  For the cluster profile that
+//     is (G, G, Wc, C) with slot (aoff, boff, wc, cluster): a tile holds
+//     every pair entry (a, *) of each element whose node a sits at
+//     offset aoff in one of the tile's clusters, so the 3 rows a*3..a*3+2
+//     of that element matrix, 3 x 12 contiguous values, are read by one
+//     block within a short time, and each 32-byte sector is fetched once
+//     instead of once per 3-value row (a row of 24 or 12 bytes straddles
+//     sectors).  Without a shape, a tile is kTileSlots consecutive slots.
+//
+// The planes entry is a simple one-thread-per-(slot, plane) kernel: its
+// callers (the AMG's Galerkin sums, nodal smoothing) run it once or
+// twice per Newton iteration on a few million entries.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,88 +76,135 @@ namespace {
 
 constexpr int kMaxBlocks = 8;
 constexpr int kThreads = 256;
+constexpr int kTileSlots = 512;     // TILE_SLOTS in assembly/segsum.py
+constexpr int kND = 3;              // 3-D solids
+constexpr int kNV = kND * kND;      // value planes
 
 template <typename T>
-struct BlockTable {
+struct Blocks {
   const T* ke[kMaxBlocks];           // (E_b, m_b, m_b) row-major
-  long long off[kMaxBlocks + 1];     // raw pair prefix offsets
-  long long E[kMaxBlocks];
-  int nn[kMaxBlocks];
+  long long start[kMaxBlocks + 1];   // flat offset of block b's first value
+  int m[kMaxBlocks];                 // m_b = nn_b * 3
   int nblk;
 };
 
-template <typename T, int ND>
-__global__ void segsum_kernel(const int* __restrict__ slot_ptr,
-                              const int* __restrict__ perm,
-                              long long n_slots, BlockTable<T> bt,
-                              T* __restrict__ out) {
-  long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n_slots) return;
-  T acc[ND * ND];
-#pragma unroll
-  for (int v = 0; v < ND * ND; ++v) acc[v] = T(0);
-  const int k1 = slot_ptr[s + 1];
-  for (int k = slot_ptr[s]; k < k1; ++k) {
-    const long long p = perm[k];
-    int b = 0;
-    while (b + 1 < bt.nblk && p >= bt.off[b + 1]) ++b;
-    const long long E = bt.E[b];
-    const long long nnE = (long long)bt.nn[b] * E;
-    const long long q = p - bt.off[b];
-    const long long a = q / nnE;
-    const long long r = q - a * nnE;
-    const long long c = r / E;
-    const long long e = r - c * E;
-    const long long m = (long long)bt.nn[b] * ND;
-    const T* row = bt.ke[b] + e * m * m + (a * ND) * m + c * ND;
-#pragma unroll
-    for (int i = 0; i < ND; ++i) {
-#pragma unroll
-      for (int j = 0; j < ND; ++j) acc[i * ND + j] += row[i * m + j];
-    }
-  }
-#pragma unroll
-  for (int v = 0; v < ND * ND; ++v) out[v * n_slots + s] = acc[v];
+// Value (i, j) of the sub-block whose (0, 0) value sits at flat offset o.
+template <typename T, typename I, bool kMulti>
+__device__ __forceinline__ T value_at(const Blocks<T>& bk, I o, int i,
+                                      int j) {
+  if (!kMulti) return __ldg(bk.ke[0] + o + i * bk.m[0] + j);
+  int b = 0;
+  while (b + 1 < bk.nblk && (long long)o >= bk.start[b + 1]) ++b;
+  return __ldg(bk.ke[b] + ((long long)o - bk.start[b]) +
+               (long long)i * bk.m[b] + j);
 }
 
-template <typename T, int ND>
-int launch(const int* slot_ptr, const int* perm, long long n_slots,
-           const BlockTable<T>& bt, void* out, cudaStream_t stream) {
-  if (n_slots == 0) return 0;
-  const long long grid = (n_slots + kThreads - 1) / kThreads;
-  segsum_kernel<T, ND><<<(unsigned)grid, kThreads, 0, stream>>>(
-      slot_ptr, perm, n_slots, bt, static_cast<T*>(out));
-  return (int)cudaGetLastError();
+// One block per tile (a, chunk): slots ((a*BW + run)*C + c0 + ct) for run
+// < BW, ct < CT = 1 << ct_log2; tile-local index sl = run*CT + ct.
+template <typename T, typename I, bool kMulti>
+__global__ void __launch_bounds__(kThreads)
+segsum_kernel(const I* __restrict__ src, const int* __restrict__ items,
+              const int* __restrict__ tile_ptr,
+              const int* __restrict__ slot_ptr, long long n_slots, int bw,
+              long long C, int ct_log2, long long n_chunks,
+              const Blocks<T> bk, T* __restrict__ out) {
+  __shared__ T acc[kNV * kTileSlots];
+  const int ts = bw << ct_log2;                   // slots of a tile
+  const long long tile = blockIdx.x;
+  const long long a = tile / n_chunks;
+  const long long c0 = (tile - a * n_chunks) << ct_log2;
+  const long long row0 = a * bw;                  // (a, run=0) row of C
+  for (int t = threadIdx.x; t < kNV * ts; t += kThreads) acc[t] = T(0);
+  __syncthreads();
+  const int i0 = tile_ptr[tile];
+  const int n = (tile_ptr[tile + 1] - i0) * kNV;
+  for (int u = threadIdx.x; u < n; u += kThreads) {
+    const int item = u / kNV;
+    const int v = u - item * kNV;
+    const int i = v / kND;
+    const int j = v - i * kND;
+    const int sl = __ldg(items + i0 + item);
+    const long long s =
+        (row0 + (sl >> ct_log2)) * C + c0 + (sl & ((1 << ct_log2) - 1));
+    const int k1 = __ldg(slot_ptr + s + 1);
+    int k = __ldg(slot_ptr + s);
+    T sum = T(0);
+    for (; k + 4 <= k1; k += 4) {
+      const I o0 = __ldg(src + k), o1 = __ldg(src + k + 1);
+      const I o2 = __ldg(src + k + 2), o3 = __ldg(src + k + 3);
+      const T x0 = value_at<T, I, kMulti>(bk, o0, i, j);
+      const T x1 = value_at<T, I, kMulti>(bk, o1, i, j);
+      const T x2 = value_at<T, I, kMulti>(bk, o2, i, j);
+      const T x3 = value_at<T, I, kMulti>(bk, o3, i, j);
+      sum += x0;
+      sum += x1;
+      sum += x2;
+      sum += x3;
+    }
+    for (; k < k1; ++k)
+      sum += value_at<T, I, kMulti>(bk, __ldg(src + k), i, j);
+    acc[v * ts + sl] = sum;
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < kNV * ts; t += kThreads) {
+    const int v = t / ts;
+    const int sl = t - v * ts;
+    const long long c = c0 + (sl & ((1 << ct_log2) - 1));
+    if (c < C)
+      out[v * n_slots + (row0 + (sl >> ct_log2)) * C + c] = acc[t];
+  }
+}
+
+template <typename T, typename I>
+int launch_elements(const void* src, const int* items, const int* tile_ptr,
+                    const int* slot_ptr, long long n_tiles, long long n_chunks,
+                    int bw, long long C, int ct_log2, long long n_slots,
+                    const Blocks<T>& bk, void* out, cudaStream_t stream,
+                    int device) {
+  return on_device(device, [&] {
+    const I* s = static_cast<const I*>(src);
+    T* o = static_cast<T*>(out);
+    if (bk.nblk == 1)
+      segsum_kernel<T, I, false><<<(unsigned)n_tiles, kThreads, 0, stream>>>(
+          s, items, tile_ptr, slot_ptr, n_slots, bw, C, ct_log2, n_chunks, bk,
+          o);
+    else
+      segsum_kernel<T, I, true><<<(unsigned)n_tiles, kThreads, 0, stream>>>(
+          s, items, tile_ptr, slot_ptr, n_slots, bw, C, ct_log2, n_chunks, bk,
+          o);
+  });
 }
 
 template <typename T>
-int dispatch(int nd, const int* slot_ptr, const int* perm,
-             long long n_slots, const void* const* ke_ptrs,
-             const long long* pair_off, const long long* E, const int* nn,
-             int nblk, void* out, cudaStream_t stream) {
-  BlockTable<T> bt;
-  bt.nblk = nblk;
+int dispatch_elements(int idx64, const void* src, const int* items,
+                      const int* tile_ptr, const int* slot_ptr,
+                      long long n_tiles, long long n_chunks, int bw,
+                      long long C, int ct_log2, long long n_slots,
+                      const void* const* ke_ptrs, const long long* starts,
+                      const int* ms, int nblk, void* out,
+                      cudaStream_t stream, int device) {
+  Blocks<T> bk;
+  bk.nblk = nblk;
   for (int b = 0; b < nblk; ++b) {
-    bt.ke[b] = static_cast<const T*>(ke_ptrs[b]);
-    bt.off[b] = pair_off[b];
-    bt.E[b] = E[b];
-    bt.nn[b] = nn[b];
+    bk.ke[b] = static_cast<const T*>(ke_ptrs[b]);
+    bk.start[b] = starts[b];
+    bk.m[b] = ms[b];
   }
-  bt.off[nblk] = pair_off[nblk];
-  // 3-D solids only (nd = 3); the 2-D and scalar cases come with the
-  // element types that need them
-  if (nd != 3) return -2;
-  return launch<T, 3>(slot_ptr, perm, n_slots, bt, out, stream);
+  bk.start[nblk] = starts[nblk];
+  if (idx64)
+    return launch_elements<T, long long>(src, items, tile_ptr, slot_ptr,
+                                         n_tiles, n_chunks, bw, C, ct_log2,
+                                         n_slots, bk, out, stream, device);
+  return launch_elements<T, int>(src, items, tile_ptr, slot_ptr, n_tiles,
+                                 n_chunks, bw, C, ct_log2, n_slots, bk, out,
+                                 stream, device);
 }
 
-// The generic planes entry (`make_segsum` of the TPU kernel, without the
-// element decode): out[v, s] = sum_{k in segment s} values[v, perm[k]]
-// over V value planes of R entries each.  One thread per (slot, plane):
-// threads of a block take neighbouring slots of one plane, so the plane-
-// major stores coalesce; the plane runs along the grid's y axis.  Each
-// thread adds its segment's values in ascending k, so a relaunch is
-// bit-equal.  The perm loads of a batch of four entries are issued before
-// their value loads, which keeps four loads of a thread in flight.
+// The planes entry: one thread per (slot, plane).  Threads of a block
+// take neighbouring slots of one plane, so the plane-major stores
+// coalesce; the plane runs along the grid's y axis.  The perm loads of a
+// batch of four entries are issued before their value loads, which keeps
+// four loads of a thread in flight.
 template <typename T>
 __global__ void planes_kernel(const T* __restrict__ values, long long R,
                               const int* __restrict__ slot_ptr,
@@ -168,31 +250,47 @@ int launch_planes(const void* values, int V, long long R, const int* slot_ptr,
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  Pointers to device memory:
-// slot_ptr (n_slots+1 int32), perm (P int32), each ke_ptrs[b], out
-// (nd*nd*n_slots of the element type).  Host arrays: ke_ptrs, pair_off
-// (nblk+1), E (nblk), nn (nblk).  is_double selects float64 over float32.
-// Returns 0, a cudaError_t from the launch, -1 for too many blocks or -2
-// for an unsupported nd.
-extern "C" int fstr_segsum(int is_double, int nd, const int* slot_ptr,
-                           const int* perm, long long n_slots,
+// Plain C entry points (bound with ctypes).  Every pointer but the host
+// arrays named below is to device memory on device `device`; each entry
+// launches on `stream` and returns 0, the launch's cudaError_t, -1 for
+// too many element blocks or -2 for sizes it does not take.
+
+// The element assembly: src (P) int32 (idx64 = 0) or int64 flat offsets in
+// slot order; items (non-empty slots, tile-local) and tile_ptr (n_tiles+1)
+// int32; slot_ptr (n_slots+1) int32; the tiles (bw runs of 1 << ct_log2
+// slots, rows of C slots, n_chunks chunks a row) as assembly/segsum.py
+// builds them; out (9, n_slots).  Host arrays: ke_ptrs (nblk) to the
+// element matrices, starts (nblk+1) their flat offsets, ms (nblk) their
+// widths.  is_double selects float64 over float32.
+extern "C" int fstr_segsum(int is_double, int idx64, const void* src,
+                           const void* items, const void* tile_ptr,
+                           const void* slot_ptr, long long n_tiles,
+                           long long n_chunks, int bw, long long C,
+                           int ct_log2, long long n_slots,
                            const void* const* ke_ptrs,
-                           const long long* pair_off, const long long* E,
-                           const int* nn, int nblk, void* out,
-                           void* stream) {
+                           const long long* starts, const int* ms, int nblk,
+                           void* out, void* stream, int device) {
   if (nblk < 1 || nblk > kMaxBlocks) return -1;
+  if (bw < 1 || ct_log2 < 0 || (bw << ct_log2) > kTileSlots ||
+      n_tiles < 0 || n_tiles > 0x7fffffffLL || n_slots < 0)
+    return -2;
+  if (n_tiles == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* it = static_cast<const int*>(items);
+  const int* tp = static_cast<const int*>(tile_ptr);
+  const int* sp = static_cast<const int*>(slot_ptr);
   if (is_double)
-    return dispatch<double>(nd, slot_ptr, perm, n_slots, ke_ptrs, pair_off,
-                            E, nn, nblk, out, st);
-  return dispatch<float>(nd, slot_ptr, perm, n_slots, ke_ptrs, pair_off, E,
-                         nn, nblk, out, st);
+    return dispatch_elements<double>(idx64, src, it, tp, sp, n_tiles,
+                                     n_chunks, bw, C, ct_log2, n_slots,
+                                     ke_ptrs, starts, ms, nblk, out, st,
+                                     device);
+  return dispatch_elements<float>(idx64, src, it, tp, sp, n_tiles, n_chunks,
+                                  bw, C, ct_log2, n_slots, ke_ptrs, starts,
+                                  ms, nblk, out, st, device);
 }
 
 // The planes entry: values (V, R) and out (V, n_slots) of the element
-// type, slot_ptr (n_slots+1) and perm (P) int32, all on device `device`;
-// launches on `stream`.  Returns 0, the launch's cudaError_t, or -2 for
-// sizes it does not take.
+// type, slot_ptr (n_slots+1) and perm (P) int32.
 extern "C" int fstr_segsum_planes(int is_double, const void* values, int V,
                                   long long R, const int* slot_ptr,
                                   const int* perm, long long n_slots,

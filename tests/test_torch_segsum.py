@@ -154,6 +154,107 @@ def test_from_model_matches_jax_pallas_interpret(tmp_path, monkeypatch):
     assert np.abs(op.diag.numpy() - np.asarray(jop.diag)).max() <= tol
 
 
+# --- the element kernel's schedule (element_schedule), read on the host
+
+
+def _two_block_profile():
+    """The cluster profile of box_tet4(3, 3, 2) cut into two blocks."""
+    conn = jbox_tet4(3, 3, 2).blocks[0].conn
+    h = conn.shape[0] // 3
+    conns = [conn[:h], conn[h:]]
+    return bell.build_cluster_profile(conns, 48, 3), conns
+
+
+def test_schedule_offsets_equal_the_decode():
+    """Each entry's source offset, decoded on the host, is the first
+    kernel's decode of perm[k] (a search over the block offsets and two
+    divisions): element e, sub-block (a, c) of block b."""
+    prof, conns = _two_block_profile()
+    plan = prof.plan("cpu")
+    sc = sm.element_schedule(plan, [4, 4], 3)
+    assert sc.src.dtype == torch.int32 and plan.shape == prof.slot_shape
+    off = np.r_[0, np.cumsum(plan.pair_counts)]
+    want = []
+    for p in plan.perm.numpy().astype(np.int64):
+        b = int(np.searchsorted(off, p, side="right") - 1)
+        E, nn = conns[b].shape
+        m = 3 * nn
+        q = p - off[b]
+        a, r = divmod(q, nn * E)
+        c, e = divmod(r, E)
+        want.append(sc.starts[b] + e * m * m + a * 3 * m + c * 3)
+    assert np.array_equal(sc.src.numpy(), np.asarray(want))
+
+
+def _emulate_element_kernel(plan, kes, nns):
+    """The element kernel's loops on the host: per tile, each listed
+    slot's nine sums in ascending k from the source offsets, then every
+    slot of the tile stored (zeros included)."""
+    sc = sm.element_schedule(plan, nns, 3)
+    src = sc.src.numpy().astype(np.int64)
+    items, tile_ptr = sc.items.numpy(), sc.tile_ptr.numpy()
+    ptr = plan.slot_ptr.numpy()
+    flat = np.concatenate([k.numpy().reshape(-1) for k in kes])
+    blk = np.searchsorted(np.asarray(sc.starts), src, side="right") - 1
+    width = np.asarray(sc.ms)[blk]
+    ct = 1 << sc.ct_log2
+    ts = sc.bw * ct
+    assert ts <= sm.TILE_SLOTS
+    out = np.full((9, plan.n_slots), np.nan)
+    for tile in range(sc.n_tiles):
+        a, chunk = divmod(tile, sc.n_chunks)
+        acc = np.zeros((9, ts))
+        lens = []
+        for sl in items[tile_ptr[tile]:tile_ptr[tile + 1]]:
+            s = (a * sc.bw + (sl >> sc.ct_log2)) * sc.C + chunk * ct \
+                + (sl & (ct - 1))
+            ks = np.arange(ptr[s], ptr[s + 1])
+            lens.append(len(ks))
+            for v in range(9):
+                i, j = divmod(v, 3)
+                total = 0.0
+                for x in flat[src[ks] + i * width[ks] + j]:
+                    total += x
+                acc[v, sl] = total
+        assert lens == sorted(lens, reverse=True) and min(lens + [1]) > 0
+        for sl in range(ts):
+            c = chunk * ct + (sl & (ct - 1))
+            if c < sc.C:
+                out[:, (a * sc.bw + (sl >> sc.ct_log2)) * sc.C + c] = \
+                    acc[:, sl]
+    assert not np.isnan(out).any()
+    return out
+
+
+@pytest.mark.parametrize("case", ["random", "empty_slots", "long_segment",
+                                  "two_block_cluster", "cluster_chunks"])
+def test_element_kernel_schedule_matches_plain(case):
+    """The element kernel's loops, run on the host over its schedule,
+    give the plain version's planes bit for bit (float64: both add each
+    slot's entries in ascending k).  ``cluster_chunks``: one block whose
+    clusters fill several tile chunks, the last one ragged."""
+    if case in ("two_block_cluster", "cluster_chunks"):
+        if case == "two_block_cluster":
+            prof, conns = _two_block_profile()
+        else:
+            mesh = jbox_tet4(6, 5, 4)
+            conns = [mesh.blocks[0].conn]
+            prof = bell.build_cluster_profile(conns, mesh.n_node, 3)
+        plan = prof.plan("cpu")
+        kes = [torch.as_tensor(k) for k in _random_kes(conns, 16)]
+        nns = [4] * len(conns)
+        if case == "cluster_chunks":
+            sc = sm.element_schedule(plan, nns, 3)
+            assert sc.n_chunks > 1 and sc.C % (1 << sc.ct_log2)
+    else:
+        seg, n_slots = _seg_cases()[case]
+        plan, ke, _ = _nodal_case(seg, n_slots, 17, torch.float64)
+        kes, nns = [ke], [1]
+    got = _emulate_element_kernel(plan, kes, nns)
+    want = sm.segsum_reference(plan, kes, nns, 3).numpy()
+    assert np.array_equal(got, want)
+
+
 # --- the planes entry (segsum_planes), the counterpart of make_segsum
 
 

@@ -78,7 +78,8 @@ def _assert_close(got, want, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["random", "empty_slots", "long_segment"])
+@pytest.mark.parametrize("case", ["random", "empty_slots", "long_segment",
+                                  "lengths"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_kernel_matches_plain_on_card(cuda_device, case, dtype):
     plan, ke = _nodal_case(case, 5, dtype, cuda_device)
@@ -104,20 +105,49 @@ def test_kernel_two_block_cluster_on_card(cuda_device, dtype):
                            dtype=dtype, device=cuda_device) for c in conns]
     plan = prof.plan(cuda_device)
     got = sm.segsum(plan, kes, [4, 4], 3)
+    again = sm.segsum(plan, kes, [4, 4], 3)
     want = sm.segsum_reference(plan, kes, [4, 4], 3)
     torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_cluster_tiles_on_card(cuda_device, dtype):
+    """A one-block cluster profile whose tiles follow its slot shape over
+    several chunks of clusters, the last one ragged."""
+    mesh = box_tet4(9, 8, 7)
+    conn = mesh.blocks[0].conn
+    prof = bell.build_cluster_profile([conn], mesh.n_node, 3)
+    plan = prof.plan(cuda_device)
+    sc = sm.element_schedule(plan, [4], 3)
+    assert sc.bw == prof.G * prof.Wc and sc.n_chunks > 1
+    kes = [torch.as_tensor(np.random.default_rng(11).standard_normal(
+        (conn.shape[0], 12, 12)), dtype=dtype, device=cuda_device)]
+    got = sm.segsum(plan, kes, [4], 3)
+    again = sm.segsum(plan, kes, [4], 3)
+    want = sm.segsum_reference(plan, kes, [4], 3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
     _assert_close(got, want, dtype)
 
 
 @pytest.mark.cuda
 def test_kernel_rejects_bad_input(cuda_device):
+    """After a good call, element matrices of the same shape with another
+    dtype, other strides or on the CPU are checked anew and raise,
+    launching nothing."""
     plan, ke = _nodal_case("random", 7, torch.float64, cuda_device)
+    sm.segsum(plan, [ke], [1], 3)
+    n0 = sm.segsum.launches
     with pytest.raises(TypeError):
         sm.segsum(plan, [ke.to(torch.float16)], [1], 3)
     with pytest.raises(ValueError):
         sm.segsum(plan, [ke.transpose(1, 2)], [1], 3)
     with pytest.raises(ValueError):
         sm.segsum(plan, [ke.cpu()], [1], 3)
+    assert sm.segsum.launches == n0
 
 
 # --- the planes entry, and its callers
