@@ -29,6 +29,7 @@ card could take), the line before that the card's name and power limit.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -50,6 +51,9 @@ NLCNT = ("!VERSION\n 3\n!SOLUTION, TYPE=NLSTATIC\n!BOUNDARY\n X0, 1, 3, 0.0\n"
          "!SOLVER, METHOD=CG, ITERLOG=NO, TIMELOG=NO\n 10000, 1\n"
          " 1.0e-8, 1.0, 0.0\n!END\n")
 F32_TOL, F64_TOL = 1e-4, 1e-12      # x max|plain|
+# K1 planes launches of one AMG setup (solver/amg.py coarse_levels: the
+# level-1 blocks, then the dense level 2); a nodal smoothing makes one
+PLANES_PER_AMG_SETUP = 2
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s; non-tensor-core flop/s
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
@@ -108,6 +112,14 @@ def check_k1(sm, plan, kes, nns, dtype, label: str) -> float:
                       sm.segsum_reference(plan, kes, nns, 3), dtype, label)
 
 
+def check_planes(sm, plan, values, dtype, label: str) -> float:
+    values = values.to(dtype)
+    return check_same("K1 planes", sm.segsum_planes(values, plan),
+                      sm.segsum_planes(values, plan),
+                      sm.segsum_planes_reference(values, plan), dtype,
+                      label)
+
+
 def check_k2(em, keT, xeT, label: str) -> float:
     return check_same("K2", em.element_matvec_soa(keT, xeT),
                       em.element_matvec_soa(keT, xeT),
@@ -127,8 +139,10 @@ def phase_k1_check(sm, bell, box_tet4, box_hex8):
     plan = sm.make_plan(rng.permutation(P).astype(np.int32), seg, n_slots,
                         (P,), dev)
     ke = torch.as_tensor(rng.standard_normal((P, 3, 3)), device=dev)
+    values = torch.as_tensor(rng.standard_normal((13, P)), device=dev)
     for dt in (torch.float32, torch.float64):
         check_k1(sm, plan, [ke], [1], dt, "random segments")
+        check_planes(sm, plan, values, dt, "random segments")
     for label, mesh, nn in (("box_tet4(20) cluster", box_tet4(20, 20, 20), 4),
                             ("box_hex8(20) cluster", box_hex8(20, 20, 20),
                              8)):
@@ -245,7 +259,7 @@ def phase_newton_main_path(args, mods):
     float32 CG stalls on the stressed tangents of Newton iterations 2 and
     later (PERF.md, ``microbench/newton_trace.py``).  Every linear
     solve's answer is held to an independent index_add_ residual.
-    Returns (model, K1 launches)."""
+    Returns (model, K1 element launches, K1 planes launches)."""
     nl, sm = mods["nonlinear"], mods["segsum"]
     m = args.newton_n
     wd = os.path.join(ROOT, "build", "smoke", f"newton{m}")
@@ -273,8 +287,21 @@ def phase_newton_main_path(args, mods):
             return x
         return checked
 
+    calls = {"setup_amg": 0, "smooth": 0}
+    amg, nodal = mods["amg"], mods["nodal"]
+    real_setup, real_smooth = amg.setup_amg, nodal.smooth
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return call
+
     nl.make_constrained_solver = checked_solver
+    amg.setup_amg = counted("setup_amg", real_setup)
+    nodal.smooth = counted("smooth", real_smooth)
     sm.segsum.launches = 0
+    sm.segsum_planes.launches = 0
     try:
         t0 = time.perf_counter()
         out = with_env({"FRONTISTR_TPU_PRECISION": "f64"},
@@ -282,7 +309,9 @@ def phase_newton_main_path(args, mods):
         wall = time.perf_counter() - t0
     finally:
         nl.make_constrained_solver = real
+        amg.setup_amg, nodal.smooth = real_setup, real_smooth
     launches = sm.segsum.launches
+    planes = sm.segsum_planes.launches
     res, model = out["static"], out["model"]
     nw = res.newton
     tm = res.timings
@@ -291,7 +320,9 @@ def phase_newton_main_path(args, mods):
     log(f"phase newton_main_path: {wall:.2f} s; once: {once}")
     log(f"  policy={res.policy} substeps={nw.substeps} "
         f"newton_iters={nw.total_iters} cutbacks={nw.cutbacks} "
-        f"K1 launches={launches}")
+        f"K1 launches={launches} (element assembly), K1 planes "
+        f"launches={planes} ({calls['setup_amg']} AMG setups x "
+        f"{PLANES_PER_AMG_SETUP} + {calls['smooth']} nodal smoothings)")
     keys = ("tangent", "assembly", "amg_setup", "solve", "update")
     for h, sv in zip(nw.history, solves):
         step = sum(h[k] for k in keys[:4])
@@ -317,6 +348,11 @@ def phase_newton_main_path(args, mods):
     if launches != nw.total_iters:
         raise AssertionError(f"K1 launches {launches} != Newton "
                              f"iterations {nw.total_iters}")
+    if calls["setup_amg"] < 1 or planes != (
+            PLANES_PER_AMG_SETUP * calls["setup_amg"] + calls["smooth"]):
+        raise AssertionError(f"K1 planes launches {planes} != "
+                             f"{PLANES_PER_AMG_SETUP} x {calls['setup_amg']}"
+                             f" AMG setups + {calls['smooth']} smoothings")
     if not all(sv["true_relres"] <= 1e-8 for sv in solves):
         raise AssertionError("a linear solve's true relres is above 1e-8")
     if not (res.u.shape == (model.n_node, 3) and np.isfinite(res.u).all()):
@@ -327,14 +363,17 @@ def phase_newton_main_path(args, mods):
     with open(os.path.join(wd, "FSTR.sta")) as fh:
         if "HAS COMPLETED SUCCESSFULLY" not in fh.read():
             raise AssertionError("FSTR.sta does not report success")
-    return model, launches
+    return model, launches, planes
 
 
 def phase_k1_time(sm, bell, stmod, model, launches) -> dict:
     """K1 at the Newton main path's shapes, in float64 (the type its f64
-    policy assembles in) and float32 (the mixed policy's)."""
+    policy assembles in) and float32 (the mixed policy's).  Also timed:
+    the same kernel on tiles of consecutive slots (the plan without its
+    slot shape), whose planes must be bit-equal."""
     kes = stmod.compute_element_stiffness(model)
     plan = bell.cluster_profile_from_model(model).plan("cuda")
+    flat = dataclasses.replace(plan, shape=None, cache={}, schedules={})
     nns = [b.conn.shape[1] for b in model.blocks]
     P = plan.perm.numel()
     seg = plan.seg_sorted.long()
@@ -345,7 +384,11 @@ def phase_k1_time(sm, bell, stmod, model, launches) -> dict:
     for dt in (torch.float32, torch.float64):
         kd = [k.to(dt) for k in kes]
         err = check_k1(sm, plan, kd, nns, dt, "main path")
+        if not torch.equal(sm.segsum(plan, kd, nns, 3),
+                           sm.segsum(flat, kd, nns, 3)):
+            raise AssertionError("K1 on consecutive tiles differs")
         ms = cuda_ms(lambda: sm.segsum(plan, kd, nns, 3))
+        flat_ms = cuda_ms(lambda: sm.segsum(flat, kd, nns, 3))
         plain_ms = cuda_ms(lambda: sm.segsum_reference(plan, kd, nns, 3))
         # one library call: index_add_ of the entries already in slot order
         ent = sm.entry_planes(kd, nns, 3)[:, plan.perm.long()]
@@ -357,18 +400,90 @@ def phase_k1_time(sm, bell, stmod, model, launches) -> dict:
                   + (plan.n_slots + 1) * 4 + 9 * plan.n_slots * isz)
         bound_ms, bound_by = bound(nbytes, 9 * P, dt)
         log(f"phase k1_time: P={P} pairs, n_slots={plan.n_slots} "
-            f"{str(dt)[6:]}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"index_add_ {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
+            f"{str(dt)[6:]}: kernel {ms:.3f} ms (consecutive tiles "
+            f"{flat_ms:.3f} ms), plain {plain_ms:.3f} ms, index_add_ "
+            f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms "
             f"({nbytes / 1e9:.3f} GB)")
         nums = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms}
+                "library_ms": library_ms, "consecutive_tiles_ms": flat_ms}
         if dt == torch.float64:
             row.update(nums)                 # the Newton path's type
         else:
             row["f32"] = nums                # the mixed policy's
         del kd
     return row
+
+
+def phase_amg_repeat(mods, model, planes_launches) -> dict:
+    """The AMG setup twice on the same tangent (the linear one) at the
+    Newton path's shapes: bit-equal coarse levels (level-1 blocks, their
+    inverses, the dense level 2 and its inverse) and a bit-equal V-cycle
+    on a fixed vector.  Then K1's planes entry timed at the level-1
+    sum's shapes (its plan, nv*nv random planes); returns those
+    numbers."""
+    sm, stmod, bell, amg = (mods["segsum"], mods["static"], mods["bell"],
+                            mods["amg"])
+    kes = stmod.compute_element_stiffness(model)
+    setup = stmod.cluster_setup(model, {})
+    if setup.amaps is None:
+        raise AssertionError("amg_repeat: the deck does not take the AMG")
+    cop, sb = bell.from_model(model, kes, dtype=torch.float64,
+                              profile=setup.cprof, want_scalar=True,
+                              scalar=setup.prof)
+    del kes
+    free = torch.as_tensor(mods["make_free_mask"](model.n_dof_total,
+                                                  model.fixed_dofs),
+                           device="cuda")
+    cop = dataclasses.replace(cop, free_mask=free)
+    args = (setup.amaps, sb, setup.cols, setup.coords, free)
+    t0 = time.perf_counter()
+    lv = amg.coarse_levels(*args)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    again = amg.coarse_levels(*args)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    same = {k: torch.equal(getattr(lv, k), getattr(again, k))
+            for k in ("blocks1", "Dinv1", "dense2", "A2inv")}
+    r = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        model.n_dof_total), device="cuda")
+    y = [amg.setup_amg(*args, cop.apply_constrained, cop.block_jacobi())(r)
+         for _ in range(2)]
+    same["vcycle"] = torch.equal(y[0], y[1])
+    log(f"phase amg_repeat: coarse_levels {t1 - t0:.3f} s and "
+        f"{t2 - t1:.3f} s, blocks1 {tuple(lv.blocks1.shape)}, dense2 "
+        f"{tuple(lv.dense2.shape)}; bit-equal: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"amg_repeat: two setups differ: {same}")
+    nvv = lv.blocks1.shape[0]
+    del lv, again, y, cop, sb
+    # the level-1 sum's plan, on values of its shape
+    plan = setup.amaps.plans("cuda")[0]
+    values = torch.randn((nvv, plan.perm.numel()), dtype=torch.float64,
+                         device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(5))
+    dt = values.dtype
+    err = check_planes(sm, plan, values, dt, "AMG level 1")
+    ms = cuda_ms(lambda: sm.segsum_planes(values, plan))
+    plain_ms = cuda_ms(lambda: sm.segsum_planes_reference(values, plan))
+    ent = values[:, plan.perm.long()]
+    out = values.new_zeros((values.shape[0], plan.n_slots))
+    seg = plan.seg_sorted.long()
+    library_ms = cuda_ms(lambda: out.index_add_(1, seg, ent))
+    del ent, out
+    V, R = values.shape
+    isz = values.element_size()
+    nbytes = (V * R * isz + plan.perm.numel() * 4 + (plan.n_slots + 1) * 4
+              + V * plan.n_slots * isz)
+    bound_ms, bound_by = bound(nbytes, V * plan.perm.numel(), dt)
+    log(f"phase planes_time: V={V} planes, R={R} entries, n_slots="
+        f"{plan.n_slots} {str(dt)[6:]}: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms, bound "
+        f"{bound_ms:.3f} ms ({nbytes / 1e9:.3f} GB)")
+    return {"launches": planes_launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def hex_model(mods, dims, device):
@@ -674,19 +789,23 @@ def main(argv=None) -> int:
     from frontistr_tpu_torch.assembly import bell, structured
     from frontistr_tpu_torch.assembly import segsum as sm
     from frontistr_tpu_torch.assembly.model import build_struct_model
+    from frontistr_tpu_torch.assembly.operators import make_free_mask
     from frontistr_tpu_torch.io.ctrlio import read_cnt
     from frontistr_tpu_torch.io.neu import write_static_workdir
     from frontistr_tpu_torch.meshgen import box_hex8, box_tet4
     from frontistr_tpu_torch.microbench import gather as mb
     from frontistr_tpu_torch.ops import element_mv as em
     from frontistr_tpu_torch.ops import gather as g
+    from frontistr_tpu_torch.post import nodal
     from frontistr_tpu_torch.run import run_directory
+    from frontistr_tpu_torch.solver import amg
     mods = dict(segsum=sm, element_mv=em, static=stmod, bell=bell,
                 structured=structured, ordering=ordering,
                 nonlinear=nonlinear, box_tet4=box_tet4, box_hex8=box_hex8,
                 build_struct_model=build_struct_model, read_cnt=read_cnt,
                 write_static_workdir=write_static_workdir,
-                run_directory=run_directory)
+                run_directory=run_directory, amg=amg, nodal=nodal,
+                make_free_mask=make_free_mask)
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -710,10 +829,13 @@ def main(argv=None) -> int:
     log("phase gather_check:")
     gather_errs = phase_gather_check(g, mb)
 
-    # 4. the Newton tet path (K1 once per Newton iteration), then K1 at
-    #    its shapes (after the counts)
-    model, k1_launches = phase_newton_main_path(args, mods)
+    # 4. the Newton tet path (K1 once per Newton iteration, its planes
+    #    entry twice per AMG setup and once per nodal smoothing), then the
+    #    AMG setup twice and K1 at the path's shapes (after the counts)
+    model, k1_launches, planes_launches = phase_newton_main_path(args, mods)
+    planes = phase_amg_repeat(mods, model, planes_launches)
     k1_row = phase_k1_time(sm, bell, stmod, model, k1_launches)
+    k1_row["planes"] = planes
     del model
     torch.cuda.empty_cache()
 

@@ -69,7 +69,7 @@ def make_plan(perm, seg_sorted, n_slots: int, pair_counts, device,
     in [0, n_slots) and ``perm`` (P,), raw entry of each sorted position
     (numpy arrays or tensors).  Every map goes onto ``device``, where the
     CSR pointer over ``seg_sorted`` (segment s is ``[slot_ptr[s],
-    slot_ptr[s+1])``) is computed."""
+    slot_ptr[s+1])``) is computed by counting."""
     dev = torch.device(device)
     perm = torch.as_tensor(perm).to(dev, torch.int32).contiguous()
     seg = torch.as_tensor(seg_sorted).to(dev, torch.int32).contiguous()
@@ -77,13 +77,21 @@ def make_plan(perm, seg_sorted, n_slots: int, pair_counts, device,
     if P >= 2 ** 31 or sum(pair_counts) != P or seg.numel() != P:
         raise ValueError(f"bad sorted map: P={P}, {seg.numel()} slot ids, "
                          f"pair_counts={pair_counts}")
-    slot_ptr = torch.searchsorted(
-        seg, torch.arange(n_slots + 1, device=dev, dtype=torch.int32),
-        side="left").to(torch.int32)
+    # segment s is [slot_ptr[s], slot_ptr[s+1]): the counts' prefix sum,
+    # O(P + n_slots) on the device
+    seg64 = seg.long()
+    if P and (int(seg64[0]) < 0 or int(seg64[-1]) >= n_slots
+              or not bool((seg64[1:] >= seg64[:-1]).all())):
+        raise ValueError(f"slot ids must ascend within [0, {n_slots})")
+    slot_ptr = torch.zeros(n_slots + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(torch.bincount(seg64, minlength=n_slots), 0,
+                 out=slot_ptr[1:])
+    del seg64
     if shape is not None and int(np.prod(shape)) != n_slots:
         raise ValueError(f"slot shape {shape} holds {int(np.prod(shape))} "
                          f"slots, not {n_slots}")
-    return SegsumPlan(perm=perm, seg_sorted=seg, slot_ptr=slot_ptr,
+    return SegsumPlan(perm=perm, seg_sorted=seg,
+                      slot_ptr=slot_ptr.to(torch.int32),
                       n_slots=int(n_slots),
                       pair_counts=tuple(int(c) for c in pair_counts),
                       shape=None if shape is None

@@ -69,6 +69,26 @@ def test_plain_matches_numpy(case, dtype):
     assert (got[:, ~occupied] == 0).all()
 
 
+@pytest.mark.parametrize("case", ["random", "empty_slots", "long_segment"])
+def test_counted_slot_ptr_equals_searchsorted(case):
+    """make_plan counts the segments (bincount + cumsum); the pointer is
+    bit-equal to the searchsorted one of the first plan."""
+    seg, n_slots = _seg_cases()[case]
+    plan = sm.make_plan(np.arange(len(seg), dtype=np.int32), seg, n_slots,
+                        (len(seg),), "cpu")
+    want = np.searchsorted(seg, np.arange(n_slots + 1),
+                           side="left").astype(np.int32)
+    assert plan.slot_ptr.dtype == torch.int32
+    assert np.array_equal(plan.slot_ptr.numpy(), want)
+
+
+@pytest.mark.parametrize("seg", [[0, 2, 1], [0, 1, 10], [-1, 0, 0]])
+def test_make_plan_rejects_unsorted_or_out_of_range(seg):
+    with pytest.raises(ValueError):
+        sm.make_plan(np.arange(3, dtype=np.int32),
+                     np.asarray(seg, np.int32), 10, (3,), "cpu")
+
+
 def test_wrapper_rejects_bad_input():
     plan, ke, _ = _nodal_case(*_seg_cases()["random"], 1, torch.float64)
     with pytest.raises(TypeError):
