@@ -366,11 +366,12 @@ def phase_newton_main_path(args, mods):
     return model, launches, planes
 
 
-def phase_k1_time(sm, bell, stmod, model, launches) -> dict:
+def phase_k1_time(sm, mbs, bell, stmod, model, launches) -> dict:
     """K1 at the Newton main path's shapes, in float64 (the type its f64
     policy assembles in) and float32 (the mixed policy's).  Also timed:
     the same kernel on tiles of consecutive slots (the plan without its
-    slot shape), whose planes must be bit-equal."""
+    slot shape), whose planes must be bit-equal, and the kernel's two
+    passes apart (torch.profiler: pass 1 the sums, pass 2 the planes)."""
     kes = stmod.compute_element_stiffness(model)
     plan = bell.cluster_profile_from_model(model).plan("cuda")
     flat = dataclasses.replace(plan, shape=None, cache={}, schedules={})
@@ -388,6 +389,7 @@ def phase_k1_time(sm, bell, stmod, model, launches) -> dict:
                            sm.segsum(flat, kd, nns, 3)):
             raise AssertionError("K1 on consecutive tiles differs")
         ms = cuda_ms(lambda: sm.segsum(plan, kd, nns, 3))
+        passes = mbs.kernel_split(lambda: sm.segsum(plan, kd, nns, 3), 5)
         flat_ms = cuda_ms(lambda: sm.segsum(flat, kd, nns, 3))
         plain_ms = cuda_ms(lambda: sm.segsum_reference(plan, kd, nns, 3))
         # one library call: index_add_ of the entries already in slot order
@@ -399,14 +401,20 @@ def phase_k1_time(sm, bell, stmod, model, launches) -> dict:
         nbytes = (sum(k.numel() for k in kd) * isz + P * 4
                   + (plan.n_slots + 1) * 4 + 9 * plan.n_slots * isz)
         bound_ms, bound_by = bound(nbytes, 9 * P, dt)
+        passes_ms = {name: t for k, t in passes.items()
+                     for name in ("sums", "planes_out")
+                     if f"{name}_kernel" in k}
         log(f"phase k1_time: P={P} pairs, n_slots={plan.n_slots} "
-            f"{str(dt)[6:]}: kernel {ms:.3f} ms (consecutive tiles "
-            f"{flat_ms:.3f} ms), plain {plain_ms:.3f} ms, index_add_ "
-            f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms "
+            f"{str(dt)[6:]}: kernel {ms:.3f} ms (passes {passes_ms}; "
+            f"consecutive tiles {flat_ms:.3f} ms), plain {plain_ms:.3f} ms, "
+            f"index_add_ {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
             f"({nbytes / 1e9:.3f} GB)")
+        if len(passes_ms) != 2:
+            raise AssertionError(f"K1's two passes not traced: {passes}")
         nums = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms, "consecutive_tiles_ms": flat_ms}
+                "library_ms": library_ms, "consecutive_tiles_ms": flat_ms,
+                "passes_ms": passes_ms}
         if dt == torch.float64:
             row.update(nums)                 # the Newton path's type
         else:
@@ -794,6 +802,7 @@ def main(argv=None) -> int:
     from frontistr_tpu_torch.io.neu import write_static_workdir
     from frontistr_tpu_torch.meshgen import box_hex8, box_tet4
     from frontistr_tpu_torch.microbench import gather as mb
+    from frontistr_tpu_torch.microbench import segsum as mbs
     from frontistr_tpu_torch.ops import element_mv as em
     from frontistr_tpu_torch.ops import gather as g
     from frontistr_tpu_torch.post import nodal
@@ -834,7 +843,7 @@ def main(argv=None) -> int:
     #    AMG setup twice and K1 at the path's shapes (after the counts)
     model, k1_launches, planes_launches = phase_newton_main_path(args, mods)
     planes = phase_amg_repeat(mods, model, planes_launches)
-    k1_row = phase_k1_time(sm, bell, stmod, model, k1_launches)
+    k1_row = phase_k1_time(sm, mbs, bell, stmod, model, k1_launches)
     k1_row["planes"] = planes
     del model
     torch.cuda.empty_cache()

@@ -110,22 +110,36 @@ def cached_plan(profile, device) -> SegsumPlan:
     return plans[key]
 
 
-TILE_SLOTS = 512           # kTileSlots in csrc/segsum.cu
+TILE_SLOTS = 4096          # most slots of a pass-1 tile
+WRITE_SLOTS = 4096         # kWriteSlots in csrc/segsum.cu: a pass-2 block
+SMEM_BYTES = 48 * 1024     # a pass-1 tile's stage
+STAGED_SHARE = 0.99        # least share of entries in staged tiles
+STAGE_READS = 1.5          # most values staged per value an entry reads
+DIRECT_ITEMS = 128         # most items of an unstaged tile (kSumThreads)
 
 
 @dataclasses.dataclass(eq=False)
 class ElementSchedule:
-    """What the element kernel reads besides the plan's ``slot_ptr``,
-    built on the plan's device once per (nns, nd): see
+    """What the element kernel reads besides the element matrices, built
+    on the plan's device once per (nns, nd, value size): see
     ``element_schedule``."""
-    src: torch.Tensor          # (P,) int32/int64 flat offsets, slot order
-    items: torch.Tensor        # (n_nonempty,) int32 tile-local slots
-    tile_ptr: torch.Tensor     # (n_tiles+1,) int32 CSR over items
+    loc: torch.Tensor          # (P,) int32 entry coordinates, slot order
+    rb_src: torch.Tensor       # (n_rb,) int32/int64 row-block offsets
+    rb_ptr: torch.Tensor       # (n_tiles+1,) int32 CSR over rb_src
+    item_k0: torch.Tensor      # (n_items,) int32 segments of the items
+    item_k1: torch.Tensor
+    tile_ptr: torch.Tensor     # (n_tiles+1,) int32 CSR over the items
+    nz_slot: torch.Tensor      # (n_items,) int32 non-empty slots, ascending
+    nz_item: torch.Tensor      # (n_items,) int32 their items
+    nz_ptr: torch.Tensor       # (n_slots / WRITE_SLOTS + 1,) int32 CSR
     bw: int                    # runs (b, w) of a tile
     C: int                     # slots of a run's row
     ct_log2: int               # a run holds 1 << ct_log2 slots
     n_chunks: int              # chunks of C a row
     n_tiles: int
+    m_max: int                 # widest element matrix
+    stage_rb: int              # row blocks a staged tile may hold
+    vec16: bool                # row blocks alike and 16-byte aligned
     starts: tuple              # flat offset of each block's first value
     ms: tuple                  # each block's element-matrix width
     c_starts: ctypes.Array = dataclasses.field(init=False, repr=False)
@@ -136,37 +150,69 @@ class ElementSchedule:
         self.c_ms = (ctypes.c_int * len(self.ms))(*self.ms)
 
 
-def element_schedule(plan: SegsumPlan, nns: Sequence[int],
-                     nd: int) -> ElementSchedule:
-    """The element kernel's per-plan arrays, on the plan's device (built
-    at the first call of ``segsum`` with these ``nns``, then kept on the
-    plan):
+def schedule_key(nns: Sequence[int], nd: int, itemsize: int,
+                 max_tile_slots: int = TILE_SLOTS,
+                 smem_bytes: int = SMEM_BYTES) -> tuple:
+    """Where a plan keeps an element schedule (``SegsumPlan.schedules``);
+    ``segsum`` takes the one under the default limits."""
+    return (tuple(nns), nd, itemsize, max_tile_slots, smem_bytes)
 
-    - ``src``: for each entry in slot order, the flat offset of its
-      sub-block's (0, 0) value in the blocks' element matrices laid end
-      to end (block b from ``starts[b]``): raw entry p of block b is
-      pair (a, c) of element e, (a, c, e) with e fastest, at
-      ``starts[b] + e*m*m + a*nd*m + c*nd``, m = nn*nd.  int32 while the
-      blocks hold fewer than 2**31 values, else int64.
-    - the tiles: the slot space (A, B, W, C) of the plan's ``shape``
-      (slot ((a*B + b)*W + w)*C + c), or (1, 1, 1, n_slots), or that too
-      when B*W > TILE_SLOTS.  A tile is one a, every (b, w) and CT
-      consecutive c, CT the largest power of two with B*W*CT <=
-      TILE_SLOTS; tile t = a * n_chunks + c // CT.
-    - ``items``: the non-empty slots by tile as tile-local indices
-      ((b*W + w)*CT + c % CT), longest segment first within a tile;
-      ``tile_ptr`` the CSR pointer of the tiles over them."""
-    key = (tuple(nns), nd)
+
+def element_schedule(plan: SegsumPlan, nns: Sequence[int], nd: int,
+                     itemsize: int, max_tile_slots: int = TILE_SLOTS,
+                     smem_bytes: int = SMEM_BYTES) -> ElementSchedule:
+    """The element kernel's per-plan arrays, on the plan's device (built
+    at the first call of ``segsum`` with these ``nns`` and value size,
+    then kept on the plan).  The kernel runs two passes: pass 1 sums the
+    non-empty slots (the items) tile by tile into an (items, 9) buffer,
+    pass 2 writes the planes in blocks of WRITE_SLOTS consecutive slots.
+
+    Raw entry p of block b is pair (a, c) of element e, (a, c, e) with e
+    fastest: value (i, j) of its sub-block is ke_b[e, a*nd + i, c*nd + j].
+    Its row block is rows a*nd..a*nd+nd-1 of ke_b[e], nd*m contiguous
+    values (m = nn*nd) from flat offset ``starts[b] + e*m*m + a*nd*m``,
+    counted over the blocks' element matrices laid end to end.
+
+    Pass 1's tiles: the slot space (A, B, W, C) of the plan's ``shape``
+    (slot ((a*B + b)*W + w)*C + c), else (1, 1, 1, n_slots).  A tile is
+    one a, every (b, w) and CT consecutive c, tile t = a * n_chunks + c //
+    CT.  Its row blocks are the distinct ones of its entries within each
+    (a, c): for the cluster profile's (aoff, boff, wc, cluster) every
+    entry of a row block lies in one (aoff, cluster), so a row block is
+    read once.  A tile stages its row blocks in shared memory only where
+    they hold at most ``STAGE_READS`` times the values its entries read
+    (a shape without such reuse reads every tile from device memory).
+    CT is the largest power of two that keeps a tile within
+    ``max_tile_slots`` slots and the stages of the tiles that hold
+    ``STAGED_SHARE`` of the entries within ``smem_bytes`` (an unstaged
+    shape: DIRECT_ITEMS items a tile); the other tiles are read from
+    device memory.  Without such a CT, the shape falls back to (1, 1, 1,
+    n_slots).
+
+    - ``rb_src``/``rb_ptr``: the tiles' row-block offsets, by tile
+      (int32 while the blocks hold fewer than 2**31 values, else int64);
+    - ``loc``: entry k's row block r within its tile and column sub-block
+      c, ``r*nd*m_max + c*nd``;
+    - the items: the non-empty slots by tile, longest segment first
+      within a tile (``item_k0``/``item_k1``: the segment), ``tile_ptr``
+      the CSR pointer of the tiles over them;
+    - ``nz_slot``/``nz_item``: the non-empty slots ascending and their
+      items, ``nz_ptr`` the CSR pointer of pass 2's blocks over them."""
+    key = schedule_key(nns, nd, itemsize, max_tile_slots, smem_bytes)
     got = plan.schedules.get(key)
     if got is not None:
         return got
     dev = plan.slot_ptr.device
     ms = [nn * nd for nn in nns]
+    m_max = max(ms)
+    rbs = nd * m_max
     Es = [cnt // (nn * nn) for cnt, nn in zip(plan.pair_counts, nns)]
     starts = np.zeros(len(nns) + 1, np.int64)
     np.cumsum([E * m * m for E, m in zip(Es, ms)], out=starts[1:])
     poff = np.zeros(len(nns) + 1, np.int64)
     np.cumsum(plan.pair_counts, out=poff[1:])
+    total = int(starts[-1]) + 1
+    isz_idx = 4 if total <= 2 ** 31 else 8
 
     def per_block(vals):
         return torch.as_tensor(np.asarray(vals, np.int64), device=dev)
@@ -177,34 +223,84 @@ def element_schedule(plan: SegsumPlan, nns: Sequence[int],
     q = p - per_block(poff)[b]
     a, r = q // (nn * E), q % (nn * E)
     c, e = r // E, r % E
-    src = per_block(starts)[b] + e * m * m + (a * m + c) * nd
-    del p, b, E, nn, m, q, a, r, c, e
-    idx = torch.int32 if starts[-1] < 2 ** 31 else torch.int64
+    rb = per_block(starts)[b] + e * m * m + a * nd * m
+    del p, b, E, nn, m, q, a, r, e
 
-    A, B, W, C = plan.shape or (1, 1, 1, plan.n_slots)
-    if B * W > TILE_SLOTS:
-        A, B, W, C = 1, 1, 1, plan.n_slots
-    bw = B * W
-    ct_log2 = (TILE_SLOTS // bw).bit_length() - 1
-    n_chunks = -(-C // (1 << ct_log2))
-    n_tiles = A * n_chunks
+    seg = plan.seg_sorted.long()
     ptr = plan.slot_ptr.long()
     lens = ptr[1:] - ptr[:-1]
     s = torch.nonzero(lens).squeeze(1)
     lens = lens[s]
-    cs, rows = s % C, s // C
-    tile = (rows // bw) * n_chunks + (cs >> ct_log2)
-    local = (rows % bw) * (1 << ct_log2) + (cs & ((1 << ct_log2) - 1))
+    cap = min(max_tile_slots, TILE_SLOTS)
+    budget = smem_bytes // (rbs * itemsize + isz_idx)
+    shapes = ([plan.shape] if plan.shape else []) + [(1, 1, 1,
+                                                      plan.n_slots)]
+    best = None
+    for A, B, W, C in shapes:
+        bw = B * W
+        if bw > cap:
+            continue
+        # the (a, c) column of each entry and its distinct row blocks
+        fine = (seg // (C * bw)) * C + seg % C
+        uniq, inv = torch.unique(fine * total + rb, return_inverse=True)
+        rb_fine = uniq // total
+        fine_s = (s // (C * bw)) * C + s % C
+        stage = uniq.numel() * rbs <= STAGE_READS * seg.numel() * nd * nd
+        for ct_log2 in range((cap // bw).bit_length() - 1, -1, -1):
+            n_chunks = -(-C // (1 << ct_log2))
+            n_tiles = A * n_chunks
+
+            def tile_of(f):
+                return (f // C) * n_chunks + ((f % C) >> ct_log2)
+
+            n_items = torch.bincount(tile_of(fine_s), minlength=n_tiles)
+            n_rb = torch.bincount(tile_of(rb_fine), minlength=n_tiles)
+            if stage:
+                n_ent = torch.bincount(tile_of(fine), minlength=n_tiles)
+                n_all = int(n_ent.sum())
+                ok = not n_all or float(
+                    n_ent[n_rb <= budget].sum()) >= STAGED_SHARE * n_all
+            else:
+                ok = not n_tiles or int(n_items.max()) <= DIRECT_ITEMS
+            best = (bw, C, fine, uniq, inv, fine_s, ct_log2, n_chunks,
+                    n_tiles, n_items, n_rb, budget if stage else -1)
+            if ok:
+                break
+        if ok:
+            break
+    (bw, C, fine, uniq, inv, fine_s, ct_log2, n_chunks, n_tiles, n_items,
+     n_rb, budget) = best
+    fits = n_rb[n_rb <= budget]
+    stage_rb = int(fits.max()) if fits.numel() else 0
+    rb_ptr = torch.zeros(n_tiles + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(n_rb, 0, out=rb_ptr[1:])
+    tile_e = (fine // C) * n_chunks + ((fine % C) >> ct_log2)
+    loc = (inv - rb_ptr[tile_e]) * rbs + c * nd
+    tile = (fine_s // C) * n_chunks + ((fine_s % C) >> ct_log2)
     longest = int(lens.max()) if lens.numel() else 0
     order = torch.argsort(tile * (longest + 1) + (longest - lens),
                           stable=True)
     tile_ptr = torch.zeros(n_tiles + 1, dtype=torch.int64, device=dev)
-    torch.cumsum(torch.bincount(tile, minlength=n_tiles), 0,
-                 out=tile_ptr[1:])
+    torch.cumsum(n_items, 0, out=tile_ptr[1:])
+    nz_item = torch.empty_like(order)
+    nz_item[order] = torch.arange(order.numel(), device=dev)
+    n_write = -(-plan.n_slots // WRITE_SLOTS)
+    nz_ptr = torch.zeros(n_write + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(torch.bincount(s // WRITE_SLOTS, minlength=n_write), 0,
+                 out=nz_ptr[1:])
+    so = s[order]
     got = ElementSchedule(
-        src=src.to(idx), items=local[order].to(torch.int32),
-        tile_ptr=tile_ptr.to(torch.int32), bw=bw, C=int(C),
-        ct_log2=ct_log2, n_chunks=int(n_chunks), n_tiles=int(n_tiles),
+        loc=loc.to(torch.int32),
+        rb_src=(uniq % total).to(torch.int32 if isz_idx == 4
+                                 else torch.int64),
+        rb_ptr=rb_ptr.to(torch.int32), item_k0=ptr[so].to(torch.int32),
+        item_k1=ptr[so + 1].to(torch.int32),
+        tile_ptr=tile_ptr.to(torch.int32), nz_slot=s.to(torch.int32),
+        nz_item=nz_item.to(torch.int32), nz_ptr=nz_ptr.to(torch.int32),
+        bw=bw, C=int(C), ct_log2=ct_log2, n_chunks=int(n_chunks),
+        n_tiles=int(n_tiles), m_max=m_max, stage_rb=stage_rb,
+        vec16=bool(min(ms) == m_max and rbs * itemsize % 16 == 0
+                   and not bool(((uniq % total) * itemsize % 16).any())),
         starts=tuple(int(v) for v in starts), ms=tuple(ms))
     plan.schedules[key] = got
     return got
@@ -243,15 +339,19 @@ def segsum(plan: SegsumPlan, kes: Sequence[torch.Tensor],
     if got is None:
         return segsum_reference(plan, kes, nns, nd)
     fn, dev, is_double = got
-    sc = element_schedule(plan, nns, nd)
+    sc = element_schedule(plan, nns, nd, kes[0].element_size())
     out = kes[0].new_empty((nd * nd, plan.n_slots))
-    launch.launch(fn, dev, is_double, sc.src.dtype == torch.int64,
-                  sc.src.data_ptr(), sc.items.data_ptr(),
-                  sc.tile_ptr.data_ptr(), plan.slot_ptr.data_ptr(),
-                  sc.n_tiles, sc.n_chunks, sc.bw, sc.C, sc.ct_log2,
-                  plan.n_slots,
+    sums = kes[0].new_empty((sc.nz_slot.numel(), nd * nd))
+    launch.launch(fn, dev, is_double, sc.rb_src.dtype == torch.int64,
+                  sc.loc.data_ptr(), sc.rb_src.data_ptr(),
+                  sc.rb_ptr.data_ptr(), sc.item_k0.data_ptr(),
+                  sc.item_k1.data_ptr(), sc.tile_ptr.data_ptr(), sc.n_tiles,
+                  sc.nz_slot.data_ptr(), sc.nz_item.data_ptr(),
+                  sc.nz_ptr.data_ptr(), plan.n_slots, sc.m_max, sc.stage_rb,
+                  int(sc.vec16 and not any(k.data_ptr() % 16 for k in kes)),
                   (ctypes.c_void_p * len(kes))(*[k.data_ptr() for k in kes]),
-                  sc.c_starts, sc.c_ms, len(kes), out.data_ptr())
+                  sc.c_starts, sc.c_ms, len(kes), sums.data_ptr(),
+                  out.data_ptr())
     segsum.launches += 1
     return out
 
@@ -358,7 +458,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # each ends in (stream, device index)
 _SIGNATURES = {
     "fstr_segsum": (
-        [_I, _I, _P, _P, _P, _P, _L, _L, _I, _L, _I, _L, ctypes.POINTER(_P),
-         ctypes.POINTER(_L), ctypes.POINTER(_I), _I, _P, _P, _I], _I),
+        [_I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _L, _I, _I, _I,
+         ctypes.POINTER(_P), ctypes.POINTER(_L), ctypes.POINTER(_I), _I, _P,
+         _P, _P, _I], _I),
     "fstr_segsum_planes": ([_I, _P, _I, _L, _P, _P, _L, _P, _P, _I], _I),
 }

@@ -29,44 +29,45 @@
 // box_tet4(69) cluster profile 88% of the 41,160,000 slots are empty,
 // and a non-empty segment holds 6.1 entries on average, 24 at most.
 //
-// What the design does about it (the first design, one thread per slot
-// over all slots with a decode of perm[k] per entry, reached 31-39% of
-// the bytes bound):
-//   - Work over the non-empty slots only.  A block owns a tile of at
-//     most kTileSlots slots and gets its tile's non-empty slots as a list
-//     of tile-local indices, built once per plan (assembly/segsum.py) and
-//     sorted by segment length, longest first, so the lanes of a warp
-//     walk segments of about one length.  The block zeroes the tile's
-//     sums in shared memory, its lanes write the non-empty sums there,
-//     and then it stores all of the tile's slots, zeros included, plane
-//     by plane to the plane-major output: no lane waits on empty slots
-//     and every store is part of a run of consecutive slots.
-//   - No decode.  Per plan, every entry in slot order carries the flat
-//     offset of its sub-block's (0, 0) value, counted over the blocks'
-//     element matrices laid end to end: int32 while the blocks hold
-//     fewer than 2^31 values (284M at box_tet4(69)), int64 beyond.  With
-//     one element block the kernel adds it to the block's pointer; with
-//     several it finds the block in a table of at most 8 starts.
-//   - Cooperating lanes.  Nine neighbouring lanes share one slot, lane v
-//     owning value (i, j): a row's 3 values are read by 3 neighbouring
-//     lanes in one request, and each lane's sum stays a sequential
-//     ascending-k sum.  The offsets of four entries are loaded before
-//     their values, so each lane keeps four loads in flight.
-//   - Tiles that follow the slot layout.  A plan may give its slot space
-//     as (A, B, W, C), slot ((a*B + b)*W + w)*C + c; a tile is then one
-//     a, all (b, w) and CT consecutive c.  For the cluster profile that
-//     is (G, G, Wc, C) with slot (aoff, boff, wc, cluster): a tile holds
-//     every pair entry (a, *) of each element whose node a sits at
-//     offset aoff in one of the tile's clusters, so the 3 rows a*3..a*3+2
-//     of that element matrix, 3 x 12 contiguous values, are read by one
-//     block within a short time, and each 32-byte sector is fetched once
-//     instead of once per 3-value row (a row of 24 or 12 bytes straddles
-//     sectors).  Without a shape, a tile is kTileSlots consecutive slots.
+// What the design does about it.  The first design (one thread per slot
+// over all slots, a decode of perm[k] per entry, each entry's three 3-value
+// rows read from device memory) reached 31-39% of the bytes bound: most of
+// its lanes idled on empty slots, and rows of 24 or 12 bytes cost whole
+// 32-byte sectors.  Now two passes over a schedule that assembly/segsum.py
+// builds on the card once per plan (microbench/segsum.py times the
+// choices; PERF.md has the numbers):
+//   - Pass 1 sums the non-empty slots only, in tiles that follow the slot
+//     layout.  A plan may give its slot space as (A, B, W, C), slot
+//     ((a*B + b)*W + w)*C + c; a tile is one a, all (b, w) and CT
+//     consecutive c.  For the cluster profile, slot (aoff, boff, wc,
+//     cluster), a tile then holds every pair entry (a, *) of each element
+//     whose node a sits at offset aoff in one of its clusters, so it reads
+//     whole row blocks: rows a*3..a*3+2 of an element matrix, 3 x m
+//     contiguous values.  The block copies its row blocks to shared
+//     memory (cp.async, 16 bytes a copy, all in flight at once), each
+//     element-matrix value once and in whole sectors; then one thread per
+//     non-empty slot walks its segment in ascending k and sums the nine
+//     values of each entry from shared memory.  Each entry carries its
+//     coordinates in the stage (no decode, no 64-bit division), and a
+//     thread's first eight are loaded before the stage arrives.  The
+//     slots of a tile are listed longest segment first, so the threads of
+//     a warp walk segments of about one length.  A tile whose row blocks
+//     do not fit is read from device memory at the same coordinates.
+//   - Pass 2 writes the planes: one block per 4,096 consecutive slots,
+//     one thread per slot, each non-empty slot's nine sums read as one
+//     72- or 36-byte record and stored to the nine planes, empty slots as
+//     zeros; a warp's stores to a plane are consecutive.  Storing from
+//     pass 1's tiles instead (runs of CT slots at a stride of C in 9 x 120
+//     rows) cost two to four times a memset of the planes at the Newton
+//     shapes.
+// The 2 x 9 x n_items values of the sums buffer are the traffic the
+// bytes bound does not count.
 //
 // The planes entry is a simple one-thread-per-(slot, plane) kernel: its
 // callers (the AMG's Galerkin sums, nodal smoothing) run it once or
 // twice per Newton iteration on a few million entries.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,8 +76,10 @@
 namespace {
 
 constexpr int kMaxBlocks = 8;
-constexpr int kThreads = 256;
-constexpr int kTileSlots = 512;     // TILE_SLOTS in assembly/segsum.py
+constexpr int kThreads = 256;       // planes kernel, element pass 2
+constexpr int kSumThreads = 128;    // element pass 1
+constexpr int kWriteSlots = 4096;   // WRITE_SLOTS in assembly/segsum.py
+constexpr int kBatch = 8;           // entries a thread loads at once
 constexpr int kND = 3;              // 3-D solids
 constexpr int kNV = kND * kND;      // value planes
 
@@ -88,100 +91,230 @@ struct Blocks {
   int nblk;
 };
 
-// Value (i, j) of the sub-block whose (0, 0) value sits at flat offset o.
-template <typename T, typename I, bool kMulti>
-__device__ __forceinline__ T value_at(const Blocks<T>& bk, I o, int i,
-                                      int j) {
-  if (!kMulti) return __ldg(bk.ke[0] + o + i * bk.m[0] + j);
+// The block holding flat offset g (one block: 0, no search).
+template <typename T, bool kMulti>
+__device__ __forceinline__ int block_of(const Blocks<T>& bk, long long g) {
   int b = 0;
-  while (b + 1 < bk.nblk && (long long)o >= bk.start[b + 1]) ++b;
-  return __ldg(bk.ke[b] + ((long long)o - bk.start[b]) +
-               (long long)i * bk.m[b] + j);
+  if (kMulti)
+    while (b + 1 < bk.nblk && g >= bk.start[b + 1]) ++b;
+  return b;
 }
 
-// One block per tile (a, chunk): slots ((a*BW + run)*C + c0 + ct) for run
-// < BW, ct < CT = 1 << ct_log2; tile-local index sl = run*CT + ct.
+// Pass 1, the sums: one block per tile.  The tile's non-empty slots are
+// items [tile_ptr[tile], tile_ptr[tile+1]) with entries [item_k0, item_k1);
+// item `it` leaves its nine sums at sums[it*9 .. it*9+8].
+//
+// The tile's row blocks (rows a*3..a*3+2 of one element matrix, 3 x m_b
+// values from flat offset rb_src[r]) are [rb_ptr[tile], rb_ptr[tile+1]); entry
+// k reads value (i, j) of its sub-block at loc[k] + i*m_max + j of the
+// staged row blocks (row block r at r*3*m_max, rows m_max apart).  A tile
+// with more than stage_rb row blocks is read from device memory at the same
+// coordinates.  Shared memory: the stage, then the row blocks' offsets.
 template <typename T, typename I, bool kMulti>
-__global__ void __launch_bounds__(kThreads)
-segsum_kernel(const I* __restrict__ src, const int* __restrict__ items,
-              const int* __restrict__ tile_ptr,
-              const int* __restrict__ slot_ptr, long long n_slots, int bw,
-              long long C, int ct_log2, long long n_chunks,
-              const Blocks<T> bk, T* __restrict__ out) {
-  __shared__ T acc[kNV * kTileSlots];
-  const int ts = bw << ct_log2;                   // slots of a tile
-  const long long tile = blockIdx.x;
-  const long long a = tile / n_chunks;
-  const long long c0 = (tile - a * n_chunks) << ct_log2;
-  const long long row0 = a * bw;                  // (a, run=0) row of C
-  for (int t = threadIdx.x; t < kNV * ts; t += kThreads) acc[t] = T(0);
-  __syncthreads();
+__global__ void __launch_bounds__(kSumThreads)
+sums_kernel(const int* __restrict__ loc, const I* __restrict__ rb_src,
+            const int* __restrict__ rb_ptr, const int* __restrict__ item_k0,
+            const int* __restrict__ item_k1,
+            const int* __restrict__ tile_ptr, int m_max, int stage_rb,
+            int vec16, const Blocks<T> bk, T* __restrict__ sums) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rbs = kND * m_max;
+  T* stage = reinterpret_cast<T*>(smem);
+  I* rb_at = reinterpret_cast<I*>(
+      smem + ((sizeof(T) * (size_t)stage_rb * rbs + 7) & ~(size_t)7));
+  const int tile = blockIdx.x;
+  const int r0 = rb_ptr[tile];
+  const int n_rb = rb_ptr[tile + 1] - r0;
+  const bool staged = n_rb <= stage_rb;
   const int i0 = tile_ptr[tile];
-  const int n = (tile_ptr[tile + 1] - i0) * kNV;
-  for (int u = threadIdx.x; u < n; u += kThreads) {
-    const int item = u / kNV;
-    const int v = u - item * kNV;
-    const int i = v / kND;
-    const int j = v - i * kND;
-    const int sl = __ldg(items + i0 + item);
-    const long long s =
-        (row0 + (sl >> ct_log2)) * C + c0 + (sl & ((1 << ct_log2) - 1));
-    const int k1 = __ldg(slot_ptr + s + 1);
-    int k = __ldg(slot_ptr + s);
-    T sum = T(0);
-    for (; k + 4 <= k1; k += 4) {
-      const I o0 = __ldg(src + k), o1 = __ldg(src + k + 1);
-      const I o2 = __ldg(src + k + 2), o3 = __ldg(src + k + 3);
-      const T x0 = value_at<T, I, kMulti>(bk, o0, i, j);
-      const T x1 = value_at<T, I, kMulti>(bk, o1, i, j);
-      const T x2 = value_at<T, I, kMulti>(bk, o2, i, j);
-      const T x3 = value_at<T, I, kMulti>(bk, o3, i, j);
-      sum += x0;
-      sum += x1;
-      sum += x2;
-      sum += x3;
+  const int n_items = tile_ptr[tile + 1] - i0;
+
+  // 1. Each thread's first item and its first batch of coordinates are
+  //    requested before the stage, so their latencies overlap.
+  int it = threadIdx.x, k = 0, k1 = 0;
+  int l[kBatch];
+  if (it < n_items) {
+    k = __ldg(item_k0 + i0 + it);
+    k1 = __ldg(item_k1 + i0 + it);
+  }
+#pragma unroll
+  for (int b = 0; b < kBatch; ++b)
+    l[b] = k + b < k1 ? __ldg(loc + k + b) : -1;
+  if (staged)
+    for (int r = threadIdx.x; r < n_rb; r += kSumThreads)
+      rb_at[r] = __ldg(rb_src + r0 + r);
+  __syncthreads();
+
+  // 2. The stage: the tile's row blocks, whole sectors, copied straight to
+  //    shared memory (cp.async), every copy in flight at once: 16 bytes a
+  //    copy where the row blocks are laid out alike and 16-byte aligned.
+  if (staged && vec16) {
+    const int u = rbs * (int)sizeof(T) / 16;     // 16-byte units a block
+    const int n = n_rb * u;
+    for (int x = threadIdx.x; x < n; x += kSumThreads) {
+      const int r = x / u;
+      const long long g = rb_at[r];
+      const int b = block_of<T, kMulti>(bk, g);
+      const char* from = reinterpret_cast<const char*>(
+          bk.ke[b] + (g - bk.start[b]));
+      __pipeline_memcpy_async(reinterpret_cast<char*>(stage) + 16 * x,
+                              from + 16 * (x - r * u), 16);
     }
-    for (; k < k1; ++k)
-      sum += value_at<T, I, kMulti>(bk, __ldg(src + k), i, j);
-    acc[v * ts + sl] = sum;
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+  } else if (staged) {
+    const int n = n_rb * rbs;
+    for (int x = threadIdx.x; x < n; x += kSumThreads) {
+      const int r = x / rbs;
+      const int y = x - r * rbs;
+      const long long g = rb_at[r];
+      const int b = block_of<T, kMulti>(bk, g);
+      const T* from = bk.ke[b] + (g - bk.start[b]);
+      if (!kMulti || bk.m[b] == m_max) {
+        __pipeline_memcpy_async(stage + x, from + y, sizeof(T));
+      } else {                          // rows of m_b, staged m_max apart
+        const int i = y / m_max;
+        const int col = y - i * m_max;
+        if (col < bk.m[b])
+          __pipeline_memcpy_async(stage + x, from + i * bk.m[b] + col,
+                                  sizeof(T));
+      }
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
   }
   __syncthreads();
-  for (int t = threadIdx.x; t < kNV * ts; t += kThreads) {
-    const int v = t / ts;
-    const int sl = t - v * ts;
-    const long long c = c0 + (sl & ((1 << ct_log2) - 1));
-    if (c < C)
-      out[v * n_slots + (row0 + (sl >> ct_log2)) * C + c] = acc[t];
+
+  // 3. One thread an item: its nine sums, each in ascending k.
+  for (; it < n_items; it += kSumThreads) {
+    if (it != (int)threadIdx.x) {
+      k = __ldg(item_k0 + i0 + it);
+      k1 = __ldg(item_k1 + i0 + it);
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+        l[b] = k + b < k1 ? __ldg(loc + k + b) : -1;
+    }
+    T acc[kNV];
+#pragma unroll
+    for (int v = 0; v < kNV; ++v) acc[v] = T(0);
+    while (true) {
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        if (l[b] < 0) continue;
+        if (staged) {
+          const T* x = stage + l[b];
+#pragma unroll
+          for (int i = 0; i < kND; ++i)
+#pragma unroll
+            for (int j = 0; j < kND; ++j)
+              acc[i * kND + j] += x[i * m_max + j];
+        } else {
+          const int r = l[b] / rbs;
+          const long long g = __ldg(rb_src + r0 + r);
+          const int blk = block_of<T, kMulti>(bk, g);
+          const int m = kMulti ? bk.m[blk] : m_max;
+          const T* x = bk.ke[blk] + (g - bk.start[blk]) + (l[b] - r * rbs);
+#pragma unroll
+          for (int i = 0; i < kND; ++i)
+#pragma unroll
+            for (int j = 0; j < kND; ++j)
+              acc[i * kND + j] += __ldg(x + i * m + j);
+        }
+      }
+      k += kBatch;
+      if (k >= k1) break;
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+        l[b] = k + b < k1 ? __ldg(loc + k + b) : -1;
+    }
+    T* to = sums + (long long)(i0 + it) * kNV;
+#pragma unroll
+    for (int v = 0; v < kNV; ++v) to[v] = acc[v];
   }
 }
 
-template <typename T, typename I>
-int launch_elements(const void* src, const int* items, const int* tile_ptr,
-                    const int* slot_ptr, long long n_tiles, long long n_chunks,
-                    int bw, long long C, int ct_log2, long long n_slots,
-                    const Blocks<T>& bk, void* out, cudaStream_t stream,
-                    int device) {
-  return on_device(device, [&] {
-    const I* s = static_cast<const I*>(src);
-    T* o = static_cast<T*>(out);
-    if (bk.nblk == 1)
-      segsum_kernel<T, I, false><<<(unsigned)n_tiles, kThreads, 0, stream>>>(
-          s, items, tile_ptr, slot_ptr, n_slots, bw, C, ct_log2, n_chunks, bk,
-          o);
-    else
-      segsum_kernel<T, I, true><<<(unsigned)n_tiles, kThreads, 0, stream>>>(
-          s, items, tile_ptr, slot_ptr, n_slots, bw, C, ct_log2, n_chunks, bk,
-          o);
+// Pass 2, the planes: one block per kWriteSlots consecutive slots.  The
+// block's non-empty slots, ascending, are nz_slot[nz_ptr[tile] ..
+// nz_ptr[tile+1]) with their sums at sums[nz_item*9 ..]; every slot of
+// the block is written, zeros included.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+planes_out_kernel(const int* __restrict__ nz_slot,
+                  const int* __restrict__ nz_item,
+                  const int* __restrict__ nz_ptr, long long n_slots,
+                  const T* __restrict__ sums, T* __restrict__ out) {
+  __shared__ int item_of[kWriteSlots];
+  const long long s0 = (long long)blockIdx.x * kWriteSlots;
+  for (int t = threadIdx.x; t < kWriteSlots; t += kThreads) item_of[t] = -1;
+  __syncthreads();
+  const int p0 = nz_ptr[blockIdx.x], p1 = nz_ptr[blockIdx.x + 1];
+  for (int p = p0 + threadIdx.x; p < p1; p += kThreads)
+    item_of[__ldg(nz_slot + p) - s0] = __ldg(nz_item + p);
+  __syncthreads();
+  const int n = n_slots - s0 < kWriteSlots ? (int)(n_slots - s0)
+                                           : kWriteSlots;
+  // a thread a slot: its item's nine sums (one record) to the nine planes,
+  // the warp's stores to each plane consecutive
+  for (int t = threadIdx.x; t < n; t += kThreads) {
+    const int item = item_of[t];
+    T v[kNV];
+#pragma unroll
+    for (int p = 0; p < kNV; ++p)
+      v[p] = item >= 0 ? __ldg(sums + (long long)item * kNV + p) : T(0);
+#pragma unroll
+    for (int p = 0; p < kNV; ++p) out[p * n_slots + s0 + t] = v[p];
+  }
+}
+
+struct Schedule {
+  const int* loc;
+  const void* rb_src;
+  const int* rb_ptr;
+  const int* item_k0;
+  const int* item_k1;
+  const int* tile_ptr;
+  const int* nz_slot;
+  const int* nz_item;
+  const int* nz_ptr;
+  int n_tiles, m_max, stage_rb, vec16;
+  long long n_slots;
+};
+
+template <typename T, typename I, bool kMulti>
+int launch_passes(const Schedule& sc, const Blocks<T>& bk, void* sums,
+                  void* out, cudaStream_t stream, int device) {
+  const size_t smem =
+      ((sizeof(T) * (size_t)sc.stage_rb * kND * sc.m_max + 7) & ~(size_t)7) +
+      sizeof(I) * (size_t)sc.stage_rb;
+  const long long n_write = (sc.n_slots + kWriteSlots - 1) / kWriteSlots;
+  cudaError_t attr = cudaSuccess;
+  const int rc = on_device(device, [&] {
+    auto pass1 = sums_kernel<T, I, kMulti>;
+    attr = cudaFuncSetAttribute(
+        pass1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (attr == cudaSuccess)     // shared memory over L1: more tiles an SM
+      attr = cudaFuncSetAttribute(
+          pass1, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+    if (attr != cudaSuccess) return;
+    if (sc.n_tiles > 0)
+      pass1<<<sc.n_tiles, kSumThreads, smem, stream>>>(
+          sc.loc, static_cast<const I*>(sc.rb_src), sc.rb_ptr, sc.item_k0,
+          sc.item_k1, sc.tile_ptr, sc.m_max, sc.stage_rb, sc.vec16, bk,
+          static_cast<T*>(sums));
+    attr = cudaGetLastError();
+    if (attr != cudaSuccess) return;
+    planes_out_kernel<T><<<(unsigned)n_write, kThreads, 0, stream>>>(
+        sc.nz_slot, sc.nz_item, sc.nz_ptr, sc.n_slots,
+        static_cast<const T*>(sums), static_cast<T*>(out));
   });
+  return attr != cudaSuccess ? (int)attr : rc;
 }
 
 template <typename T>
-int dispatch_elements(int idx64, const void* src, const int* items,
-                      const int* tile_ptr, const int* slot_ptr,
-                      long long n_tiles, long long n_chunks, int bw,
-                      long long C, int ct_log2, long long n_slots,
+int dispatch_elements(int idx64, const Schedule& sc,
                       const void* const* ke_ptrs, const long long* starts,
-                      const int* ms, int nblk, void* out,
+                      const int* ms, int nblk, void* sums, void* out,
                       cudaStream_t stream, int device) {
   Blocks<T> bk;
   bk.nblk = nblk;
@@ -191,13 +324,15 @@ int dispatch_elements(int idx64, const void* src, const int* items,
     bk.m[b] = ms[b];
   }
   bk.start[nblk] = starts[nblk];
-  if (idx64)
-    return launch_elements<T, long long>(src, items, tile_ptr, slot_ptr,
-                                         n_tiles, n_chunks, bw, C, ct_log2,
-                                         n_slots, bk, out, stream, device);
-  return launch_elements<T, int>(src, items, tile_ptr, slot_ptr, n_tiles,
-                                 n_chunks, bw, C, ct_log2, n_slots, bk, out,
-                                 stream, device);
+  if (nblk == 1)
+    return idx64 ? launch_passes<T, long long, false>(sc, bk, sums, out,
+                                                      stream, device)
+                 : launch_passes<T, int, false>(sc, bk, sums, out, stream,
+                                                device);
+  return idx64 ? launch_passes<T, long long, true>(sc, bk, sums, out, stream,
+                                                   device)
+               : launch_passes<T, int, true>(sc, bk, sums, out, stream,
+                                             device);
 }
 
 // The planes entry: one thread per (slot, plane).  Threads of a block
@@ -255,38 +390,50 @@ int launch_planes(const void* values, int V, long long R, const int* slot_ptr,
 // launches on `stream` and returns 0, the launch's cudaError_t, -1 for
 // too many element blocks or -2 for sizes it does not take.
 
-// The element assembly: src (P) int32 (idx64 = 0) or int64 flat offsets in
-// slot order; items (non-empty slots, tile-local) and tile_ptr (n_tiles+1)
-// int32; slot_ptr (n_slots+1) int32; the tiles (bw runs of 1 << ct_log2
-// slots, rows of C slots, n_chunks chunks a row) as assembly/segsum.py
-// builds them; out (9, n_slots).  Host arrays: ke_ptrs (nblk) to the
-// element matrices, starts (nblk+1) their flat offsets, ms (nblk) their
-// widths.  is_double selects float64 over float32.
-extern "C" int fstr_segsum(int is_double, int idx64, const void* src,
-                           const void* items, const void* tile_ptr,
-                           const void* slot_ptr, long long n_tiles,
-                           long long n_chunks, int bw, long long C,
-                           int ct_log2, long long n_slots,
+// The element assembly, over the schedule assembly/segsum.py builds (all
+// int32 but rb_src, int64 when idx64): pass 1 over n_tiles tiles, from
+// loc (P), rb_src, rb_ptr and tile_ptr (n_tiles+1), item_k0 and item_k1,
+// into sums (n_items, 9) of the element type; tiles of at most stage_rb
+// row blocks (3 rows of m_max values) are staged, by 16-byte copies when
+// vec16 (every row block laid out alike and 16-byte aligned in memory and
+// in the stage).  Pass 2 over blocks of
+// kWriteSlots slots, from nz_slot and nz_item (the non-empty slots,
+// ascending, and their items) and nz_ptr, into out (9, n_slots).  Host
+// arrays: ke_ptrs (nblk) to the element matrices, starts (nblk+1) their
+// flat offsets, ms (nblk) their widths m_b <= m_max.  is_double selects
+// float64 over float32.
+extern "C" int fstr_segsum(int is_double, int idx64, const void* loc,
+                           const void* rb_src, const void* rb_ptr,
+                           const void* item_k0, const void* item_k1,
+                           const void* tile_ptr, int n_tiles,
+                           const void* nz_slot, const void* nz_item,
+                           const void* nz_ptr, long long n_slots, int m_max,
+                           int stage_rb, int vec16,
                            const void* const* ke_ptrs,
                            const long long* starts, const int* ms, int nblk,
-                           void* out, void* stream, int device) {
+                           void* sums, void* out, void* stream, int device) {
   if (nblk < 1 || nblk > kMaxBlocks) return -1;
-  if (bw < 1 || ct_log2 < 0 || (bw << ct_log2) > kTileSlots ||
-      n_tiles < 0 || n_tiles > 0x7fffffffLL || n_slots < 0)
+  if (n_tiles < 0 || stage_rb < 0 || m_max < 1 || n_slots < 0 ||
+      n_slots >= 0x7fffffffLL)
     return -2;
-  if (n_tiles == 0) return 0;
+  for (int b = 0; b < nblk; ++b)
+    if (ms[b] < 1 || ms[b] > m_max) return -2;
+  if (n_slots == 0) return 0;
+  const Schedule sc{static_cast<const int*>(loc), rb_src,
+                    static_cast<const int*>(rb_ptr),
+                    static_cast<const int*>(item_k0),
+                    static_cast<const int*>(item_k1),
+                    static_cast<const int*>(tile_ptr),
+                    static_cast<const int*>(nz_slot),
+                    static_cast<const int*>(nz_item),
+                    static_cast<const int*>(nz_ptr), n_tiles, m_max,
+                    stage_rb, vec16, n_slots};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* it = static_cast<const int*>(items);
-  const int* tp = static_cast<const int*>(tile_ptr);
-  const int* sp = static_cast<const int*>(slot_ptr);
   if (is_double)
-    return dispatch_elements<double>(idx64, src, it, tp, sp, n_tiles,
-                                     n_chunks, bw, C, ct_log2, n_slots,
-                                     ke_ptrs, starts, ms, nblk, out, st,
-                                     device);
-  return dispatch_elements<float>(idx64, src, it, tp, sp, n_tiles, n_chunks,
-                                  bw, C, ct_log2, n_slots, ke_ptrs, starts,
-                                  ms, nblk, out, st, device);
+    return dispatch_elements<double>(idx64, sc, ke_ptrs, starts, ms, nblk,
+                                     sums, out, st, device);
+  return dispatch_elements<float>(idx64, sc, ke_ptrs, starts, ms, nblk, sums,
+                                  out, st, device);
 }
 
 // The planes entry: values (V, R) and out (V, n_slots) of the element

@@ -185,14 +185,34 @@ def _two_block_profile():
     return bell.build_cluster_profile(conns, 48, 3), conns
 
 
-def test_schedule_offsets_equal_the_decode():
-    """Each entry's source offset, decoded on the host, is the first
-    kernel's decode of perm[k] (a search over the block offsets and two
-    divisions): element e, sub-block (a, c) of block b."""
+def _entry_tiles(plan, sc):
+    """The tile of each entry in slot order, from the schedule's tiling."""
+    seg = plan.seg_sorted.numpy().astype(np.int64)
+    fine = (seg // (sc.C * sc.bw)) * sc.C + seg % sc.C
+    return (fine // sc.C) * sc.n_chunks + ((fine % sc.C) >> sc.ct_log2)
+
+
+def _entry_offsets(plan, sc):
+    """Each entry's (0, 0) value offset, decoded from the schedule: its
+    tile's row block r and column sub-block c from loc."""
+    loc = sc.loc.numpy().astype(np.int64)
+    rbs = 3 * sc.m_max
+    r, off = loc // rbs, loc % rbs
+    rb = sc.rb_src.numpy().astype(np.int64)
+    return rb[sc.rb_ptr.numpy()[_entry_tiles(plan, sc)] + r] + off
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_schedule_offsets_equal_the_decode(itemsize):
+    """Each entry's source offset, decoded on the host from its tile's
+    row blocks, is the first kernel's decode of perm[k] (a search over
+    the block offsets and two divisions): element e, sub-block (a, c) of
+    block b; and every row block is read by one tile only."""
     prof, conns = _two_block_profile()
     plan = prof.plan("cpu")
-    sc = sm.element_schedule(plan, [4, 4], 3)
-    assert sc.src.dtype == torch.int32 and plan.shape == prof.slot_shape
+    sc = sm.element_schedule(plan, [4, 4], 3, itemsize)
+    assert sc.rb_src.dtype == torch.int32 and plan.shape == prof.slot_shape
+    assert sc.rb_src.numel() == len(np.unique(sc.rb_src.numpy()))
     off = np.r_[0, np.cumsum(plan.pair_counts)]
     want = []
     for p in plan.perm.numpy().astype(np.int64):
@@ -203,45 +223,61 @@ def test_schedule_offsets_equal_the_decode():
         a, r = divmod(q, nn * E)
         c, e = divmod(r, E)
         want.append(sc.starts[b] + e * m * m + a * 3 * m + c * 3)
-    assert np.array_equal(sc.src.numpy(), np.asarray(want))
+    assert np.array_equal(_entry_offsets(plan, sc), np.asarray(want))
 
 
-def _emulate_element_kernel(plan, kes, nns):
-    """The element kernel's loops on the host: per tile, each listed
-    slot's nine sums in ascending k from the source offsets, then every
-    slot of the tile stored (zeros included)."""
-    sc = sm.element_schedule(plan, nns, 3)
-    src = sc.src.numpy().astype(np.int64)
-    items, tile_ptr = sc.items.numpy(), sc.tile_ptr.numpy()
-    ptr = plan.slot_ptr.numpy()
+def _emulate_element_kernel(plan, kes, nns, max_tile_slots):
+    """The element kernel's two passes on the host.  Pass 1, per tile:
+    its row blocks staged (rows of m_max values) when they fit, then each
+    item's nine sums in ascending k, read from the stage or from the
+    element matrices at the same coordinates.  Pass 2: every slot's
+    planes from its item's sums, zeros for empty slots."""
+    sc = sm.element_schedule(plan, nns, 3, 8, max_tile_slots)
+    tile_ptr, rb_ptr = sc.tile_ptr.numpy(), sc.rb_ptr.numpy()
+    k0s, k1s = sc.item_k0.numpy(), sc.item_k1.numpy()
+    rb_src = sc.rb_src.numpy().astype(np.int64)
+    loc = sc.loc.numpy().astype(np.int64)
     flat = np.concatenate([k.numpy().reshape(-1) for k in kes])
-    blk = np.searchsorted(np.asarray(sc.starts), src, side="right") - 1
-    width = np.asarray(sc.ms)[blk]
-    ct = 1 << sc.ct_log2
-    ts = sc.bw * ct
-    assert ts <= sm.TILE_SLOTS
-    out = np.full((9, plan.n_slots), np.nan)
+    starts, widths = np.asarray(sc.starts), np.asarray(sc.ms)
+    offsets = _entry_offsets(plan, sc)
+    width = widths[np.searchsorted(starts, offsets, side="right") - 1]
+    assert (sc.bw << sc.ct_log2) <= min(max_tile_slots, sm.TILE_SLOTS)
+    rbs = 3 * sc.m_max
+    sums = np.full((len(k0s), 9), np.nan)
     for tile in range(sc.n_tiles):
-        a, chunk = divmod(tile, sc.n_chunks)
-        acc = np.zeros((9, ts))
-        lens = []
-        for sl in items[tile_ptr[tile]:tile_ptr[tile + 1]]:
-            s = (a * sc.bw + (sl >> sc.ct_log2)) * sc.C + chunk * ct \
-                + (sl & (ct - 1))
-            ks = np.arange(ptr[s], ptr[s + 1])
-            lens.append(len(ks))
+        n_rb = rb_ptr[tile + 1] - rb_ptr[tile]
+        stage = None
+        if n_rb <= sc.stage_rb:
+            stage = np.zeros(n_rb * rbs)
+            for r, g in enumerate(rb_src[rb_ptr[tile]:rb_ptr[tile + 1]]):
+                m = widths[np.searchsorted(starts, g, side="right") - 1]
+                for i in range(3):
+                    stage[r * rbs + i * sc.m_max:][:m] = \
+                        flat[g + i * m:g + (i + 1) * m]
+        its = range(tile_ptr[tile], tile_ptr[tile + 1])
+        lens = [k1s[it] - k0s[it] for it in its]
+        assert lens == sorted(lens, reverse=True) and min(lens + [1]) > 0
+        for it in its:
+            ks = np.arange(k0s[it], k1s[it])
+            assert (_entry_tiles(plan, sc)[ks] == tile).all()
             for v in range(9):
                 i, j = divmod(v, 3)
+                xs = flat[offsets[ks] + i * width[ks] + j]
+                if stage is not None:
+                    assert np.array_equal(
+                        stage[loc[ks] + i * sc.m_max + j], xs)
                 total = 0.0
-                for x in flat[src[ks] + i * width[ks] + j]:
+                for x in xs:
                     total += x
-                acc[v, sl] = total
-        assert lens == sorted(lens, reverse=True) and min(lens + [1]) > 0
-        for sl in range(ts):
-            c = chunk * ct + (sl & (ct - 1))
-            if c < sc.C:
-                out[:, (a * sc.bw + (sl >> sc.ct_log2)) * sc.C + c] = \
-                    acc[:, sl]
+                sums[it, v] = total
+    out = np.zeros((9, plan.n_slots))
+    nz_slot, nz_item = sc.nz_slot.numpy(), sc.nz_item.numpy()
+    nz_ptr = sc.nz_ptr.numpy()
+    assert nz_ptr[-1] == len(nz_slot) and (np.diff(nz_slot) > 0).all()
+    for blk in range(len(nz_ptr) - 1):
+        for p in range(nz_ptr[blk], nz_ptr[blk + 1]):
+            assert nz_slot[p] // sm.WRITE_SLOTS == blk
+            out[:, nz_slot[p]] = sums[nz_item[p]]
     assert not np.isnan(out).any()
     return out
 
@@ -252,7 +288,9 @@ def test_element_kernel_schedule_matches_plain(case):
     """The element kernel's loops, run on the host over its schedule,
     give the plain version's planes bit for bit (float64: both add each
     slot's entries in ascending k).  ``cluster_chunks``: one block whose
-    clusters fill several tile chunks, the last one ragged."""
+    clusters fill several tile chunks (tiles of at most 512 slots), the
+    last one ragged."""
+    cap = 512 if case == "cluster_chunks" else sm.TILE_SLOTS
     if case in ("two_block_cluster", "cluster_chunks"):
         if case == "two_block_cluster":
             prof, conns = _two_block_profile()
@@ -264,13 +302,14 @@ def test_element_kernel_schedule_matches_plain(case):
         kes = [torch.as_tensor(k) for k in _random_kes(conns, 16)]
         nns = [4] * len(conns)
         if case == "cluster_chunks":
-            sc = sm.element_schedule(plan, nns, 3)
+            sc = sm.element_schedule(plan, nns, 3, 8, cap)
+            assert sc.bw == prof.G * prof.Wc
             assert sc.n_chunks > 1 and sc.C % (1 << sc.ct_log2)
     else:
         seg, n_slots = _seg_cases()[case]
         plan, ke, _ = _nodal_case(seg, n_slots, 17, torch.float64)
         kes, nns = [ke], [1]
-    got = _emulate_element_kernel(plan, kes, nns)
+    got = _emulate_element_kernel(plan, kes, nns, cap)
     want = sm.segsum_reference(plan, kes, nns, 3).numpy()
     assert np.array_equal(got, want)
 

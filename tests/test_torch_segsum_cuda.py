@@ -121,7 +121,8 @@ def test_kernel_cluster_tiles_on_card(cuda_device, dtype):
     conn = mesh.blocks[0].conn
     prof = bell.build_cluster_profile([conn], mesh.n_node, 3)
     plan = prof.plan(cuda_device)
-    sc = sm.element_schedule(plan, [4], 3)
+    sc = sm.element_schedule(plan, [4], 3, torch.tensor([], dtype=dtype)
+                             .element_size())
     assert sc.bw == prof.G * prof.Wc and sc.n_chunks > 1
     kes = [torch.as_tensor(np.random.default_rng(11).standard_normal(
         (conn.shape[0], 12, 12)), dtype=dtype, device=cuda_device)]
