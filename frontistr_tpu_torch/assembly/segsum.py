@@ -217,14 +217,20 @@ def element_schedule(plan: SegsumPlan, nns: Sequence[int], nd: int,
     def per_block(vals):
         return torch.as_tensor(np.asarray(vals, np.int64), device=dev)
 
-    p = plan.perm.long()
-    b = torch.bucketize(p, per_block(poff[1:]), right=True)
-    E, nn, m = per_block(Es)[b], per_block(nns)[b], per_block(ms)[b]
-    q = p - per_block(poff)[b]
+    q = plan.perm.long()
+    if len(nns) == 1:
+        E, nn, m = Es[0], nns[0], ms[0]
+        base = 0
+    else:
+        b = torch.bucketize(q, per_block(poff[1:]), right=True)
+        E, nn, m = per_block(Es)[b], per_block(nns)[b], per_block(ms)[b]
+        q = q - per_block(poff)[b]
+        base = per_block(starts)[b]
+        del b
     a, r = q // (nn * E), q % (nn * E)
     c, e = r // E, r % E
-    rb = per_block(starts)[b] + e * m * m + a * nd * m
-    del p, b, E, nn, m, q, a, r, e
+    rb = base + e * m * m + a * nd * m
+    del q, a, r, e, base
 
     seg = plan.seg_sorted.long()
     ptr = plan.slot_ptr.long()
@@ -242,10 +248,21 @@ def element_schedule(plan: SegsumPlan, nns: Sequence[int], nd: int,
             continue
         # the (a, c) column of each entry and its distinct row blocks
         fine = (seg // (C * bw)) * C + seg % C
-        uniq, inv = torch.unique(fine * total + rb, return_inverse=True)
+        key_s, by_key = torch.sort(fine * total + rb)
+        first = torch.ones_like(key_s, dtype=torch.bool)
+        torch.ne(key_s[1:], key_s[:-1], out=first[1:])
+        uniq = key_s[first]
+        inv = torch.empty_like(by_key)
+        inv[by_key] = torch.cumsum(first, 0) - 1
+        del key_s, by_key, first
         rb_fine = uniq // total
         fine_s = (s // (C * bw)) * C + s % C
         stage = uniq.numel() * rbs <= STAGE_READS * seg.numel() * nd * nd
+        # items, row blocks and entries of each (a, c) column, summed
+        # per tile for each CT
+        per_fine = [torch.bincount(f, minlength=A * C)
+                    for f in (fine_s, rb_fine, fine)]
+        col = torch.arange(A * C, device=dev)
         for ct_log2 in range((cap // bw).bit_length() - 1, -1, -1):
             n_chunks = -(-C // (1 << ct_log2))
             n_tiles = A * n_chunks
@@ -253,10 +270,11 @@ def element_schedule(plan: SegsumPlan, nns: Sequence[int], nd: int,
             def tile_of(f):
                 return (f // C) * n_chunks + ((f % C) >> ct_log2)
 
-            n_items = torch.bincount(tile_of(fine_s), minlength=n_tiles)
-            n_rb = torch.bincount(tile_of(rb_fine), minlength=n_tiles)
+            tcol = tile_of(col)
+            n_items, n_rb, n_ent = (
+                torch.zeros(n_tiles, dtype=torch.int64, device=dev)
+                .index_add_(0, tcol, cnt) for cnt in per_fine)
             if stage:
-                n_ent = torch.bincount(tile_of(fine), minlength=n_tiles)
                 n_all = int(n_ent.sum())
                 ok = not n_all or float(
                     n_ent[n_rb <= budget].sum()) >= STAGED_SHARE * n_all
@@ -278,8 +296,8 @@ def element_schedule(plan: SegsumPlan, nns: Sequence[int], nd: int,
     loc = (inv - rb_ptr[tile_e]) * rbs + c * nd
     tile = (fine_s // C) * n_chunks + ((fine_s % C) >> ct_log2)
     longest = int(lens.max()) if lens.numel() else 0
-    order = torch.argsort(tile * (longest + 1) + (longest - lens),
-                          stable=True)
+    order = torch.sort(tile * (longest + 1) + (longest - lens),
+                       stable=True)[1]
     tile_ptr = torch.zeros(n_tiles + 1, dtype=torch.int64, device=dev)
     torch.cumsum(n_items, 0, out=tile_ptr[1:])
     nz_item = torch.empty_like(order)
