@@ -25,11 +25,11 @@ tensors launch the hand-written kernel ``csrc/segsum.cu`` or raise.  The
 kernel is CUDA C++ built at first use by ``frontistr_tpu_torch.kernels``
 and bound through a plain C interface with ctypes, on the lean launch
 path of ``frontistr_tpu_torch.launch`` (checks once per key, the raw
-stream, no device context).  The element kernel reads, besides the
-plan's ``slot_ptr``, a schedule built on the device once per plan
-(``element_schedule``: each entry's source offset, the non-empty slots
-by tile); the source says how that design answers what bounds it,
-device-memory bytes.
+stream, no device context).  The element kernel runs two passes over a
+schedule built on the device once per plan (``element_schedule``: the
+tiles' element-matrix row blocks, each entry's place in them, the
+non-empty slots by tile and in order); the source says how that design
+answers what bounds it, device-memory bytes.
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ class SegsumPlan:
     # how the element kernel tiles the slots (``element_schedule``)
     shape: Optional[tuple] = None
     # the launch path's validated keys (frontistr_tpu_torch.launch) and
-    # the element kernel's schedules, by (nns, nd)
+    # the element kernel's schedules (``schedule_key``)
     cache: dict = dataclasses.field(default_factory=dict, repr=False)
     schedules: dict = dataclasses.field(default_factory=dict, repr=False)
 
@@ -374,7 +374,7 @@ def segsum(plan: SegsumPlan, kes: Sequence[torch.Tensor],
     return out
 
 
-segsum.launches = 0     # K1 kernel launches (plain-version calls excluded)
+segsum.launches = 0     # K1 launches, both passes (plain calls excluded)
 
 
 def segsum_planes_reference(values: torch.Tensor,

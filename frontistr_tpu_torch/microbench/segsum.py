@@ -9,6 +9,8 @@ at n=69) and random element matrices, then times the element kernel
 (``assembly/segsum.py`` ``segsum``, CUDA events, mean of ``reps``
 launches after 2) in float64 and float32:
 
+- the host seconds of the plan and of its element schedule, the first
+  time in the process and again;
 - the default schedule's two passes apart (``torch.profiler``);
 - each schedule: pass-1 tiles that follow the profile's slot shape (G,
   G, Wc, C) or tiles of consecutive slots, capped at 512 to 4,096 slots
@@ -28,6 +30,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -79,9 +82,27 @@ def newton_profile(n: int) -> bell.ClusterProfile:
                                       3)
 
 
+def build_seconds(prof, dev) -> dict:
+    """Host seconds (to a synchronize) of the plan and of its float64
+    element schedule, the first time in the process and again."""
+    got = {}
+    for turn in ("first", "again"):
+        prof.__dict__.pop("_plans", None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = prof.plan(dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sm.element_schedule(plan, [4], 3, 8)
+        torch.cuda.synchronize()
+        got[turn] = dict(plan_s=t1 - t0, schedule_s=time.perf_counter() - t1)
+    return got
+
+
 def run(n: int, reps: int) -> list:
     dev = torch.device("cuda")
     prof = newton_profile(n)
+    print(json.dumps(dict(build=build_seconds(prof, dev))), flush=True)
     plan = prof.plan(dev)
     flat = dataclasses.replace(plan, shape=None, cache={}, schedules={})
     E = plan.pair_counts[0] // 16
