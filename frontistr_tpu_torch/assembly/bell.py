@@ -54,12 +54,13 @@ class ClusterProfile:
         return segmod.cached_plan(self, device)
 
     def tensor(self, name: str, device) -> torch.Tensor:
-        """int64 device copy of an index field (cached per device)."""
+        """int64 device copy of an index field (cached per device),
+        widened on the device."""
         cache = self.__dict__.setdefault("_dev", {})
         key = (name, str(torch.device(device)))
         if key not in cache:
-            cache[key] = torch.as_tensor(
-                np.asarray(getattr(self, name), np.int64), device=device)
+            cache[key] = torch.as_tensor(getattr(self, name)).to(
+                device).long()
         return cache[key]
 
 

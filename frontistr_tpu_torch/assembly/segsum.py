@@ -79,14 +79,12 @@ def make_plan(perm, seg_sorted, n_slots: int, pair_counts, device,
                          f"pair_counts={pair_counts}")
     # segment s is [slot_ptr[s], slot_ptr[s+1]): the counts' prefix sum,
     # O(P + n_slots) on the device
-    seg64 = seg.long()
-    if P and (int(seg64[0]) < 0 or int(seg64[-1]) >= n_slots
-              or not bool((seg64[1:] >= seg64[:-1]).all())):
+    if P and (int(seg[0]) < 0 or int(seg[-1]) >= n_slots
+              or not bool((seg[1:] >= seg[:-1]).all())):
         raise ValueError(f"slot ids must ascend within [0, {n_slots})")
     slot_ptr = torch.zeros(n_slots + 1, dtype=torch.int64, device=dev)
-    torch.cumsum(torch.bincount(seg64, minlength=n_slots), 0,
+    torch.cumsum(torch.bincount(seg, minlength=n_slots), 0,
                  out=slot_ptr[1:])
-    del seg64
     if shape is not None and int(np.prod(shape)) != n_slots:
         raise ValueError(f"slot shape {shape} holds {int(np.prod(shape))} "
                          f"slots, not {n_slots}")
@@ -213,11 +211,14 @@ def element_schedule(plan: SegsumPlan, nns: Sequence[int], nd: int,
     np.cumsum(plan.pair_counts, out=poff[1:])
     total = int(starts[-1]) + 1
     isz_idx = 4 if total <= 2 ** 31 else 8
+    # offsets below 2**31 are decoded in int32 (half the bytes)
+    idx = torch.int32 if isz_idx == 4 else torch.int64
 
     def per_block(vals):
-        return torch.as_tensor(np.asarray(vals, np.int64), device=dev)
+        return torch.as_tensor(np.asarray(vals, np.int64), device=dev,
+                               ).to(idx)
 
-    q = plan.perm.long()
+    q = plan.perm.to(idx)
     if len(nns) == 1:
         E, nn, m = Es[0], nns[0], ms[0]
         base = 0
@@ -232,8 +233,8 @@ def element_schedule(plan: SegsumPlan, nns: Sequence[int], nd: int,
     rb = base + e * m * m + a * nd * m
     del q, a, r, e, base
 
-    seg = plan.seg_sorted.long()
-    ptr = plan.slot_ptr.long()
+    seg = plan.seg_sorted
+    ptr = plan.slot_ptr
     lens = ptr[1:] - ptr[:-1]
     s = torch.nonzero(lens).squeeze(1)
     lens = lens[s]
@@ -248,14 +249,14 @@ def element_schedule(plan: SegsumPlan, nns: Sequence[int], nd: int,
             continue
         # the (a, c) column of each entry and its distinct row blocks
         fine = (seg // (C * bw)) * C + seg % C
-        key_s, by_key = torch.sort(fine * total + rb)
+        key_s, by_key = torch.sort(fine.long() * total + rb)
         first = torch.ones_like(key_s, dtype=torch.bool)
         torch.ne(key_s[1:], key_s[:-1], out=first[1:])
         uniq = key_s[first]
         inv = torch.empty_like(by_key)
         inv[by_key] = torch.cumsum(first, 0) - 1
         del key_s, by_key, first
-        rb_fine = uniq // total
+        rb_fine = (uniq // total).int()
         fine_s = (s // (C * bw)) * C + s % C
         stage = uniq.numel() * rbs <= STAGE_READS * seg.numel() * nd * nd
         # items, row blocks and entries of each (a, c) column, summed
