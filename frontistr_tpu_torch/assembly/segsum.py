@@ -58,7 +58,7 @@ class SegsumPlan:
     # how the element kernel tiles the slots (``element_schedule``)
     shape: Optional[tuple] = None
     # the launch path's validated keys (frontistr_tpu_torch.launch) and
-    # the element kernel's schedules (``schedule_key``)
+    # the element kernel's schedules, by (nns, nd, value size)
     cache: dict = dataclasses.field(default_factory=dict, repr=False)
     schedules: dict = dataclasses.field(default_factory=dict, repr=False)
 
@@ -148,17 +148,8 @@ class ElementSchedule:
         self.c_ms = (ctypes.c_int * len(self.ms))(*self.ms)
 
 
-def schedule_key(nns: Sequence[int], nd: int, itemsize: int,
-                 max_tile_slots: int = TILE_SLOTS,
-                 smem_bytes: int = SMEM_BYTES) -> tuple:
-    """Where a plan keeps an element schedule (``SegsumPlan.schedules``);
-    ``segsum`` takes the one under the default limits."""
-    return (tuple(nns), nd, itemsize, max_tile_slots, smem_bytes)
-
-
 def element_schedule(plan: SegsumPlan, nns: Sequence[int], nd: int,
-                     itemsize: int, max_tile_slots: int = TILE_SLOTS,
-                     smem_bytes: int = SMEM_BYTES) -> ElementSchedule:
+                     itemsize: int) -> ElementSchedule:
     """The element kernel's per-plan arrays, on the plan's device (built
     at the first call of ``segsum`` with these ``nns`` and value size,
     then kept on the plan).  The kernel runs two passes: pass 1 sums the
@@ -181,8 +172,8 @@ def element_schedule(plan: SegsumPlan, nns: Sequence[int], nd: int,
     they hold at most ``STAGE_READS`` times the values its entries read
     (a shape without such reuse reads every tile from device memory).
     CT is the largest power of two that keeps a tile within
-    ``max_tile_slots`` slots and the stages of the tiles that hold
-    ``STAGED_SHARE`` of the entries within ``smem_bytes`` (an unstaged
+    ``TILE_SLOTS`` slots and the stages of the tiles that hold
+    ``STAGED_SHARE`` of the entries within ``SMEM_BYTES`` (an unstaged
     shape: DIRECT_ITEMS items a tile); the other tiles are read from
     device memory.  Without such a CT, the shape falls back to (1, 1, 1,
     n_slots).
@@ -196,7 +187,7 @@ def element_schedule(plan: SegsumPlan, nns: Sequence[int], nd: int,
       the CSR pointer of the tiles over them;
     - ``nz_slot``/``nz_item``: the non-empty slots ascending and their
       items, ``nz_ptr`` the CSR pointer of pass 2's blocks over them."""
-    key = schedule_key(nns, nd, itemsize, max_tile_slots, smem_bytes)
+    key = (tuple(nns), nd, itemsize)
     got = plan.schedules.get(key)
     if got is not None:
         return got
@@ -238,14 +229,13 @@ def element_schedule(plan: SegsumPlan, nns: Sequence[int], nd: int,
     lens = ptr[1:] - ptr[:-1]
     s = torch.nonzero(lens).squeeze(1)
     lens = lens[s]
-    cap = min(max_tile_slots, TILE_SLOTS)
-    budget = smem_bytes // (rbs * itemsize + isz_idx)
+    budget = SMEM_BYTES // (rbs * itemsize + isz_idx)
     shapes = ([plan.shape] if plan.shape else []) + [(1, 1, 1,
                                                       plan.n_slots)]
     best = None
     for A, B, W, C in shapes:
         bw = B * W
-        if bw > cap:
+        if bw > TILE_SLOTS:
             continue
         # the (a, c) column of each entry and its distinct row blocks
         fine = (seg // (C * bw)) * C + seg % C
@@ -264,7 +254,7 @@ def element_schedule(plan: SegsumPlan, nns: Sequence[int], nd: int,
         per_fine = [torch.bincount(f, minlength=A * C)
                     for f in (fine_s, rb_fine, fine)]
         col = torch.arange(A * C, device=dev)
-        for ct_log2 in range((cap // bw).bit_length() - 1, -1, -1):
+        for ct_log2 in range((TILE_SLOTS // bw).bit_length() - 1, -1, -1):
             n_chunks = -(-C // (1 << ct_log2))
             n_tiles = A * n_chunks
 

@@ -1,4 +1,4 @@
-"""K1's element kernel under different tilings, at the Newton cell's shapes.
+"""K1's element kernel at the Newton cell's shapes.
 
     python -m frontistr_tpu_torch.microbench.segsum [--n 69] [--reps 10]
 
@@ -11,13 +11,9 @@ launches after 2) in float64 and float32:
 
 - the host seconds of the plan and of its element schedule, the first
   time in the process and again;
-- the default schedule's two passes apart (``torch.profiler``);
-- each schedule: pass-1 tiles that follow the profile's slot shape (G,
-  G, Wc, C) or tiles of consecutive slots, capped at 512 to 4,096 slots
-  and at a half, one or two times ``SMEM_BYTES`` of shared memory for a
-  stage; every schedule's planes must be bit-equal to the default's;
+- the kernel and its two passes apart (``torch.profiler``);
 - ``index_add_`` of the entries already in slot order;
-- the stores alone: the same slot spaces with no entries, beside one
+- the stores alone: the same slot space with no entries, beside one
   memset of the planes.
 
 It needs a card.
@@ -26,7 +22,6 @@ It needs a card.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import subprocess
 import sys
@@ -39,9 +34,6 @@ from frontistr_tpu_torch import ordering
 from frontistr_tpu_torch.assembly import bell
 from frontistr_tpu_torch.assembly import segsum as sm
 from frontistr_tpu_torch.meshgen import box_tet4
-
-CAPS = (512, 1024, 2048, 4096)            # tile slots at most
-SMEM = (sm.SMEM_BYTES // 2, sm.SMEM_BYTES, 2 * sm.SMEM_BYTES)  # a stage
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -104,7 +96,6 @@ def run(n: int, reps: int) -> list:
     prof = newton_profile(n)
     print(json.dumps(dict(build=build_seconds(prof, dev))), flush=True)
     plan = prof.plan(dev)
-    flat = dataclasses.replace(plan, shape=None, cache={}, schedules={})
     E = plan.pair_counts[0] // 16
     gen = torch.Generator(device=dev).manual_seed(0)
     ke64 = torch.randn((E, 12, 12), dtype=torch.float64, device=dev,
@@ -112,57 +103,32 @@ def run(n: int, reps: int) -> list:
     rows = []
     for dt in (torch.float64, torch.float32):
         kes = [ke64.to(dt)]
-        want = sm.segsum(plan, kes, [4], 3)
         ent = sm.entry_planes(kes, [4], 3)[:, plan.perm.long()]
-        out = torch.zeros_like(want)
+        out = torch.zeros((9, plan.n_slots), dtype=dt, device=dev)
         seg = plan.seg_sorted.long()
         library_ms = cuda_ms(lambda: out.index_add_(1, seg, ent), reps)
-        del ent, out
-        isz = kes[0].element_size()
-        print(json.dumps(dict(dtype=str(dt)[6:], passes=kernel_split(
-            lambda: sm.segsum(plan, kes, [4], 3), reps))), flush=True)
-        for label, p in (("slot shape", plan), ("consecutive", flat)):
-            for smem in SMEM:
-                for cap in CAPS:
-                    sc = sm.element_schedule(p, [4], 3, isz, cap, smem)
-                    # the wrapper takes the schedule under the default key
-                    p.schedules[sm.schedule_key([4], 3, isz)] = sc
-                    got = sm.segsum(p, kes, [4], 3)
-                    if not torch.equal(got, want):
-                        raise AssertionError(f"{label} tiles ({cap}, "
-                                             f"{smem}) differ")
-                    ms = cuda_ms(lambda: sm.segsum(p, kes, [4], 3), reps)
-                    rb = sc.rb_ptr.diff()
-                    row = dict(dtype=str(dt)[6:], tiles=label, cap=cap,
-                               smem=smem, tile_slots=sc.bw << sc.ct_log2,
-                               n_tiles=sc.n_tiles, stage_rb=sc.stage_rb,
-                               staged_tiles=int((rb <= sc.stage_rb).sum()),
-                               ms=ms, library_ms=library_ms)
-                    print(json.dumps(row), flush=True)
-                    rows.append(row)
-                    p.schedules.clear()
-        del kes, want
+        del ent
+        sc = sm.element_schedule(plan, [4], 3, kes[0].element_size())
+        rb = sc.rb_ptr.diff()
+        row = dict(dtype=str(dt)[6:], tile_slots=sc.bw << sc.ct_log2,
+                   n_tiles=sc.n_tiles, stage_rb=sc.stage_rb,
+                   staged_tiles=int((rb <= sc.stage_rb).sum()),
+                   ms=cuda_ms(lambda: sm.segsum(plan, kes, [4], 3), reps),
+                   passes=kernel_split(lambda: sm.segsum(plan, kes, [4], 3),
+                                       reps),
+                   library_ms=library_ms)
+        del kes
         # the stores alone: a plan of the same slot space with no entries,
         # every slot written 0; beside it one memset of the planes
         empty = sm.make_plan(np.zeros(0, np.int32), np.zeros(0, np.int32),
                              plan.n_slots, (0,), dev, plan.shape)
         zeros = [torch.zeros((0, 12, 12), dtype=dt, device=dev)]
-        out = torch.empty((9, plan.n_slots), dtype=dt, device=dev)
-        memset_ms = cuda_ms(lambda: out.zero_(), reps)
+        row.update(no_entries_ms=cuda_ms(
+            lambda: sm.segsum(empty, zeros, [4], 3), reps),
+            memset_ms=cuda_ms(lambda: out.zero_(), reps))
         del out
-        for label, p in (("slot shape", empty),
-                         ("consecutive", dataclasses.replace(
-                             empty, shape=None, cache={}, schedules={}))):
-            for cap in CAPS:
-                sc = sm.element_schedule(p, [4], 3, isz, cap)
-                p.schedules[sm.schedule_key([4], 3, isz)] = sc
-                ms = cuda_ms(lambda: sm.segsum(p, zeros, [4], 3), reps)
-                row = dict(dtype=str(dt)[6:], tiles=label + ", no entries",
-                           cap=cap, tile_slots=sc.bw << sc.ct_log2,
-                           n_tiles=sc.n_tiles, ms=ms, memset_ms=memset_ms)
-                print(json.dumps(row), flush=True)
-                rows.append(row)
-                p.schedules.clear()
+        print(json.dumps(row), flush=True)
+        rows.append(row)
     return rows
 
 

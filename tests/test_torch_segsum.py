@@ -226,13 +226,13 @@ def test_schedule_offsets_equal_the_decode(itemsize):
     assert np.array_equal(_entry_offsets(plan, sc), np.asarray(want))
 
 
-def _emulate_element_kernel(plan, kes, nns, max_tile_slots):
+def _emulate_element_kernel(plan, kes, nns):
     """The element kernel's two passes on the host.  Pass 1, per tile:
     its row blocks staged (rows of m_max values) when they fit, then each
     item's nine sums in ascending k, read from the stage or from the
     element matrices at the same coordinates.  Pass 2: every slot's
     planes from its item's sums, zeros for empty slots."""
-    sc = sm.element_schedule(plan, nns, 3, 8, max_tile_slots)
+    sc = sm.element_schedule(plan, nns, 3, 8)
     tile_ptr, rb_ptr = sc.tile_ptr.numpy(), sc.rb_ptr.numpy()
     k0s, k1s = sc.item_k0.numpy(), sc.item_k1.numpy()
     rb_src = sc.rb_src.numpy().astype(np.int64)
@@ -241,7 +241,7 @@ def _emulate_element_kernel(plan, kes, nns, max_tile_slots):
     starts, widths = np.asarray(sc.starts), np.asarray(sc.ms)
     offsets = _entry_offsets(plan, sc)
     width = widths[np.searchsorted(starts, offsets, side="right") - 1]
-    assert (sc.bw << sc.ct_log2) <= min(max_tile_slots, sm.TILE_SLOTS)
+    assert (sc.bw << sc.ct_log2) <= sm.TILE_SLOTS
     rbs = 3 * sc.m_max
     sums = np.full((len(k0s), 9), np.nan)
     for tile in range(sc.n_tiles):
@@ -288,28 +288,27 @@ def test_element_kernel_schedule_matches_plain(case):
     """The element kernel's loops, run on the host over its schedule,
     give the plain version's planes bit for bit (float64: both add each
     slot's entries in ascending k).  ``cluster_chunks``: one block whose
-    clusters fill several tile chunks (tiles of at most 512 slots), the
-    last one ragged."""
-    cap = 512 if case == "cluster_chunks" else sm.TILE_SLOTS
+    clusters fill several tile chunks (tiles cut to the shared-memory
+    stage), the last one ragged."""
     if case in ("two_block_cluster", "cluster_chunks"):
         if case == "two_block_cluster":
             prof, conns = _two_block_profile()
         else:
-            mesh = jbox_tet4(6, 5, 4)
+            mesh = jbox_tet4(10, 8, 6)
             conns = [mesh.blocks[0].conn]
             prof = bell.build_cluster_profile(conns, mesh.n_node, 3)
         plan = prof.plan("cpu")
         kes = [torch.as_tensor(k) for k in _random_kes(conns, 16)]
         nns = [4] * len(conns)
         if case == "cluster_chunks":
-            sc = sm.element_schedule(plan, nns, 3, 8, cap)
+            sc = sm.element_schedule(plan, nns, 3, 8)
             assert sc.bw == prof.G * prof.Wc
             assert sc.n_chunks > 1 and sc.C % (1 << sc.ct_log2)
     else:
         seg, n_slots = _seg_cases()[case]
         plan, ke, _ = _nodal_case(seg, n_slots, 17, torch.float64)
         kes, nns = [ke], [1]
-    got = _emulate_element_kernel(plan, kes, nns, cap)
+    got = _emulate_element_kernel(plan, kes, nns)
     want = sm.segsum_reference(plan, kes, nns, 3).numpy()
     assert np.array_equal(got, want)
 
