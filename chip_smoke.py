@@ -369,12 +369,10 @@ def phase_newton_main_path(args, mods):
 def phase_k1_time(sm, mbs, bell, stmod, model, launches) -> dict:
     """K1 at the Newton main path's shapes, in float64 (the type its f64
     policy assembles in) and float32 (the mixed policy's).  Also timed:
-    the same kernel on tiles of consecutive slots (the plan without its
-    slot shape), whose planes must be bit-equal, and the kernel's two
-    passes apart (torch.profiler: pass 1 the sums, pass 2 the planes)."""
+    the kernel's two passes apart (torch.profiler: pass 1 the sums, pass
+    2 the planes)."""
     kes = stmod.compute_element_stiffness(model)
     plan = bell.cluster_profile_from_model(model).plan("cuda")
-    flat = dataclasses.replace(plan, shape=None, cache={}, schedules={})
     nns = [b.conn.shape[1] for b in model.blocks]
     P = plan.perm.numel()
     seg = plan.seg_sorted.long()
@@ -385,12 +383,8 @@ def phase_k1_time(sm, mbs, bell, stmod, model, launches) -> dict:
     for dt in (torch.float32, torch.float64):
         kd = [k.to(dt) for k in kes]
         err = check_k1(sm, plan, kd, nns, dt, "main path")
-        if not torch.equal(sm.segsum(plan, kd, nns, 3),
-                           sm.segsum(flat, kd, nns, 3)):
-            raise AssertionError("K1 on consecutive tiles differs")
         ms = cuda_ms(lambda: sm.segsum(plan, kd, nns, 3))
         passes = mbs.kernel_split(lambda: sm.segsum(plan, kd, nns, 3), 5)
-        flat_ms = cuda_ms(lambda: sm.segsum(flat, kd, nns, 3))
         plain_ms = cuda_ms(lambda: sm.segsum_reference(plan, kd, nns, 3))
         # one library call: index_add_ of the entries already in slot order
         ent = sm.entry_planes(kd, nns, 3)[:, plan.perm.long()]
@@ -405,16 +399,15 @@ def phase_k1_time(sm, mbs, bell, stmod, model, launches) -> dict:
                      for name in ("sums", "planes_out")
                      if f"{name}_kernel" in k}
         log(f"phase k1_time: P={P} pairs, n_slots={plan.n_slots} "
-            f"{str(dt)[6:]}: kernel {ms:.3f} ms (passes {passes_ms}; "
-            f"consecutive tiles {flat_ms:.3f} ms), plain {plain_ms:.3f} ms, "
+            f"{str(dt)[6:]}: kernel {ms:.3f} ms (passes {passes_ms}), "
+            f"plain {plain_ms:.3f} ms, "
             f"index_add_ {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
             f"({nbytes / 1e9:.3f} GB)")
         if len(passes_ms) != 2:
             raise AssertionError(f"K1's two passes not traced: {passes}")
         nums = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms, "consecutive_tiles_ms": flat_ms,
-                "passes_ms": passes_ms}
+                "library_ms": library_ms, "passes_ms": passes_ms}
         if dt == torch.float64:
             row.update(nums)                 # the Newton path's type
         else:
@@ -427,9 +420,12 @@ def phase_amg_repeat(mods, model, planes_launches) -> dict:
     """The AMG setup twice on the same tangent (the linear one) at the
     Newton path's shapes: bit-equal coarse levels (level-1 blocks, their
     inverses, the dense level 2 and its inverse) and a bit-equal V-cycle
-    on a fixed vector.  Then K1's planes entry timed at the level-1
-    sum's shapes (its plan, nv*nv random planes); returns those
-    numbers."""
+    on a fixed vector; the first setup's peak of allocated device memory
+    is logged.  Then K1's planes entry is held to its plain version at
+    its three shapes on the Newton path, on random values: the level-1
+    and level-2 Galerkin sums (their plans, nv*nv planes) and the nodal
+    smoothing (the mesh's node plan, 2*6 + 1 planes), and timed at the
+    level-1 shapes; returns those numbers."""
     sm, stmod, bell, amg = (mods["segsum"], mods["static"], mods["bell"],
                             mods["amg"])
     kes = stmod.compute_element_stiffness(model)
@@ -445,10 +441,14 @@ def phase_amg_repeat(mods, model, planes_launches) -> dict:
                            device="cuda")
     cop = dataclasses.replace(cop, free_mask=free)
     args = (setup.amaps, sb, setup.cols, setup.coords, free)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     lv = amg.coarse_levels(*args)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
     again = amg.coarse_levels(*args)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -460,19 +460,35 @@ def phase_amg_repeat(mods, model, planes_launches) -> dict:
          for _ in range(2)]
     same["vcycle"] = torch.equal(y[0], y[1])
     log(f"phase amg_repeat: coarse_levels {t1 - t0:.3f} s and "
-        f"{t2 - t1:.3f} s, blocks1 {tuple(lv.blocks1.shape)}, dense2 "
-        f"{tuple(lv.dense2.shape)}; bit-equal: {same}")
+        f"{t2 - t1:.3f} s, peak {peak_gb:.3f} GB allocated above the "
+        f"{held / 1e9:.3f} GB held before, blocks1 "
+        f"{tuple(lv.blocks1.shape)}, dense2 {tuple(lv.dense2.shape)}; "
+        f"bit-equal: {same}")
     if not all(same.values()):
         raise AssertionError(f"amg_repeat: two setups differ: {same}")
     nvv = lv.blocks1.shape[0]
     del lv, again, y, cop, sb
+    gen = torch.Generator("cuda").manual_seed(5)
+
+    def random_values(V, plan):
+        return torch.randn((V, plan.perm.numel()), dtype=torch.float64,
+                           device="cuda", generator=gen)
+
+    conn = np.concatenate([np.asarray(b.conn, np.int64).reshape(-1)
+                           for b in model.blocks])
+    node_plan = mods["nodal"].node_plan(conn, model.n_node, "cuda")
+    plan2 = setup.amaps.plans("cuda")[1]
+    errs = {label: check_planes(sm, p, random_values(V, p), torch.float64,
+                                label)
+            for label, p, V in (("AMG level 2", plan2, nvv),
+                                ("nodal smoothing", node_plan, 13))}
+    del node_plan, plan2
     # the level-1 sum's plan, on values of its shape
     plan = setup.amaps.plans("cuda")[0]
-    values = torch.randn((nvv, plan.perm.numel()), dtype=torch.float64,
-                         device="cuda",
-                         generator=torch.Generator("cuda").manual_seed(5))
+    values = random_values(nvv, plan)
     dt = values.dtype
-    err = check_planes(sm, plan, values, dt, "AMG level 1")
+    errs["AMG level 1"] = check_planes(sm, plan, values, dt, "AMG level 1")
+    err = max(errs.values())
     ms = cuda_ms(lambda: sm.segsum_planes(values, plan))
     plain_ms = cuda_ms(lambda: sm.segsum_planes_reference(values, plan))
     ent = values[:, plan.perm.long()]
