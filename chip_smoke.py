@@ -420,8 +420,10 @@ def phase_amg_repeat(mods, model, planes_launches) -> dict:
     """The AMG setup twice on the same tangent (the linear one) at the
     Newton path's shapes: bit-equal coarse levels (level-1 blocks, their
     inverses, the dense level 2 and its inverse) and a bit-equal V-cycle
-    on a fixed vector; the first setup's peak of allocated device memory
-    is logged.  Then K1's planes entry is held to its plain version at
+    on a fixed vector.  Logged: the first setup's peak of allocated
+    device memory, and the peak of the level-1 block inverses alone
+    (``amg._block_inv``, a batched ``eigh``, on blocks of the same
+    shape).  Then K1's planes entry is held to its plain version at
     its three shapes on the Newton path, on random values: the level-1
     and level-2 Galerkin sums (their plans, nv*nv planes) and the nodal
     smoothing (the mesh's node plan, 2*6 + 1 planes), and timed at the
@@ -466,6 +468,12 @@ def phase_amg_repeat(mods, model, planes_launches) -> dict:
         f"bit-equal: {same}")
     if not all(same.values()):
         raise AssertionError(f"amg_repeat: two setups differ: {same}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    amg._block_inv(lv.Dinv1)
+    log(f"  the block inverses {tuple(lv.Dinv1.shape)} alone: peak "
+        f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.3f} GB")
     nvv = lv.blocks1.shape[0]
     del lv, again, y, cop, sb
     gen = torch.Generator("cuda").manual_seed(5)
