@@ -613,9 +613,12 @@ GATHER_REPLACES = {"K3": "scripts/microbench_pallas_gather.py:44",
 def phase_gather_check(g, mb, device="cuda") -> dict:
     """K3-K6 against their plain versions on the card: the script's
     inputs, ragged shapes (K6 at 1 and 3 tiles and a ragged last tile),
-    indices out of range (NaN) and out of the window (0).  A gather
-    copies values, so both outputs and a relaunch must be bit-equal.
-    Returns max |kernel - plain| by kernel id (finite entries)."""
+    indices out of range (NaN) and out of the window (0), and K5/K6 on
+    the microbenchmark's ``window_checks`` (tile_rows 1, 37, 256; 1, 3
+    and 4 window blocks of 8 and 64 rows; 999 and 70,001 rows).  A
+    gather copies values, so both outputs and a relaunch must be
+    bit-equal.  Returns max |kernel - plain| by kernel id (finite
+    entries)."""
     dev = torch.device(device)
     rng = np.random.default_rng(2)
     data = mb.inputs(dev)
@@ -631,30 +634,36 @@ def phase_gather_check(g, mb, device="cuda") -> dict:
         return (i32(rng.integers(-24, rows + 24, (S, 128))),
                 i32(rng.integers(-140, 140, (S, 128))))
 
+    tiled = dict(tile_rows=256, win_rows=64)
     cases = [
-        ("K3", "G1", g.gather_rows, g.gather_rows_reference, data["G1"]),
+        ("K3", "G1", g.gather_rows, g.gather_rows_reference, data["G1"],
+         {}),
         ("K3", "out of range", g.gather_rows, g.gather_rows_reference,
-         (f32((8, 1000)), i32(rng.integers(-12, 12, (9, 1000))))),
-        ("K4", "G2", g.gather_cols, g.gather_cols_reference, data["G2"]),
-        ("K4", "G3", g.gather_cols, g.gather_cols_reference, data["G3"]),
+         (f32((8, 1000)), i32(rng.integers(-12, 12, (9, 1000)))), {}),
+        ("K4", "G2", g.gather_cols, g.gather_cols_reference, data["G2"],
+         {}),
+        ("K4", "G3", g.gather_cols, g.gather_cols_reference, data["G3"],
+         {}),
         ("K4", "out of range", g.gather_cols, g.gather_cols_reference,
-         (f32((5, 300)), i32(rng.integers(-330, 330, (5, 700))))),
+         (f32((5, 300)), i32(rng.integers(-330, 330, (5, 700)))), {}),
         ("K5", "G4", g.window_gather, g.window_gather_reference,
-         data["G4"]),
+         data["G4"], {}),
         ("K5", "out of window", g.window_gather, g.window_gather_reference,
-         (f32((64, 128)),) + win(8, 64)),
+         (f32((64, 128)),) + win(8, 64), {}),
         ("K6", "G5", g.window_gather_tiled, g.window_gather_tiled_reference,
-         data["G5"])]
+         data["G5"], tiled)]
     for S in (256, 768, 700):
         cases.append(("K6", f"S={S} out of window", g.window_gather_tiled,
                       g.window_gather_tiled_reference,
-                      (f32((256, 128)),) + win(S, 64)))
+                      (f32((256, 128)),) + win(S, 64), tiled))
+    for label, kern, plain, args, kw in mb.window_checks(dev):
+        cases.append((label[:2], label[3:] + " out of window", kern, plain,
+                      args, kw))
     errs = {}
-    for kid, label, kern, plain, args in cases:
-        extra = (256, 64) if kid == "K6" else ()
-        got = kern(*args)
-        again = kern(*args)
-        want = plain(*args, *extra)
+    for kid, label, kern, plain, args, kw in cases:
+        got = kern(*args, **kw)
+        again = kern(*args, **kw)
+        want = plain(*args, *kw.values())
         if dev.type == "cuda":
             torch.cuda.synchronize()
         same = got.shape == want.shape and torch.equal(
@@ -693,6 +702,7 @@ def phase_gather_time(g, mb, errs) -> list:
     out = {}
     for r in rows:
         nums = {"ms": r["ms"], "graph_ms": r["graph_ms"],
+                **({"cold_ms": r["cold_ms"]} if "cold_ms" in r else {}),
                 "host_us": r["host_us"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": "bytes",
                 "library_ms": r["library_ms"],

@@ -2,11 +2,11 @@
 //
 // Replace the four TPU kernels of scripts/microbench_pallas_gather.py, a
 // probe of Mosaic's in-VMEM `dynamic_gather` written for a future ELL
-// SpMV.  On the TPU each kernel gathers inside VMEM.  Here K3 and K4 give
-// every output element its own thread, which reads its source value
-// straight from global memory; K5 and K6 stage their window in shared
-// memory with coalesced loads and every thread writes one output element
-// read from shared memory.  All four are float32 with int32 indices.
+// SpMV.  On the TPU each kernel gathers inside VMEM.  Here every kernel
+// reads its indices straight from global memory and its source values
+// through the read-only path, with no shared memory and no barrier: K3
+// and K4 give every output element its own thread, K5 and K6 every row
+// of output its own warp.  All four are float32 with int32 indices.
 //
 // Index rule (that of jnp.take_along_axis, which the TPU kernels call): an
 // index k into an axis of n entries is used as k + n when -n <= k < 0;
@@ -26,13 +26,14 @@
 //      iq % 8, the second gathers those rows' lanes by ip, so the row
 //      offset comes from iq at column p = ip[s,l] of the same row, not
 //      from iq[s,l] as the script's comment (flat // 128, flat % 128)
-//      says.  K5 is one window and one tile; K6 cuts the rows into tiles
-//      of tile_rows (256 in the script), and tile t reads window block
-//      t mod nwin of w (nwin*WINV*8 rows; `lambda t: (t % 4, 0)` with
-//      nwin = 4 in the script).  The TPU's cascade over the WINV source
-//      vregs exists because dynamic_gather reaches one vreg (8 sublanes)
-//      at a time; one composed index reads shared memory directly, so it
-//      is not carried over.
+//      says.  K6 cuts the rows into tiles of tile_rows (256 in the
+//      script), and row s reads window block (s / tile_rows) mod nwin of
+//      w (nwin*WINV*8 rows; `lambda t: (t % 4, 0)` with nwin = 4 in the
+//      script); K5 is K6 with nwin = 1 and one tile, so one kernel body
+//      serves both.  The TPU's cascade over the WINV source vregs exists
+//      because dynamic_gather reaches one vreg (8 sublanes) at a time;
+//      one composed index reads the window directly, so it is not
+//      carried over.
 //
 // What bounds them on an H100: device-memory bytes, with no arithmetic to
 // count: each input read once and the output written once, at the
@@ -40,7 +41,10 @@
 // 25,296,896 B, i.e. 0.029, 0.004 / 0.015, 0.013 and 7.55 us at
 // 3.35 TB/s.  Every shape but K6's is far below one launch (1.4-2.1 us
 // from a CUDA graph), so K3-K5 are bound by launch latency: on the
-// device, the time from the launch to the last block's last store.
+// device, the time from the launch to the last block's last store.  K6
+// is bound by its 25 MB: iq and ip (8 MB each) are read once, the output
+// (8 MB) written once, and only the 128 KB of window blocks is read
+// again, from L1/L2.
 //
 // What the design does about it:
 //   - K3 and K4: one thread per output over the flattened (S, L) or
@@ -57,12 +61,33 @@
 //     and (8,512) where this one takes 1.50-1.54 us (both 1.45 us at
 //     (8,128)).  An eager call also pays the host's cost of issuing the
 //     launch; ops/gather.py keeps that short (see its docstring).
-//   - K5/K6 keep a thread's second read, iq[s, p], inside its own row:
-//     the block stages the rows it is writing, so one staged row serves
-//     every lane of that row; their random lane reads of shared memory
-//     conflict (not measured, not tuned);
-//   - global loads and stores are coalesced (neighbouring threads on
-//     neighbouring outputs); only the source reads are indexed;
+//   - K5 and K6, what the staged design before it missed (on an H100,
+//     from a CUDA graph: K6 16.2 us, 47% of its bound; K5 2.07 us, 0.7 us
+//     above K3).  It took the TPU's grid as the CUDA grid: one block of
+//     1,024 threads per tile, 64 blocks on 132 SMs at K6's shape, and K5
+//     one block.  Each block first copied its 32 KB window block into
+//     shared memory and waited at a barrier, then walked its 256 rows in
+//     32 passes of 8 rows, each pass a 4-byte load of iq and of ip a
+//     thread, a barrier, a shared-memory read, a store and a second
+//     barrier.  So at most 64 x 1,024 x 8 B = 512 KB were in flight,
+//     where 3.35 TB/s at 0.6-0.8 us of latency needs 2-2.7 MB, and 32
+//     serial passes of about 0.5 us came to the 16 us measured.
+//   - K5 and K6 now: a warp owns whole rows of output, lane j lanes
+//     4j..4j+3.  It loads its 4 iq and 4 ip as one 16-byte vector each,
+//     with the streaming hint (__ldcs: read once), and issues the next
+//     row's two loads before it uses the current row's.  iq[s, p] comes
+//     from lane p/4 by warp shuffle: each lane packs its four iq mod 8
+//     into the bytes of one word, so an output costs one shuffle.  The
+//     window value comes through __ldg (a window block is at most 32 KB
+//     and the script's four 128 KB, so they stay in L1/L2), and the 4
+//     outputs go out as one 16-byte streaming store (__stcs).  No shared
+//     memory, no barrier.  The grid is chosen for the card, not the
+//     TPU's tiles: blocks of kWinWarps warps, as many as give every warp
+//     kRowsPerWarp rows but no more than fit on the card at once (the
+//     occupancy API's count times the SM count, once per device), with
+//     a grid-stride loop past that; a row count that is no multiple of
+//     the rows a block takes leaves whole warps idle, never part of a
+//     row.  CHOICE_NOTE
 //   - every output has one writer: relaunches are bit-equal.
 
 #include <cuda_runtime.h>
@@ -75,10 +100,12 @@ namespace {
 constexpr int kThreads = 256;       // K3/K4 block: one thread an output
 constexpr int kMaxRowsK3 = 64;      // K3 source rows taken
 constexpr int kMaxWidthK4 = 12288;  // K4 source width taken (a 48 KB row)
-constexpr int kLanes = 128;         // K5/K6 lanes
-constexpr int kMaxWinRows = 64;     // K5/K6 window rows staged: 32 KB
-constexpr int kWinThreads = 1024;   // 8 rows of 128 lanes per pass
-constexpr int kRowsPerPass = kWinThreads / kLanes;
+constexpr int kLanes = 128;         // K5/K6 lanes: 4 a thread of a warp
+constexpr int kMaxWinRows = 64;     // K5/K6 window rows: 32 KB
+constexpr int kWinWarps = 8;        // K5/K6 block: a row a warp at a time
+constexpr int kWinThreads = 32 * kWinWarps;
+constexpr int kRowsPerWarp = 2;     // K5/K6 rows a warp, unless capped
+constexpr int kMaxDevices = 64;
 
 // The quiet NaN torch.full(..., nan) writes, so NaN outputs are bit-equal.
 __device__ __forceinline__ float nan_f() {
@@ -110,65 +137,104 @@ __global__ void gather_cols_kernel(const float* __restrict__ x, int W,
   out[t] = (k >= 0 && k < W) ? __ldg(x + (t / L) * W + k) : nan_f();
 }
 
-// One block writes rows [row0, row1) from window `w` (win_rows x 128).
-__device__ void window_rows(const float* __restrict__ w, int win_rows,
-                            const int* __restrict__ iq,
-                            const int* __restrict__ ip, long long row0,
-                            long long row1, float* __restrict__ out) {
-  __shared__ float ws[kMaxWinRows * kLanes];
-  __shared__ int iqs[kRowsPerPass * kLanes];
-  const int t = threadIdx.x;
-  const int lane = t % kLanes;
-  const int r_in_pass = t / kLanes;
-  for (int j = t; j < win_rows * kLanes; j += kWinThreads) ws[j] = w[j];
-  const int winv = win_rows / 8;
-  for (long long s0 = row0; s0 < row1; s0 += kRowsPerPass) {
-    const long long s = s0 + r_in_pass;
-    const bool live = s < row1;
-    int q = 0, p = 0;
-    if (live) {
-      q = iq[s * kLanes + lane];
-      p = ip[s * kLanes + lane];
-      iqs[t] = q;
+// The window gather: warp r of the grid writes rows r, r + R, r + 2R, ...
+// (R the grid's warps), lane j output lanes 4j..4j+3 of each.  Row s reads
+// window block (s / tile_rows) % nwin of w.
+__device__ __forceinline__ int4 load_stream(const int* p) {
+  return __ldcs(reinterpret_cast<const int4*>(p));
+}
+
+// One output lane.  `subs` packs this lane's four iq & 7 (the floor
+// modulo) into bytes; every lane of the warp shuffles, before any branch.
+__device__ __forceinline__ float window_value(const float* __restrict__ wt,
+                                              int winv, int q, int p,
+                                              unsigned subs) {
+  const int pl = wrap(p, kLanes);
+  const bool p_ok = pl >= 0 && pl < kLanes;
+  const int pc = p_ok ? pl : 0;
+  const unsigned got = __shfl_sync(0xffffffffu, subs, pc >> 2);
+  const int v = q >> 3;                 // floor(q / 8)
+  if (v < 0 || v >= winv) return 0.0f;
+  if (!p_ok) return nan_f();
+  const int row = 8 * v + ((got >> (8 * (pc & 3))) & 7);
+  return __ldg(wt + row * kLanes + pc);
+}
+
+__global__ void __launch_bounds__(kWinThreads)
+window_gather_kernel(const float* __restrict__ w, int win_rows, int nwin,
+                     const int* __restrict__ iq, const int* __restrict__ ip,
+                     long long S, long long tile_rows,
+                     float* __restrict__ out) {
+  const long long stride = (long long)gridDim.x * kWinWarps;
+  long long s = (long long)blockIdx.x * kWinWarps + (threadIdx.x >> 5);
+  if (s >= S) return;                   // the whole warp
+  const int lane4 = (threadIdx.x & 31) * 4;
+  const int winv = win_rows >> 3;
+  int4 q = load_stream(iq + s * kLanes + lane4);
+  int4 p = load_stream(ip + s * kLanes + lane4);
+  for (;;) {
+    const long long next = s + stride;  // its loads go out before s's use
+    int4 qn = q, pn = p;
+    if (next < S) {
+      qn = load_stream(iq + next * kLanes + lane4);
+      pn = load_stream(ip + next * kLanes + lane4);
     }
-    __syncthreads();                // window (first pass) and iq rows in
-    if (live) {
-      const int v = q >> 3;         // floor(q / 8)
-      float val = 0.0f;
-      if (v >= 0 && v < winv) {
-        const int pl = wrap(p, kLanes);
-        if (pl >= 0 && pl < kLanes) {
-          const int row = 8 * v + (iqs[r_in_pass * kLanes + pl] & 7);
-          val = ws[row * kLanes + pl];
-        } else {
-          val = nan_f();
-        }
-      }
-      out[s * kLanes + lane] = val;
-    }
-    __syncthreads();                // iqs is rewritten by the next pass
+    const float* wt = w + ((s / tile_rows) % nwin) * win_rows * kLanes;
+    const unsigned subs = (q.x & 7) | (q.y & 7) << 8 | (q.z & 7) << 16 |
+                          (unsigned)(q.w & 7) << 24;
+    float4 r;
+    r.x = window_value(wt, winv, q.x, p.x, subs);
+    r.y = window_value(wt, winv, q.y, p.y, subs);
+    r.z = window_value(wt, winv, q.z, p.z, subs);
+    r.w = window_value(wt, winv, q.w, p.w, subs);
+    __stcs(reinterpret_cast<float4*>(out + s * kLanes + lane4), r);
+    if (next >= S) break;
+    s = next;
+    q = qn;
+    p = pn;
   }
 }
 
-__global__ void window_gather_kernel(const float* __restrict__ w,
-                                     int win_rows,
-                                     const int* __restrict__ iq,
-                                     const int* __restrict__ ip,
-                                     long long S, float* __restrict__ out) {
-  window_rows(w, win_rows, iq, ip, 0, S, out);
+// Blocks of the window gather that fit on the card at once (every SM
+// full), by device; 0 until first asked.  Call with `device` current.
+int resident_window_blocks(int device) {
+  static int cache[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return 0;
+  if (cache[device] == 0) {
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                               device) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, window_gather_kernel, kWinThreads, 0) != cudaSuccess)
+      return 0;
+    cache[device] = sms * per_sm;
+  }
+  return cache[device];
 }
 
-__global__ void window_gather_tiled_kernel(const float* __restrict__ w,
-                                           int win_rows, int nwin,
-                                           const int* __restrict__ iq,
-                                           const int* __restrict__ ip,
-                                           long long S, int tile_rows,
-                                           float* __restrict__ out) {
-  const long long t = blockIdx.x;
-  const long long row0 = t * tile_rows;
-  const long long row1 = row0 + tile_rows < S ? row0 + tile_rows : S;
-  const float* wt = w + (t % nwin) * (long long)win_rows * kLanes;
-  window_rows(wt, win_rows, iq, ip, row0, row1, out);
+// Both window entries: checks, then one launch on min(the blocks that
+// give every warp kRowsPerWarp rows, the blocks resident at once).
+int window_launch(const void* w, int win_rows, int nwin, const void* iq,
+                  const void* ip, long long S, long long tile_rows,
+                  void* out, void* stream, int device) {
+  if (win_rows < 8 || win_rows > kMaxWinRows || win_rows % 8 || nwin < 1 ||
+      tile_rows < 1 || S < 0 ||
+      (((uintptr_t)iq | (uintptr_t)ip | (uintptr_t)out) & 15))
+    return -2;
+  if (S == 0) return 0;
+  const long long rows_a_block = (long long)kRowsPerWarp * kWinWarps;
+  const long long want = (S + rows_a_block - 1) / rows_a_block;
+  return on_device(device, [&] {
+    const long long cap = resident_window_blocks(device);
+    const long long blocks = cap > 0 && cap < want ? cap : want;
+    window_gather_kernel<<<(unsigned)(blocks < 0x7fffffffLL ? blocks
+                                                            : 0x7fffffffLL),
+                           kWinThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(w), win_rows, nwin,
+        static_cast<const int*>(iq), static_cast<const int*>(ip), S,
+        tile_rows, static_cast<float*>(out));
+  });
 }
 
 // The blocks of kThreads threads that cover n outputs, or -1 if they are
@@ -217,41 +283,23 @@ extern "C" int fstr_gather_cols(const void* x, int R, int W, const void* idx,
   });
 }
 
-// K5: w (win_rows, 128), iq/ip (S, 128) -> out (S, 128); one block.
+// K5: w (win_rows, 128), iq/ip (S, 128) -> out (S, 128): K6 with one
+// window block and one tile.  iq, ip and out 16-byte aligned.
 extern "C" int fstr_window_gather(const void* w, int win_rows,
                                   const void* iq, const void* ip,
                                   long long S, void* out, void* stream,
                                   int device) {
-  if (win_rows < 8 || win_rows > kMaxWinRows || win_rows % 8 || S < 0)
-    return -2;
-  if (S == 0) return 0;
-  return on_device(device, [&] {
-    window_gather_kernel<<<1, kWinThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(w), win_rows, static_cast<const int*>(iq),
-        static_cast<const int*>(ip), S, static_cast<float*>(out));
-  });
+  return window_launch(w, win_rows, 1, iq, ip, S, S > 0 ? S : 1, out,
+                       stream, device);
 }
 
-// K6: w (nwin * win_rows, 128), iq/ip (S, 128) -> out (S, 128); one block
-// per tile of tile_rows rows (the last one ragged), tile t on window
-// block t % nwin.
+// K6: w (nwin * win_rows, 128), iq/ip (S, 128) -> out (S, 128); row s on
+// window block (s / tile_rows) % nwin.  iq, ip and out 16-byte aligned.
 extern "C" int fstr_window_gather_tiled(const void* w, int win_rows,
                                         int nwin, const void* iq,
                                         const void* ip, long long S,
                                         int tile_rows, void* out,
                                         void* stream, int device) {
-  if (win_rows < 8 || win_rows > kMaxWinRows || win_rows % 8 || nwin < 1 ||
-      tile_rows < 1 || S < 0)
-    return -2;
-  if (S == 0) return 0;
-  const long long tiles = (S + tile_rows - 1) / tile_rows;
-  if (tiles > 0x7fffffffLL) return -2;
-  return on_device(device, [&] {
-    window_gather_tiled_kernel<<<(unsigned)tiles, kWinThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(w), win_rows, nwin,
-        static_cast<const int*>(iq), static_cast<const int*>(ip), S,
-        tile_rows, static_cast<float*>(out));
-  });
+  return window_launch(w, win_rows, nwin, iq, ip, S, tile_rows, out, stream,
+                       device);
 }

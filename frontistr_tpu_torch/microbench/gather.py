@@ -25,8 +25,17 @@ HOST_CALLS calls each, synchronised only at the end of each of HOST_ROUNDS
 rounds, the wrapper's and ``torch.gather``'s rounds taken in turn so the
 host's drift falls on both alike).  Where the device time of a launch
 exceeds its issue cost (K6), ``host_us`` is the device's rate.
+
+The replays above find the inputs in the 50 MB L2 from the second launch
+on (K6's are 25 MB).  A real caller, an SpMV that streams its indices,
+finds them cold, so the K5 and K6 rows also give ``cold_ms``: the mean
+device time of the same number of launches, each timed alone by CUDA
+events around it, after writing FLUSH_BYTES of scratch, which evicts the
+L2.  Their share of the bound is taken on ``cold_ms``.
+
 It needs a card: without one, or when a launch fails, it exits non-zero
-(no row is skipped).
+(no row is skipped).  ``window_checks`` gives the cases on which the
+card tests and ``chip_smoke.py`` hold K5 and K6 to their plain versions.
 """
 
 from __future__ import annotations
@@ -43,6 +52,8 @@ HBM_BYTES_S = 3.35e12   # NVIDIA H100 SXM data sheet
 WARMUP = 3
 HOST_CALLS = 4000
 HOST_ROUNDS = 8
+FLUSH_BYTES = 256 << 20  # written before each cold launch: 5x the L2
+COLD = ("K5", "K6")      # the rows timed cold as well
 
 
 def inputs(device) -> dict:
@@ -85,6 +96,42 @@ ROWS = (
 )
 
 
+def window_checks(device) -> list:
+    """(label, wrapper, plain version, args, kwargs) of K5 and K6 on
+    random inputs: K6 at tile_rows 1, 37 and 256, on 1, 3 and 4 window
+    blocks of 8 and of 64 rows, over 999 rows (no multiple of any rows
+    a block takes); K5 at 13, 999 and 70,001 rows and K6 at 70,001 (more
+    rows than the card holds warps at once).  Every window block is
+    read; iq reaches every 8-row vreg v of the window and 3 past each
+    side; ip wraps from [-128, 0) and leaves [-128, 128) on both
+    sides."""
+    rng = np.random.default_rng(17)
+    dev = torch.device(device)
+
+    def args(S, win_rows, nwin=1):
+        w = rng.standard_normal((nwin * win_rows, 128)).astype(np.float32)
+        return tuple(torch.as_tensor(a, device=dev) for a in (
+            w, rng.integers(-24, win_rows + 24, (S, 128)).astype(np.int32),
+            rng.integers(-140, 140, (S, 128)).astype(np.int32)))
+
+    out = []
+    for win_rows in (8, 64):
+        for nwin in (1, 3, 4):
+            for tile_rows in (1, 37, 256):
+                kw = dict(tile_rows=tile_rows, win_rows=win_rows)
+                out.append((f"K6 S=999 tile_rows={tile_rows} nwin={nwin} "
+                            f"win_rows={win_rows}", g.window_gather_tiled,
+                            g.window_gather_tiled_reference,
+                            args(999, win_rows, nwin), kw))
+    for S, win_rows in ((13, 8), (999, 64), (70001, 64)):
+        out.append((f"K5 S={S} win_rows={win_rows}", g.window_gather,
+                    g.window_gather_reference, args(S, win_rows), {}))
+    out.append(("K6 S=70001 tile_rows=256 nwin=4 win_rows=64",
+                g.window_gather_tiled, g.window_gather_tiled_reference,
+                args(70001, 64, 4), dict(tile_rows=256, win_rows=64)))
+    return out
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of fn() over reps launches (CUDA events), after
     WARMUP untimed launches."""
@@ -98,6 +145,28 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cold_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over reps launches, each after writing
+    FLUSH_BYTES of scratch (so it finds the L2 cold), CUDA events around
+    each launch alone.  The device is held first while the host queues
+    every launch, so no event waits on the host."""
+    for _ in range(WARMUP):
+        fn()
+    scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32,
+                          device="cuda")
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000 * reps)    # about 0.1 ms a launch
+    for start, end in events:
+        scratch.fill_(1)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / reps
 
 
 def graph_ms(fn, reps: int) -> float:
@@ -158,6 +227,8 @@ def run(device="cuda") -> list:
                "plain_ms": cuda_ms(lambda: plain(*args), reps),
                "library_ms": None, "library_graph_ms": None,
                "library_host_us": None}
+        if kid in COLD:
+            row["cold_ms"] = cold_ms(lambda: kern(*args), reps)
         if library is None:
             row["host_us"], = host_us([lambda: kern(*args)])
         else:
@@ -177,10 +248,13 @@ def main(argv=None) -> int:
             (f"  torch.gather {r['library_ms']:9.4f} ms, from a graph "
              f"{r['library_graph_ms'] * 1e3:8.3f} us, host "
              f"{r['library_host_us']:7.3f} us")
+        cold = "" if "cold_ms" not in r else \
+            (f", cold {r['cold_ms'] * 1e3:8.3f} us "
+             f"({r['bound_ms'] / r['cold_ms']:.1%} of the bound)")
         print(f"{r['label']:48s} {r['ms']:9.4f} ms, from a graph "
-              f"{r['graph_ms'] * 1e3:8.3f} us, host {r['host_us']:7.3f} us"
-              f"  (bound {r['bound_ms'] * 1e3:8.3f} us, {r['bytes']} B; "
-              f"plain {r['plain_ms']:9.4f} ms{lib})")
+              f"{r['graph_ms'] * 1e3:8.3f} us{cold}, host "
+              f"{r['host_us']:7.3f} us  (bound {r['bound_ms'] * 1e3:8.3f} "
+              f"us, {r['bytes']} B; plain {r['plain_ms']:9.4f} ms{lib})")
     dt = rows[-1]["ms"] / 1e3
     vals = 64 * 256 * 128
     print(f"   -> {vals / dt / 1e9:.2f} G gathered f32/s "

@@ -13,6 +13,8 @@ indices:
   ``p = ip[s, l]``, ``out[s, l] = w[8*v + iq[s, p] % 8, p]`` where
   ``0 <= v < WINV``, else 0.  K6 cuts the rows into tiles of
   ``tile_rows``; tile ``t`` reads window block ``t % nwin`` of ``w``.
+  K5 is K6 with one window block and one tile: both launch the same
+  kernel, a warp to a row of output.
 
 Indices follow ``jnp.take_along_axis``: ``-n <= k < 0`` counts from the
 end, anything outside ``[-n, n)`` gathers NaN.  ``//`` and ``%`` are the
@@ -23,6 +25,9 @@ kernel (``csrc/gather.cu``, built at first use by
 ``frontistr_tpu_torch.kernels``) for CUDA tensors, or raises.  The
 kernels have no arithmetic: gathered values are copied, so kernel and
 plain version agree bit for bit.  An empty output launches nothing.
+K5/K6 read ``iq`` and ``ip`` in 16-byte vectors, so on the card they
+also raise for index tensors whose data is not 16-byte aligned (a view
+that starts inside a row of four).
 
 The launch path.  At the script's shapes K3-K5 take 1.4-2.1 us on the
 device (from a CUDA graph), so an eager call costs what the host takes
@@ -66,7 +71,7 @@ from frontistr_tpu_torch import kernels, launch
 LANES = 128          # K5/K6 lanes (kLanes in csrc/gather.cu)
 MAX_ROWS_K3 = 64     # source rows K3 takes
 MAX_WIDTH_K4 = 12288  # source width K4 takes
-MAX_WIN_ROWS = 64    # window rows K5/K6 stage
+MAX_WIN_ROWS = 64    # window rows K5/K6 take
 
 _NAN = float("nan")
 
@@ -156,8 +161,9 @@ def window_gather(w: torch.Tensor, iq: torch.Tensor,
     fn, dev, win_rows, S = plan
     out = torch.empty_like(iq, dtype=torch.float32)
     if out.numel():
-        launch.launch(fn, dev, w.data_ptr(), win_rows, iq.data_ptr(),
-                      ip.data_ptr(), S, out.data_ptr())
+        piq, pip = _aligned("window_gather", iq, ip)
+        launch.launch(fn, dev, w.data_ptr(), win_rows, piq, pip, S,
+                      out.data_ptr())
         window_gather.launches += 1
     return out
 
@@ -173,9 +179,9 @@ def window_gather_tiled(w: torch.Tensor, iq: torch.Tensor, ip: torch.Tensor,
     fn, dev, nwin, S = plan
     out = torch.empty_like(iq, dtype=torch.float32)
     if out.numel():
-        launch.launch(fn, dev, w.data_ptr(), win_rows, nwin,
-                      iq.data_ptr(), ip.data_ptr(), S, tile_rows,
-                      out.data_ptr())
+        piq, pip = _aligned("window_gather_tiled", iq, ip)
+        launch.launch(fn, dev, w.data_ptr(), win_rows, nwin, piq, pip, S,
+                      tile_rows, out.data_ptr())
         window_gather_tiled.launches += 1
     return out
 
@@ -237,6 +243,15 @@ def _plan_tiled(w, iq, ip, tile_rows, win_rows):
                          f"rows {w.shape[0]} not a multiple of {win_rows}")
     return _cuda_plan("fstr_window_gather_tiled", w,
                       w.shape[0] // win_rows, iq.shape[0])
+
+
+def _aligned(name: str, iq: torch.Tensor, ip: torch.Tensor) -> tuple:
+    """The index pointers, which the K5/K6 kernel reads in 16-byte
+    vectors; raises if either is not 16-byte aligned."""
+    piq, pip = iq.data_ptr(), ip.data_ptr()
+    if (piq | pip) & 15:
+        raise ValueError(f"{name}: iq and ip data must be 16-byte aligned")
+    return piq, pip
 
 
 def _check(name: str, x: torch.Tensor, *idx: torch.Tensor) -> None:

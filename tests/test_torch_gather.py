@@ -193,6 +193,74 @@ def test_window_gather_tiled_ragged_tiles(tiles):
     np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
+@pytest.mark.parametrize("TO", [8, 24])
+def test_window_gather_tiled_tile_rows(TO):
+    """The script's K6 grid at tiles of 8 and 24 rows (tile_rows the
+    other cases lack) on 3 window blocks of 16 rows: 5 tiles, so tile t
+    reads block t % 3 and blocks 0 and 1 are read twice."""
+    tiles, winv, nwin = 5, 2, 3
+    rng = np.random.default_rng(TO)
+    w = rng.standard_normal((nwin * winv * 8, 128)).astype(np.float32)
+    iq, ip = _rand_window(rng, tiles * TO, winv)
+    want = _pallas(
+        _k4_body(winv), (tiles * TO, 128), w, iq, ip, grid=(tiles,),
+        in_specs=[pl.BlockSpec((winv * 8, 128), lambda t: (t % nwin, 0)),
+                  pl.BlockSpec((TO, 128), lambda t: (t, 0)),
+                  pl.BlockSpec((TO, 128), lambda t: (t, 0))],
+        out_specs=pl.BlockSpec((TO, 128), lambda t: (t, 0)))
+    got = g.window_gather_tiled(_t(w), _t(iq), _t(ip), tile_rows=TO,
+                                win_rows=winv * 8)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    assert np.isnan(want).any() and (want == 0).any()
+
+
+def _row_formula(w, q, p, s, tile_rows, win_rows):
+    """Row s of K5/K6 by the formula of ``csrc/gather.cu``'s note,
+    restated in numpy: window block (s // tile_rows) % nwin, 0 outside
+    the window, NaN for ip outside [-128, 128)."""
+    nwin = w.shape[0] // win_rows
+    wt = w[(s // tile_rows) % nwin * win_rows:][:win_rows]
+    v = q // 8
+    p = np.where(p < 0, p + 128, p)
+    p_ok = (p >= 0) & (p < 128)
+    pc = np.where(p_ok, p, 0)
+    in_win = (v >= 0) & (v < win_rows // 8)
+    got = wt[np.where(in_win & p_ok, 8 * v + q[pc] % 8, 0), pc]
+    return np.where(in_win, np.where(p_ok, got, np.nan), 0.0) \
+        .astype(np.float32)
+
+
+@pytest.mark.parametrize("which", ["K6 S=999", "K5", "K6 S=70001"])
+def test_window_checks_cover_and_match_formula(which):
+    """The card's K5/K6 cases (``mb.window_checks``) hold what the card
+    tests claim, and the plain versions equal the formula on them (300
+    sampled rows of each 70,001-row case).  The script's Pallas body
+    takes only multiples of 8 rows a tile, so tile_rows 1 and 37 are
+    held to the formula instead."""
+    cases = [c for c in mb.window_checks("cpu") if c[0].startswith(which)]
+    assert cases
+    for name, kern, plain, (w, iq, ip), kw in cases:
+        win_rows = kw.get("win_rows", w.shape[0])
+        tile_rows = kw.get("tile_rows", iq.shape[0])
+        nwin = w.shape[0] // win_rows
+        got = kern(w, iq, ip, **kw).numpy()
+        w, iq, ip = w.numpy(), iq.numpy(), ip.numpy()
+        v = iq // 8
+        assert set(range(win_rows // 8)) <= set(np.unique(v)), name
+        assert (v < 0).any() and (v >= win_rows // 8).any(), name
+        assert ((ip >= -128) & (ip < 0)).any(), name
+        assert (ip < -128).any() and (ip >= 128).any(), name
+        assert iq.shape[0] % 2 == 1, name        # no multiple of a block
+        S = iq.shape[0]
+        assert {(s // tile_rows) % nwin for s in range(S)} == \
+            set(range(nwin)), name
+        rows = list(range(S)) if S < 2000 else \
+            list(np.random.default_rng(0).choice(S, 300, replace=False))
+        want = np.stack([_row_formula(w, iq[s], ip[s], s, tile_rows,
+                                      win_rows) for s in rows])
+        np.testing.assert_array_equal(_bits(got[rows]), _bits(want))
+
+
 def test_window_gather_tiled_last_tile_ragged():
     """A row count that is no multiple of the tile: the plain version
     equals the full-tile result on the rows it has."""

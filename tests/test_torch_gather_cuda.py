@@ -88,6 +88,43 @@ def test_kernels_bit_equal_plain(cuda_device):
 
 
 @pytest.mark.cuda
+def test_window_kernel_bit_equal_plain(cuda_device):
+    """K5 and K6, one kernel, on the microbenchmark's ``window_checks``:
+    tile_rows 1, 37 and 256; 1, 3 and 4 window blocks of 8 and 64 rows;
+    999 rows (no multiple of the rows a block takes) and 70,001 (the
+    grid-stride path); ip that wraps and ip out of range; iq in every
+    vreg of the window and out of it on both sides."""
+    for name, kern, plain, args, kw in mb.window_checks(cuda_device):
+        n0 = kern.launches
+        got = kern(*args, **kw)
+        again = kern(*args, **kw)
+        want = plain(*args, *kw.values())
+        torch.cuda.synchronize()
+        assert _bit_equal(got, want), name
+        assert _bit_equal(got, again), name
+        assert kern.launches - n0 == 2, name
+        assert torch.isnan(want).any() and (want == 0).any(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kern", [g.window_gather, g.window_gather_tiled])
+def test_window_misaligned_indices_raise(cuda_device, kern):
+    """The window kernel reads iq and ip in 16-byte vectors: an index
+    view whose data starts inside a group of four raises and launches
+    nothing."""
+    w = torch.zeros(64, 128, device=cuda_device)
+    flat = torch.zeros(9 * 128, dtype=torch.int32, device=cuda_device)
+    good = flat[:8 * 128].view(8, 128)
+    bad = flat[1:8 * 128 + 1].view(8, 128)
+    kern(w, good, good)
+    n0 = kern.launches
+    for iq, ip in ((bad, good), (good, bad)):
+        with pytest.raises(ValueError):
+            kern(w, iq, ip)
+    assert kern.launches == n0
+
+
+@pytest.mark.cuda
 def test_out_of_window_gives_zero(cuda_device):
     rng = np.random.default_rng(3)
     w = _f32(rng, (64, 128), cuda_device) + 10.0
@@ -168,21 +205,25 @@ def test_widened_shapes_bit_equal(cuda_device):
 def test_graph_replay_equals_eager(cuda_device):
     """A launch captured in a CUDA graph reads its inputs at replay."""
     data = mb.inputs(cuda_device)
-    for kern, plain, (x, i) in ((g.gather_rows, g.gather_rows_reference,
-                                 data["G1"]),
-                                (g.gather_cols, g.gather_cols_reference,
-                                 data["G3"])):
-        kern(x, i)                       # plan and build outside the capture
+    for kern, plain, args in (
+            (g.gather_rows, g.gather_rows_reference, data["G1"]),
+            (g.gather_cols, g.gather_cols_reference, data["G3"]),
+            (g.window_gather, g.window_gather_reference, data["G4"]),
+            (g.window_gather_tiled, g.window_gather_tiled_reference,
+             data["G5"])):
+        x = args[0]
+        kern(*args)                      # plan and build outside the capture
         torch.cuda.synchronize()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            captured = kern(x, i)
+            captured = kern(*args)
         x.mul_(-2.0).add_(1.0)
         graph.replay()
-        eager = kern(x, i)
+        eager = kern(*args)
         torch.cuda.synchronize()
+        extra = (256, 64) if kern is g.window_gather_tiled else ()
         assert _bit_equal(captured, eager), kern.__name__
-        assert _bit_equal(eager, plain(x, i)), kern.__name__
+        assert _bit_equal(eager, plain(*args, *extra)), kern.__name__
 
 
 @pytest.mark.cuda
