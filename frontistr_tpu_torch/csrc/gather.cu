@@ -82,12 +82,13 @@
 //     and the script's four 128 KB, so they stay in L1/L2), and the 4
 //     outputs go out as one 16-byte streaming store (__stcs).  No shared
 //     memory, no barrier.  The grid is chosen for the card, not the
-//     TPU's tiles: blocks of kWinWarps warps, as many as give every warp
-//     kRowsPerWarp rows but no more than fit on the card at once (the
-//     occupancy API's count times the SM count, once per device), with
-//     a grid-stride loop past that; a row count that is no multiple of
-//     the rows a block takes leaves whole warps idle, never part of a
-//     row.  CHOICE_NOTE
+//     TPU's tiles: blocks of kWinWarps warps, a row a warp, but no more
+//     blocks than fit on the card at once (the occupancy API's count
+//     times the SM count, once per device, with the L1 at its largest),
+//     and a grid-stride loop past that; a row count that is no multiple
+//     of the rows a block takes leaves whole warps idle, never part of a
+//     row.  Row indices are 32-bit (S < 2^31 - 8: a 2^31-row input would
+//     be 1 TB).  CHOICE_NOTE
 //   - every output has one writer: relaunches are bit-equal.
 
 #include <cuda_runtime.h>
@@ -104,7 +105,6 @@ constexpr int kLanes = 128;         // K5/K6 lanes: 4 a thread of a warp
 constexpr int kMaxWinRows = 64;     // K5/K6 window rows: 32 KB
 constexpr int kWinWarps = 8;        // K5/K6 block: a row a warp at a time
 constexpr int kWinThreads = 32 * kWinWarps;
-constexpr int kRowsPerWarp = 2;     // K5/K6 rows a warp, unless capped
 constexpr int kMaxDevices = 64;
 
 // The quiet NaN torch.full(..., nan) writes, so NaN outputs are bit-equal.
@@ -163,23 +163,23 @@ __device__ __forceinline__ float window_value(const float* __restrict__ wt,
 __global__ void __launch_bounds__(kWinThreads)
 window_gather_kernel(const float* __restrict__ w, int win_rows, int nwin,
                      const int* __restrict__ iq, const int* __restrict__ ip,
-                     long long S, long long tile_rows,
-                     float* __restrict__ out) {
-  const long long stride = (long long)gridDim.x * kWinWarps;
-  long long s = (long long)blockIdx.x * kWinWarps + (threadIdx.x >> 5);
+                     int S, int tile_rows, float* __restrict__ out) {
+  const int stride = gridDim.x * kWinWarps;
+  int s = blockIdx.x * kWinWarps + (threadIdx.x >> 5);
   if (s >= S) return;                   // the whole warp
   const int lane4 = (threadIdx.x & 31) * 4;
   const int winv = win_rows >> 3;
-  int4 q = load_stream(iq + s * kLanes + lane4);
-  int4 p = load_stream(ip + s * kLanes + lane4);
+  int4 q = load_stream(iq + (long long)s * kLanes + lane4);
+  int4 p = load_stream(ip + (long long)s * kLanes + lane4);
   for (;;) {
-    const long long next = s + stride;  // its loads go out before s's use
+    const int next = s < S - stride ? s + stride : S;  // no int overflow
     int4 qn = q, pn = p;
-    if (next < S) {
-      qn = load_stream(iq + next * kLanes + lane4);
-      pn = load_stream(ip + next * kLanes + lane4);
+    if (next < S) {                     // its loads go out before s's use
+      qn = load_stream(iq + (long long)next * kLanes + lane4);
+      pn = load_stream(ip + (long long)next * kLanes + lane4);
     }
-    const float* wt = w + ((s / tile_rows) % nwin) * win_rows * kLanes;
+    const float* wt =
+        w + (long long)((unsigned)s / tile_rows % nwin) * win_rows * kLanes;
     const unsigned subs = (q.x & 7) | (q.y & 7) << 8 | (q.z & 7) << 16 |
                           (unsigned)(q.w & 7) << 24;
     float4 r;
@@ -187,7 +187,8 @@ window_gather_kernel(const float* __restrict__ w, int win_rows, int nwin,
     r.y = window_value(wt, winv, q.y, p.y, subs);
     r.z = window_value(wt, winv, q.z, p.z, subs);
     r.w = window_value(wt, winv, q.w, p.w, subs);
-    __stcs(reinterpret_cast<float4*>(out + s * kLanes + lane4), r);
+    __stcs(reinterpret_cast<float4*>(out + (long long)s * kLanes + lane4),
+           r);
     if (next >= S) break;
     s = next;
     q = qn;
@@ -196,13 +197,17 @@ window_gather_kernel(const float* __restrict__ w, int win_rows, int nwin,
 }
 
 // Blocks of the window gather that fit on the card at once (every SM
-// full), by device; 0 until first asked.  Call with `device` current.
+// full), by device, with the kernel's L1 at its largest (it uses no
+// shared memory); 0 until first asked.  Call with `device` current.
 int resident_window_blocks(int device) {
   static int cache[kMaxDevices];
   if (device < 0 || device >= kMaxDevices) return 0;
   if (cache[device] == 0) {
     int sms = 0, per_sm = 0;
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+    if (cudaFuncSetAttribute(window_gather_kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxL1) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                device) != cudaSuccess ||
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
             &per_sm, window_gather_kernel, kWinThreads, 0) != cudaSuccess)
@@ -212,28 +217,26 @@ int resident_window_blocks(int device) {
   return cache[device];
 }
 
-// Both window entries: checks, then one launch on min(the blocks that
-// give every warp kRowsPerWarp rows, the blocks resident at once).
+// Both window entries: checks, then one launch of a warp a row, on no
+// more blocks than the card holds at once.
 int window_launch(const void* w, int win_rows, int nwin, const void* iq,
                   const void* ip, long long S, long long tile_rows,
                   void* out, void* stream, int device) {
   if (win_rows < 8 || win_rows > kMaxWinRows || win_rows % 8 || nwin < 1 ||
-      tile_rows < 1 || S < 0 ||
+      tile_rows < 1 || tile_rows > 0x7fffffffLL || S < 0 ||
+      S > 0x7fffffffLL - kWinWarps ||
       (((uintptr_t)iq | (uintptr_t)ip | (uintptr_t)out) & 15))
     return -2;
   if (S == 0) return 0;
-  const long long rows_a_block = (long long)kRowsPerWarp * kWinWarps;
-  const long long want = (S + rows_a_block - 1) / rows_a_block;
+  const long long want = (S + kWinWarps - 1) / kWinWarps;
   return on_device(device, [&] {
     const long long cap = resident_window_blocks(device);
     const long long blocks = cap > 0 && cap < want ? cap : want;
-    window_gather_kernel<<<(unsigned)(blocks < 0x7fffffffLL ? blocks
-                                                            : 0x7fffffffLL),
-                           kWinThreads, 0,
+    window_gather_kernel<<<(unsigned)blocks, kWinThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(w), win_rows, nwin,
-        static_cast<const int*>(iq), static_cast<const int*>(ip), S,
-        tile_rows, static_cast<float*>(out));
+        static_cast<const int*>(iq), static_cast<const int*>(ip), (int)S,
+        (int)tile_rows, static_cast<float*>(out));
   });
 }
 
