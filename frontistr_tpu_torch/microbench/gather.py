@@ -30,11 +30,8 @@ The replays above find the inputs in the 50 MB L2 from the second launch
 on (K6's are 25 MB).  A real caller, an SpMV that streams its indices,
 finds them cold, so the K5 and K6 rows also give ``cold_ms``: the mean
 device time of the same number of launches, each timed alone by CUDA
-events around it, after writing FLUSH_BYTES of scratch and then reading
-FLUSH_BYTES of another buffer.  The write evicts the L2; the read evicts
-the written lines in turn, so the kernel's misses do not also pay for
-writing the scratch back.  Their share of the bound is taken on
-``cold_ms``.  ``main`` also times G5 with every iq moved past the window
+events around it, after writing FLUSH_BYTES of scratch, which evicts the
+L2.  Their share of the bound is taken on ``cold_ms``.  ``main`` also times G5 with every iq moved past the window
 (the same launch without its window reads: what the streaming alone
 costs).
 
@@ -57,8 +54,7 @@ HBM_BYTES_S = 3.35e12   # NVIDIA H100 SXM data sheet
 WARMUP = 3
 HOST_CALLS = 4000
 HOST_ROUNDS = 8
-FLUSH_BYTES = 256 << 20  # written, then read, before each cold launch:
-                         # 5x the L2
+FLUSH_BYTES = 256 << 20  # written before each cold launch: 5x the L2
 COLD = ("K5", "K6")      # the rows timed cold as well
 
 
@@ -155,22 +151,20 @@ def cuda_ms(fn, reps: int) -> float:
 
 def cold_ms(fn, reps: int) -> float:
     """Mean device time of fn() over reps launches, each after writing
-    FLUSH_BYTES of scratch and reading as many of another buffer (so it
-    finds the L2 cold and clean), CUDA events around each launch alone.
+    FLUSH_BYTES of scratch (so it finds the L2 cold), CUDA events around
+    each launch alone.
     The device is held first while the host queues every launch, so no
     event waits on the host."""
     for _ in range(WARMUP):
         fn()
     scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32,
                           device="cuda")
-    clean = torch.ones(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     torch.cuda.synchronize()
     torch.cuda._sleep(200_000 * reps)    # about 0.1 ms a launch
     for start, end in events:
         scratch.fill_(1)
-        clean.max()
         start.record()
         fn()
         end.record()
