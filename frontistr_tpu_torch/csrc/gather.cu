@@ -141,7 +141,7 @@ __global__ void gather_cols_kernel(const float* __restrict__ x, int W,
 // (R the grid's warps), lane j output lanes 4j..4j+3 of each.  Row s reads
 // window block (s / tile_rows) % nwin of w.
 __device__ __forceinline__ int4 load_stream(const int* p) {
-  return __ldcs(reinterpret_cast<const int4*>(p));
+  return __ldg(reinterpret_cast<const int4*>(p));
 }
 
 // One output lane.  `subs` packs this lane's four iq & 7 (the floor
