@@ -141,11 +141,7 @@ __global__ void gather_cols_kernel(const float* __restrict__ x, int W,
 // (R the grid's warps), lane j output lanes 4j..4j+3 of each.  Row s reads
 // window block (s / tile_rows) % nwin of w.
 __device__ __forceinline__ int4 load_stream(const int* p) {
-  int4 r;
-  asm("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
-      : "l"(p));
-  return r;
+  return __ldcs(reinterpret_cast<const int4*>(p));
 }
 
 // One output lane.  `subs` packs this lane's four iq & 7 (the floor
