@@ -144,20 +144,33 @@ __device__ __forceinline__ int4 load_stream(const int* p) {
   return __ldcs(reinterpret_cast<const int4*>(p));
 }
 
-// One output lane.  `subs` packs this lane's four iq & 7 (the floor
-// modulo) into bytes; every lane of the warp shuffles, before any branch.
-__device__ __forceinline__ float window_value(const float* __restrict__ wt,
-                                              int winv, int q, int p,
-                                              unsigned subs) {
-  const int pl = wrap(p, kLanes);
-  const bool p_ok = pl >= 0 && pl < kLanes;
-  const int pc = p_ok ? pl : 0;
-  const unsigned got = __shfl_sync(0xffffffffu, subs, pc >> 2);
-  const int v = q >> 3;                 // floor(q / 8)
-  if (v < 0 || v >= winv) return 0.0f;
-  if (!p_ok) return nan_f();
-  const int row = 8 * v + ((got >> (8 * (pc & 3))) & 7);
-  return __ldg(wt + row * kLanes + pc);
+// Output lanes 4j..4j+3 of one row at lane j of its warp, from the row's
+// iq (q) and ip (p) words of this lane.  Each lane packs its four iq mod 8
+// (iq & 7, the floor modulo) into the bytes of `subs`; output c takes the
+// byte of lane p/4 by one shuffle.  No branch: all four window reads go
+// out together, an output out of the window or of [-128, 128) reading
+// lane p of the block's row 0 and dropping it.
+__device__ __forceinline__ float4 window_row(const float* __restrict__ wt,
+                                             int winv, int4 q, int4 p) {
+  const unsigned subs = (q.x & 7) | (q.y & 7) << 8 | (q.z & 7) << 16 |
+                        (unsigned)(q.w & 7) << 24;
+  const int qs[4] = {q.x, q.y, q.z, q.w};
+  const int ps[4] = {p.x, p.y, p.z, p.w};
+  float got[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int pl = wrap(ps[c], kLanes);
+    const bool p_ok = pl >= 0 && pl < kLanes;
+    const int pc = p_ok ? pl : 0;
+    const unsigned sub =
+        __shfl_sync(0xffffffffu, subs, pc >> 2) >> (8 * (pc & 3)) & 7;
+    const int v = qs[c] >> 3;           // floor(q / 8)
+    const bool in_win = v >= 0 && v < winv;
+    const int row = in_win ? 8 * v + (int)sub : 0;
+    const float x = __ldg(wt + row * kLanes + pc);
+    got[c] = !in_win ? 0.0f : p_ok ? x : nan_f();
+  }
+  return make_float4(got[0], got[1], got[2], got[3]);
 }
 
 __global__ void __launch_bounds__(kWinThreads)
@@ -180,15 +193,8 @@ window_gather_kernel(const float* __restrict__ w, int win_rows, int nwin,
     }
     const float* wt =
         w + (long long)((unsigned)s / tile_rows % nwin) * win_rows * kLanes;
-    const unsigned subs = (q.x & 7) | (q.y & 7) << 8 | (q.z & 7) << 16 |
-                          (unsigned)(q.w & 7) << 24;
-    float4 r;
-    r.x = window_value(wt, winv, q.x, p.x, subs);
-    r.y = window_value(wt, winv, q.y, p.y, subs);
-    r.z = window_value(wt, winv, q.z, p.z, subs);
-    r.w = window_value(wt, winv, q.w, p.w, subs);
     __stcs(reinterpret_cast<float4*>(out + (long long)s * kLanes + lane4),
-           r);
+           window_row(wt, winv, q, p));
     if (next >= S) break;
     s = next;
     q = qn;
