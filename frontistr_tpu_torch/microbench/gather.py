@@ -31,9 +31,9 @@ on (K6's are 25 MB).  A real caller, an SpMV that streams its indices,
 finds them cold, so the K5 and K6 rows also give ``cold_ms``: the mean
 device time of the same number of launches, each timed alone by CUDA
 events around it, after writing FLUSH_BYTES of scratch, which evicts the
-L2.  Their share of the bound is taken on ``cold_ms``.  ``main`` also times G5 with every iq moved past the window
-(the same launch without its window reads: what the streaming alone
-costs).
+L2.  Their share of the bound is taken on ``cold_ms``.  ``main`` also times G4 and G5 with every iq moved past
+the window (the same launches with no window value: what the index
+loads, shuffles and stores alone cost).
 
 It needs a card: without one, or when a launch fails, it exits non-zero
 (no row is skipped).  ``window_checks`` gives the cases on which the
@@ -258,12 +258,15 @@ def main(argv=None) -> int:
               f"{r['graph_ms'] * 1e3:8.3f} us{cold}, host "
               f"{r['host_us']:7.3f} us  (bound {r['bound_ms'] * 1e3:8.3f} "
               f"us, {r['bytes']} B; plain {r['plain_ms']:9.4f} ms{lib})")
-    w, iq, ip = inputs("cuda")["G5"]
-    past = iq + 64          # every v = iq // 8 in [8, 16): no window read
-    kern = ROWS[-1][2]
-    print(f"   G5 without its window reads: from a graph "
-          f"{graph_ms(lambda: kern(w, past, ip), 20) * 1e3:8.3f} us, cold "
-          f"{cold_ms(lambda: kern(w, past, ip), 20) * 1e3:8.3f} us")
+    data = inputs("cuda")
+    for gid, kern, reps in (("G4", g.window_gather, 50),
+                            ("G5", g.window_gather_tiled, 20)):
+        w, iq, ip = data[gid]
+        past = iq + 64      # every v = iq // 8 in [8, 16): no window value
+        print(f"   {gid} with every iq past the window: from a graph "
+              f"{graph_ms(lambda: kern(w, past, ip), reps) * 1e3:8.3f} us, "
+              f"cold {cold_ms(lambda: kern(w, past, ip), reps) * 1e3:8.3f} "
+              "us")
     dt = rows[-1]["ms"] / 1e3
     vals = 64 * 256 * 128
     print(f"   -> {vals / dt / 1e9:.2f} G gathered f32/s "
