@@ -192,7 +192,9 @@ window_gather_kernel(const float* __restrict__ w, int win_rows, int nwin,
       pn = load_stream(ip + (long long)next * kLanes + lane4);
     }
     const float* wt =
-        w + (long long)((unsigned)s / tile_rows % nwin) * win_rows * kLanes;
+        nwin == 1 ? w
+                  : w + (long long)((unsigned)s / tile_rows % nwin) *
+                            win_rows * kLanes;
     __stcs(reinterpret_cast<float4*>(out + (long long)s * kLanes + lane4),
            window_row(wt, winv, q, p));
     if (next >= S) break;
