@@ -103,7 +103,7 @@ constexpr int kMaxRowsK3 = 64;      // K3 source rows taken
 constexpr int kMaxWidthK4 = 12288;  // K4 source width taken (a 48 KB row)
 constexpr int kLanes = 128;         // K5/K6 lanes: 4 a thread of a warp
 constexpr int kMaxWinRows = 64;     // K5/K6 window rows: 32 KB
-constexpr int kWinWarps = 8;        // K5/K6 block: a row a warp at a time
+constexpr int kWinWarps = 1;        // K5/K6 block: a row a warp at a time
 constexpr int kWinThreads = 32 * kWinWarps;
 constexpr int kMaxDevices = 64;
 
