@@ -103,7 +103,7 @@ constexpr int kMaxRowsK3 = 64;      // K3 source rows taken
 constexpr int kMaxWidthK4 = 12288;  // K4 source width taken (a 48 KB row)
 constexpr int kLanes = 128;         // K5/K6 lanes: 4 a thread of a warp
 constexpr int kMaxWinRows = 64;     // K5/K6 window rows: 32 KB
-constexpr int kWinWarps = 1;        // K5/K6 block: a row a warp at a time
+constexpr int kWinWarps = 8;        // K5/K6 block: a row a warp at a time
 constexpr int kWinThreads = 32 * kWinWarps;
 constexpr int kMaxDevices = 64;
 
@@ -147,29 +147,33 @@ __device__ __forceinline__ int4 load_stream(const int* p) {
 // Output lanes 4j..4j+3 of one row at lane j of its warp, from the row's
 // iq (q) and ip (p) words of this lane.  Each lane packs its four iq mod 8
 // (iq & 7, the floor modulo) into the bytes of `subs`; output c takes the
-// byte of lane p/4 by one shuffle.  No branch: all four window reads go
-// out together, an output out of the window or of [-128, 128) reading
-// lane p of the block's row 0 and dropping it.
+// byte of lane p/4 by one shuffle.  Then the four window reads go out
+// together, and only then is any of them used: an output out of the
+// window (0) or of [-128, 128) (NaN) reads w[0] of the block and drops it.
 __device__ __forceinline__ float4 window_row(const float* __restrict__ wt,
                                              int winv, int4 q, int4 p) {
   const unsigned subs = (q.x & 7) | (q.y & 7) << 8 | (q.z & 7) << 16 |
                         (unsigned)(q.w & 7) << 24;
   const int qs[4] = {q.x, q.y, q.z, q.w};
   const int ps[4] = {p.x, p.y, p.z, p.w};
-  float got[4];
+  int off[4];                           // into wt, or -1: take fill[c]
+  float fill[4], got[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
     const int pl = wrap(ps[c], kLanes);
     const bool p_ok = pl >= 0 && pl < kLanes;
     const int pc = p_ok ? pl : 0;
-    const unsigned sub =
-        __shfl_sync(0xffffffffu, subs, pc >> 2) >> (8 * (pc & 3)) & 7;
+    const int sub =
+        (__shfl_sync(0xffffffffu, subs, pc >> 2) >> (8 * (pc & 3))) & 7;
     const int v = qs[c] >> 3;           // floor(q / 8)
     const bool in_win = v >= 0 && v < winv;
-    const int row = in_win ? 8 * v + (int)sub : 0;
-    const float x = __ldg(wt + row * kLanes + pc);
-    got[c] = !in_win ? 0.0f : p_ok ? x : nan_f();
+    off[c] = in_win && p_ok ? (8 * v + sub) * kLanes + pc : -1;
+    fill[c] = in_win ? nan_f() : 0.0f;
   }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) got[c] = __ldg(wt + (off[c] < 0 ? 0 : off[c]));
+#pragma unroll
+  for (int c = 0; c < 4; ++c) got[c] = off[c] < 0 ? fill[c] : got[c];
   return make_float4(got[0], got[1], got[2], got[3]);
 }
 
@@ -186,15 +190,13 @@ window_gather_kernel(const float* __restrict__ w, int win_rows, int nwin,
   int4 p = load_stream(ip + (long long)s * kLanes + lane4);
   for (;;) {
     const int next = s < S - stride ? s + stride : S;  // no int overflow
-    int4 qn = q, pn = p;
+    int4 qn, pn;
     if (next < S) {                     // its loads go out before s's use
       qn = load_stream(iq + (long long)next * kLanes + lane4);
       pn = load_stream(ip + (long long)next * kLanes + lane4);
     }
     const float* wt =
-        nwin == 1 ? w
-                  : w + (long long)((unsigned)s / tile_rows % nwin) *
-                            win_rows * kLanes;
+        w + (long long)((unsigned)s / tile_rows % nwin) * win_rows * kLanes;
     __stcs(reinterpret_cast<float4*>(out + (long long)s * kLanes + lane4),
            window_row(wt, winv, q, p));
     if (next >= S) break;
