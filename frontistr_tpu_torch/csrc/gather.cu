@@ -148,8 +148,9 @@ __device__ __forceinline__ int4 load_stream(const int* p) {
 // iq (q) and ip (p) words of this lane.  Each lane packs its four iq mod 8
 // (iq & 7, the floor modulo) into the bytes of `subs`; output c takes the
 // byte of lane p/4 by one shuffle.  Then the four window reads go out
-// together, and only then is any of them used: an output out of the
-// window (0) or of [-128, 128) (NaN) reads w[0] of the block and drops it.
+// together, and only then is any of them used (written so, the compiler
+// predicates them and issues all four at once); an output out of the
+// window (0) or of [-128, 128) (NaN) needs no read.
 __device__ __forceinline__ float4 window_row(const float* __restrict__ wt,
                                              int winv, int4 q, int4 p) {
   const unsigned subs = (q.x & 7) | (q.y & 7) << 8 | (q.z & 7) << 16 |
@@ -181,8 +182,9 @@ __global__ void __launch_bounds__(kWinThreads)
 window_gather_kernel(const float* __restrict__ w, int win_rows, int nwin,
                      const int* __restrict__ iq, const int* __restrict__ ip,
                      int S, int tile_rows, float* __restrict__ out) {
-  const int stride = gridDim.x * kWinWarps;
-  int s = blockIdx.x * kWinWarps + (threadIdx.x >> 5);
+  const int warps = blockDim.x >> 5;
+  const int stride = gridDim.x * warps;
+  int s = blockIdx.x * warps + (threadIdx.x >> 5);
   if (s >= S) return;                   // the whole warp
   const int lane4 = (threadIdx.x & 31) * 4;
   const int winv = win_rows >> 3;
@@ -206,13 +208,18 @@ window_gather_kernel(const float* __restrict__ w, int win_rows, int nwin,
   }
 }
 
-// Blocks of the window gather that fit on the card at once (every SM
-// full), by device, with the kernel's L1 at its largest (it uses no
-// shared memory); 0 until first asked.  Call with `device` current.
-int resident_window_blocks(int device) {
-  static int cache[kMaxDevices];
-  if (device < 0 || device >= kMaxDevices) return 0;
-  if (cache[device] == 0) {
+// The card's SMs and the blocks of kWinThreads that fit on it at once
+// (every SM full), with the kernel's L1 at its largest (it uses no shared
+// memory), by device; zeros until first asked.  Call with `device`
+// current.
+struct WindowGrid {
+  int sms, resident;
+};
+
+WindowGrid window_grid(int device) {
+  static WindowGrid cache[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return WindowGrid{0, 0};
+  if (cache[device].resident == 0) {
     int sms = 0, per_sm = 0;
     if (cudaFuncSetAttribute(window_gather_kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -221,14 +228,15 @@ int resident_window_blocks(int device) {
                                device) != cudaSuccess ||
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
             &per_sm, window_gather_kernel, kWinThreads, 0) != cudaSuccess)
-      return 0;
-    cache[device] = sms * per_sm;
+      return WindowGrid{0, 0};
+    cache[device] = WindowGrid{sms, sms * per_sm};
   }
   return cache[device];
 }
 
-// Both window entries: checks, then one launch of a warp a row, on no
-// more blocks than the card holds at once.
+// Both window entries: checks, then one launch of a warp a row: blocks of
+// one warp, each on an SM of its own, when there are no more rows than
+// SMs; else blocks of kWinWarps, no more than the card holds at once.
 int window_launch(const void* w, int win_rows, int nwin, const void* iq,
                   const void* ip, long long S, long long tile_rows,
                   void* out, void* stream, int device) {
@@ -238,11 +246,13 @@ int window_launch(const void* w, int win_rows, int nwin, const void* iq,
       (((uintptr_t)iq | (uintptr_t)ip | (uintptr_t)out) & 15))
     return -2;
   if (S == 0) return 0;
-  const long long want = (S + kWinWarps - 1) / kWinWarps;
   return on_device(device, [&] {
-    const long long cap = resident_window_blocks(device);
-    const long long blocks = cap > 0 && cap < want ? cap : want;
-    window_gather_kernel<<<(unsigned)blocks, kWinThreads, 0,
+    const WindowGrid grid = window_grid(device);
+    const int warps = S <= grid.sms ? 1 : kWinWarps;
+    const long long want = (S + warps - 1) / warps;
+    const long long blocks =
+        grid.resident > 0 && grid.resident < want ? grid.resident : want;
+    window_gather_kernel<<<(unsigned)blocks, 32 * warps, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(w), win_rows, nwin,
         static_cast<const int*>(iq), static_cast<const int*>(ip), (int)S,
