@@ -78,17 +78,29 @@
 //     row's two loads before it uses the current row's.  iq[s, p] comes
 //     from lane p/4 by warp shuffle: each lane packs its four iq mod 8
 //     into the bytes of one word, so an output costs one shuffle.  The
-//     window value comes through __ldg (a window block is at most 32 KB
-//     and the script's four 128 KB, so they stay in L1/L2), and the 4
-//     outputs go out as one 16-byte streaming store (__stcs).  No shared
-//     memory, no barrier.  The grid is chosen for the card, not the
-//     TPU's tiles: blocks of kWinWarps warps, a row a warp, but no more
-//     blocks than fit on the card at once (the occupancy API's count
-//     times the SM count, once per device, with the L1 at its largest),
-//     and a grid-stride loop past that; a row count that is no multiple
-//     of the rows a block takes leaves whole warps idle, never part of a
-//     row.  Row indices are 32-bit (S < 2^31 - 8: a 2^31-row input would
-//     be 1 TB).  CHOICE_NOTE
+//     four window values come through __ldg, all four reads issued
+//     before any is used (a window block is at most 32 KB and the
+//     script's four 128 KB, so they stay in L1/L2), and the 4 outputs
+//     go out as one 16-byte streaming store (__stcs).  No shared memory,
+//     no barrier.  The grid is chosen for the card, not the TPU's tiles:
+//     a row a warp, in blocks of kWinWarps warps but no more blocks than
+//     fit on the card at once (the occupancy API's count times the SM
+//     count, once per device, with the L1 at its largest), and a
+//     grid-stride loop past that; when there are no more rows than SMs,
+//     blocks of one warp, so each row's window reads fill an L1 of their
+//     own.  A row count that is no multiple of the rows a block takes
+//     leaves whole warps idle, never part of a row.  Row indices are
+//     32-bit (S < 2^31 - 8: a 2^31-row input would be 1 TB).
+//   - Those choices, each held against the others in one call on an
+//     H100 (microbench/gather.py; PERF.md has the runs): blocks of 8
+//     warps and not 2 or 1 (K6 from a CUDA graph 10.2 us against 12.5
+//     and 17.1 us); blocks of one warp for no more rows than SMs (K5
+//     1.58 us against 1.81 us); the streaming hint on the index loads
+//     (K6 with a cold L2 16.0 us, against 16.4-16.5 us with __ldg and
+//     16.1-16.2 us with no L1 allocation, though __ldg is 2 us faster
+//     from a warm L2); the four window reads issued before any is used
+//     (K5 1.82 us against 2.00 us, where the compiler had put a select
+//     between them).
 //   - every output has one writer: relaunches are bit-equal.
 
 #include <cuda_runtime.h>

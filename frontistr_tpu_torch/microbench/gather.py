@@ -31,9 +31,10 @@ on (K6's are 25 MB).  A real caller, an SpMV that streams its indices,
 finds them cold, so the K5 and K6 rows also give ``cold_ms``: the mean
 device time of the same number of launches, each timed alone by CUDA
 events around it, after writing FLUSH_BYTES of scratch, which evicts the
-L2.  Their share of the bound is taken on ``cold_ms``.  ``main`` also times G4 and G5 with every iq moved past
-the window (the same launches with no window value: what the index
-loads, shuffles and stores alone cost).
+L2.  Their share of the bound is taken on ``cold_ms``.  ``main`` also
+times G4 and G5 with every iq moved past the window (the same launches
+with no window value: what the index loads, shuffles and stores alone
+cost).
 
 It needs a card: without one, or when a launch fails, it exits non-zero
 (no row is skipped).  ``window_checks`` gives the cases on which the
@@ -152,9 +153,8 @@ def cuda_ms(fn, reps: int) -> float:
 def cold_ms(fn, reps: int) -> float:
     """Mean device time of fn() over reps launches, each after writing
     FLUSH_BYTES of scratch (so it finds the L2 cold), CUDA events around
-    each launch alone.
-    The device is held first while the host queues every launch, so no
-    event waits on the host."""
+    each launch alone.  The device is held first while the host queues
+    every launch, so no event waits on the host."""
     for _ in range(WARMUP):
         fn()
     scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32,

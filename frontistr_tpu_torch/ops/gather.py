@@ -27,9 +27,9 @@ kernels have no arithmetic: gathered values are copied, so kernel and
 plain version agree bit for bit.  An empty output launches nothing.
 K5/K6 read ``iq`` and ``ip`` in 16-byte vectors, so on the card they
 also raise for index tensors whose data is not 16-byte aligned (a view
-that starts inside a row of four).
+that starts inside a group of four).
 
-The launch path.  At the script's shapes K3-K5 take 1.4-2.1 us on the
+The launch path.  At the script's shapes K3-K5 take 1.4-1.6 us on the
 device (from a CUDA graph), so an eager call costs what the host takes
 to issue it.  On an H100 host the wrappers' first design took 28-36 us
 of host time a call (medians of 4,000 calls), of which ``torch.empty``
