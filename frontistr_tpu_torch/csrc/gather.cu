@@ -250,11 +250,10 @@ WindowGrid window_grid(int device) {
 // one warp, each on an SM of its own, when there are no more rows than
 // SMs; else blocks of kWinWarps, no more than the card holds at once.
 int window_launch(const void* w, int win_rows, int nwin, const void* iq,
-                  const void* ip, long long S, long long tile_rows,
-                  void* out, void* stream, int device) {
+                  const void* ip, long long S, int tile_rows, void* out,
+                  void* stream, int device) {
   if (win_rows < 8 || win_rows > kMaxWinRows || win_rows % 8 || nwin < 1 ||
-      tile_rows < 1 || tile_rows > 0x7fffffffLL || S < 0 ||
-      S > 0x7fffffffLL - kWinWarps ||
+      tile_rows < 1 || S < 0 || S > 0x7fffffffLL - kWinWarps ||
       (((uintptr_t)iq | (uintptr_t)ip | (uintptr_t)out) & 15))
     return -2;
   if (S == 0) return 0;
@@ -268,7 +267,7 @@ int window_launch(const void* w, int win_rows, int nwin, const void* iq,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(w), win_rows, nwin,
         static_cast<const int*>(iq), static_cast<const int*>(ip), (int)S,
-        (int)tile_rows, static_cast<float*>(out));
+        tile_rows, static_cast<float*>(out));
   });
 }
 
@@ -319,13 +318,12 @@ extern "C" int fstr_gather_cols(const void* x, int R, int W, const void* idx,
 }
 
 // K5: w (win_rows, 128), iq/ip (S, 128) -> out (S, 128): K6 with one
-// window block and one tile.  iq, ip and out 16-byte aligned.
+// window block (so every tile reads it).  iq, ip and out 16-byte aligned.
 extern "C" int fstr_window_gather(const void* w, int win_rows,
                                   const void* iq, const void* ip,
                                   long long S, void* out, void* stream,
                                   int device) {
-  return window_launch(w, win_rows, 1, iq, ip, S, S > 0 ? S : 1, out,
-                       stream, device);
+  return window_launch(w, win_rows, 1, iq, ip, S, 1, out, stream, device);
 }
 
 // K6: w (nwin * win_rows, 128), iq/ip (S, 128) -> out (S, 128); row s on
