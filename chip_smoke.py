@@ -2,7 +2,7 @@
 holds each against its plain PyTorch version, drives the main paths
 once, checks the answers and prints the result.
 
-    python3 chip_smoke.py [--n N] [--hex H] [--newton-n M]
+    python3 chip_smoke.py [--n N] [--hex H] [--newton-n M] [--plastic P]
 
 - The nonlinear static (Newton) tet path through
   ``frontistr_tpu_torch.run.run_directory`` (the function behind
@@ -16,8 +16,17 @@ once, checks the answers and prints the result.
   ``build_struct_model`` + ``run_linear_static``: ``box_hex8(h, h, h)``
   (default h=69: 1,029,000 dofs, 328,509 elements), stencil operator
   with its element products through K2, in float32 and float64.
+- The elastoplastic path through ``run_directory``: NLSTATIC on a
+  shuffled ``box_hex8(p, p, p)`` (default p=48: 352,947 dofs, 110,592
+  B-bar elements), !PLASTIC Mises, a follower pressure of 56 on the
+  top faces of the top element layer, 2 substeps (no gauss point
+  yields in the first, some in the second), !WRITE, RESULT read back;
+  one K1 assembly per Newton iteration.  Then K1 at m = 30 (tet10).
 - The gather microbenchmark ``frontistr_tpu_torch.microbench.gather``
   (K3-K6 on the shapes of ``scripts/microbench_pallas_gather.py``).
+- Small decks on the card and on the CPU: tet AMG, hex8 stencil, the
+  NLSTATIC tet deck, and the slice's hex8 B-bar and F-bar plastic,
+  tet10 Drucker-Prager and STATIC DLOAD + TEMPERATURE decks.
 
 The run needs a CUDA card and exits non-zero without one, or when any
 phase fails.  Work directories and the kernel build go under ``build/``
@@ -50,6 +59,18 @@ NLCNT = ("!VERSION\n 3\n!SOLUTION, TYPE=NLSTATIC\n!BOUNDARY\n X0, 1, 3, 0.0\n"
          " 210000.0, 0.3\n!STEP, SUBSTEPS=1\n BOUNDARY, 1\n LOAD, 1\n"
          "!SOLVER, METHOD=CG, ITERLOG=NO, TIMELOG=NO\n 10000, 1\n"
          " 1.0e-8, 1.0, 0.0\n!END\n")
+# the elastoplastic deck: NLSTATIC (hex8 in B-bar), a follower pressure
+# on the top faces of the top element layer, !PLASTIC Mises with linear
+# hardening (yield 250, H 1000), !WRITE, RESULT
+PLCNT = ("!VERSION\n 3\n!SOLUTION, TYPE={sol}\n!BOUNDARY\n X0, 1, 3, 0.0\n"
+         "{loads}!MATERIAL, NAME=M1\n!ELASTIC\n 210000.0, 0.3\n{plastic}"
+         "{extra}!STEP, SUBSTEPS={sub}\n BOUNDARY, 1\n LOAD, 1\n"
+         "!SOLVER, METHOD=CG, ITERLOG=NO, TIMELOG=NO\n 10000, 1\n"
+         " 1.0e-8, 1.0, 0.0\n!WRITE, RESULT\n!END\n")
+MISES = "!PLASTIC, YIELD=MISES, HARDEN=LINEAR\n 250.0, 1000.0\n"
+# the follower pressure of the elastoplastic path: at box_hex8(48) no
+# gauss point yields at half of it (substep 1), some do at all of it
+PLASTIC_PRESSURE = 56.0
 F32_TOL, F64_TOL = 1e-4, 1e-12      # x max|plain|
 # K1 planes launches of one AMG setup (solver/amg.py coarse_levels: the
 # level-1 blocks, then the dense level 2); a nodal smoothing makes one
@@ -127,7 +148,59 @@ def check_k2(em, keT, xeT, label: str) -> float:
                       label)
 
 
-def phase_k1_check(sm, bell, box_tet4, box_hex8):
+def tet10_mesh(mods, dims):
+    """``box_tet4(*dims)`` raised to tet10 (342) by one node at the
+    middle of every edge (no package has a tet10 generator)."""
+    m = mods["box_tet4"](*dims)
+    conn4 = m.blocks[0].conn.astype(np.int64)
+    # the six edges in the order of 342's mid-edge nodes 4..9
+    edges = np.stack([np.sort(conn4[:, list(e)], axis=1) for e in
+                      ((0, 1), (1, 2), (2, 0), (0, 3), (1, 3), (2, 3))], 1)
+    uniq, inv = np.unique(edges.reshape(-1, 2), axis=0, return_inverse=True)
+    coords = np.concatenate([m.coords, m.coords[uniq].mean(axis=1)])
+    conn = np.concatenate([conn4, m.n_node + inv.reshape(-1, 6)],
+                          axis=1).astype(np.int32)
+    hecmw = np.empty_like(conn)          # fstr[k] = hecmw[TABLE[k] - 1]
+    hecmw[:, np.asarray(mods["hecmw2fstr"][342]) - 1] = conn
+    m.coords = coords
+    m.node_ids = np.arange(1, len(coords) + 1, dtype=np.int64)
+    m.id2idx = {int(g): int(g) - 1 for g in m.node_ids}
+    for g in ("X0", "X1", "Y0", "Y1", "Z0", "Z1"):
+        x = coords[:, "XYZ".index(g[0])]
+        m.node_groups[g] = np.flatnonzero(np.isclose(
+            x, x.max() if g[1] == "1" else x.min())).astype(np.int64)
+    m.node_groups["ALL"] = np.arange(len(coords), dtype=np.int64)
+    m.blocks = [mods["ElemBlock"](342, m.blocks[0].elem_ids, conn, hecmw,
+                                  0)]
+    return m
+
+
+def top_faces(mods, mesh):
+    """(n, 2) rows (element id, face number) of the faces on the box's
+    top side (z = max)."""
+    b = mesh.blocks[0]
+    top = np.isclose(mesh.coords[:, 2], mesh.coords[:, 2].max())
+    nc = 3 if b.etype in (341, 342) else 4
+    rows = [(int(e), f) for f, (_, ln) in
+            enumerate(mods["face_tables"][b.etype], start=1)
+            for e in b.elem_ids[top[b.conn[:, ln[:nc]]].all(axis=1)]]
+    return np.asarray(rows, np.int64)
+
+
+def write_plastic_workdir(path, mods, mesh, cnt):
+    """The deck in ``path``, nodes shuffled (the RCM reorder then runs
+    as on the tet path); element group TOP (the top element layer) and
+    surface group STOP (its top faces)."""
+    rows = top_faces(mods, mesh)
+    order = np.random.default_rng(3).permutation(mesh.n_node)
+    mods["write_static_workdir"](
+        path, mods["ordering"].permute_mesh(mesh, order), cnt,
+        ngroups=("X0", "X1", "Z0", "Z1"),
+        egroups={"TOP": np.unique(rows[:, 0])}, sgroups={"STOP": rows})
+    return mesh.n_node * 3
+
+
+def phase_k1_check(sm, bell, box_tet4, box_hex8, tet10):
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     # random sorted segments: empty slots and segments past 1024 entries
@@ -145,7 +218,9 @@ def phase_k1_check(sm, bell, box_tet4, box_hex8):
         check_planes(sm, plan, values, dt, "random segments")
     for label, mesh, nn in (("box_tet4(20) cluster", box_tet4(20, 20, 20), 4),
                             ("box_hex8(20) cluster", box_hex8(20, 20, 20),
-                             8)):
+                             8),
+                            ("tet10 of box_tet4(12) cluster",
+                             tet10((12, 12, 12)), 10)):
         conn = mesh.blocks[0].conn
         cprof = bell.build_cluster_profile([conn], mesh.n_node, 3)
         m = 3 * nn
@@ -271,22 +346,6 @@ def phase_newton_main_path(args, mods):
         f"dofs, written in {time.perf_counter() - t0:.2f} s")
     solves = []
     real = nl.make_constrained_solver
-
-    def checked_solver(model, free, gather, mixed, timings=None):
-        solve = real(model, free, gather, mixed, timings)
-
-        def checked(kes, B, dirichlet_inc):
-            x = solve(kes, B, dirichlet_inc)
-            for k in ("last_iters", "last_passes", "last_relres"):
-                setattr(checked, k, getattr(solve, k))
-            solves.append(dict(
-                cg_iters=solve.last_iters, passes=solve.last_passes,
-                relres=solve.last_relres,
-                true_relres=constrained_relres(model, kes, B, dirichlet_inc,
-                                               free, x)))
-            return x
-        return checked
-
     calls = {"setup_amg": 0, "smooth": 0}
     amg, nodal = mods["amg"], mods["nodal"]
     real_setup, real_smooth = amg.setup_amg, nodal.smooth
@@ -297,7 +356,7 @@ def phase_newton_main_path(args, mods):
             return fn(*a, **kw)
         return call
 
-    nl.make_constrained_solver = checked_solver
+    nl.make_constrained_solver = spy_solves(nl, solves)
     amg.setup_amg = counted("setup_amg", real_setup)
     nodal.smooth = counted("smooth", real_smooth)
     sm.segsum.launches = 0
@@ -722,6 +781,221 @@ def phase_gather_time(g, mb, errs) -> list:
     return [out[k] for k in ("K3", "K4", "K5", "K6")]
 
 
+def phase_k1_m30_time(mods, n: int) -> dict:
+    """K1 at m = 30 (tet10) on the cluster profile of tet10 of
+    box_tet4(n), random float64 element matrices: held to its plain
+    version and timed with it and with one index_add_."""
+    sm, bell = mods["segsum"], mods["bell"]
+    mesh = tet10_mesh(mods, (n, n, n))
+    conn = mesh.blocks[0].conn
+    plan = bell.build_cluster_profile([conn], mesh.n_node, 3).plan("cuda")
+    gen = torch.Generator("cuda").manual_seed(6)
+    kes = [torch.randn((conn.shape[0], 30, 30), dtype=torch.float64,
+                       device="cuda", generator=gen)]
+    err = check_k1(sm, plan, kes, [10], torch.float64, f"tet10 box_tet4({n})")
+    ms = cuda_ms(lambda: sm.segsum(plan, kes, [10], 3))
+    plain_ms = cuda_ms(lambda: sm.segsum_reference(plan, kes, [10], 3))
+    ent = sm.entry_planes(kes, [10], 3)[:, plan.perm.long()]
+    out = torch.zeros((9, plan.n_slots), dtype=torch.float64, device="cuda")
+    seg = plan.seg_sorted.long()
+    library_ms = cuda_ms(lambda: out.index_add_(1, seg, ent))
+    P = plan.perm.numel()
+    nbytes = (kes[0].numel() * 8 + P * 4 + (plan.n_slots + 1) * 4
+              + 9 * plan.n_slots * 8)
+    bound_ms, bound_by = bound(nbytes, 9 * P, torch.float64)
+    log(f"phase k1_m30_time: tet10 box_tet4({n}) {conn.shape[0]} elements, "
+        f"P={P} pairs, n_slots={plan.n_slots} float64: kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms, bound "
+        f"{bound_ms:.3f} ms ({nbytes / 1e9:.3f} GB)")
+    return {"elements": int(conn.shape[0]), "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def spy_solves(nl, solves: list):
+    """A ``make_constrained_solver`` whose every solve also appends its
+    counts and an independent index_add_ true relres to ``solves``."""
+    real = nl.make_constrained_solver
+
+    def checked_solver(model, free, gather, mixed, timings=None):
+        solve = real(model, free, gather, mixed, timings)
+
+        def checked(kes, B, dirichlet_inc):
+            x = solve(kes, B, dirichlet_inc)
+            for k in ("last_iters", "last_passes", "last_relres"):
+                setattr(checked, k, getattr(solve, k))
+            solves.append(dict(
+                cg_iters=solve.last_iters, passes=solve.last_passes,
+                relres=solve.last_relres,
+                true_relres=constrained_relres(model, kes, B, dirichlet_inc,
+                                               free, x)))
+            return x
+        return checked
+    return checked_solver
+
+
+def phase_plastic_main_path(args, mods) -> dict:
+    """The elastoplastic NLSTATIC deck (``PLCNT``) on a shuffled
+    box_hex8(p) through run_directory under the port's default policy on
+    CUDA (float64): hex8 B-bar, Mises return mapping, the follower
+    pressure re-assembled on the card every iteration, 2 substeps, the
+    ``.res`` file.  Held to: every linear solve's index_add_ true relres
+    <= 1e-8, no yielded gauss point at the end of substep 1 and some in
+    substep 2, K1 element launches = Newton iterations, the ``.res``
+    read back equal to the returned displacements.  Returns the K1
+    counts of the run."""
+    nl, sm = mods["nonlinear"], mods["segsum"]
+    p = args.plastic
+    wd = os.path.join(ROOT, "build", "smoke", f"plastic{p}")
+    cnt = PLCNT.format(sol="NLSTATIC", loads="!DLOAD\n TOP, P2, "
+                       f"{PLASTIC_PRESSURE!r}\n", plastic=MISES, extra="",
+                       sub=2)
+    t0 = time.perf_counter()
+    ndof = write_plastic_workdir(wd, mods, mods["box_hex8"](p, p, p), cnt)
+    log(f"phase plastic_workdir: box_hex8({p}) shuffled, NLSTATIC !PLASTIC "
+        f"Mises, follower P2={PLASTIC_PRESSURE!r} on the top layer, 2 "
+        f"substeps, {ndof} dofs, {p ** 3} elements, written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    solves = []
+    real = nl.make_constrained_solver
+    nl.make_constrained_solver = spy_solves(nl, solves)
+    sm.segsum.launches = 0
+    sm.segsum_planes.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        out = mods["run_directory"](wd, device="cuda")
+        wall = time.perf_counter() - t0
+    finally:
+        nl.make_constrained_solver = real
+    launches = sm.segsum.launches
+    planes = sm.segsum_planes.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res, model = out["static"], out["model"]
+    nw, tm = res.newton, res.timings
+    keys = ("tangent", "update", "assembly", "amg_setup", "solve",
+            "follower_load")
+    log(f"phase plastic_main_path: {wall:.2f} s; formulation="
+        f"{model.blocks[0].formulation} policy={res.policy} substeps="
+        f"{nw.substeps} newton_iters={nw.total_iters} cutbacks="
+        f"{nw.cutbacks} cg_iters={sum(h['cg_iters'] for h in nw.history)} "
+        f"K1 launches={launches} (element assembly), K1 planes "
+        f"launches={planes}, peak device memory {peak_gb:.3f} GB")
+    log("  phase seconds: " + " ".join(f"{k}={tm.get(k, 0.0):.3f}" for k in
+                                       keys + ("read", "reorder", "model",
+                                               "profile", "post",
+                                               "result")))
+    for h, sv in zip(nw.history, solves):
+        log(f"  step {h['step']} substep {h['substep']} it {h['iter']}: "
+            f"rres={h['rres']!r} rxnrm={h['rxnrm']!r} "
+            f"cg_iters={sv['cg_iters']} passes={sv['passes']} "
+            f"relres={sv['relres']!r} true_relres={sv['true_relres']!r} "
+            f"yielded={h['yielded']}; "
+            + " ".join(f"{k}={h[k]:.3f}" for k in keys))
+    if len(solves) != len(nw.history) or not solves:
+        raise AssertionError("plastic_main_path: solves and iterations do "
+                             "not pair up")
+    if res.policy != "f64" or model.blocks[0].formulation != "BBAR":
+        raise AssertionError("plastic_main_path: not the f64 policy on "
+                             "B-bar hex8")
+    last = {}
+    for h in nw.history:
+        last[h["substep"]] = h
+    if nw.cutbacks or sorted(last) != [1, 2] or \
+            last[1]["yielded"] != 0 or last[2]["yielded"] <= 0:
+        raise AssertionError("plastic_main_path: not yield-free in "
+                             "substep 1 and yielding in substep 2 "
+                             f"without cutbacks: {last}")
+    if launches != nw.total_iters:
+        raise AssertionError(f"K1 launches {launches} != Newton "
+                             f"iterations {nw.total_iters}")
+    if not all(sv["true_relres"] <= 1e-8 for sv in solves):
+        raise AssertionError("a linear solve's true relres is above 1e-8")
+    if not (res.u.shape == (model.n_node, 3) and np.isfinite(res.u).all()):
+        raise AssertionError("displacements not finite / wrong shape")
+    path = os.path.join(wd, "mesh.res.0.1")
+    t0 = time.perf_counter()
+    back = mods["read_result"](path)
+    u_res = dict(back["node_comps"])["DISPLACEMENT"]
+    rel = float(np.abs(u_res - res.u).max() / np.abs(res.u).max())
+    log(f"  {os.path.relpath(path, ROOT)}: {os.path.getsize(path)} bytes, "
+        f"read back in {time.perf_counter() - t0:.2f} s, labels "
+        f"{[n for n, _ in back['node_comps'] + back['elem_comps']]}, "
+        f"DISPLACEMENT vs the returned u: max rel diff {rel!r}")
+    if not (np.array_equal(back["node_ids"], model.mesh.node_ids)
+            and rel <= 1e-15):
+        raise AssertionError("the .res displacements differ from the run's")
+    with open(os.path.join(wd, "FSTR.sta")) as fh:
+        if "HAS COMPLETED SUCCESSFULLY" not in fh.read():
+            raise AssertionError("FSTR.sta does not report success")
+    return {"launches": launches, "planes_launches": planes,
+            "newton_iters": nw.total_iters}
+
+
+def phase_plastic_small_reference(mods):
+    """The small decks of the slice on the card and on the CPU (which
+    the CPU tests hold to the JAX package), float64 policy: hex8 B-bar
+    Mises and hex8 F-bar multilinear at box_hex8(6, 5, 4) under a
+    follower P2, tet10 Drucker-Prager under a follower S, and a STATIC
+    tet4 deck with a dead DLOAD and a !TEMPERATURE field.  Displacements
+    within 1e-8 of max|u|, the same Newton iterations and committed
+    yielded sets, each solve's CG count within one (the card's and the
+    CPU's float64 reductions sum in other orders, and a solve whose
+    residual lands at the 1e-8 bar stops one iteration apart)."""
+    nl, run = mods["nonlinear"], mods["run_directory"]
+    decks = [
+        ("hex8 B-bar Mises", mods["box_hex8"](6, 5, 4), "NLSTATIC",
+         "!DLOAD\n TOP, P2, 120.0\n", MISES, ""),
+        ("hex8 F-bar multilinear", mods["box_hex8"](6, 5, 4), "NLSTATIC",
+         "!DLOAD\n TOP, P2, 120.0\n", "!PLASTIC, YIELD=MISES, HARDEN="
+         "MULTILINEAR\n 250.0, 0.0\n 300.0, 0.01\n 320.0, 0.05\n",
+         "!ELEMOPT, 361=4\n"),
+        ("tet10 Drucker-Prager", tet10_mesh(mods, (3, 2, 2)), "NLSTATIC",
+         "!DLOAD\n STOP, S, 15.0\n", "!PLASTIC, YIELD=DRUCKER-PRAGER\n"
+         " 40.0, 30.0, 500.0\n", ""),
+        ("STATIC DLOAD + TEMPERATURE", mods["box_tet4"](4, 3, 3), "STATIC",
+         "!DLOAD\n ALL, BX, 3.0\n TOP, P2, 5.0\n!REFTEMP\n 20.0\n"
+         "!TEMPERATURE\n Z1, 120.0\n Z0, 60.0\n", "",
+         "!EXPANSION_COEFF\n 1.2e-5\n")]
+    real = nl._commit_state
+    for k, (label, mesh, sol, loads, plastic, extra) in enumerate(decks):
+        wd = os.path.join(ROOT, "build", "smoke", f"plastic_small{k}")
+        write_plastic_workdir(wd, mods, mesh, PLCNT.format(
+            sol=sol, loads=loads, plastic=plastic, extra=extra,
+            sub=2 if sol == "NLSTATIC" else 1))
+        runs = []
+        for dev in ("cuda", "cpu"):
+            seen = []
+            nl._commit_state = lambda st: seen.append(real(st)) or seen[-1]
+            try:
+                r = with_env({"FRONTISTR_TPU_PRECISION": "f64"},
+                             lambda: run(wd, device=dev)["static"])
+            finally:
+                nl._commit_state = real
+            cg = [h["cg_iters"] for h in r.newton.history] \
+                if r.newton is not None else [r.iters]
+            yld = [s["yielded"].cpu().numpy() for s in seen[-len(
+                mesh.blocks):]] if seen else []
+            runs.append((r, cg, yld))
+        (rg, cgg, yg), (rc, cgc, yc) = runs
+        rel = float(np.abs(rg.u - rc.u).max() / np.abs(rc.u).max())
+        ny = [int(sum(y.sum() for y in ys)) for ys in (yg, yc)]
+        log(f"phase plastic_small_reference: {label}, cuda vs cpu max rel "
+            f"diff {rel!r}, newton iterations {rg.iters} vs {rc.iters}, "
+            f"cg {cgg} vs {cgc}, yielded {ny[0]} vs {ny[1]}")
+        if not (rel <= 1e-8 and rg.iters == rc.iters
+                and len(cgg) == len(cgc)
+                and all(abs(a - b) <= 1 for a, b in zip(cgg, cgc))
+                and len(yg) == len(yc)
+                and all(np.array_equal(a, b) for a, b in zip(yg, yc))):
+            raise AssertionError(f"plastic_small_reference: {label}: cuda "
+                                 "and cpu runs differ")
+        if plastic and ny[0] == 0:
+            raise AssertionError(f"plastic_small_reference: {label} did "
+                                 "not yield")
+
+
 def with_env(env: dict, fn):
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
@@ -816,6 +1090,9 @@ def main(argv=None) -> int:
     ap.add_argument("--newton-n", type=int, default=69,
                     help="box_tet4(m, m, m) for the Newton path "
                          "(default 69)")
+    ap.add_argument("--plastic", type=int, default=48,
+                    help="box_hex8(p, p, p) for the elastoplastic path "
+                         "(default 48)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -830,7 +1107,11 @@ def main(argv=None) -> int:
     from frontistr_tpu_torch.analysis import static as stmod
     from frontistr_tpu_torch.assembly import bell, structured
     from frontistr_tpu_torch.assembly import segsum as sm
+    from frontistr_tpu_torch.assembly.loads import FACE_TABLES
     from frontistr_tpu_torch.assembly.model import build_struct_model
+    from frontistr_tpu_torch.elements.tables import HECMW2FSTR_ORDER
+    from frontistr_tpu_torch.io.meshio import ElemBlock
+    from frontistr_tpu_torch.io.resfile import read_result
     from frontistr_tpu_torch.assembly.operators import make_free_mask
     from frontistr_tpu_torch.io.ctrlio import read_cnt
     from frontistr_tpu_torch.io.neu import write_static_workdir
@@ -848,7 +1129,9 @@ def main(argv=None) -> int:
                 build_struct_model=build_struct_model, read_cnt=read_cnt,
                 write_static_workdir=write_static_workdir,
                 run_directory=run_directory, amg=amg, nodal=nodal,
-                make_free_mask=make_free_mask)
+                make_free_mask=make_free_mask, face_tables=FACE_TABLES,
+                hecmw2fstr=HECMW2FSTR_ORDER, ElemBlock=ElemBlock,
+                read_result=read_result)
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -866,7 +1149,8 @@ def main(argv=None) -> int:
 
     # 3. each kernel against its plain version
     log("phase k1_check:")
-    phase_k1_check(sm, bell, box_tet4, box_hex8)
+    phase_k1_check(sm, bell, box_tet4, box_hex8,
+                   lambda dims: tet10_mesh(mods, dims))
     log("phase k2_check:")
     phase_k2_check(em)
     log("phase gather_check:")
@@ -892,13 +1176,21 @@ def main(argv=None) -> int:
     del model, res
     torch.cuda.empty_cache()
 
-    # 7. the gather microbenchmark (K3-K6)
+    # 7. the elastoplastic path (K1 once per Newton iteration), then K1
+    #    at m = 30 (tet10)
+    k1_row["plastic_main_path"] = phase_plastic_main_path(args, mods)
+    torch.cuda.empty_cache()
+    k1_row["m30"] = phase_k1_m30_time(mods, 24)
+    torch.cuda.empty_cache()
+
+    # 8. the gather microbenchmark (K3-K6)
     gather_rows = phase_gather_time(g, mb, gather_errs)
 
-    # 8. small decks on the card and on the CPU
+    # 9. small decks on the card and on the CPU
     phase_small_reference(mods)
     phase_hex_small_reference(mods)
     phase_newton_small_reference(mods)
+    phase_plastic_small_reference(mods)
 
     log(f"phase total: {time.perf_counter() - t_start:.2f} s")
     log(smi)

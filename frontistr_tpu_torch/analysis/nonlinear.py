@@ -17,15 +17,18 @@ fstr_solve_NonLinear.f90:29-167).
 - divergence (MAXITER, MAXRES) cuts the substep back by Rc and restarts
   it from the committed state (fstr_solve_NLGEOM.f90:151-195).
 
-The slice: 3-D solid blocks but hex8 (whose NLSTATIC formulations,
-B-bar and F-bar, are not ported) of an isotropic ELASTIC material with
-the INFINITESIMAL, TOTALLAG or UPDATELAG flag, CLOAD loads, steps,
-substeps, AUTOINC, TIME_POINTS.  Anything else the JAX driver handles
-(contact, MPC, springs, DLOAD and temperature loads, rotational BCs,
-other materials, hex8, restart, result writers, direct solvers,
-sharding) raises ``NotImplementedError`` naming itself.  The
-JAX package's jit-argument carry (a TPU remote-compile workaround) has no
-counterpart: PyTorch runs eagerly.
+The slice: 3-D solid blocks (tet4, tet10, and hex8 in its B-bar, F-bar
+or, for linear STATIC decks, IC formulation) of an isotropic ELASTIC or
+!PLASTIC material (``fem/plastic.py``: MISES, DRUCKER-PRAGER,
+MOHR-COULOMB) with the INFINITESIMAL, TOTALLAG or UPDATELAG flag; CLOAD,
+DLOAD and TEMPERATURE loads, DLOAD as a follower load under nlgeom
+(``assembly/loads.FollowerDload``, re-assembled on the device every
+iteration); steps, substeps, AUTOINC, TIME_POINTS.  Anything else the
+JAX driver handles (contact, MPC, springs, rotational BCs, other
+materials, restart, direct solvers, sharding) raises
+``NotImplementedError`` naming itself.  The JAX package's jit-argument
+carry (a TPU remote-compile workaround) has no counterpart: PyTorch runs
+eagerly.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ import torch
 from frontistr_tpu_torch.analysis.static import (StaticResult, check_solver,
                                                  cluster_operator,
                                                  cluster_setup, solve_policy)
-from frontistr_tpu_torch.assembly import femop
+from frontistr_tpu_torch.assembly import femop, loads
 from frontistr_tpu_torch.assembly import operators as old_ops
 from frontistr_tpu_torch.assembly.model import (StructModel, collect_boundary,
                                                 collect_cload)
@@ -49,6 +52,8 @@ from frontistr_tpu_torch.elements.tables import get_table
 from frontistr_tpu_torch.fem import material as mat
 from frontistr_tpu_torch.fem import solid
 from frontistr_tpu_torch.fem.isoparam import jacobians, strain_selector_3d
+from frontistr_tpu_torch.fem.plastic import (PlasticParams, plastic_tangent,
+                                             return_mapping)
 from frontistr_tpu_torch.io import logio
 from frontistr_tpu_torch.io.stafile import sta_final, sta_init, sta_status
 from frontistr_tpu_torch.post import nodal as postnodal
@@ -71,8 +76,21 @@ def init_block_state(block, table, device="cpu") -> dict:
                                     device=device), back=z)
 
 
+def _plastic_params(m: mat.Material) -> PlasticParams:
+    """The block's !PLASTIC record as ``PlasticParams`` (MULTILINEAR:
+    the (yield stress, plastic strain) rows as the table)."""
+    consts = np.asarray(m.plastic_consts)
+    table = consts.reshape(-1, 2) if m.hardening.upper() == "MULTILINEAR" \
+        else None
+    return PlasticParams(m.youngs, m.poisson, m.hardening.upper(),
+                         consts.reshape(-1), table=table,
+                         yield_func=m.yield_func.upper())
+
+
 class BlockPrograms:
-    """TANGENT / UPDATE for one solid ELASTIC element block."""
+    """TANGENT / UPDATE for one solid element block of an isotropic
+    ELASTIC or !PLASTIC material; hex8 blocks in their formulation
+    (B-bar, F-bar, and IC for linear STATIC decks)."""
 
     def __init__(self, model: StructModel, block):
         self.block = block
@@ -80,19 +98,18 @@ class BlockPrograms:
         if block.kind != "solid":
             raise NotImplementedError(f"{block.kind} blocks in the Newton "
                                       "driver")
-        if m.mtype != mat.ELASTIC or m.ortho_consts is not None:
-            name = m.mtype if m.mtype != mat.ELASTIC else "ORTHOTROPIC"
+        if m.mtype not in (mat.ELASTIC, mat.EPLASTIC) or \
+                m.ortho_consts is not None:
+            name = "ORTHOTROPIC" if m.mtype == mat.ELASTIC else m.mtype
             raise NotImplementedError(f"material {name} in the Newton "
                                       "driver")
-        if block.etype == 361:
-            raise NotImplementedError("hex8 (361) in the Newton driver "
-                                      "(B-bar/F-bar not ported)")
         self.table = get_table(block.etype)
         if self.table.dim != 3:
             raise NotImplementedError(f"element type {block.etype} in the "
                                       "Newton driver")
         self.mtype = m.mtype
         self.flag = m.nlgeom
+        self.pl = _plastic_params(m) if m.mtype == mat.EPLASTIC else None
         dev = model.device
         self.conn = torch.as_tensor(block.conn, dtype=torch.int64,
                                     device=dev)
@@ -105,33 +122,61 @@ class BlockPrograms:
             D_np = D_np[:1]
         self.D_e = torch.as_tensor(D_np, dtype=torch.float64, device=dev)
         self.iso_lm = None
-        if D_np.shape[0] == 1:
+        if D_np.shape[0] == 1 and m.mtype == mat.ELASTIC:
             E_, nu = float(m.youngs), float(m.poisson)
             self.iso_lm = (E_ * nu / ((1 + nu) * (1 - 2 * nu)),
                            E_ / (2 * (1 + nu)))
+
+    @property
+    def bbar(self) -> bool:
+        return self.block.etype == 361 and self.block.formulation == "BBAR"
+
+    @property
+    def fbar(self) -> bool:
+        return self.block.etype == 361 and self.block.formulation == "FBAR"
+
+    @property
+    def ic(self) -> bool:
+        return self.block.etype == 361 and self.block.formulation == "IC"
 
     def _De(self) -> torch.Tensor:
         """Full-shape elastic D (a broadcast view if compressed)."""
         return self.D_e.expand(self._De_shape)
 
     def _material_D(self, state) -> torch.Tensor:
+        if self.mtype == mat.EPLASTIC:
+            De = self._De()[:, None].expand(-1, self.table.nq, -1, -1)
+            return plastic_tangent(self.pl, De, state["stress"],
+                                   state["pstrain_new"], state["back"],
+                                   state["yielded"])
         return self.D_e
 
     # ---------------- tangent (fstr_StiffMatrix / STF_C3) ----------------
     def tangent(self, u_e, ddu_e, state):
-        table, flag = self.table, self.flag
+        table, flag, x0 = self.table, self.flag, self.coords_e
         total = u_e + ddu_e
         D = self._material_D(state)
         if flag == mat.INFINITESIMAL:
+            if self.ic:
+                return solid.stiffness_hex8ic(table, x0, D)
+            if self.fbar:
+                return solid.stiffness_hex8fbar(table, x0, D)
+            if self.bbar:
+                return solid.stiffness_nlgeom(table, x0, total, D,
+                                              state["stress"],
+                                              mat.INFINITESIMAL, bbar=True)
             if self.iso_lm is not None:
-                return solid.stiffness_linear_iso(table, self.coords_e,
-                                                  *self.iso_lm)
-            return solid.stiffness_linear(table, self.coords_e, D)
+                return solid.stiffness_linear_iso(table, x0, *self.iso_lm)
+            return solid.stiffness_linear(table, x0, D)
         if flag == mat.UPDATELAG:
             # D <- D - geomat(sigma) (STF_C3:117-120)
-            D = D[:, None] - _geomat(state["stress"])
-        return solid.stiffness_nlgeom(table, self.coords_e, total, D,
-                                      state["stress"], flag)
+            D = (D[:, None] if D.dim() == 3 else D) - \
+                _geomat(state["stress"])
+        if self.fbar:
+            return solid.stiffness_nlgeom_fbar(table, x0, total, D,
+                                               state["stress"], flag)
+        return solid.stiffness_nlgeom(table, x0, total, D, state["stress"],
+                                      flag, bbar=self.bbar)
 
     # ---------------- update (fstr_UpdateNewton / UPDATE_C3) -------------
     def update(self, u_e, ddu_e, state):
@@ -154,8 +199,50 @@ class BlockPrograms:
         dudx = torch.einsum("end,eqnj->eqdj", disp, gderiv)
         # small-strain part (UPDATE_C3:131-139)
         eps = torch.einsum("kdj,eqdj->eqk", S, dudx)
+        g0 = None
+        if self.bbar or (self.fbar and flag != mat.TOTALLAG):
+            # volumetric dilatation correction: centroid reference for
+            # B-bar (Update_C3D8Bbar:70-94,151-156), volume average for
+            # F-bar (Update_C3D8Fbar:532-541 INFINITE / :587-597 UL)
+            if self.bbar:
+                g0 = solid.centroid_gderiv(table, elem)
+            else:
+                g0, _, _ = solid.volavg_gderiv(table, elem)
+            dudx0 = torch.einsum("end,enj->edj", disp, g0)
+            vol0 = torch.diagonal(dudx0, dim1=-2, dim2=-1).sum(-1) / 3.0
+            dvol = vol0[:, None] - \
+                torch.diagonal(dudx, dim1=-2, dim2=-1).sum(-1) / 3.0
+            eps = torch.cat([eps[..., :3] + dvol[..., None], eps[..., 3:]],
+                            -1)
+
         new_state = dict(state)
-        if flag == mat.TOTALLAG:
+        fb_ctx = None
+        if flag == mat.TOTALLAG and self.fbar:
+            # F-bar Green-Lagrange strain from Fbar = Jr (I + du/dX)
+            # (Update_C3D8Fbar:556-565)
+            eye = torch.eye(3, dtype=dt, device=elem.device)
+            F = eye[None, None] + dudx
+            jacob = torch.linalg.det(F)
+            _, g1 = jacobians(dN, self.coords_e + total)
+            w = torch.as_tensor(table.weights, dtype=dt, device=elem.device)
+            wg0 = w[None, :] * det
+            jwg = wg0 * jacob
+            V0J = jwg.sum(dim=1)
+            g1_ave = torch.einsum("eq,eqnd->end", jwg, g1) / \
+                V0J[:, None, None]
+            jacob_ave = V0J / wg0.sum(dim=1)
+            Jr = (jacob_ave ** (1.0 / 3.0))[:, None] * \
+                jacob ** (-1.0 / 3.0)
+            Fb = Jr[:, :, None, None] * F
+            C = torch.einsum("eqki,eqkj->eqij", Fb, Fb)
+            eps = torch.stack([
+                0.5 * (C[..., 0, 0] - 1), 0.5 * (C[..., 1, 1] - 1),
+                0.5 * (C[..., 2, 2] - 1), C[..., 0, 1], C[..., 1, 2],
+                C[..., 2, 0]], dim=-1)
+            fb_ctx = (Jr, g1, g1_ave, eps)
+            new_state["strain"] = eps
+            new_state["stress"] = self._stress_total(eps)
+        elif flag == mat.TOTALLAG:
             # Green-Lagrange quadratic terms (UPDATE_C3:154-168)
             eps = eps + torch.einsum("kij,eqdi,eqdj->eqk", 0.5 * S, dudx,
                                      dudx)
@@ -173,19 +260,86 @@ class BlockPrograms:
             new_state["stress"] = state["stress_bak"] + dsig + \
                 _tensor_to_voigt(dum)
 
+        if self.mtype == mat.EPLASTIC:
+            sig, p_new, yielded, back = return_mapping(
+                self.pl, new_state["stress"], state["pstrain"],
+                state["back"])
+            new_state.update(stress=sig, pstrain_new=p_new,
+                             yielded=yielded, back=back)
+
         # internal force (UPDATE_C3 tail): B evaluated per flag
-        if flag == mat.TOTALLAG:
-            qf = _qf_totallag(table, S, gderiv, det, dudx,
-                              new_state["stress"])
+        sig = new_state["stress"]
+        if flag == mat.TOTALLAG and self.fbar:
+            # qf = [Jr^2 (B0 + B1) + B2]^T sigma
+            # (Update_C3D8Fbar:663-733 TOTALLAG arm)
+            Jr, g1, g1_ave, eps_fb = fb_ctx
+            w = torch.as_tensor(table.weights, dtype=dt, device=elem.device)
+            wdet = w[None, :] * det
+            wdet2 = wdet * Jr ** 2
+            qf0 = torch.einsum("kdj,eqnj,eqk,eq->end", S, gderiv, sig,
+                               wdet2)
+            qf1 = torch.einsum("kij,eqdi,eqnj,eqk,eq->end", S, dudx,
+                               gderiv, sig, wdet2)
+            z1q = (g1_ave[:, None] - g1) / 3.0
+            fac = torch.cat([2 * eps_fb[..., :3] + 1.0,
+                             2 * eps_fb[..., 3:]], -1)
+            sf = torch.einsum("eqk,eqk->eq", sig, fac)
+            qf2 = torch.einsum("eq,eqnd,eq->end", sf, z1q, wdet)
+            qf = (qf0 + qf1 + qf2).reshape(gderiv.shape[0], -1)
+        elif flag == mat.TOTALLAG:
+            qf = _qf_totallag(table, S, gderiv, det, dudx, sig)
+            if self.bbar:
+                qf = qf + _qf_bbar_extra(table, gderiv, g0, det, sig)
         elif flag == mat.UPDATELAG:
-            qf = solid.internal_force(table, elem1, new_state["stress"])
+            det1, gderiv1 = jacobians(dN, elem1)
+            if self.fbar:
+                # qf = [B(elem1) + B2]^T sigma Jr^3 w det1
+                # (Update_C3D8Fbar:735-766 UPDATELAG arm); Jr and the
+                # jacob-weighted g1_ave come from the total displacement
+                # on the reference configuration (:430-456)
+                eye = torch.eye(3, dtype=dt, device=elem.device)
+                det0, g0d = jacobians(dN, self.coords_e)
+                dudx_t = torch.einsum("end,eqnj->eqdj", total, g0d)
+                jacob = torch.linalg.det(eye[None, None] + dudx_t)
+                w = torch.as_tensor(table.weights, dtype=dt,
+                                    device=elem.device)
+                wg0 = w[None, :] * det0
+                jwg = wg0 * jacob
+                V0J = jwg.sum(dim=1)
+                g1_ave = torch.einsum("eq,eqnd->end", jwg, gderiv1) / \
+                    V0J[:, None, None]
+                jacob_ave = V0J / wg0.sum(dim=1)
+                Jr = (jacob_ave ** (1.0 / 3.0))[:, None] * \
+                    jacob ** (-1.0 / 3.0)
+                wdet = w[None, :] * det1 * Jr ** 3
+                qf0 = torch.einsum("kdj,eqnj,eqk,eq->end", S, gderiv1,
+                                   sig, wdet)
+                z1q = (g1_ave[:, None] - gderiv1) / 3.0
+                tr_s = sig[..., 0] + sig[..., 1] + sig[..., 2]
+                qf2 = torch.einsum("eq,eqnd,eq->end", tr_s, z1q, wdet)
+                qf = (qf0 + qf2).reshape(gderiv1.shape[0], -1)
+            else:
+                qf = solid.internal_force(table, elem1, sig)
+                if self.bbar:
+                    g01 = solid.centroid_gderiv(table, elem1)
+                    qf = qf + _qf_bbar_extra(table, gderiv1, g01, det1,
+                                             sig)
+        elif self.bbar or self.fbar:
+            # the F-bar INFINITE correction has the B-bar row shape with
+            # the volume-averaged reference (Update_C3D8Fbar:676-689)
+            qf = solid.internal_force(table, self.coords_e, sig)
+            qf = qf + _qf_bbar_extra(table, gderiv, g0, det, sig)
+        elif self.ic:
+            # IC element: qf from the condensed elastic stiffness
+            ke = solid.stiffness_hex8ic(table, self.coords_e, self._De())
+            qf = torch.einsum("eij,ej->ei", ke,
+                              disp.reshape(ke.shape[0], -1))
         else:
-            qf = solid.internal_force(table, self.coords_e,
-                                      new_state["stress"])
+            qf = solid.internal_force(table, self.coords_e, sig)
         return new_state, qf
 
     def _stress_total(self, eps):
-        """Stress from strain, sigma = D eps (per quadrature point)."""
+        """Stress from strain, sigma = De eps (per quadrature point)."""
         D = self._De()
         if D.dim() == 4:
             return torch.einsum("eqkl,eql->eqk", D, eps)
@@ -214,6 +368,19 @@ def _tensor_to_voigt(t):
     """3x3 tensor -> Voigt (11, 22, 33, 12, 23, 31)."""
     return torch.stack([t[..., 0, 0], t[..., 1, 1], t[..., 2, 2],
                         t[..., 0, 1], t[..., 1, 2], t[..., 2, 0]], -1)
+
+
+def _qf_bbar_extra(table, gderiv, g0, det, stress):
+    """B-bar internal-force correction: the modified rows add
+    (g0 - g)/3 tr(sigma) per direction column (Update_C3D8Bbar:261-276).
+    Returns (E, nn*dim)."""
+    w = torch.as_tensor(table.weights, dtype=det.dtype, device=det.device)
+    wdet = w[None, :] * det
+    trs = stress[..., 0] + stress[..., 1] + stress[..., 2]
+    corr = (g0[:, None] - gderiv) / 3.0                  # (E, nq, nn, dim)
+    E, _, nn, dim = corr.shape
+    return torch.einsum("eqnd,eq,eq->end", corr, trs, wdet) \
+        .reshape(E, nn * dim)
 
 
 def _qf_totallag(table, S, gderiv, det, dudx, stress):
@@ -294,9 +461,9 @@ def make_constrained_solver(model: StructModel, free: torch.Tensor,
 # ---------------- the substep / Newton driver ------------------------------
 
 def _load_group_universe(cfg):
-    """All GRPIDs on load cards (CLOAD; DLOAD and TEMPERATURE decks are
-    refused by the model build)."""
-    return {c.iparam("GRPID", 1) for c in cfg.cloads}
+    """All GRPIDs on load cards (CLOAD, DLOAD, TEMPERATURE)."""
+    cards = list(cfg.cloads) + list(cfg.dloads) + list(cfg.temperatures)
+    return {c.iparam("GRPID", 1) for c in cards}
 
 
 def _active_sets(cfg, cstep):
@@ -319,12 +486,43 @@ def _active_sets(cfg, cstep):
     return cur & prev, cur - prev
 
 
-def _assemble_loads_sel(model, cfg, sel) -> np.ndarray:
-    """External load vector (CLOAD) of the load groups in ``sel``."""
+def _assemble_loads_sel(model, cfg, sel, dload=True) -> np.ndarray:
+    """External load vector (CLOAD, DLOAD at the reference geometry when
+    ``dload``, thermal) of the load groups in ``sel``."""
     if not sel:
         return np.zeros(model.n_dof_total)
-    return collect_cload(model.mesh, cfg.cloads, model.ndof, model.n_node,
-                         sel)
+    f = collect_cload(model.mesh, cfg.cloads, model.ndof, model.n_node,
+                      sel)
+    if cfg.dloads and dload:
+        f = f + loads.collect_dload(model.mesh, model, cfg.dloads, sel)
+    if cfg.temperatures and model.temperature is not None:
+        T = loads.collect_temperature(model.mesh, cfg.temperatures,
+                                      model.n_node, cfg.reftemp, sel)
+        if T is not None:
+            f = f + loads.thermal_load(model, T)
+    return f
+
+
+def _follower(model, tensor, sel=None):
+    """The follower load of an nlgeom deck with DLOAD cards as
+    ``gl(u, lam2)``, assembled on the device at ``coords0 + u``
+    (fstr_ass_load.f90:165-196): the first step's ``(f_base + f_dload(u))
+    * lam2``, or, for a later !STEP of a multi-step deck, the held part
+    ``sel = (sel_held, sel_ramp)`` at factor 1 plus the ramped part at
+    lam2.  None without follower loads."""
+    if not (model.nlgeom and model.dload_grp is not None):
+        return None
+    cfg = model.cfg
+    if sel is None:
+        fol = loads.FollowerDload(model, *model.dload_grp)
+        f_base = tensor(model.f_base)
+        return lambda u, lam2: (f_base + fol(u)) * lam2
+    sel_h, sel_r = sel
+    fol_h = loads.FollowerDload(model, cfg.dloads, sel_h)
+    fol_r = loads.FollowerDload(model, cfg.dloads, sel_r)
+    f_h = tensor(_assemble_loads_sel(model, cfg, sel_h, dload=False))
+    f_r = tensor(_assemble_loads_sel(model, cfg, sel_r, dload=False))
+    return lambda u, lam2: f_h + fol_h(u) + (f_r + fol_r(u)) * lam2
 
 
 @dataclasses.dataclass
@@ -342,8 +540,7 @@ def _check_request(model: StructModel) -> None:
     if os.environ.get("FRONTISTR_TPU_SHARDS", "") not in ("", "0"):
         raise NotImplementedError("sharded Newton (FRONTISTR_TPU_SHARDS)")
     cfg = model.cfg
-    for name, cards in (("!CONTACT", cfg.contacts), ("!DLOAD", cfg.dloads),
-                        ("!TEMPERATURE", cfg.temperatures),
+    for name, cards in (("!CONTACT", cfg.contacts),
                         ("!SPRING", cfg.springs),
                         ("!EQUATION", model.mesh.equations)):
         if cards:
@@ -383,7 +580,7 @@ def run_nonlinear_static(model: StructModel, log_path: Optional[str] = None,
                                 or ".", "FSTR.sta")
         sta_init(sta_path)
     stats = NewtonStats()
-    policy = solve_policy(dev)
+    policy = solve_policy(dev, "NLSTATIC")
     mixed = policy == "mixed"
     solver = None
     step_count = 0
@@ -393,6 +590,7 @@ def run_nonlinear_static(model: StructModel, log_path: Optional[str] = None,
     multi = len(cfg.steps) > 1
     f_held = None
     f_ramp = f_total
+    follow = None if multi else _follower(model, tensor)
     for cstep, step in enumerate(cfg.steps, start=1):
         if multi:
             # per-!STEP BC/load bookkeeping: this step's Dirichlet set,
@@ -407,6 +605,7 @@ def run_nonlinear_static(model: StructModel, log_path: Optional[str] = None,
             sel_held, sel_ramp = _active_sets(cfg, cstep)
             f_held = tensor(_assemble_loads_sel(model, cfg, sel_held))
             f_ramp = tensor(_assemble_loads_sel(model, cfg, sel_ramp))
+            follow = _follower(model, tensor, (sel_held, sel_ramp))
         if multi or solver is None:
             solver = make_constrained_solver(model, free, gather, mixed,
                                              timings)
@@ -432,7 +631,8 @@ def run_nonlinear_static(model: StructModel, log_path: Optional[str] = None,
             converged, du, new_states, iters, Q_last = _newton_substep(
                 model, programs, states, u, f_ramp, free, u_fix_total,
                 lam1, lam2, step, gather, solver, f_held=f_held,
-                timings=timings, stats=stats, tag=(cstep, sub))
+                follow=follow, timings=timings, stats=stats,
+                tag=(cstep, sub))
             stats.total_iters += iters
             stats.max_iters = max(stats.max_iters, iters)
             if not converged:
@@ -562,9 +762,11 @@ def _element_values(v: torch.Tensor, p: BlockPrograms, n_node: int,
 
 def _newton_substep(model, programs, states, u, f_total, free, u_fix_total,
                     lam1, lam2, step, gather, solve, f_held=None,
-                    timings=None, stats=None, tag=(1, 1)):
-    """One substep's Newton loop from the committed ``(u, states)``.
-    Returns (converged, du, states, iterations, Q)."""
+                    follow=None, timings=None, stats=None, tag=(1, 1)):
+    """One substep's Newton loop from the committed ``(u, states)``;
+    ``follow(u, lam2)`` (``_follower``) replaces the external load at
+    the start of every iteration.  Returns (converged, du, states,
+    iterations, Q)."""
     n_node, ndof = model.n_node, model.ndof
     dev = model.device
     timings = {} if timings is None else timings
@@ -585,6 +787,9 @@ def _newton_substep(model, programs, states, u, f_total, free, u_fix_total,
             kes = [p.tangent(_element_values(u, p, n_node, ndof),
                              _element_values(du, p, n_node, ndof), s)
                for p, s in zip(programs, states_cur)]
+        if follow is not None:
+            with Phase(timings, "follower_load", dev):
+                gl = follow(u + du, lam2)
         B = gl - Q_cur
         dirichlet_inc = dufix if it == 1 else torch.zeros_like(dufix)
         dx = solve(kes, B, dirichlet_inc)
@@ -603,7 +808,8 @@ def _newton_substep(model, programs, states, u, f_total, free, u_fix_total,
             Q_cur = Q
             Bres = (gl - Q) * free
             # one device->host transfer per Newton iteration
-            res_n, qnrm, xnrm, dunrm = _conv_norms(Bres, Q, dx, du)
+            res_n, qnrm, xnrm, dunrm, n_yield = _conv_norms(
+                Bres, Q, dx, du, new_states)
         if qnrm < 1e-8:
             qnrm = 1.0
         if it == 1:
@@ -613,9 +819,10 @@ def _newton_substep(model, programs, states, u, f_total, free, u_fix_total,
         if stats is not None:
             rec = dict(step=tag[0], substep=tag[1], iter=it, rres=rres,
                        rxnrm=rxnrm, cg_iters=solve.last_iters,
-                       passes=solve.last_passes, relres=solve.last_relres)
+                       passes=solve.last_passes, relres=solve.last_relres,
+                       yielded=int(n_yield))
             for k in ("tangent", "assembly", "amg_setup", "solve",
-                      "update"):
+                      "update", "follower_load"):
                 rec[k] = timings.get(k, 0.0) - t0.get(k, 0.0)
             stats.history.append(rec)
         if os.environ.get("FRONTISTR_TPU_DEBUG_NEWTON"):
@@ -634,11 +841,13 @@ def _newton_substep(model, programs, states, u, f_total, free, u_fix_total,
     return conv, du, states_cur, iters, Q_cur
 
 
-def _conv_norms(Bres, Q, dx, du):
-    """|Bres|, |Q|, |dx|, |du| in one host transfer."""
-    v = torch.stack([torch.dot(Bres, Bres), torch.dot(Q, Q),
-                     torch.dot(dx, dx), torch.dot(du, du)])
-    return [float(x) for x in torch.sqrt(v).cpu()]
+def _conv_norms(Bres, Q, dx, du, states):
+    """|Bres|, |Q|, |dx|, |du| and the count of yielded gauss points in
+    one host transfer."""
+    v = torch.sqrt(torch.stack([torch.dot(Bres, Bres), torch.dot(Q, Q),
+                                torch.dot(dx, dx), torch.dot(du, du)]))
+    ny = sum(s["yielded"].sum() for s in states).to(v.dtype)
+    return [float(x) for x in torch.cat([v, ny[None]]).cpu()]
 
 
 def _all_linear(programs):

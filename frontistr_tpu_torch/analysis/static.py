@@ -14,9 +14,10 @@ step).  Two solve arms, chosen as the JAX package chooses them:
   (block-Jacobi below FRONTISTR_TPU_AMG_MIN dofs).
 
 Either runs in the "mixed" policy (f32 CG + f64 refinement on the f64
-operator, the default on CUDA; the cluster arm's f64 operator is the
-matrix-free ``FEOperator``) or the "f64" policy (a plain f64 CG, the
-default on the CPU).
+operator, the default of linear STATIC on CUDA; the cluster arm's f64
+operator is the matrix-free ``FEOperator``) or the "f64" policy (a plain
+f64 CG, the default on the CPU and of NLSTATIC).  Under a !TEMPERATURE
+field the stress recovery subtracts the thermal strains.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from frontistr_tpu_torch.assembly import bell, ell, femop
+from frontistr_tpu_torch.assembly import bell, ell, femop, loads
 from frontistr_tpu_torch.assembly import operators as ops
 from frontistr_tpu_torch.assembly.model import StructModel
 from frontistr_tpu_torch.assembly.structured import (StructuredHexOperator,
@@ -59,7 +60,7 @@ class StaticResult:
     passes: int                        # refinement passes (mixed)
     node_count: np.ndarray = None      # elements touching each node
     timings: dict = dataclasses.field(default_factory=dict)  # seconds
-    reaction: np.ndarray = None        # (n_node, ndof), Newton driver
+    reaction: np.ndarray = None        # (n_node, ndof) K u - f_ext
     newton: object = None              # NewtonStats of the Newton driver
 
 
@@ -80,19 +81,25 @@ def compute_element_stiffness(model: StructModel):
         table = get_table(b.etype)
         if b.etype == 361 and b.formulation == "IC":
             kes.append(solid.stiffness_hex8ic(table, coords_e, D))
+        elif b.etype == 361 and b.formulation == "FBAR":
+            kes.append(solid.stiffness_hex8fbar(table, coords_e, D))
         else:
             kes.append(solid.stiffness_linear(table, coords_e, D,
                                               thick=b.thick))
     return kes
 
 
-def solve_policy(device: torch.device) -> str:
+def solve_policy(device: torch.device, analysis: str = "STATIC") -> str:
     """'f64' (native f64 CG) or 'mixed' (f32 CG + f64 refinement):
-    FRONTISTR_TPU_PRECISION=f64|mixed, else mixed on CUDA, f64 on CPU."""
+    FRONTISTR_TPU_PRECISION=f64|mixed, else f64 on the CPU and for
+    NLSTATIC, mixed for linear STATIC on CUDA.  (On the card, the
+    NLSTATIC bench deck did not finish in 1,500 s under the mixed
+    policy and took 165-188 s under f64; PERF.md.)"""
     pol = os.environ.get("FRONTISTR_TPU_PRECISION", "auto")
     if pol in ("f64", "mixed"):
         return pol
-    return "mixed" if device.type == "cuda" else "f64"
+    return "mixed" if device.type == "cuda" and \
+        analysis.upper() == "STATIC" else "f64"
 
 
 def print_iterlog(hist) -> None:
@@ -257,7 +264,12 @@ def recover_stress(model: StructModel, u_flat: np.ndarray):
             eps = solid.strains_at_gauss_hex8ic(table, coords_e, u_e, D)
         else:
             eps = solid.strains_at_gauss(table, coords_e, u_e)
-        sig = torch.einsum("ekl,eql->eqk", D, eps)
+        eps_el = eps
+        if model.temperature is not None:
+            eps_el = eps - torch.as_tensor(
+                loads.thermal_strains(model, b, model.temperature),
+                device=dev)
+        sig = torch.einsum("ekl,eql->eqk", D, eps_el)
         block_data.append(dict(etype=b.etype, conn=b.conn,
                                gauss_strain=eps, gauss_stress=sig))
     return u, postnodal.smooth(model.n_node, block_data, model.dim)
@@ -271,6 +283,10 @@ def run_linear_static(model: StructModel,
     sol = solve_linear(model, kes, timings)
     with Phase(timings, "stress", model.device):
         u, sm = recover_stress(model, sol.x)
+        # REACTION = K u - f_ext (static_make_result.f90:97-102)
+        Ku = femop.from_model(model, kes).matvec(
+            torch.as_tensor(sol.x, device=model.device))
+        reaction = (Ku.cpu().numpy() - model.f_ext).reshape(u.shape)
     return StaticResult(
         u=u, nodal_strain=sm["strain"], nodal_stress=sm["stress"],
         nodal_mises=sm["mises"], node_count=sm["count"],
@@ -279,4 +295,4 @@ def run_linear_static(model: StructModel,
         elem_mises=np.concatenate(sm["emises"]),
         elem_ids=np.concatenate([b.elem_ids for b in model.blocks]),
         iters=sol.iters, relres=sol.relres, policy=sol.policy,
-        passes=sol.passes, timings=timings)
+        passes=sol.passes, timings=timings, reaction=reaction)

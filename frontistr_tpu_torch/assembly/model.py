@@ -1,6 +1,8 @@
 """Host-side model builder: mesh + control deck -> element blocks, BCs and
 loads (torch port of ``frontistr_tpu/assembly/model.py``, the slice the
-linear-elastic STATIC path needs).
+solid STATIC and NLSTATIC paths need: tet4, tet10 and hex8 blocks of an
+isotropic ELASTIC or !PLASTIC material, CLOAD, DLOAD and TEMPERATURE
+loads).
 
 The model itself stays host numpy, as in the JAX package: the symbolic
 profiles are built from it on the host, and ``analysis/static.py`` moves
@@ -17,6 +19,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from frontistr_tpu_torch.assembly import loads
 from frontistr_tpu_torch.device import resolve
 from frontistr_tpu_torch.elements.tables import get_table
 from frontistr_tpu_torch.fem import material as mat
@@ -55,6 +58,12 @@ class StructModel:
     f_ext: np.ndarray           # (n_node*ndof,)
     device: torch.device = torch.device("cpu")
     nlgeom: bool = False
+    temperature: Optional[np.ndarray] = None   # (n_node,) nodal temperature
+    # follower loads: the load vector without DLOAD, and the DLOAD cards
+    # with the first step's load groups to re-assemble it at u
+    f_base: Optional[np.ndarray] = None
+    dload_grp: Optional[tuple] = None          # (cards, lgrp)
+    reftemp: float = 0.0
 
     @property
     def n_dof_total(self) -> int:
@@ -64,8 +73,8 @@ class StructModel:
 def _resolve_material(mesh: Mesh, cnt_mats: Dict[str, CntMaterial],
                       name: str) -> mat.Material:
     """Merge mesh !MATERIAL items with .cnt !MATERIAL subcards; the .cnt
-    definition wins (fstr_setup.f90 pass 2).  Only the isotropic elastic
-    subcards belong to this slice; any other raises."""
+    definition wins (fstr_setup.f90 pass 2).  The isotropic elastic and
+    !PLASTIC subcards belong to this slice; any other raises."""
     m = mat.Material(name)
     md = mesh.materials.get(name)
     if md is not None:
@@ -86,7 +95,7 @@ def _resolve_material(mesh: Mesh, cnt_mats: Dict[str, CntMaterial],
         cm = cnt_mats[""]
     if cm is None:
         return m
-    for sub in ("plastic", "hyperelastic", "viscoelastic", "trs", "creep",
+    for sub in ("hyperelastic", "viscoelastic", "trs", "creep",
                 "user_material", "fluid"):
         if getattr(cm, sub) is not None:
             raise NotImplementedError(f"!{sub.upper()} material card")
@@ -106,6 +115,18 @@ def _resolve_material(mesh: Mesh, cnt_mats: Dict[str, CntMaterial],
         m.density = cm.density.rows_f()[0][0]
     if cm.expansion is not None:
         m.expansion = cm.expansion.rows_f()[0][0]
+    if cm.plastic is not None:
+        c = cm.plastic
+        m.mtype = mat.EPLASTIC
+        m.yield_func = (c.param("YIELD") or "MISES").upper()
+        m.hardening = (c.param("HARDEN") or "LINEAR").upper()
+        m.plastic_consts = np.asarray(
+            [v for row in c.rows_f() for v in row]).reshape(
+                len(c.data), -1) if c.data else None
+        # a plastic block's strain measure defaults to updated Lagrange
+        m.nlgeom = (mat.INFINITESIMAL if c.has("INFINITE") else
+                    mat.TOTALLAG if c.has("KIRCHHOFF") else
+                    mat.UPDATELAG)
     return m
 
 
@@ -169,25 +190,25 @@ def collect_cload(mesh: Mesh, cards: List[Card], ndof: int, n_node: int,
     return f
 
 
-SLICE_ETYPES = (341, 361)     # element types the ported slice runs
-SLICE_FORMS_361 = ("FI", "IC")  # 361 formulations it runs
+SLICE_ETYPES = (341, 342, 361)     # element types the ported slice runs
 
 
 def check_slice(mesh: Mesh, cfg: AnalysisConfig) -> None:
     """Raise on any card or element type of the deck outside the ported
     slice."""
-    unported = [("!DLOAD", cfg.dloads), ("!TEMPERATURE", cfg.temperatures),
-                ("!SPRING", cfg.springs), ("!CONTACT", cfg.contacts),
+    unported = [("!SPRING", cfg.springs), ("!CONTACT", cfg.contacts),
                 ("!EMBED", cfg.embeds), ("!EQUATION", mesh.equations),
                 ("!ORIENTATION", cfg.orientations)]
     for name, cards in unported:
         if cards:
             raise NotImplementedError(f"{name} card")
+    if any(c.iparam("READRESULT", 0) > 0 for c in cfg.temperatures):
+        raise NotImplementedError("!TEMPERATURE, READRESULT")
     for b in mesh.blocks:
         if b.etype not in SLICE_ETYPES:
             raise NotImplementedError(
-                f"element type {b.etype} (the port runs tet4, 341, and "
-                "hex8, 361, so far)")
+                f"element type {b.etype} (the port runs tet4, 341, "
+                "tet10, 342, and hex8, 361, so far)")
 
 
 def formulation_361(cfg: AnalysisConfig, section_id: int) -> str:
@@ -238,13 +259,8 @@ def build_struct_model(mesh: Mesh, cfg: AnalysisConfig,
         nn = table.nn
         dofs = (b.conn[:, :, None] * ndof +
                 np.arange(ndof)[None, None, :]).reshape(E, nn * ndof)
-        form = "FI"
-        if b.etype == 361:
-            form = formulation_361(cfg, b.section_id)
-            if form not in SLICE_FORMS_361:
-                raise NotImplementedError(
-                    f"361 formulation {form} (the port runs "
-                    f"{'/'.join(SLICE_FORMS_361)} so far)")
+        form = formulation_361(cfg, b.section_id) if b.etype == 361 \
+            else "FI"
         blocks.append(KBlock(b.etype, b.elem_ids, b.conn,
                              dofs.astype(np.int32), D, 1.0, mat.D3,
                              np.full(E, m.density), m, b.section_id,
@@ -256,6 +272,23 @@ def build_struct_model(mesh: Mesh, cfg: AnalysisConfig,
                                               grpid)
     lgrp = set(step.load_groups) if step.load_groups else None
     f_ext = collect_cload(mesh, cfg.cloads, ndof, n_node, lgrp)
-    return StructModel(mesh, cfg, ndof, dim, n_node, coords, blocks,
-                       fixed_dofs, fixed_vals, f_ext,
-                       device=dev, nlgeom=cfg.nlgeom)
+    model = StructModel(mesh, cfg, ndof, dim, n_node, coords, blocks,
+                        fixed_dofs, fixed_vals, f_ext, device=dev,
+                        nlgeom=cfg.nlgeom, reftemp=cfg.reftemp)
+    # dead DLOAD and thermal loads of the first step's load groups; the
+    # Newton driver re-assembles DLOAD at u under nlgeom (follower)
+    if cfg.dloads:
+        model.f_base = model.f_ext.copy()
+        model.dload_grp = (cfg.dloads, lgrp)
+        model.f_ext = model.f_ext + loads.collect_dload(mesh, model,
+                                                        cfg.dloads, lgrp)
+    if cfg.temperatures:
+        T = loads.collect_temperature(mesh, cfg.temperatures, n_node,
+                                      cfg.reftemp, lgrp)
+        if T is not None:
+            model.temperature = T
+            tl = loads.thermal_load(model, T)
+            model.f_ext = model.f_ext + tl
+            if model.f_base is not None:
+                model.f_base = model.f_base + tl
+    return model

@@ -5,10 +5,12 @@ package (``frontistr_tpu.assembly.model.StructModel``: coords, block
 connectivity, dofs and elastic matrices, Dirichlet dofs and values,
 external force) and builds the port's ``StructModel`` on a device, plus
 the element matrices as device tensors when given.  ``states_from_numpy``
-turns per-block Newton states (dicts of arrays: stress, strain and the
-rest of ``init_block_state``) into the port's.  Both read attributes and
-arrays only and import nothing of JAX, so the parity tests can feed both
-packages identical inputs.
+turns per-block Newton states (dicts of arrays: stress, strain, the
+plastic state ``pstrain``/``pstrain_new``/``yielded``/``back`` and the
+rest of ``init_block_state``) into the port's, and
+``plastic_params_from_numpy`` a ``PlasticParams`` of the JAX package into
+the port's.  They read attributes and arrays only and import nothing of
+JAX, so the parity tests can feed both packages identical inputs.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from frontistr_tpu_torch.assembly.model import KBlock, StructModel
 from frontistr_tpu_torch.device import resolve
 from frontistr_tpu_torch.fem import material as mat
+from frontistr_tpu_torch.fem.plastic import PlasticParams
 
 
 def model_from_numpy(src, device="cuda",
@@ -34,10 +37,13 @@ def model_from_numpy(src, device="cuda",
     dev = resolve(device)
     blocks = []
     for b in src.blocks:
-        m = mat.Material(b.material.name, youngs=b.material.youngs,
-                         poisson=b.material.poisson,
-                         density=b.material.density,
-                         nlgeom=int(b.material.nlgeom))
+        sm = b.material
+        m = mat.Material(sm.name, mtype=sm.mtype, youngs=sm.youngs,
+                         poisson=sm.poisson, density=sm.density,
+                         expansion=sm.expansion, nlgeom=int(sm.nlgeom),
+                         yield_func=sm.yield_func, hardening=sm.hardening,
+                         plastic_consts=None if sm.plastic_consts is None
+                         else np.asarray(sm.plastic_consts, np.float64))
         blocks.append(KBlock(
             int(b.etype), np.asarray(b.elem_ids),
             np.asarray(b.conn, np.int32), np.asarray(b.dofs, np.int32),
@@ -51,7 +57,12 @@ def model_from_numpy(src, device="cuda",
         fixed_dofs=np.asarray(src.fixed_dofs, np.int64),
         fixed_vals=np.asarray(src.fixed_vals, np.float64),
         f_ext=np.asarray(src.f_ext, np.float64), device=dev,
-        nlgeom=bool(src.nlgeom))
+        nlgeom=bool(src.nlgeom), reftemp=float(src.reftemp),
+        temperature=None if src.temperature is None
+        else np.asarray(src.temperature, np.float64),
+        f_base=None if src.f_base is None
+        else np.asarray(src.f_base, np.float64),
+        dload_grp=src.dload_grp)
     if kes is None:
         return model
     return model, [torch.tensor(np.asarray(k, np.float64), device=dev)
@@ -71,3 +82,14 @@ def states_from_numpy(states, device="cuda"):
                                    a.astype(np.float64), device=dev)
         out.append(d)
     return out
+
+
+def plastic_params_from_numpy(src) -> PlasticParams:
+    """The port's ``PlasticParams`` from one with the same fields (the
+    JAX package's ``fem.plastic.PlasticParams``)."""
+    return PlasticParams(
+        float(src.youngs), float(src.poisson), str(src.hardening),
+        np.asarray(src.consts, np.float64),
+        table=None if src.table is None
+        else np.asarray(src.table, np.float64),
+        yield_func=str(src.yield_func))

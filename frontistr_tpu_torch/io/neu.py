@@ -62,9 +62,13 @@ def write_fstr_msh(mesh: Mesh, path: str) -> None:
 
 
 def write_static_workdir(workdir: str, mesh: Mesh, cnt: str,
-                         ngroups=("X0", "X1")) -> None:
+                         ngroups=("X0", "X1"), egroups=None,
+                         sgroups=None) -> None:
     """``workdir/{mesh.msh, case.cnt, hecmw_ctrl.dat}``: the mesh with
-    the named node groups as ``!NGROUP`` cards, and the deck ``cnt``."""
+    the named node groups as ``!NGROUP`` cards, ``egroups`` (name ->
+    element ids) as ``!EGROUP`` and ``sgroups`` (name -> (n, 2) rows of
+    element id and face number) as ``!SGROUP`` cards, and the deck
+    ``cnt``."""
     os.makedirs(workdir, exist_ok=True)
     msh = os.path.join(workdir, "mesh.msh")
     write_fstr_msh(mesh, msh)
@@ -79,6 +83,16 @@ def write_static_workdir(workdir: str, mesh: Mesh, cnt: str,
             for k in range(0, len(ids), 10):
                 f.write(" " + ", ".join(str(int(v))
                                         for v in ids[k:k + 10]) + "\n")
+        for g, ids in (egroups or {}).items():
+            f.write(f"!EGROUP, EGRP={g}\n")
+            for k in range(0, len(ids), 10):
+                f.write(" " + ", ".join(str(int(v))
+                                        for v in ids[k:k + 10]) + "\n")
+        for g, rows in (sgroups or {}).items():
+            f.write(f"!SGROUP, SGRP={g}\n")
+            for k in range(0, len(rows), 5):
+                f.write(" " + ", ".join(f"{int(e)}, {int(fc)}"
+                                        for e, fc in rows[k:k + 5]) + "\n")
         f.write(end)
     with open(os.path.join(workdir, "case.cnt"), "w") as f:
         f.write(cnt)

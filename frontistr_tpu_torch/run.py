@@ -4,10 +4,12 @@ fistr1/src/main/fistr_main.f90:38-114): read the control files, reorder,
 run the analysis on the chosen device, write ``0.log`` and ``FSTR.msg``
 (and ``FSTR.sta`` for the Newton driver).
 
-A linear-elastic STATIC deck runs the linear static analysis; NLSTATIC
-(or any deck with geometric nonlinearity) runs the Newton driver of
-``analysis/nonlinear.py``.  Everything else the JAX runner dispatches
-(heat, eigen, dynamic, result and visualization output, restart,
+A linear-elastic STATIC deck runs the linear static analysis; NLSTATIC,
+or any deck with geometric nonlinearity or a !PLASTIC material, runs the
+Newton driver of ``analysis/nonlinear.py``.  ``!WRITE, RESULT`` writes
+the final result as ``<!RESULT name>.0.1``, text or (``TYPE=BINARY``)
+binary, as the JAX runner does.  Everything else the JAX runner
+dispatches (heat, eigen, dynamic, visualization output, restart,
 sharding, profiling, user modules) raises ``NotImplementedError`` naming
 what was asked for.
 """
@@ -21,10 +23,12 @@ import numpy as np
 
 from frontistr_tpu_torch import device as devmod
 from frontistr_tpu_torch import ordering
+from frontistr_tpu_torch.fem import material as mat
 from frontistr_tpu_torch.io import logio
 from frontistr_tpu_torch.io.ctrlio import read_cnt
 from frontistr_tpu_torch.io.hecmw_ctrl import read_hecmw_ctrl
 from frontistr_tpu_torch.io.meshio import read_mesh
+from frontistr_tpu_torch.io.resfile import write_static_result
 
 # JAX-package switches whose feature this slice does not carry
 _UNPORTED_ENV = ("FRONTISTR_TPU_SHARDS", "FRONTISTR_TPU_PROFILE",
@@ -38,9 +42,7 @@ def _check_request(ctrl, cfg) -> None:
     sol = cfg.solution_type.upper()
     if sol not in ("STATIC", "NLSTATIC"):
         raise NotImplementedError(f"solution type {sol}")
-    for flag, card in ((cfg.write_result and ctrl.result() is not None,
-                        "!WRITE, RESULT"),
-                       (cfg.write_visual, "!WRITE, VISUAL"),
+    for flag, card in ((cfg.write_visual, "!WRITE, VISUAL"),
                        (cfg.restart is not None, "!RESTART"),
                        (cfg.echo, "!ECHO")):
         if flag:
@@ -77,7 +79,8 @@ def run_directory(workdir: str, log_name: str = "0.log",
         model = build_struct_model(mesh, cfg, device=dev)
     t_pre = time.time()
     log_path = os.path.join(workdir, log_name)
-    if cfg.solution_type.upper() == "NLSTATIC" or cfg.nlgeom:
+    if cfg.solution_type.upper() == "NLSTATIC" or cfg.nlgeom or \
+            _needs_newton(model):
         res = run_nonlinear_static(model, log_path=log_path,
                                    timings=timings)
     else:
@@ -87,10 +90,25 @@ def run_directory(workdir: str, log_name: str = "0.log",
             res.nodal_stress, res.nodal_mises, res.elem_strain,
             res.elem_stress, res.elem_mises, mesh.node_ids, res.elem_ids,
             node_count=res.node_count)
+    if cfg.write_result and ctrl.result() is not None:
+        rb = ctrl.result()
+        # '!RESULT, ..., TYPE=BINARY' selects the binary format
+        # (hecmw_control.c:1235-1275; text is the default)
+        with devmod.Phase(timings, "result", dev):
+            write_static_result(
+                ctrl.path(rb) + ".0.1", mesh, model, res, step=1,
+                binary=rb.params.get("TYPE", "TEXT").upper() == "BINARY")
     total = time.time() - t_start
     _write_msg(workdir, t_pre - t_start, total)
     return {"mesh": mesh, "cfg": cfg, "ctrl": ctrl, "model": model,
             "static": res, "total_time": total}
+
+
+def _needs_newton(model) -> bool:
+    """A block whose material is not linear elastic takes the Newton
+    driver, a STATIC deck included."""
+    return any(b.material.mtype != mat.ELASTIC or
+               b.material.nlgeom != mat.INFINITESIMAL for b in model.blocks)
 
 
 def _write_msg(workdir: str, t_pre: float, t_total: float) -> None:

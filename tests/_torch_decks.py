@@ -1,0 +1,85 @@
+"""Deck helpers shared by the port's parity tests of the plastic,
+B-bar/F-bar, tet10 and load slice: meshes from ``meshgen`` (tet10
+raised from ``box_tet4`` by mid-edge nodes; no package has a tet10
+generator), the top element layer and top faces as element and surface
+groups, and work directories through ``io.neu.write_static_workdir``."""
+
+import numpy as np
+
+from frontistr_tpu_torch import ordering
+from frontistr_tpu_torch.assembly.loads import FACE_TABLES
+from frontistr_tpu_torch.elements.tables import HECMW2FSTR_ORDER
+from frontistr_tpu_torch.io.meshio import ElemBlock
+from frontistr_tpu_torch.io.neu import write_static_workdir
+from frontistr_tpu_torch.meshgen import box_hex8, box_tet4
+
+# the six edges of a tet in the FSTR order of 342's mid-edge nodes 4..9
+TET10_EDGES = ((0, 1), (1, 2), (2, 0), (0, 3), (1, 3), (2, 3))
+
+
+def tet10_box(nx, ny, nz):
+    """``box_tet4(nx, ny, nz)`` raised to 342: one node at the middle of
+    every edge, shared by the tets around it."""
+    m = box_tet4(nx, ny, nz)
+    conn4 = m.blocks[0].conn.astype(np.int64)
+    edges = np.stack([np.sort(conn4[:, list(e)], axis=1)
+                      for e in TET10_EDGES], 1)           # (E, 6, 2)
+    uniq, inv = np.unique(edges.reshape(-1, 2), axis=0, return_inverse=True)
+    mid = m.n_node + inv.reshape(-1, 6)
+    coords = np.concatenate([m.coords, m.coords[uniq].mean(axis=1)])
+    conn = np.concatenate([conn4, mid], axis=1).astype(np.int32)
+    # the .msh holds HEC-MW order: fstr[k] = hecmw[TABLE[k] - 1]
+    hecmw = np.empty_like(conn)
+    hecmw[:, np.asarray(HECMW2FSTR_ORDER[342]) - 1] = conn
+    n = len(coords)
+    m.coords = coords
+    m.node_ids = np.arange(1, n + 1, dtype=np.int64)
+    m.id2idx = {int(g): int(g) - 1 for g in m.node_ids}
+    for g in ("X0", "X1", "Y0", "Y1", "Z0", "Z1"):
+        axis, side = "XYZ".index(g[0]), g[1] == "1"
+        x = coords[:, axis]
+        m.node_groups[g] = np.flatnonzero(
+            np.isclose(x, x.max() if side else x.min())).astype(np.int64)
+    m.node_groups["ALL"] = np.arange(n, dtype=np.int64)
+    m.blocks = [ElemBlock(342, m.blocks[0].elem_ids, conn, hecmw, 0)]
+    return m
+
+
+def top_faces(mesh):
+    """(n, 2) rows (element id, face number) of the faces on the box's
+    top (z = max) side."""
+    b = mesh.blocks[0]
+    z = mesh.coords[:, 2]
+    top = np.isclose(z, z.max())
+    rows = []
+    for f, (_, ln) in enumerate(FACE_TABLES[b.etype], start=1):
+        ncorner = 3 if b.etype in (341, 342) else 4
+        on = top[b.conn[:, ln[:ncorner]]].all(axis=1)
+        rows.extend((int(e), f) for e in b.elem_ids[on])
+    return np.asarray(rows, np.int64)
+
+
+def write_deck(path, mesh, cnt, seed=3):
+    """The deck in ``path`` with the mesh's nodes shuffled (the RCM
+    reorder then has work to do); element group TOP (the elements of the
+    top faces) and surface group STOP (the top faces)."""
+    rows = top_faces(mesh)
+    order = np.random.default_rng(seed).permutation(mesh.n_node)
+    write_static_workdir(str(path), ordering.permute_mesh(mesh, order), cnt,
+                         ngroups=("X0", "X1", "Z0", "Z1"),
+                         egroups={"TOP": np.unique(rows[:, 0])},
+                         sgroups={"STOP": rows})
+    return str(path)
+
+
+DECK = ("!VERSION\n 3\n!SOLUTION, TYPE={sol}\n!BOUNDARY\n X0, 1, 3, 0.0\n"
+        "{loads}!MATERIAL, NAME=M1\n!ELASTIC{el}\n 210000.0, 0.3\n"
+        "{plastic}{extra}!STEP, SUBSTEPS={sub}{step}\n BOUNDARY, 1\n"
+        " LOAD, 1\n!SOLVER, METHOD=CG, ITERLOG=NO, TIMELOG=NO\n 10000, 1\n"
+        " 1.0e-8, 1.0, 0.0\n{write}!END\n")
+
+
+def deck(sol="NLSTATIC", loads="", el="", plastic="", extra="", sub=1,
+         step="", write="!WRITE, RESULT\n"):
+    return DECK.format(sol=sol, loads=loads, el=el, plastic=plastic,
+                       extra=extra, sub=sub, step=step, write=write)

@@ -120,13 +120,8 @@ def test_formulation_361_matches_jax(tmp_path, card, form):
     p = _deck(tmp_path, CNT.replace("!SOLVER", card + "!SOLVER"))
     assert jbuild(jbox_hex8(2, 2, 2), jread_cnt(p)).blocks[0].formulation \
         == form
-    if form in ("FI", "IC"):
-        model = build_struct_model(box_hex8(2, 2, 2), read_cnt(p),
-                                   device="cpu")
-        assert model.blocks[0].formulation == form
-    else:
-        with pytest.raises(NotImplementedError, match=form):
-            build_struct_model(box_hex8(2, 2, 2), read_cnt(p), device="cpu")
+    model = build_struct_model(box_hex8(2, 2, 2), read_cnt(p), device="cpu")
+    assert model.blocks[0].formulation == form
 
 
 @pytest.mark.parametrize("policy,form", [("f64", "IC"), ("mixed", "IC"),

@@ -323,8 +323,7 @@ def test_states_from_numpy_types():
 
 # ---------------- refusals --------------------------------------------------
 
-@pytest.mark.parametrize("what", ["direct", "ssor", "shards", "restart",
-                                  "hex8", "dload"])
+@pytest.mark.parametrize("what", ["direct", "ssor", "shards", "restart"])
 def test_unported_requests_raise(tmp_path, env, what):
     cnt = _cnt()
     mesh = None
@@ -334,19 +333,30 @@ def test_unported_requests_raise(tmp_path, env, what):
         env.setenv("FRONTISTR_TPU_PRECOND", "ssor")
     elif what == "shards":
         env.setenv("FRONTISTR_TPU_SHARDS", "1")
-    elif what == "restart":
-        cnt = cnt.replace("!END\n", "!RESTART, FREQUENCY=1\n!END\n")
-    elif what == "hex8":
-        mesh = box_hex8(3, 2, 2)
     else:
-        cnt = cnt.replace("!END\n", "!DLOAD\n ALL, P1, 1.0\n!END\n")
+        cnt = cnt.replace("!END\n", "!RESTART, FREQUENCY=1\n!END\n")
     wd = _workdir(tmp_path / "wd", cnt, n=(2, 2, 2), mesh=mesh)
     with pytest.raises(NotImplementedError):
         run_directory(wd, device="cpu")
 
 
+@pytest.mark.parametrize("what", ["hex8", "dload"])
+def test_formerly_unported_requests_match_jax(tmp_path, env, what):
+    """The two requests the Newton driver used to refuse: a hex8 mesh
+    (the NLSTATIC default formulation, B-bar) and a DLOAD card (a BX
+    body force, a follower load re-assembled at the deformed geometry)."""
+    cnt, mesh = _cnt(), None
+    if what == "hex8":
+        mesh = box_hex8(4, 3, 3)
+    else:
+        cnt = cnt.replace("!END\n", "!DLOAD\n ALL, BX, -2000.0\n!END\n")
+    res, jres, wd, wj = _both(tmp_path, cnt, n=(4, 3, 3), mesh=mesh)
+    assert res.iters >= 2
+    _assert_match(res, jres, wd, wj)
+
+
 def test_other_materials_raise(tmp_path):
     _, pm = _models(tmp_path, mat.TOTALLAG)
-    pm.blocks[0].material.mtype = mat.EPLASTIC
-    with pytest.raises(NotImplementedError):
+    pm.blocks[0].material.mtype = mat.VISCOELASTIC
+    with pytest.raises(NotImplementedError, match="VISCOELASTIC"):
         nl.BlockPrograms(pm, pm.blocks[0])

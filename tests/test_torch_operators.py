@@ -64,16 +64,38 @@ def test_model_build_matches_jax(tmp_path, models):
             assert np.array_equal(getattr(b, name), getattr(jb, name))
 
 
-@pytest.mark.parametrize("extra", [
-    "!DLOAD\n ALL, BX, 1.0\n", "!SPRING\n 1, 1, 1.0\n",
-    "!TEMPERATURE\n ALL, 10.0\n",
-])
+@pytest.mark.parametrize("extra", ["!SPRING\n 1, 1, 1.0\n"])
 def test_unported_cards_raise(tmp_path, extra):
     p = tmp_path / "case.cnt"
     p.write_text(CNT.replace("!END\n", extra + "!END\n"))
     with pytest.raises(NotImplementedError):
         build_struct_model(box_tet4(2, 2, 2), read_cnt(str(p)),
                            device="cpu")
+
+
+@pytest.mark.parametrize("extra", [
+    "!DLOAD\n ALL, BX, 1.0\n",
+    "!REFTEMP\n 5.0\n!TEMPERATURE\n ALL, 10.0\n",
+])
+def test_formerly_unported_cards_match_jax(tmp_path, extra):
+    """The DLOAD and TEMPERATURE cards the model build used to refuse:
+    the load vector, its DLOAD-free base and the temperature field equal
+    the JAX package's."""
+    p = tmp_path / "case.cnt"
+    p.write_text(CNT.replace("!ELASTIC\n 210000.0, 0.3\n",
+                             "!ELASTIC\n 210000.0, 0.3\n"
+                             "!EXPANSION_COEFF\n 1.0e-5\n")
+                 .replace("!END\n", extra + "!END\n"))
+    model = build_struct_model(box_tet4(2, 2, 2), read_cnt(str(p)),
+                               device="cpu")
+    jmodel = jbuild(jbox_tet4(2, 2, 2), jread_cnt(str(p)))
+    _close(model.f_ext, jmodel.f_ext)
+    for name in ("f_base", "temperature"):
+        a, b = getattr(model, name), getattr(jmodel, name)
+        assert (a is None) == (b is None)
+        if b is not None:
+            _close(a, b)
+    assert model.reftemp == jmodel.reftemp
 
 
 def test_unported_element_type_raises(tmp_path):

@@ -135,6 +135,26 @@ def test_kernel_cluster_tiles_on_card(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_tet10_cluster_on_card(cuda_device, dtype):
+    """The cluster profile of a tet10 (342) mesh: m = 30 entries per
+    element row, the widest element the Newton path assembles."""
+    from _torch_decks import tet10_box
+    mesh = tet10_box(7, 6, 5)
+    conn = mesh.blocks[0].conn
+    prof = bell.build_cluster_profile([conn], mesh.n_node, 3)
+    plan = prof.plan(cuda_device)
+    kes = [torch.as_tensor(np.random.default_rng(12).standard_normal(
+        (conn.shape[0], 30, 30)), dtype=dtype, device=cuda_device)]
+    got = sm.segsum(plan, kes, [10], 3)
+    again = sm.segsum(plan, kes, [10], 3)
+    want = sm.segsum_reference(plan, kes, [10], 3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_bad_input(cuda_device):
     """After a good call, element matrices of the same shape with another
     dtype, other strides or on the CPU are checked anew and raise,

@@ -179,8 +179,7 @@ def test_cli_cuda_without_card_is_an_error(tmp_path):
 
 
 @pytest.mark.parametrize("card", ["!SOLUTION, TYPE=NLSTATIC",
-                                  "!SOLUTION, TYPE=EIGEN",
-                                  "!WRITE, RESULT"])
+                                  "!SOLUTION, TYPE=EIGEN"])
 def test_unported_requests_raise(tmp_path, card):
     cnt = CNT.replace("!SOLUTION, TYPE=STATIC", card) if "SOLUTION" in card \
         else CNT.replace("!END\n", card + "\n!END\n")
@@ -190,3 +189,53 @@ def test_unported_requests_raise(tmp_path, card):
     wd = _workdir(tmp_path / "wd", n=(2, 2, 2), cnt=cnt)
     with pytest.raises(NotImplementedError):
         run_directory(wd, device="cpu")
+
+
+@pytest.mark.parametrize("binary", [False, True])
+def test_write_result_matches_jax(tmp_path, monkeypatch, binary):
+    """``!WRITE, RESULT``, which the runner used to refuse: the
+    ``<!RESULT name>.0.1`` file (text, or binary with ``TYPE=BINARY``) of
+    the STATIC deck holds the JAX package's labels, ids and values (to
+    1e-8 of each component's largest value; REACTION_FORCE included)."""
+    from frontistr_tpu.io.resfile import read_result_any as jread
+    from frontistr_tpu_torch.io.resfile import read_result_any
+    monkeypatch.setenv("FRONTISTR_TPU_PRECISION", "f64")
+    monkeypatch.setenv("FRONTISTR_TPU_REORDER", "1")
+    wd = _workdir(tmp_path / "port", n=(4, 3, 3),
+                  cnt=CNT.replace("!END\n", "!WRITE, RESULT\n!END\n"))
+    if binary:
+        p = os.path.join(wd, "hecmw_ctrl.dat")
+        with open(p) as f:
+            txt = f.read()
+        with open(p, "w") as f:
+            f.write(txt.replace("IO=OUT", "IO=OUT, TYPE=BINARY"))
+    wj = str(tmp_path / "jax")
+    shutil.copytree(wd, wj)
+    jrun.run_directory(wj)
+    run_directory(wd, device="cpu")
+    got = read_result_any(os.path.join(wd, "mesh.res.0.1"))
+    want = jread(os.path.join(wj, "mesh.res.0.1"))
+    assert np.array_equal(got["node_ids"], want["node_ids"])
+    assert np.array_equal(got["elem_ids"], want["elem_ids"])
+    for part in ("node_comps", "elem_comps"):
+        assert [n for n, _ in got[part]] == [n for n, _ in want[part]]
+        for (_, a), (_, b) in zip(got[part], want[part]):
+            assert np.abs(a - b).max() <= 1e-8 * np.abs(b).max()
+
+
+def test_solve_policy_by_analysis(monkeypatch):
+    """The default policy on a CUDA device (no card needed: only the
+    device's type is read): mixed for linear STATIC, float64 for
+    NLSTATIC; float64 on the CPU; FRONTISTR_TPU_PRECISION overrides
+    both."""
+    from frontistr_tpu_torch.analysis.static import solve_policy
+    monkeypatch.delenv("FRONTISTR_TPU_PRECISION", raising=False)
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert solve_policy(cuda) == solve_policy(cuda, "STATIC") == "mixed"
+    assert solve_policy(cuda, "NLSTATIC") == "f64"
+    assert solve_policy(cpu, "STATIC") == solve_policy(cpu, "NLSTATIC") \
+        == "f64"
+    for pol in ("f64", "mixed"):
+        monkeypatch.setenv("FRONTISTR_TPU_PRECISION", pol)
+        assert {solve_policy(d, a) for d in (cuda, cpu)
+                for a in ("STATIC", "NLSTATIC")} == {pol}
