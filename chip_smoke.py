@@ -533,29 +533,15 @@ def phase_amg_repeat(mods, model, planes_launches) -> dict:
     amg._block_inv(lv.Dinv1)
     log(f"  the block inverses {tuple(lv.Dinv1.shape)} alone: peak "
         f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.3f} GB")
-    nvv = lv.blocks1.shape[0]
     del lv, again, y, cop, sb
     gen = torch.Generator("cuda").manual_seed(5)
-
-    def random_values(V, plan):
-        return torch.randn((V, plan.perm.numel()), dtype=torch.float64,
-                           device="cuda", generator=gen)
-
-    conn = np.concatenate([np.asarray(b.conn, np.int64).reshape(-1)
-                           for b in model.blocks])
-    node_plan = mods["nodal"].node_plan(conn, model.n_node, "cuda")
-    plan2 = setup.amaps.plans("cuda")[1]
-    errs = {label: check_planes(sm, p, random_values(V, p), torch.float64,
-                                label)
-            for label, p, V in (("AMG level 2", plan2, nvv),
-                                ("nodal smoothing", node_plan, 13))}
-    del node_plan, plan2
+    err = max(check_path_planes(mods, model, setup.amaps, gen).values())
     # the level-1 sum's plan, on values of its shape
     plan = setup.amaps.plans("cuda")[0]
-    values = random_values(nvv, plan)
+    nvv = setup.amaps.nv ** 2
+    values = torch.randn((nvv, plan.perm.numel()), dtype=torch.float64,
+                         device="cuda", generator=gen)
     dt = values.dtype
-    errs["AMG level 1"] = check_planes(sm, plan, values, dt, "AMG level 1")
-    err = max(errs.values())
     ms = cuda_ms(lambda: sm.segsum_planes(values, plan))
     plain_ms = cuda_ms(lambda: sm.segsum_planes_reference(values, plan))
     ent = values[:, plan.perm.long()]
@@ -575,6 +561,26 @@ def phase_amg_repeat(mods, model, planes_launches) -> dict:
     return {"launches": planes_launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+def check_path_planes(mods, model, amaps, gen) -> dict:
+    """K1's planes entry held to its plain version, on random float64
+    values, at its three shapes on a main path: the AMG level-1 and
+    level-2 Galerkin sums (their plans, nv*nv planes) and the nodal
+    smoothing (the mesh's node plan, 2*6 + 1 planes).  Returns
+    {shape: max_abs_err}."""
+    sm = mods["segsum"]
+    conn = np.concatenate([np.asarray(b.conn, np.int64).reshape(-1)
+                           for b in model.blocks])
+    plan1, plan2 = amaps.plans("cuda")
+    shapes = (("AMG level 1", plan1, amaps.nv ** 2),
+              ("AMG level 2", plan2, amaps.nv ** 2),
+              ("nodal smoothing",
+               mods["nodal"].node_plan(conn, model.n_node, "cuda"), 13))
+    return {label: check_planes(sm, p, torch.randn(
+                (V, p.perm.numel()), dtype=torch.float64, device="cuda",
+                generator=gen), torch.float64, label)
+            for label, p, V in shapes}
 
 
 def hex_model(mods, dims, device):
@@ -842,8 +848,12 @@ def phase_plastic_main_path(args, mods) -> dict:
     ``.res`` file.  Held to: every linear solve's index_add_ true relres
     <= 1e-8, no yielded gauss point at the end of substep 1 and some in
     substep 2, K1 element launches = Newton iterations, the ``.res``
-    read back equal to the returned displacements.  Returns the K1
-    counts of the run."""
+    read back equal to the returned displacements.  Then K1 is held to
+    its plain version at this path's shapes: the element entry (m = 24)
+    on the run's cluster profile with the first Newton tangent, the
+    planes entry at the run's AMG level-1 and level-2 plans and its
+    nodal-smoothing plan.  Returns the K1 counts of the run and the
+    largest max_abs_err of those checks."""
     nl, sm = mods["nonlinear"], mods["segsum"]
     p = args.plastic
     wd = os.path.join(ROOT, "build", "smoke", f"plastic{p}")
@@ -929,8 +939,27 @@ def phase_plastic_main_path(args, mods) -> dict:
     with open(os.path.join(wd, "FSTR.sta")) as fh:
         if "HAS COMPLETED SUCCESSFULLY" not in fh.read():
             raise AssertionError("FSTR.sta does not report success")
+    # K1 at this path's shapes (after the counts were read)
+    setup = mods["static"].cluster_setup(model, {})
+    if setup.amaps is None:
+        raise AssertionError("plastic_main_path: the deck does not take "
+                             "the AMG")
+    progs = [nl.BlockPrograms(model, b) for b in model.blocks]
+    kes = []
+    for b, pg in zip(model.blocks, progs):
+        z = torch.zeros((len(b.elem_ids), b.conn.shape[1], 3),
+                        dtype=torch.float64, device="cuda")
+        kes.append(pg.tangent(z, z, nl.init_block_state(b, pg.table,
+                                                        "cuda")))
+    errs = {"element": check_k1(
+        sm, setup.cprof.plan("cuda"), kes, [b.conn.shape[1] for b in
+                                            model.blocks],
+        torch.float64, f"plastic path, first tangent m = {kes[0].shape[1]}")}
+    del kes, progs
+    errs.update(check_path_planes(mods, model, setup.amaps,
+                                  torch.Generator("cuda").manual_seed(7)))
     return {"launches": launches, "planes_launches": planes,
-            "newton_iters": nw.total_iters}
+            "newton_iters": nw.total_iters, "max_abs_err": max(errs.values())}
 
 
 def phase_plastic_small_reference(mods):
@@ -939,10 +968,11 @@ def phase_plastic_small_reference(mods):
     Mises and hex8 F-bar multilinear at box_hex8(6, 5, 4) under a
     follower P2, tet10 Drucker-Prager under a follower S, and a STATIC
     tet4 deck with a dead DLOAD and a !TEMPERATURE field.  Displacements
-    within 1e-8 of max|u|, the same Newton iterations and committed
-    yielded sets, each solve's CG count within one (the card's and the
-    CPU's float64 reductions sum in other orders, and a solve whose
-    residual lands at the 1e-8 bar stops one iteration apart)."""
+    within 1e-8 of max|u|, the same Newton iterations in each substep,
+    the same committed yielded sets, each solve's CG count within one
+    (the card's and the CPU's float64 reductions sum in other orders,
+    and a solve whose residual lands at the 1e-8 bar stops one
+    iteration apart)."""
     nl, run = mods["nonlinear"], mods["run_directory"]
     decks = [
         ("hex8 B-bar Mises", mods["box_hex8"](6, 5, 4), "NLSTATIC",
@@ -973,18 +1003,22 @@ def phase_plastic_small_reference(mods):
                              lambda: run(wd, device=dev)["static"])
             finally:
                 nl._commit_state = real
-            cg = [h["cg_iters"] for h in r.newton.history] \
-                if r.newton is not None else [r.iters]
+            hist = r.newton.history if r.newton is not None else []
+            cg = [h["cg_iters"] for h in hist] if hist else [r.iters]
+            # Newton iterations per (step, substep), in the run's order
+            subs = [(h["step"], h["substep"]) for h in hist]
+            per_sub = [(k, subs.count(k)) for k in dict.fromkeys(subs)]
             yld = [s["yielded"].cpu().numpy() for s in seen[-len(
                 mesh.blocks):]] if seen else []
-            runs.append((r, cg, yld))
-        (rg, cgg, yg), (rc, cgc, yc) = runs
+            runs.append((r, cg, yld, per_sub))
+        (rg, cgg, yg, sg), (rc, cgc, yc, sc) = runs
         rel = float(np.abs(rg.u - rc.u).max() / np.abs(rc.u).max())
         ny = [int(sum(y.sum() for y in ys)) for ys in (yg, yc)]
         log(f"phase plastic_small_reference: {label}, cuda vs cpu max rel "
-            f"diff {rel!r}, newton iterations {rg.iters} vs {rc.iters}, "
-            f"cg {cgg} vs {cgc}, yielded {ny[0]} vs {ny[1]}")
-        if not (rel <= 1e-8 and rg.iters == rc.iters
+            f"diff {rel!r}, newton iterations {rg.iters} vs {rc.iters} "
+            f"(per substep {sg} vs {sc}), cg {cgg} vs {cgc}, yielded "
+            f"{ny[0]} vs {ny[1]}")
+        if not (rel <= 1e-8 and rg.iters == rc.iters and sg == sc
                 and len(cgg) == len(cgc)
                 and all(abs(a - b) <= 1 for a, b in zip(cgg, cgc))
                 and len(yg) == len(yc)

@@ -51,7 +51,7 @@ from frontistr_tpu_torch.device import Phase
 from frontistr_tpu_torch.elements.tables import get_table
 from frontistr_tpu_torch.fem import material as mat
 from frontistr_tpu_torch.fem import solid
-from frontistr_tpu_torch.fem.isoparam import jacobians, strain_selector_3d
+from frontistr_tpu_torch.fem.isoparam import jacobians
 from frontistr_tpu_torch.fem.plastic import (PlasticParams, plastic_tangent,
                                              return_mapping)
 from frontistr_tpu_torch.io import logio
@@ -191,10 +191,9 @@ class BlockPrograms:
             elem = self.coords_e
             elem1 = None
             disp = total
-        dN = torch.as_tensor(table.dN, dtype=dt, device=elem.device)
+        dN = solid.table_tensor(table, "dN", elem)
         det, gderiv = jacobians(dN, elem)
-        S = torch.as_tensor(strain_selector_3d(), dtype=dt,
-                            device=elem.device)
+        S = solid._selector(3, elem)
         # displacement gradient at the quadrature points: (E, nq, dim, dim)
         dudx = torch.einsum("end,eqnj->eqdj", disp, gderiv)
         # small-strain part (UPDATE_C3:131-139)
@@ -220,20 +219,10 @@ class BlockPrograms:
         if flag == mat.TOTALLAG and self.fbar:
             # F-bar Green-Lagrange strain from Fbar = Jr (I + du/dX)
             # (Update_C3D8Fbar:556-565)
-            eye = torch.eye(3, dtype=dt, device=elem.device)
-            F = eye[None, None] + dudx
-            jacob = torch.linalg.det(F)
             _, g1 = jacobians(dN, self.coords_e + total)
-            w = torch.as_tensor(table.weights, dtype=dt, device=elem.device)
-            wg0 = w[None, :] * det
-            jwg = wg0 * jacob
-            V0J = jwg.sum(dim=1)
-            g1_ave = torch.einsum("eq,eqnd->end", jwg, g1) / \
-                V0J[:, None, None]
-            jacob_ave = V0J / wg0.sum(dim=1)
-            Jr = (jacob_ave ** (1.0 / 3.0))[:, None] * \
-                jacob ** (-1.0 / 3.0)
-            Fb = Jr[:, :, None, None] * F
+            Jr, g1_ave = _fbar_jr(table, det, dudx, g1)
+            eye = torch.eye(3, dtype=dt, device=elem.device)
+            Fb = Jr[:, :, None, None] * (eye[None, None] + dudx)
             C = torch.einsum("eqki,eqkj->eqij", Fb, Fb)
             eps = torch.stack([
                 0.5 * (C[..., 0, 0] - 1), 0.5 * (C[..., 1, 1] - 1),
@@ -273,7 +262,7 @@ class BlockPrograms:
             # qf = [Jr^2 (B0 + B1) + B2]^T sigma
             # (Update_C3D8Fbar:663-733 TOTALLAG arm)
             Jr, g1, g1_ave, eps_fb = fb_ctx
-            w = torch.as_tensor(table.weights, dtype=dt, device=elem.device)
+            w = solid.table_tensor(table, "weights", elem)
             wdet = w[None, :] * det
             wdet2 = wdet * Jr ** 2
             qf0 = torch.einsum("kdj,eqnj,eqk,eq->end", S, gderiv, sig,
@@ -297,20 +286,10 @@ class BlockPrograms:
                 # (Update_C3D8Fbar:735-766 UPDATELAG arm); Jr and the
                 # jacob-weighted g1_ave come from the total displacement
                 # on the reference configuration (:430-456)
-                eye = torch.eye(3, dtype=dt, device=elem.device)
                 det0, g0d = jacobians(dN, self.coords_e)
                 dudx_t = torch.einsum("end,eqnj->eqdj", total, g0d)
-                jacob = torch.linalg.det(eye[None, None] + dudx_t)
-                w = torch.as_tensor(table.weights, dtype=dt,
-                                    device=elem.device)
-                wg0 = w[None, :] * det0
-                jwg = wg0 * jacob
-                V0J = jwg.sum(dim=1)
-                g1_ave = torch.einsum("eq,eqnd->end", jwg, gderiv1) / \
-                    V0J[:, None, None]
-                jacob_ave = V0J / wg0.sum(dim=1)
-                Jr = (jacob_ave ** (1.0 / 3.0))[:, None] * \
-                    jacob ** (-1.0 / 3.0)
+                Jr, g1_ave = _fbar_jr(table, det0, dudx_t, gderiv1)
+                w = solid.table_tensor(table, "weights", elem)
                 wdet = w[None, :] * det1 * Jr ** 3
                 qf0 = torch.einsum("kdj,eqnj,eqk,eq->end", S, gderiv1,
                                    sig, wdet)
@@ -370,11 +349,29 @@ def _tensor_to_voigt(t):
                         t[..., 0, 1], t[..., 1, 2], t[..., 2, 0]], -1)
 
 
+def _fbar_jr(table, det0, dudx0, g1):
+    """F-bar volume ratio of both Lagrangian arms (Update_C3D8Fbar:430-456,
+    556-560): from the reference jacobians ``det0`` and the displacement
+    gradient ``dudx0`` on the reference configuration, Jr = (J_ave / J)^(1/3)
+    per gauss point, and the J-weighted element average of the current
+    shape derivatives ``g1``.  Returns (Jr (E, nq), g1_ave (E, nn, 3))."""
+    eye = torch.eye(3, dtype=dudx0.dtype, device=dudx0.device)
+    jacob = torch.linalg.det(eye[None, None] + dudx0)
+    w = solid.table_tensor(table, "weights", det0)
+    wg0 = w[None, :] * det0
+    jwg = wg0 * jacob
+    V0J = jwg.sum(dim=1)
+    g1_ave = torch.einsum("eq,eqnd->end", jwg, g1) / V0J[:, None, None]
+    jacob_ave = V0J / wg0.sum(dim=1)
+    Jr = (jacob_ave ** (1.0 / 3.0))[:, None] * jacob ** (-1.0 / 3.0)
+    return Jr, g1_ave
+
+
 def _qf_bbar_extra(table, gderiv, g0, det, stress):
     """B-bar internal-force correction: the modified rows add
     (g0 - g)/3 tr(sigma) per direction column (Update_C3D8Bbar:261-276).
     Returns (E, nn*dim)."""
-    w = torch.as_tensor(table.weights, dtype=det.dtype, device=det.device)
+    w = solid.table_tensor(table, "weights", det)
     wdet = w[None, :] * det
     trs = stress[..., 0] + stress[..., 1] + stress[..., 2]
     corr = (g0[:, None] - gderiv) / 3.0                  # (E, nq, nn, dim)
@@ -386,7 +383,7 @@ def _qf_bbar_extra(table, gderiv, g0, det, stress):
 def _qf_totallag(table, S, gderiv, det, dudx, stress):
     """qf = (B0 + B1)^T S integrated on the reference configuration
     (UPDATE_C3:252-297)."""
-    w = torch.as_tensor(table.weights, dtype=det.dtype, device=det.device)
+    w = solid.table_tensor(table, "weights", det)
     wdet = w[None, :] * det
     qf0 = torch.einsum("kdj,eqnj,eqk,eq->end", S, gderiv, stress, wdet)
     # B1[k, (n, d)] = S[k, i, j] dudx[d, i] g[n, j]

@@ -70,6 +70,7 @@ class LinearSolve(NamedTuple):
     relres: float
     passes: int
     policy: str
+    op: femop.FEOperator           # the f64 operator of the solve
 
 
 def compute_element_stiffness(model: StructModel):
@@ -247,7 +248,7 @@ def solve_linear(model: StructModel, kes,
     if sv.timelog:
         print_timelog(t1 - t0, t2 - t1)
     return LinearSolve(x, int(res.iters), float(res.relres), passes,
-                       "mixed" if mixed else "f64")
+                       "mixed" if mixed else "f64", op)
 
 
 def recover_stress(model: StructModel, u_flat: np.ndarray):
@@ -284,8 +285,7 @@ def run_linear_static(model: StructModel,
     with Phase(timings, "stress", model.device):
         u, sm = recover_stress(model, sol.x)
         # REACTION = K u - f_ext (static_make_result.f90:97-102)
-        Ku = femop.from_model(model, kes).matvec(
-            torch.as_tensor(sol.x, device=model.device))
+        Ku = sol.op.matvec(torch.as_tensor(sol.x, device=model.device))
         reaction = (Ku.cpu().numpy() - model.f_ext).reshape(u.shape)
     return StaticResult(
         u=u, nodal_strain=sm["strain"], nodal_stress=sm["stress"],

@@ -27,6 +27,7 @@ import torch
 from frontistr_tpu_torch.elements.tables import get_table
 from frontistr_tpu_torch.fem.isoparam import (det_inv_small,
                                               strain_selector_3d)
+from frontistr_tpu_torch.fem.solid import table_tensor
 
 # etype -> list of (face_etype, [0-based local node ids]) indexed by face-1
 FACE_TABLES: Dict[int, List] = {
@@ -248,14 +249,17 @@ class FollowerDload(torch.nn.Module):
     function of the displacement: ``f(u)``, assembled at ``coords0 + u``
     on the model's device.
 
-    Pressure entries of one face type are concatenated at construction
-    into one table of face nodes and one of pressures, so a call is one
-    gather of the deformed face coordinates, one batched face integral
-    per face type and one ``index_add_`` of every entry's nodal forces;
-    body-force entries (BX/BY/BZ, GRAV, CENT) add one gather and one
-    integral each.  S/P0 rows without a surface group contribute nothing,
-    as in ``collect_dload``.  The load's tangent is not added to the
-    stiffness, as in the JAX package."""
+    Everything static is put on the device at construction: pressure
+    entries of one face type are concatenated into one table of face
+    nodes and one of pressures, beside the face type's shape tables, and
+    each body-force entry (BX/BY/BZ, GRAV, CENT) keeps its element type's
+    tables.  A call is then one gather of the deformed face coordinates
+    and one batched face integral (over gauss points and face nodes) per
+    face type, one gather and integral per body-force entry, and one
+    ``index_add_`` of every entry's nodal forces.  S/P0 rows without a
+    surface group contribute nothing, as in ``collect_dload``.  The
+    load's tangent is not added to the stiffness, as in the JAX
+    package."""
 
     def __init__(self, model, cards, grpid_filter=None):
         super().__init__()
@@ -270,16 +274,17 @@ class FollowerDload(torch.nn.Module):
             if ltype >= 100:
                 continue
             if ltype < 10:
-                self.body.append((b.etype, torch.as_tensor(
-                    conn, dtype=torch.int64, device=dev), ltype, params,
-                    float(b.material.density)))
+                self.body.append((_shape_tensors(b.etype, dev),
+                                  torch.as_tensor(conn, dtype=torch.int64,
+                                                  device=dev),
+                                  ltype, params, float(b.material.density)))
                 continue
             ftype, lnodes = FACE_TABLES[b.etype][face - 1]
             faces.setdefault(ftype, []).append(
                 (conn[:, lnodes], np.full(len(rows), float(params[0]))))
         self.faces = []
         for ftype, ents in faces.items():
-            self.faces.append((ftype, torch.as_tensor(
+            self.faces.append((_shape_tensors(ftype, dev), torch.as_tensor(
                 np.concatenate([c for c, _ in ents]), dtype=torch.int64,
                 device=dev), torch.as_tensor(
                 np.concatenate([v for _, v in ents]), dtype=torch.float64,
@@ -290,24 +295,16 @@ class FollowerDload(torch.nn.Module):
     def forward(self, u: torch.Tensor) -> torch.Tensor:
         xd = self.coords0 + u.reshape(self.n_node, self.ndof)[:, :3]
         nodes, vals = [], []
-        for ftype, fnodes, pv in self.faces:
-            ft = get_table(ftype)
+        for (dN, N, w), fnodes, pv in self.faces:
             fc = xd[fnodes]                                # (Ef, nsur, 3)
-            out = torch.zeros_like(fc)
-            for q in range(ft.nq):
-                dN = torch.as_tensor(ft.dN[q], dtype=fc.dtype,
-                                     device=fc.device)
-                N = torch.as_tensor(ft.N[q], dtype=fc.dtype,
-                                    device=fc.device)
-                g = torch.einsum("end,nf->edf", fc, dN)
-                normal = torch.linalg.cross(g[:, :, 0], g[:, :, 1])
-                out += (ft.weights[q] * pv)[:, None, None] * \
-                    N[None, :, None] * normal[:, None, :]
+            g = torch.einsum("end,qnf->eqdf", fc, dN)      # (Ef, nq, 3, 2)
+            normal = torch.linalg.cross(g[..., 0], g[..., 1], dim=-1)
+            out = torch.einsum("q,e,qn,eqd->end", w, pv, N, normal)
             nodes.append(fnodes.reshape(-1))
             vals.append(out.reshape(-1, 3))
-        for etype, conn, ltype, params, rho in self.body:
+        for tabs, conn, ltype, params, rho in self.body:
             nodes.append(conn.reshape(-1))
-            vals.append(_body_force_t(etype, xd[conn], ltype, params,
+            vals.append(_body_force_t(tabs, xd[conn], ltype, params,
                                       rho).reshape(-1, 3))
         f = u.new_zeros((self.n_node, self.ndof))
         if nodes:
@@ -315,15 +312,21 @@ class FollowerDload(torch.nn.Module):
         return f.reshape(-1)
 
 
-def _body_force_t(etype, coords_e, ltype, params, rho):
-    """Torch twin of ``_body_force`` (3-D): (E, nn, 3)."""
-    t = get_table(etype)
+def _shape_tensors(etype, device):
+    """(dN (nq, nn, d), N (nq, nn), weights (nq)) of ``etype``, float64 on
+    ``device``."""
+    like = torch.empty(0, dtype=torch.float64, device=device)
+    return tuple(table_tensor(get_table(etype), name, like)
+                 for name in ("dN", "N", "weights"))
+
+
+def _body_force_t(tabs, coords_e, ltype, params, rho):
+    """Torch twin of ``_body_force`` (3-D), with the element type's
+    ``_shape_tensors``: (E, nn, 3)."""
+    dN, N, w = tabs
     dt, dev = coords_e.dtype, coords_e.device
-    J = torch.einsum("qni,enj->eqij",
-                     torch.as_tensor(t.dN, dtype=dt, device=dev), coords_e)
+    J = torch.einsum("qni,enj->eqij", dN, coords_e)
     wdet, _ = det_inv_small(J)
-    N = torch.as_tensor(t.N, dtype=dt, device=dev)
-    w = torch.as_tensor(t.weights, dtype=dt, device=dev)
     val = float(params[0])
     if ltype in (1, 2, 3):
         pl = torch.einsum("qn,eq,q->en", N, wdet, w)

@@ -37,6 +37,9 @@ class PlasticParams:
     consts: np.ndarray               # !PLASTIC data rows flattened
     table: Optional[np.ndarray] = None   # multilinear (yield, pstrain) rows
     yield_func: str = "MISES"        # MISES / MOHR-COULOMB / DRUCKER-PRAGER
+    # the MULTILINEAR table's device tensors, built at first use per device
+    _tables: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
 
     @property
     def G(self):
@@ -86,7 +89,8 @@ def _interp(x, xp, fp):
 
 def make_hardening(params: PlasticParams, device=None):
     """Returns (yield_stress(p), harden_coeff(p), kin_coeff, kin_state(p));
-    ``device`` holds the MULTILINEAR table."""
+    ``device`` holds the MULTILINEAR table (uploaded once per device and
+    kept in ``params``)."""
     h = params.hardening.upper()
     c = params.consts.reshape(-1)
 
@@ -98,13 +102,19 @@ def make_hardening(params: PlasticParams, device=None):
                 (lambda p: 0.0 * p))
 
     if h == "MULTILINEAR":
-        tab = params.table if params.table is not None else \
-            params.consts.reshape(-1, 2)
-        ys = torch.as_tensor(np.ascontiguousarray(tab[:, 0], np.float64),
-                             device=device)
-        ps = torch.as_tensor(np.ascontiguousarray(tab[:, 1], np.float64),
-                             device=device)
-        slopes = torch.diff(ys) / torch.clamp(torch.diff(ps), min=1e-30)
+        key = str(torch.device(device or "cpu"))
+        if key not in params._tables:
+            tab = params.table if params.table is not None else \
+                params.consts.reshape(-1, 2)
+            ys = torch.as_tensor(np.ascontiguousarray(tab[:, 0],
+                                                      np.float64),
+                                 device=device)
+            ps = torch.as_tensor(np.ascontiguousarray(tab[:, 1],
+                                                      np.float64),
+                                 device=device)
+            params._tables[key] = (ys, ps, torch.diff(ys) / torch.clamp(
+                torch.diff(ps), min=1e-30))
+        ys, ps, slopes = params._tables[key]
 
         def yield_stress(p):
             return _interp(p, ps, ys)

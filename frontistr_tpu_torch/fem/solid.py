@@ -29,13 +29,34 @@ from frontistr_tpu_torch.fem.material import INFINITESIMAL, TOTALLAG, \
     UPDATELAG
 
 
+# device copies of the static tables, one per (table, dtype, device): the
+# Newton driver calls these functions every iteration, and a fresh copy
+# would be a host-to-device transfer each time
+_DEVICE_TABLES: dict = {}
+
+
+def _uploaded(key, make, like: torch.Tensor) -> torch.Tensor:
+    key = key + (like.dtype, like.device)
+    t = _DEVICE_TABLES.get(key)
+    if t is None:
+        t = _DEVICE_TABLES[key] = torch.as_tensor(
+            make(), dtype=like.dtype, device=like.device)
+    return t
+
+
 def _selector(dim: int, like: torch.Tensor) -> torch.Tensor:
-    S = strain_selector_3d() if dim == 3 else strain_selector_2d()
-    return torch.as_tensor(S, dtype=like.dtype, device=like.device)
+    return _uploaded(("S", dim), lambda: strain_selector_3d() if dim == 3
+                     else strain_selector_2d(), like)
 
 
-def _table_tensor(a, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(a, dtype=like.dtype, device=like.device)
+def table_tensor(table: ElementTable, name: str,
+                 like: torch.Tensor) -> torch.Tensor:
+    """``table.<name>`` ("dN", "N", "weights", "points"; "dN0": the shape
+    derivatives at the centroid) in ``like``'s dtype and device, uploaded
+    once."""
+    return _uploaded((table.etype, name), lambda: shape_deriv(
+        table.etype, np.zeros(table.dim)) if name == "dN0"
+        else getattr(table, name), like)
 
 
 def stiffness_linear(table: ElementTable, coords_e: torch.Tensor,
@@ -52,9 +73,9 @@ def stiffness_linear(table: ElementTable, coords_e: torch.Tensor,
     Returns: (E, nn*dim, nn*dim) element stiffness.
     """
     E, nn, _ = coords_e.shape
-    det, gderiv = jacobians(_table_tensor(table.dN, coords_e), coords_e)
+    det, gderiv = jacobians(table_tensor(table, "dN", coords_e), coords_e)
     S = _selector(table.dim, coords_e)
-    w = _table_tensor(table.weights, coords_e)
+    w = table_tensor(table, "weights", coords_e)
     scale = thick if table.dim == 2 else 1.0
     ns = S.shape[0]
     m = nn * table.dim
@@ -78,8 +99,8 @@ def stiffness_linear_iso(table: ElementTable, coords_e: torch.Tensor,
     one gram product of sqrt(w det)-scaled derivatives per element.
     Matches ``stiffness_linear(table, x, elastic_D(E, nu, D3))`` to f64
     rounding (same quadrature)."""
-    det, g = jacobians(_table_tensor(table.dN, coords_e), coords_e)
-    wg = _table_tensor(table.weights, coords_e)[None, :] * det
+    det, g = jacobians(table_tensor(table, "dN", coords_e), coords_e)
+    wg = table_tensor(table, "weights", coords_e)[None, :] * det
     gs = g * torch.sqrt(wg)[..., None, None]
     E, q, n, _ = g.shape
     G = gs.reshape(E, q, n * 3)
@@ -108,8 +129,7 @@ def _expand_D(D_e: torch.Tensor, E: int) -> torch.Tensor:
 def centroid_gderiv(table: ElementTable, elem: torch.Tensor):
     """Global derivatives at the element centroid, (E, nn, dim): the
     B-bar dilatation reference (STF_C3D8Bbar, static_LIB_C3D8.f90)."""
-    dN0 = _table_tensor(shape_deriv(table.etype, np.zeros(table.dim)),
-                        elem)
+    dN0 = table_tensor(table, "dN0", elem)
     _, g0 = jacobians(dN0[None], elem)
     return g0[:, 0]
 
@@ -130,8 +150,8 @@ def volavg_gderiv(table: ElementTable, elem: torch.Tensor, jacob=None):
     ``jacob`` (per-gauss J = det F) the weights are jacob * w det, as in
     the finite-strain arms; else jacob = 1 (INFINITE).  Returns
     (g_ave (E, nn, dim), det, gderiv)."""
-    det, g = jacobians(_table_tensor(table.dN, elem), elem)
-    wg = _table_tensor(table.weights, elem)[None, :] * det
+    det, g = jacobians(table_tensor(table, "dN", elem), elem)
+    wg = table_tensor(table, "weights", elem)[None, :] * det
     jwg = wg if jacob is None else wg * jacob
     denom = jwg.sum(dim=1)
     g_ave = torch.einsum("eq,eqnd->end", jwg, g) / denom[:, None, None]
@@ -148,7 +168,7 @@ def stiffness_hex8fbar(table: ElementTable, coords_e: torch.Tensor,
     D_e = _expand_D(D_e, E)
     g_ave, det, gderiv = volavg_gderiv(table, coords_e)
     S = _selector(3, coords_e)
-    w = _table_tensor(table.weights, coords_e)
+    w = table_tensor(table, "weights", coords_e)
     m = nn * dim
     nq = table.nq
     B = torch.einsum("kdj,eqnj->eqknd", S, gderiv).reshape(E, nq, 6, m)
@@ -176,10 +196,10 @@ def stiffness_nlgeom_fbar(table: ElementTable, coords_e: torch.Tensor,
     E, nn, dim = coords_e.shape
     D_e = _expand_D(D_e, E)
     dt, dev = coords_e.dtype, coords_e.device
-    dN = _table_tensor(table.dN, coords_e)
+    dN = table_tensor(table, "dN", coords_e)
     m = nn * dim
     S = _selector(3, coords_e)
-    w = _table_tensor(table.weights, coords_e)
+    w = table_tensor(table, "weights", coords_e)
     eye = torch.eye(3, dtype=dt, device=dev)
 
     elem1 = coords_e + u_e
@@ -284,10 +304,10 @@ def stiffness_nlgeom(table: ElementTable, coords_e: torch.Tensor,
     """
     dt = coords_e.dtype
     elem = coords_e + u_e if flag == UPDATELAG else coords_e
-    det, gderiv = jacobians(_table_tensor(table.dN, coords_e), elem)
+    det, gderiv = jacobians(table_tensor(table, "dN", coords_e), elem)
     g0 = centroid_gderiv(table, elem) if bbar else None
     S = _selector(table.dim, coords_e)
-    w = _table_tensor(table.weights, coords_e)
+    w = table_tensor(table, "weights", coords_e)
     E, nn, dim = coords_e.shape
     m = nn * dim
     eye = torch.eye(dim, dtype=dt, device=coords_e.device)
@@ -322,9 +342,9 @@ def internal_force(table: ElementTable, coords_e: torch.Tensor,
                    stress_e: torch.Tensor) -> torch.Tensor:
     """Equivalent nodal force qf = sum_q w det B^T sigma (UPDATE_C3
     tail).  stress_e: (E, nq, ns).  Returns (E, nn*dim)."""
-    det, gderiv = jacobians(_table_tensor(table.dN, coords_e), coords_e)
+    det, gderiv = jacobians(table_tensor(table, "dN", coords_e), coords_e)
     S = _selector(table.dim, coords_e)
-    w = _table_tensor(table.weights, coords_e)
+    w = table_tensor(table, "weights", coords_e)
     E, nn, dim = coords_e.shape
     wdet = w[None, :] * det
     qf = torch.einsum("kdj,eqnj,eqk,eq->end", S, gderiv, stress_e, wdet)
@@ -335,7 +355,7 @@ def strains_at_gauss(table: ElementTable, coords_e: torch.Tensor,
                      u_e: torch.Tensor) -> torch.Tensor:
     """Small strain at every gauss point: eps = B u (UPDATE_C3 linear
     arm).  Returns (E, nq, ns)."""
-    _, gderiv = jacobians(_table_tensor(table.dN, coords_e), coords_e)
+    _, gderiv = jacobians(table_tensor(table, "dN", coords_e), coords_e)
     S = _selector(table.dim, coords_e)
     return torch.einsum("kdj,eqnj,end->eqk", S, gderiv, u_e)
 
@@ -347,12 +367,12 @@ def _hex8ic_gderivs(table: ElementTable, coords_e: torch.Tensor):
     centre (static_LIB_3dIC.f90:100-103).
 
     Returns det (E, nq) and g_full (E, nq, 11, 3)."""
-    dN0 = _table_tensor(shape_deriv(361, np.zeros(3)), coords_e)   # (8, 3)
+    dN0 = table_tensor(table, "dN0", coords_e)                    # (8, 3)
     # XJ0[i, j] = sum_n x_i dN0[n, j] (the reference's getJacobian)
     det0, XJ0inv = det_inv_small(torch.einsum("eni,nj->eij", coords_e,
                                               dN0))
-    det, gderiv = jacobians(_table_tensor(table.dN, coords_e), coords_e)
-    pts = _table_tensor(table.points, coords_e)                   # (nq, 3)
+    det, gderiv = jacobians(table_tensor(table, "dN", coords_e), coords_e)
+    pts = table_tensor(table, "points", coords_e)                   # (nq, 3)
     g_enh = (-2.0 * pts[None, :, :, None] * XJ0inv[:, None, :, :]
              * (det0[:, None] / det)[..., None, None])
     return det, torch.cat([gderiv, g_enh], dim=2)
@@ -367,7 +387,7 @@ def _hex8ic_k_full(table: ElementTable, coords_e: torch.Tensor,
     S = _selector(3, coords_e)
     nq, m = table.nq, 11 * 3
     B = torch.einsum("kdj,eqnj->eqknd", S, g_full).reshape(E, nq, 6, m)
-    wdet = _table_tensor(table.weights, coords_e)[None, :] * det  # (E, nq)
+    wdet = table_tensor(table, "weights", coords_e)[None, :] * det  # (E, nq)
     Dq = D_e if D_e.dim() == 4 else D_e[:, None]
     DB = torch.matmul(Dq, B) * wdet[:, :, None, None]
     k = torch.matmul(B.reshape(E, nq * 6, m).transpose(1, 2),
