@@ -3,6 +3,8 @@ holds each against its plain PyTorch version, drives the main paths
 once, checks the answers and prints the result.
 
     python3 chip_smoke.py [--n N] [--hex H] [--newton-n M] [--plastic P]
+                          [--dyn-n D] [--dyn-steps S] [--dyn-hex X]
+                          [--dyn-hex-steps T]
 
 - The nonlinear static (Newton) tet path through
   ``frontistr_tpu_torch.run.run_directory`` (the function behind
@@ -27,6 +29,14 @@ once, checks the answers and prints the result.
 - Small decks on the card and on the CPU: tet AMG, hex8 stencil, the
   NLSTATIC tet deck, and the slice's hex8 B-bar and F-bar plastic,
   tet10 Drucker-Prager and STATIC DLOAD + TEMPERATURE decks.
+- The dynamics paths through ``run_directory``: explicit central
+  difference on a shuffled ``box_tet4(d, d, d)`` (default d=69), dt half
+  the smallest element's critical step, S steps (1000), the equation of
+  motion checked at the last step; implicit Newmark on a shuffled
+  ``box_hex8(x, x, x)`` (69), IC, Rayleigh damping, T steps (10), every
+  solve's true relres checked; then small dynamics decks on the card
+  and on the CPU.  These paths launch one kernel, K1's planes entry,
+  once each, in the final nodal smoothing.
 
 The run needs a CUDA card and exits non-zero without one, or when any
 phase fails.  Work directories and the kernel build go under ``build/``
@@ -1030,6 +1040,399 @@ def phase_plastic_small_reference(mods):
                                  "not yield")
 
 
+# the DYNAMIC deck of the dynamics phases: X0 fixed, X1 loaded -1 in z
+# under !AMPLITUDE RAMP, steel in N, mm, s; {eqa} 11 explicit, 1 Newmark
+DYNCNT = ("!VERSION\n 3\n!SOLUTION, TYPE=DYNAMIC\n!DYNAMIC{typ}\n {eqa}, 1\n"
+          " 0.0, {t_end!r}, {n_step}, {dt!r}\n 0.5, 0.25\n"
+          " 1, 1, {ray_m!r}, {ray_k!r}\n 10, {monit}, {every}\n"
+          "!BOUNDARY\n X0, 1, 3, 0.0\n{loads}"
+          "!STEP, SUBSTEPS=1, CONVERG=1.0e-6\n"
+          "!MATERIAL, NAME=M1\n!ELASTIC\n 210000.0, 0.3\n{plastic}!DENSITY\n"
+          " 7.85e-9\n!SOLVER, METHOD=CG, PRECOND=1, ITERLOG=NO, TIMELOG=NO\n"
+          " 10000, 1\n {resid}, 1.0, 0.0\n{write}!END\n")
+DYN_RHO, DYN_E, DYN_NU = 7.85e-9, 210000.0, 0.3
+
+
+def dyn_cnt(eqa, n_step, dt, monit=0, every=1, ray_m=0.0, ray_k=0.0,
+            loads="!CLOAD, AMP=RAMP\n X1, 3, -1.0\n", typ="", plastic="",
+            resid="1.0e-8", write=""):
+    return DYNCNT.format(eqa=eqa, t_end=n_step * dt, n_step=n_step, dt=dt,
+                         monit=monit, every=every, ray_m=ray_m, ray_k=ray_k,
+                         loads=loads, typ=typ, plastic=plastic, resid=resid,
+                         write=write)
+
+
+def critical_step(mesh) -> float:
+    """The explicit critical step of the mesh's smallest element: its
+    characteristic length over the dilatational wave speed
+    sqrt(E (1 - nu) / (rho (1 + nu) (1 - 2 nu))).  Length: a tet's
+    smallest altitude (3 V / its largest face area), a hex8's shortest
+    edge."""
+    c = np.sqrt(DYN_E * (1 - DYN_NU) /
+                (DYN_RHO * (1 + DYN_NU) * (1 - 2 * DYN_NU)))
+    b = mesh.blocks[0]
+    x = mesh.coords[b.conn[:, :8 if b.etype == 361 else 4]]
+    if b.etype == 361:
+        edges = [(0, 1), (1, 2), (2, 3), (3, 0), (4, 5), (5, 6), (6, 7),
+                 (7, 4), (0, 4), (1, 5), (2, 6), (3, 7)]
+        h = min(np.linalg.norm(x[:, i] - x[:, j], axis=1).min()
+                for i, j in edges)
+    else:
+        vol = np.abs(np.einsum("ei,ei->e", np.cross(x[:, 1] - x[:, 0],
+                                                    x[:, 2] - x[:, 0]),
+                               x[:, 3] - x[:, 0])) / 6.0
+        area = np.max([0.5 * np.linalg.norm(np.cross(
+            x[:, j] - x[:, i], x[:, k] - x[:, i]), axis=1)
+            for i, j, k in ((0, 1, 2), (0, 1, 3), (0, 2, 3), (1, 2, 3))],
+            axis=0)
+        h = float((3.0 * vol / area).min())
+    return float(h / c)
+
+
+def write_dyn_workdir(path, mods, mesh, t_end, cnt_for):
+    """The dynamics deck ``cnt_for(monitor node id)`` in ``path``, nodes
+    shuffled (seed 3, the RCM reorder then runs), with !AMPLITUDE RAMP
+    ramping 0 -> 1 over the first 10% of the run (``t_end``) and
+    holding; the monitor is X1's corner node at y = z = max.  Returns
+    the monitor's global id."""
+    order = np.random.default_rng(3).permutation(mesh.n_node)
+    pm = mods["ordering"].permute_mesh(mesh, order)
+    x1 = pm.node_groups["X1"]
+    monit = int(pm.node_ids[x1[np.argmax(pm.coords[x1, 1] +
+                                         pm.coords[x1, 2])]])
+    mods["write_static_workdir"](
+        path, pm, cnt_for(monit), ngroups=("X0", "X1", "Z1"),
+        amplitudes={"RAMP": [(0.0, 0.0), (0.1 * t_end, 1.0),
+                             (t_end, 1.0)]})
+    return monit
+
+
+def kernel_launch_counts(mods) -> dict:
+    sm, em, g = mods["segsum"], mods["element_mv"], mods["gather"]
+    fns = {"K1": sm.segsum, "K1 planes": sm.segsum_planes,
+           "K2": em.element_matvec_soa, "K3": g.gather_rows,
+           "K4": g.gather_cols, "K5": g.window_gather,
+           "K6": g.window_gather_tiled}
+    return {k: f.launches for k, f in fns.items()}
+
+
+def reset_kernel_launches(mods):
+    sm, em, g = mods["segsum"], mods["element_mv"], mods["gather"]
+    for f in (sm.segsum, sm.segsum_planes, em.element_matvec_soa,
+              g.gather_rows, g.gather_cols, g.window_gather,
+              g.window_gather_tiled):
+        f.launches = 0
+
+
+def element_force(model, kes, v):
+    """K v by index_add_ of the element products (independent of the
+    incidence gather-sum of ``femop``)."""
+    y = torch.zeros_like(v)
+    for b, ke in zip(model.blocks, kes):
+        d = torch.as_tensor(b.dofs, dtype=torch.int64, device=v.device)
+        y.index_add_(0, d.reshape(-1),
+                     torch.einsum("eij,ej->ei", ke, v[d]).reshape(-1))
+    return y
+
+
+def check_dyn_launches(label, mods, model, launches) -> float:
+    """The dynamics paths launch one kernel: K1's planes entry, once, in
+    the nodal smoothing of the final 0.log.  Holds that entry to its
+    plain version at the path's node plan; returns the error."""
+    want = dict.fromkeys(launches, 0)
+    want["K1 planes"] = 1
+    if launches != want:
+        raise AssertionError(f"{label}: kernel launches {launches}, "
+                             f"expected {want}")
+    conn = np.concatenate([np.asarray(b.conn, np.int64).reshape(-1)
+                           for b in model.blocks])
+    plan = mods["nodal"].node_plan(conn, model.n_node, "cuda")
+    gen = torch.Generator("cuda").manual_seed(11)
+    return check_planes(mods["segsum"], plan, torch.randn(
+        (13, plan.perm.numel()), dtype=torch.float64, device="cuda",
+        generator=gen), torch.float64, f"{label} nodal smoothing")
+
+
+def dyn_phases(dr) -> str:
+    tm = dr.timings
+    return " ".join(f"{k}={tm.get(k, 0.0):.3f}" for k in
+                    ("read", "reorder", "model", "mass", "steps", "post"))
+
+
+def phase_dynamic_explicit_main_path(args, mods) -> dict:
+    """Explicit central difference through run_directory on a shuffled
+    box_tet4(m) (default m=69: 1,029,000 dofs): dt half the critical
+    step of the smallest element, ``--dyn-steps`` steps (1000), X1's
+    load ramped over the first 10% of the run, a monitor at X1's corner
+    every 10 steps.  Holds the last step to the equation of motion
+    M a_n = f(t_n) - K u_n on the free dofs, K u_n by an index_add_ of
+    element forces, u_n = u_{n+1} - dt v - dt^2 a / 2 from the returned
+    fields (v = (u_{n+1} - u_{n-1}) / 2 dt, a = (u_{n+1} - 2 u_n +
+    u_{n-1}) / dt^2): relative error <= 1e-10."""
+    m, n_step = args.dyn_n, args.dyn_steps
+    mesh = mods["box_tet4"](m, m, m)
+    dt = 0.5 * critical_step(mesh)
+    wd = os.path.join(ROOT, "build", "smoke", f"dyn_explicit{m}")
+    t0 = time.perf_counter()
+    monit = write_dyn_workdir(
+        wd, mods, mesh, n_step * dt,
+        lambda m: dyn_cnt(11, n_step, dt, monit=m, every=10))
+    log(f"phase dynamic_explicit_workdir: box_tet4({m}) shuffled, "
+        f"{3 * mesh.n_node} dofs, {len(mesh.blocks[0].elem_ids)} tets, "
+        f"dt = {dt!r} s (half the critical step), {n_step} steps, monitor "
+        f"node {monit}; written in {time.perf_counter() - t0:.2f} s")
+    del mesh
+    reset_kernel_launches(mods)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = mods["run_directory"](wd, device="cuda")
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    launches = kernel_launch_counts(mods)
+    dr, model = out["dynamic"], out["model"]
+    blk = dr.timings["block_ms"]
+    log(f"phase dynamic_explicit_main_path: {wall:.2f} s; {dyn_phases(dr)}; "
+        f"arm={dr.arm}")
+    log(f"  ms per step over {len(blk)} blocks of "
+        f"{n_step // max(len(blk), 1)} steps: median="
+        f"{float(np.median(blk)):.4f} min={min(blk):.4f} max={max(blk):.4f}; "
+        f"peak device memory {peak:.3f} GB above {base / 1e9:.3f} GB; "
+        f"kernel launches {launches}")
+    mon = dr.monitors
+    log(f"  monitor last row: step {int(mon['step'][-1])} t "
+        f"{float(mon['time'][-1])!r} u {mon['disp'][-1].tolist()} v "
+        f"{mon['velo'][-1].tolist()} a {mon['acce'][-1].tolist()}")
+    if dr.arm != "explicit" or dr.steps != n_step or \
+            len(mon["step"]) != n_step // 10:
+        raise AssertionError("dynamic_explicit_main_path: wrong arm, steps "
+                             "or monitor rows")
+    for f in (dr.u, dr.vel, dr.acc):
+        if not (f.shape == (model.n_node, 3) and np.isfinite(f).all()):
+            raise AssertionError("dynamic_explicit_main_path: fields not "
+                                 "finite / wrong shape")
+    planes_err = check_dyn_launches("dynamic_explicit_main_path", mods,
+                                    model, launches)
+    # the equation of motion at the last step
+    dev = torch.device("cuda")
+    dyn, stmod = mods["dynamic"], mods["static"]
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a).reshape(-1), device=dev)
+    u1, v, a = t(dr.u), t(dr.vel), t(dr.acc)
+    un = u1 - dt * v - 0.5 * dt * dt * a
+    mass = dyn.lumped_mass_vector(model)
+    f = torch.zeros_like(un)
+    f[torch.as_tensor(model.mesh.node_groups["X1"], device=dev) * 3 + 2] = \
+        -1.0          # the ramp holds at t_n
+    free = torch.as_tensor(mods["make_free_mask"](model.n_dof_total,
+                                                  model.fixed_dofs),
+                           device=dev)
+    rhs = (f - element_force(model, stmod.compute_element_stiffness(model),
+                             un)) * free
+    err = float(torch.linalg.norm(mass * a * free - rhs) /
+                torch.linalg.norm(rhs))
+    log(f"  equation of motion at step {n_step}: |M a - (f - K u_n)| / "
+        f"|f - K u_n| = {err!r} (free dofs; bar 1e-10)")
+    if not err <= 1e-10:
+        raise AssertionError("dynamic_explicit_main_path: the equation of "
+                             "motion does not hold")
+    return {"planes_launches": launches["K1 planes"],
+            "max_abs_err": planes_err, "ms_per_step": float(np.median(blk)),
+            "peak_gb": peak, "eom_err": err}
+
+
+def spy_effective_solves(dyn, solves: list):
+    """A ``make_effective_solver`` whose every solve also records its
+    CG count, seconds and (B, dirichlet increment, answer, c1, c2,
+    mass, free) for an independent residual after the run."""
+    real = dyn.make_effective_solver
+
+    def spied(model, free, gather, mass, c1, c2):
+        solve = real(model, free, gather, mass, c1, c2)
+
+        def checked(kes, B, dirichlet_inc, prepared=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = solve(kes, B, dirichlet_inc, prepared)
+            torch.cuda.synchronize()
+            solves.append(dict(cg=solve.last_iters, s=time.perf_counter()
+                               - t0, relres=solve.last_relres,
+                               data=(B.clone(), dirichlet_inc.clone(),
+                                     x.clone(), c1, c2, mass, free)))
+            checked.last_iters = solve.last_iters
+            checked.last_relres = solve.last_relres
+            return x
+        checked.operator, checked.prepare = solve.operator, solve.prepare
+        return checked
+    return spied
+
+
+def effective_relres(model, kes, data) -> float:
+    """||b_c - A_c x|| / ||b_c|| of P A P x + (I-P) x = (B - A d) P +
+    d (I-P), A = c1 K + c2 M, K by index_add_ of element products."""
+    B, d, x, c1, c2, mass, free = data
+
+    def A(v):
+        return c1 * element_force(model, kes, v) + c2 * mass * v
+    b_c = (B - A(d)) * free + d * (1 - free)
+    r = b_c - (A(x * free) * free + x * (1 - free))
+    return float(torch.linalg.norm(r) / torch.linalg.norm(b_c))
+
+
+def phase_dynamic_implicit_main_path(args, mods) -> dict:
+    """Implicit Newmark (beta 0.25, gamma 0.5, Rayleigh ray_m and ray_k)
+    through run_directory on a shuffled box_hex8(h) (default h=69:
+    1,029,000 dofs, 328,509 IC elements, the linear default), dt 20x the
+    explicit critical step, ``--dyn-hex-steps`` steps (10), RESID 1e-8:
+    the linear step-train arm, one block-Jacobi CG solve a step on the
+    matrix-free operator.  Every solve's true relative residual of the
+    effective system (index_add_ element products plus the mass term)
+    must be <= 1e-8."""
+    h, n_step = args.dyn_hex, args.dyn_hex_steps
+    mesh = mods["box_hex8"](h, h, h)
+    dt_c = critical_step(mesh)
+    dt = 20.0 * dt_c
+    wd = os.path.join(ROOT, "build", "smoke", f"dyn_implicit{h}")
+    t0 = time.perf_counter()
+    write_dyn_workdir(wd, mods, mesh, n_step * dt, lambda m: dyn_cnt(
+        1, n_step, dt, ray_m=1.0e3, ray_k=1.0e-9))
+    log(f"phase dynamic_implicit_workdir: box_hex8({h}) shuffled, "
+        f"{3 * mesh.n_node} dofs, {len(mesh.blocks[0].elem_ids)} elements,"
+        f" dt = {dt!r} s (20 x the critical step {dt_c!r}), {n_step} "
+        f"steps; written in {time.perf_counter() - t0:.2f} s")
+    del mesh
+    dyn = mods["dynamic"]
+    solves = []
+    real = dyn.make_effective_solver
+    dyn.make_effective_solver = spy_effective_solves(dyn, solves)
+    reset_kernel_launches(mods)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    try:
+        t0 = time.perf_counter()
+        out = mods["run_directory"](wd, device="cuda")
+        wall = time.perf_counter() - t0
+    finally:
+        dyn.make_effective_solver = real
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    launches = kernel_launch_counts(mods)
+    dr, model = out["dynamic"], out["model"]
+    log(f"phase dynamic_implicit_main_path: {wall:.2f} s; {dyn_phases(dr)};"
+        f" arm={dr.arm}, formulation={model.blocks[0].formulation}, peak "
+        f"device memory {peak:.3f} GB above {base / 1e9:.3f} GB; kernel "
+        f"launches {launches}")
+    kes = mods["static"].compute_element_stiffness(model)
+    rel = []
+    for i, sv in enumerate(solves, start=1):
+        rel.append(effective_relres(model, kes, sv["data"]))
+        log(f"  step {i}: cg_iters={sv['cg']} solve={sv['s']:.3f} s "
+            f"({1e3 * sv['s'] / max(sv['cg'], 1):.3f} ms per CG "
+            f"iteration) relres={sv['relres']!r} true_relres={rel[-1]!r}")
+        sv["data"] = None
+    del kes
+    if dr.arm != "linear" or len(solves) != n_step or \
+            model.blocks[0].formulation != "IC":
+        raise AssertionError("dynamic_implicit_main_path: not the linear "
+                             "step train of hex8 IC, one solve a step")
+    for f in (dr.u, dr.vel, dr.acc):
+        if not (f.shape == (model.n_node, 3) and np.isfinite(f).all()):
+            raise AssertionError("dynamic_implicit_main_path: fields not "
+                                 "finite / wrong shape")
+    if not all(r <= 1e-8 for r in rel):
+        raise AssertionError("a Newmark solve's true relres is above 1e-8")
+    planes_err = check_dyn_launches("dynamic_implicit_main_path", mods,
+                                    model, launches)
+    cg = [sv["cg"] for sv in solves]
+    ms = [1e3 * sv["s"] / max(sv["cg"], 1) for sv in solves]
+    return {"planes_launches": launches["K1 planes"],
+            "max_abs_err": planes_err, "cg": cg,
+            "ms_per_cg": float(np.median(ms)), "peak_gb": peak}
+
+
+def read_table(path):
+    with open(path) as fh:
+        return np.asarray([[float(v) for v in ln.split()] for ln in fh
+                           if ln.strip()])
+
+
+def phase_dynamic_small_reference(mods):
+    """Small dynamics decks on the card and on the CPU (which the CPU
+    tests hold to the JAX package): explicit tet4 with initial and
+    prescribed !VELOCITY; implicit linear hex8 IC with Rayleigh (the
+    step train); implicit TYPE=NONLINEAR tet10 under !PLASTIC, 3 steps;
+    an implicit deck with !WRITE, RESULT, FREQUENCY=2 (the Newton loop).
+    u, v and a within 1e-12 of each field's largest magnitude, Newton
+    iterations per step equal, each solve's CG count within one, the
+    dyna_*.out files and the .res snapshots equal after parsing to 1e-10
+    of each column's largest value.  The implicit decks solve to RESID
+    1e-14, so a CG count one apart moves the answer below the bar (at
+    RESID 1e-12 one step's extra iteration moved the card's answer by
+    1.2e-12)."""
+    dt4 = 0.2 * critical_step(mods["box_tet4"](6, 5, 4))
+    decks = [   # (label, mesh, n_step, dt, dyn_cnt keyword arguments)
+        ("explicit tet4 !VELOCITY", mods["box_tet4"](6, 5, 4), 40, dt4,
+         dict(eqa=11, every=5, loads="!CLOAD, AMP=RAMP\n X1, 3, -1.0\n"
+              "!VELOCITY, TYPE=INITIAL\n ALL, 3, 3, -2.0\n!VELOCITY, "
+              "AMP=RAMP\n Z1, 1, 1, 0.5\n")),
+        ("implicit hex8 IC Rayleigh", mods["box_hex8"](6, 5, 4), 5, 1.0e-7,
+         dict(eqa=1, ray_m=1.0e4, ray_k=1.0e-8, resid="1.0e-14")),
+        ("implicit nonlinear tet10 plastic", tet10_mesh(mods, (3, 2, 2)), 3,
+         1.0e-7, dict(eqa=1, typ=", TYPE=NONLINEAR", plastic=MISES,
+                      loads="!CLOAD, AMP=RAMP\n X1, 3, -5.0\n",
+                      resid="1.0e-14")),
+        ("implicit tet4 !WRITE, RESULT every 2", mods["box_tet4"](6, 5, 4),
+         6, 1.0e-7, dict(eqa=1, every=2, resid="1.0e-14",
+                         write="!WRITE, RESULT, FREQUENCY=2\n")),
+    ]
+    run = mods["run_directory"]
+    for k, (label, mesh, n_step, dt, kw) in enumerate(decks):
+        runs = []
+        for dev in ("cuda", "cpu"):
+            wd = os.path.join(ROOT, "build", "smoke", f"dyn_small{k}{dev}")
+            write_dyn_workdir(wd, mods, mesh, n_step * dt,
+                              lambda m: dyn_cnt(n_step=n_step, dt=dt,
+                                                monit=m, **kw))
+            runs.append((run(wd, device=dev), wd))
+        (og, wg), (oc, wc) = runs
+        g, c = og["dynamic"], oc["dynamic"]
+        rel = max(float(np.abs(getattr(g, f) - getattr(c, f)).max() /
+                        max(np.abs(getattr(c, f)).max(), 1e-300))
+                  for f in ("u", "vel", "acc"))
+        newton = [[h["newton"] for h in r.history] for r in (g, c)]
+        cg = [[x for h in r.history for x in h["cg"]] for r in (g, c)]
+        files = sorted(f for f in os.listdir(wc) if f.startswith("dyna_")
+                       or f.startswith("mesh.res."))
+        ferr = 0.0
+        for f in files:
+            if f.startswith("dyna_"):
+                a, b = (read_table(os.path.join(w, f)) for w in (wg, wc))
+                if a.shape != b.shape or not np.array_equal(a[:, [0, 2]],
+                                                             b[:, [0, 2]]):
+                    raise AssertionError(f"{label}: {f} rows differ")
+                pairs = [(a[:, j], b[:, j]) for j in range(1, a.shape[1])]
+            else:
+                ra, rb = (mods["read_result"](os.path.join(w, f))
+                          for w in (wg, wc))
+                pairs = [(np.asarray(x[1]), np.asarray(y[1])) for x, y in
+                         zip(ra["node_comps"], rb["node_comps"])]
+            for a, b in pairs:
+                ferr = max(ferr, float(np.abs(a - b).max() /
+                                       max(np.abs(b).max(), 1e-300)))
+        log(f"phase dynamic_small_reference: {label}, arm {g.arm}, cuda vs "
+            f"cpu max rel diff {rel!r}, newton per step {newton[0]} vs "
+            f"{newton[1]}, cg {cg[0]} vs {cg[1]}, files {files} max rel "
+            f"diff {ferr!r}")
+        if not (rel <= 1e-12 and newton[0] == newton[1]
+                and len(cg[0]) == len(cg[1])
+                and all(abs(a - b) <= 1 for a, b in zip(*cg))
+                and ferr <= 1e-10 and files and sorted(
+                    f for f in os.listdir(wg) if f.startswith("dyna_")
+                    or f.startswith("mesh.res.")) == files):
+            raise AssertionError(f"dynamic_small_reference: {label}: cuda "
+                                 "and cpu runs differ")
+
+
 def with_env(env: dict, fn):
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
@@ -1127,6 +1530,16 @@ def main(argv=None) -> int:
     ap.add_argument("--plastic", type=int, default=48,
                     help="box_hex8(p, p, p) for the elastoplastic path "
                          "(default 48)")
+    ap.add_argument("--dyn-n", type=int, default=69,
+                    help="box_tet4(m, m, m) for the explicit dynamics path "
+                         "(default 69)")
+    ap.add_argument("--dyn-steps", type=int, default=1000,
+                    help="explicit time steps (default 1000)")
+    ap.add_argument("--dyn-hex", type=int, default=69,
+                    help="box_hex8(h, h, h) for the implicit dynamics path "
+                         "(default 69)")
+    ap.add_argument("--dyn-hex-steps", type=int, default=10,
+                    help="implicit time steps (default 10)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -1137,7 +1550,7 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, ROOT)
     from frontistr_tpu_torch import kernels, ordering
-    from frontistr_tpu_torch.analysis import nonlinear
+    from frontistr_tpu_torch.analysis import dynamic, nonlinear
     from frontistr_tpu_torch.analysis import static as stmod
     from frontistr_tpu_torch.assembly import bell, structured
     from frontistr_tpu_torch.assembly import segsum as sm
@@ -1165,7 +1578,7 @@ def main(argv=None) -> int:
                 run_directory=run_directory, amg=amg, nodal=nodal,
                 make_free_mask=make_free_mask, face_tables=FACE_TABLES,
                 hecmw2fstr=HECMW2FSTR_ORDER, ElemBlock=ElemBlock,
-                read_result=read_result)
+                read_result=read_result, dynamic=dynamic, gather=g)
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1225,6 +1638,18 @@ def main(argv=None) -> int:
     phase_hex_small_reference(mods)
     phase_newton_small_reference(mods)
     phase_plastic_small_reference(mods)
+
+    # 10. the dynamics paths (the matrix-free operator and the incidence
+    #     gather-sum; K1's planes entry once, in the final nodal
+    #     smoothing), then small decks on the card and on the CPU
+    torch.cuda.empty_cache()
+    k1_row["dynamic_explicit_main_path"] = \
+        phase_dynamic_explicit_main_path(args, mods)
+    torch.cuda.empty_cache()
+    k1_row["dynamic_implicit_main_path"] = \
+        phase_dynamic_implicit_main_path(args, mods)
+    torch.cuda.empty_cache()
+    phase_dynamic_small_reference(mods)
 
     log(f"phase total: {time.perf_counter() - t_start:.2f} s")
     log(smi)

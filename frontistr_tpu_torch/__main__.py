@@ -25,6 +25,15 @@ def main(argv=None):
         p.error("--device cuda: no CUDA device is available")
     from frontistr_tpu_torch.run import run_directory
     out = run_directory(args.workdir, device=args.device)
+    if "dynamic" in out:
+        dr = out["dynamic"]
+        cg = sum(sum(h["cg"]) for h in dr.history)
+        print(f"### dynamic: {dr.arm} steps={dr.steps} "
+              f"newton_iters={sum(h['newton'] for h in dr.history)} "
+              f"cg_iters={cg}")
+        print(f"### frontistr_tpu_torch completed "
+              f"({out['total_time']:.2f} s)")
+        return 0
     res = out["static"]
     if res.newton is not None:
         nw = res.newton

@@ -1,5 +1,6 @@
 """Matrix-free global FE operator (torch port of
-``frontistr_tpu/assembly/femop.py``: ``build_incidence``, ``FEOperator``).
+``frontistr_tpu/assembly/femop.py``: ``build_incidence``, ``FEOperator``
+with its nodal diagonal blocks and block-Jacobi preconditioner).
 
 y = incidence gather-sum of f_e = k_e x_e: one batched element product,
 then, per node, the sum of the element-node force rows that touch it
@@ -8,7 +9,9 @@ hecmw1/src/solver/matrix/hecmw_mat_con.f90).  Deterministic and
 scatter-free.  The mixed-precision solve takes its true f64 residuals
 from this operator.  The JAX package's unrolled double-float arm
 (a TPU workaround for emulated f64) is not ported: the product runs in
-native float64.
+native float64, and the block-Jacobi inverse is a batched
+``torch.linalg.inv`` where the JAX package keeps a closed-form 3 x 3
+inverse (a TPU workaround: no float64 LAPACK there).
 """
 
 from __future__ import annotations
@@ -72,6 +75,45 @@ class FEOperator:
     def constrained_rhs(self, f: torch.Tensor, u_fix: torch.Tensor):
         y = self.matvec(u_fix)
         return (f - y) * self.free_mask + u_fix * (1.0 - self.free_mask)
+
+    def diag_blocks(self) -> torch.Tensor:
+        """Nodal (ndof x ndof) diagonal blocks through the incidence:
+        (n_node, ndof, ndof)."""
+        nd = self.ndof
+        flats = []
+        for ke in self.kes:
+            E, m, _ = ke.shape
+            kr = ke.reshape(E, m // nd, nd, m // nd, nd)
+            # (E, nd, nd, nn) -> (E, nn, nd, nd)
+            kd = torch.diagonal(kr, dim1=1, dim2=3).permute(0, 3, 1, 2)
+            flats.append(kd.reshape(-1, nd, nd))
+        flats.append(self.kes[0].new_zeros((1, nd, nd)))    # the pad slot
+        inc = self.gather[:, :, 0] // nd
+        return torch.cat(flats)[inc].sum(dim=1)
+
+    def block_jacobi(self, scale=1.0, diag_add=None):
+        """DIAG preconditioner: the inverse nodal blocks of
+        ``scale * D + diag(diag_add)`` (the Newmark effective diagonal
+        c1 D + c2 m of fstr_dynamic_nlimplicit.f90; ``diag_add`` a
+        per-dof vector), restricted to the free dofs, identity where a
+        diagonal entry is zero (fixed and unused dofs).  Returns
+        ``apply(r)``."""
+        nd, nn = self.ndof, self.n_node
+        D = self.diag_blocks() * scale
+        ar = torch.arange(nd, device=D.device)
+        if diag_add is not None:
+            D[:, ar, ar] += diag_add.reshape(nn, nd)
+        fm = self.free_mask.reshape(nn, nd)
+        D = D * (fm[:, :, None] * fm[:, None, :])
+        dd = D[:, ar, ar]
+        D[:, ar, ar] = dd + (dd == 0.0).to(D.dtype)
+        Dinv = torch.linalg.inv(D)
+
+        def apply(r):
+            return torch.einsum("nij,nj->ni", Dinv,
+                                r.reshape(nn, nd)).reshape(-1)
+
+        return apply
 
 
 def gather_sum(rows, gather: torch.Tensor) -> torch.Tensor:

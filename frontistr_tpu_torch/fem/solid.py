@@ -399,12 +399,14 @@ def stiffness_hex8ic(table: ElementTable, coords_e: torch.Tensor,
                      D_e: torch.Tensor) -> torch.Tensor:
     """Statically condensed incompatible-mode hex8 stiffness (STF_C3D8IC):
     K = Kdd - Kda Kaa^{-1} Kad, with Kaa (9 x 9) factorized by
-    ``torch.linalg.solve``.  D_e: (E, 6, 6), (1, 6, 6) or (E, nq, 6, 6)."""
+    ``torch.linalg.solve_ex`` (no error check: on the card that check
+    would wait for the device; Kaa of a valid element is positive
+    definite).  D_e: (E, 6, 6), (1, 6, 6) or (E, nq, 6, 6)."""
     k, _ = _hex8ic_k_full(table, coords_e, D_e)
     nd = 24
     Kda = k[:, :nd, nd:]
     return k[:, :nd, :nd] - torch.matmul(
-        Kda, torch.linalg.solve(k[:, nd:, nd:], k[:, nd:, :nd]))
+        Kda, torch.linalg.solve_ex(k[:, nd:, nd:], k[:, nd:, :nd])[0])
 
 
 def strains_at_gauss_hex8ic(table: ElementTable, coords_e: torch.Tensor,
@@ -417,8 +419,8 @@ def strains_at_gauss_hex8ic(table: ElementTable, coords_e: torch.Tensor,
     E, nn, dim = coords_e.shape
     nd = nn * dim
     u_flat = u_e.reshape(E, nd)
-    a = -torch.linalg.solve(
-        k[:, nd:, nd:], torch.matmul(k[:, nd:, :nd], u_flat[:, :, None]))
+    a = -torch.linalg.solve_ex(
+        k[:, nd:, nd:], torch.matmul(k[:, nd:, :nd], u_flat[:, :, None]))[0]
     ua = torch.cat([u_flat, a[:, :, 0]], dim=1).reshape(E, 11, dim)
     S = _selector(3, coords_e)
     return torch.einsum("kdj,eqnj,end->eqk", S, g_full, ua)

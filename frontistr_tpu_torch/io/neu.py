@@ -63,12 +63,13 @@ def write_fstr_msh(mesh: Mesh, path: str) -> None:
 
 def write_static_workdir(workdir: str, mesh: Mesh, cnt: str,
                          ngroups=("X0", "X1"), egroups=None,
-                         sgroups=None) -> None:
+                         sgroups=None, amplitudes=None) -> None:
     """``workdir/{mesh.msh, case.cnt, hecmw_ctrl.dat}``: the mesh with
     the named node groups as ``!NGROUP`` cards, ``egroups`` (name ->
-    element ids) as ``!EGROUP`` and ``sgroups`` (name -> (n, 2) rows of
-    element id and face number) as ``!SGROUP`` cards, and the deck
-    ``cnt``."""
+    element ids) as ``!EGROUP``, ``sgroups`` (name -> (n, 2) rows of
+    element id and face number) as ``!SGROUP`` and ``amplitudes`` (name
+    -> (n, 2) rows of time and value) as ``!AMPLITUDE`` cards, and the
+    deck ``cnt``."""
     os.makedirs(workdir, exist_ok=True)
     msh = os.path.join(workdir, "mesh.msh")
     write_fstr_msh(mesh, msh)
@@ -93,6 +94,11 @@ def write_static_workdir(workdir: str, mesh: Mesh, cnt: str,
             for k in range(0, len(rows), 5):
                 f.write(" " + ", ".join(f"{int(e)}, {int(fc)}"
                                         for e, fc in rows[k:k + 5]) + "\n")
+        for name, rows in (amplitudes or {}).items():
+            # the .msh rows hold value, time pairs (meshio AMPLITUDE)
+            f.write(f"!AMPLITUDE, NAME={name}, DEFINITION=TABULAR\n")
+            for t, v in rows:
+                f.write(f" {float(v)!r}, {float(t)!r}\n")
         f.write(end)
     with open(os.path.join(workdir, "case.cnt"), "w") as f:
         f.write(cnt)

@@ -1,8 +1,10 @@
 """Deck helpers shared by the port's parity tests of the plastic,
-B-bar/F-bar, tet10 and load slice: meshes from ``meshgen`` (tet10
-raised from ``box_tet4`` by mid-edge nodes; no package has a tet10
-generator), the top element layer and top faces as element and surface
-groups, and work directories through ``io.neu.write_static_workdir``."""
+B-bar/F-bar, tet10, load and dynamics slices: meshes from ``meshgen``
+(tet10 raised from ``box_tet4`` by mid-edge nodes; no package has a
+tet10 generator), the top element layer and top faces as element and
+surface groups, work directories through
+``io.neu.write_static_workdir`` (with ``!AMPLITUDE`` tables), and the
+DYNAMIC deck ``dyn_deck``."""
 
 import numpy as np
 
@@ -59,16 +61,17 @@ def top_faces(mesh):
     return np.asarray(rows, np.int64)
 
 
-def write_deck(path, mesh, cnt, seed=3):
+def write_deck(path, mesh, cnt, seed=3, amplitudes=None):
     """The deck in ``path`` with the mesh's nodes shuffled (the RCM
     reorder then has work to do); element group TOP (the elements of the
-    top faces) and surface group STOP (the top faces)."""
+    top faces) and surface group STOP (the top faces); ``amplitudes``
+    (name -> rows of time, value) as ``!AMPLITUDE`` cards."""
     rows = top_faces(mesh)
     order = np.random.default_rng(seed).permutation(mesh.n_node)
     write_static_workdir(str(path), ordering.permute_mesh(mesh, order), cnt,
                          ngroups=("X0", "X1", "Z0", "Z1"),
                          egroups={"TOP": np.unique(rows[:, 0])},
-                         sgroups={"STOP": rows})
+                         sgroups={"STOP": rows}, amplitudes=amplitudes)
     return str(path)
 
 
@@ -83,3 +86,25 @@ def deck(sol="NLSTATIC", loads="", el="", plastic="", extra="", sub=1,
          step="", write="!WRITE, RESULT\n"):
     return DECK.format(sol=sol, loads=loads, el=el, plastic=plastic,
                        extra=extra, sub=sub, step=step, write=write)
+
+
+DYN = ("!VERSION\n 3\n!SOLUTION, TYPE=DYNAMIC\n!DYNAMIC{typ}\n {eqa}, 1\n"
+       " 0.0, {t_end!r}, {n_step}, {dt!r}\n {gamma}, {beta}\n"
+       " 1, 1, {ray_m!r}, {ray_k!r}\n 10, {monit}, {every}\n"
+       "!BOUNDARY\n X0, 1, 3, 0.0\n{loads}!STEP, SUBSTEPS=1, CONVERG={conv}\n"
+       "!MATERIAL, NAME=M1\n!ELASTIC\n 210000.0, 0.3\n{plastic}!DENSITY\n"
+       " 7.85e-9\n!SOLVER, METHOD=CG, PRECOND=1, ITERLOG=NO, TIMELOG=NO\n"
+       " 10000, 1\n {resid}, 1.0, 0.0\n{write}!END\n")
+
+
+def dyn_deck(eqa=11, n_step=20, dt=4e-9, loads="", typ="", gamma=0.5,
+             beta=0.25, ray_m=0.0, ray_k=0.0, monit=0, every=1,
+             conv="1.0e-6", plastic="", resid="1.0e-10", write=""):
+    """A DYNAMIC deck: X0 fixed, steel in N, mm, s (E 210000, nu 0.3,
+    rho 7.85e-9); ``eqa`` 11 explicit, 1 implicit Newmark; ``typ``
+    ", TYPE=NONLINEAR" for finite strain; ``monit`` the monitor node's
+    global id (0: none) every ``every`` steps."""
+    return DYN.format(eqa=eqa, t_end=n_step * dt, n_step=n_step, dt=dt,
+                      typ=typ, gamma=gamma, beta=beta, ray_m=ray_m,
+                      ray_k=ray_k, monit=monit, every=every, loads=loads,
+                      conv=conv, plastic=plastic, resid=resid, write=write)
