@@ -51,6 +51,7 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1433,6 +1434,477 @@ def phase_dynamic_small_reference(mods):
                                  "and cpu runs differ")
 
 
+# ---- heat, eigen, frequency response, STATICEIGEN ---------------------
+# the heat material: steel-like, a conductivity that falls with T (two
+# rows: the fixed-point loop runs more than once a step)
+HEAT_ITEMS = {1: [[7.8e-6]], 2: [[460.0]], 3: [[50.0, 0.0], [35.0, 500.0]]}
+HEATCNT = ("!SOLUTION, TYPE=HEAT\n!HEAT\n {heat}\n!FIXTEMP\n X0, {fix!r}\n"
+           "{loads}!SOLVER, METHOD=CG, ITERLOG=NO, TIMELOG=NO\n {nier}, 1\n"
+           " {resid}, 1.0, 0.0\n{write}!END\n")
+EIGCNT = ("!VERSION\n 3\n!SOLUTION, TYPE={sol}\n!EIGEN\n {nget}, 1.0e-8, 60\n"
+          "!BOUNDARY\n X0, 1, 3, 0.0\n{loads}!MATERIAL, NAME=M1\n!ELASTIC\n"
+          " 210000.0, 0.3\n!DENSITY\n 7.85e-9\n{step}"
+          "!SOLVER, METHOD=CG, PRECOND=1, ITERLOG=NO, TIMELOG=NO\n"
+          " {nier}, 1\n 1.0e-10, 1.0, 0.0\n!WRITE, RESULT\n!END\n")
+FREQCNT = ("!VERSION\n 3\n!SOLUTION, TYPE=DYNAMIC\n!DYNAMIC\n 11, 2\n"
+           " {f0!r}, {f1!r}, {nf}, 1.0\n 0.5, 0.25\n 1, 1, {ray_m!r}, 0.0\n"
+           "!EIGENREAD\n eigen.log\n 1, {nmode}\n!BOUNDARY\n X0, 1, 3, 0.0\n"
+           "{loads}!MATERIAL, NAME=M1\n!ELASTIC\n 210000.0, 0.3\n!DENSITY\n"
+           " 7.85e-9\n!SOLVER, METHOD=CG, PRECOND=1, ITERLOG=NO, TIMELOG=NO\n"
+           " 10000, 1\n 1.0e-10, 1.0, 0.0\n!END\n")
+READCNT = ("!VERSION\n 3\n!SOLUTION, TYPE=STATIC\n!BOUNDARY\n X0, 1, 3, 0.0\n"
+           "!TEMPERATURE, READRESULT=1, SSTEP=1\n!REFTEMP\n 20.0\n"
+           "!MATERIAL, NAME=M1\n!ELASTIC\n 210000.0, 0.3\n!EXPANSION_COEFF\n"
+           " 1.2e-5\n!SOLVER, METHOD=CG, ITERLOG=NO, TIMELOG=NO\n 10000, 1\n"
+           " 1.0e-10, 1.0, 0.0\n!END\n")
+
+
+def side_faces(mods, mesh, axis, block=0):
+    """(n, 2) rows (element id, face number) of the faces of block
+    ``block`` on the side where coordinate ``axis`` is largest."""
+    b = mesh.blocks[block]
+    x = mesh.coords[:, axis]
+    on_side = np.isclose(x, x.max())
+    ncorner = {111: 2, 112: 2, 231: 3, 232: 3, 241: 4, 242: 4}
+    rows = [(int(e), f) for f, (ft, ln) in
+            enumerate(mods["face_tables"][b.etype], start=1)
+            for e in b.elem_ids[on_side[b.conn[:, ln[:ncorner[ft]]]]
+                                .all(axis=1)]]
+    return np.asarray(rows, np.int64)
+
+
+def heat_material(mesh, T0=20.0, items=HEAT_ITEMS):
+    """The heat material on ``mesh``, !ZERO -273.15 and the initial
+    temperature T0 on every node."""
+    mesh.materials["M1"].items = {k: [list(r) for r in v]
+                                  for k, v in items.items()}
+    mesh.zero_temp = -273.15
+    mesh.initial_conditions = {"TEMPERATURE": np.stack(
+        [np.arange(mesh.n_node), np.full(mesh.n_node, T0)], 1)}
+    return mesh
+
+
+def write_shuffled(path, mods, mesh, cnt, sgroups=None, egroups=None,
+                   ngroups=("X0", "X1")):
+    """``cnt`` in ``path`` with the mesh's nodes shuffled (seed 3; the
+    RCM reorder then runs)."""
+    order = np.random.default_rng(3).permutation(mesh.n_node)
+    mods["write_static_workdir"](
+        path, mods["ordering"].permute_mesh(mesh, order), cnt,
+        ngroups=ngroups, egroups=egroups, sgroups=sgroups)
+    return str(path)
+
+
+def heat_relres(last) -> float:
+    """||b - A x|| / ||b|| of a heat solve's constrained system
+    A x = P (K + C/dt) P x + (I - P) x, with K applied by scattering the
+    element matrices with index_add_ (independent of the incidence
+    gather-sum)."""
+    x, free, dtc = last["x"], last["free"], last["dt_inv_C"]
+    xf = x * free
+    y = torch.zeros_like(x)
+    for ke, d in zip(last["kes"], last["dofs"]):
+        y.index_add_(0, d.reshape(-1),
+                     torch.einsum("eij,ej->ei", ke, xf[d]).reshape(-1))
+    r = last["b"] - ((y + dtc * xf) * free + x * (1.0 - free))
+    return float(torch.linalg.norm(r) / torch.linalg.norm(last["b"]))
+
+
+def phase_heat_main_path(args, mods) -> dict:
+    """Transient heat through run_directory on a shuffled box_hex8(h)
+    (default h=100: 1,030,301 temperature dofs, 1,000,000 hex8): rho
+    7.8e-6, c 460 and a conductivity falling from 50 at 0 to 35 at 500;
+    X0 fixed at 200 from an initial 20 on every node, !SFILM on X1 and
+    !SRADIATE on the top face (!ZERO -273.15), a !DFLUX body flux;
+    ``--heat-steps`` backward-Euler steps (20) of dt = 10 h^2 / alpha
+    (alpha = k / (rho c) at 50), ITMAX 20, EPS 1e-3, RESID 1e-10,
+    !WRITE, RESULT every 20 steps.  Held to: the last solve's true relres
+    (``heat_relres``) <= 1e-7, the fixed-point loop taking more than one
+    iteration in some step, finite temperatures within [20, 200] plus
+    the body heating, no kernel launched (the path runs the matrix-free
+    operator and the incidence gather-sum, plain torch), the last .res
+    read back equal to the returned T.  Then times ``conduct_ke`` and
+    the heat CG's matrix-free product at the run's shapes."""
+    heat = mods["heat"]
+    h, n_step = args.heat_n, args.heat_steps
+    mesh = heat_material(mods["box_hex8"](h, h, h))
+    alpha = 50.0 / (7.8e-6 * 460.0)
+    dt = 10.0 * (1.0 / h) ** 2 / alpha
+    loads = ("!DFLUX\n ALL, BF, 5.0e3\n!SFILM\n SX1, 0.05, 20.0\n"
+             "!SRADIATE\n SZ1, 5.67e-11, 20.0\n")
+    cnt = HEATCNT.format(heat=f"{dt!r}, {n_step * dt!r}, 0.0, 0.0, 20, "
+                         "1.0e-3", fix=200.0, loads=loads, nier=100000,
+                         resid="1.0e-10",
+                         write=f"!WRITE, RESULT, FREQUENCY={n_step}\n")
+    wd = os.path.join(ROOT, "build", "smoke", f"heat{h}")
+    t0 = time.perf_counter()
+    write_shuffled(wd, mods, mesh, cnt, sgroups={
+        "SX1": side_faces(mods, mesh, 0), "SZ1": side_faces(mods, mesh, 2)})
+    log(f"phase heat_workdir: box_hex8({h}) shuffled, HEAT transient, "
+        f"{mesh.n_node} dofs, {h ** 3} hex8, dt={dt!r} (alpha dt / h^2 = "
+        f"10), {n_step} steps, written in {time.perf_counter() - t0:.2f} s")
+    reset_kernel_launches(mods)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = mods["run_directory"](wd, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = kernel_launch_counts(mods)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hr = out["heat"]
+    tm = out["timings"]
+    cg_all = [x for r in hr.history for x in r["cg"]]
+    s_all = [x for r in hr.history for x in r["solve_s"]]
+    log(f"phase heat_main_path: {wall:.2f} s; steps={hr.steps} "
+        f"fixed_point_iters={hr.iters} cg_iters={sum(cg_all)}; peak device "
+        f"memory {peak_gb:.3f} GB; kernel launches {launches}")
+    log("  phase seconds: " + " ".join(
+        f"{k}={tm.get(k, 0.0):.3f}" for k in
+        ("read", "reorder", "model", "elements", "solve", "log", "result")))
+    for k, r in enumerate(hr.history, start=1):
+        ms = [1e3 * s / max(c, 1) for s, c in zip(r["solve_s"], r["cg"])]
+        log(f"  step {k}: fixed_point={r['fp']} cg={r['cg']} ms/cg_iter="
+            f"{[round(v, 4) for v in ms]}")
+    rr = heat_relres(hr.solver.last)
+    T = hr.T
+    log(f"  last solve true relres (index_add_) = {rr!r}; T in "
+        f"[{T.min()!r}, {T.max()!r}]")
+    if any(launches.values()):
+        raise AssertionError(f"heat_main_path launched kernels {launches}")
+    if not rr <= 1e-7:
+        raise AssertionError("heat_main_path: last solve relres above 1e-7")
+    if hr.steps != n_step or max(r["fp"] for r in hr.history) < 2:
+        raise AssertionError("heat_main_path: wrong step count, or the "
+                             "fixed-point loop never iterated")
+    if not (np.isfinite(T).all() and T.min() >= 20.0 - 1e-3
+            and T.max() <= 250.0):
+        raise AssertionError("heat_main_path: temperatures out of range")
+    back = mods["read_result"](os.path.join(wd, f"mesh.res.0.{n_step}"))
+    if not (np.array_equal(back["node_ids"], out["mesh"].node_ids) and
+            np.array_equal(np.asarray(back["node_comps"][0][1]).reshape(-1),
+                           T)):
+        raise AssertionError("heat_main_path: the .res differs from T")
+    # the element routine and the CG's product alone, at the run's shapes
+    sv = hr.solver
+    b, conn, ce, tabs = sv.vol[0]
+    Tt = torch.as_tensor(T, device="cuda")
+    table = mods["get_table"](b.etype)
+    ke_ms = cuda_ms(lambda: heat.conduct_ke(table, ce, Tt[conn], tabs[0],
+                                             b.thick, 3), reps=3, warmup=1)
+    op = mods["femop"].FEOperator(sv.last["kes"], sv.dofs, sv.gather,
+                                  sv.model.n_node, 1, sv.free)
+    mv_ms = cuda_ms(lambda: op.matvec(Tt), reps=10)
+    E, m = sv.last["kes"][0].shape[:2]
+    nbytes = 8 * (E * m * m + 2 * E * m + T.size * 2)
+    mv_bound, _ = bound(nbytes, 2 * E * m * m, torch.float64)
+    cg_ms = 1e3 * sum(s_all) / max(sum(cg_all), 1)
+    log(f"  conduct_ke at E={E}: {ke_ms:.3f} ms; heat CG {cg_ms:.4f} ms an "
+        f"iteration (solve seconds over CG iterations); its matvec alone "
+        f"{mv_ms:.4f} ms, bytes bound of the (E, {m}, {m}) product "
+        f"{mv_bound:.4f} ms")
+    return dict(ke_ms=ke_ms, cg_ms=cg_ms, mv_ms=mv_ms, mv_bound=mv_bound,
+                peak_gb=peak_gb)
+
+
+def phase_eigen_main_path(args, mods) -> tuple:
+    """EIGEN through run_directory on a shuffled box_hex8(e), a 100 mm
+    cube (default e=48: 352,947 dofs, 110,592 hex8 IC; on a 1 mm cube
+    the Lanczos breakdown test beta < 1e-14, absolute, as in the JAX
+    package, stops at the first step), E 210000, nu 0.3, rho 7.85e-9,
+    X0 clamped, !EIGEN 10, 1e-8, 60, NIER 20000 (the shift-invert CG is
+    block-Jacobi to 1e-10), !WRITE, RESULT.  Held to, with K applied by
+    an index_add_ of the element matrices: each pair's
+    ||K phi - lambda M phi|| / ||K phi|| <= 1e-6 on the free dofs, and
+    max |Phi^T M Phi - I| <= 1e-8; no kernel launched.  Returns (the
+    work directory, the mesh, the result)."""
+    e = args.eigen_n
+    mesh = mods["box_hex8"](e, e, e, lx=100.0, ly=100.0, lz=100.0)
+    wd = os.path.join(ROOT, "build", "smoke", f"eigen{e}")
+    t0 = time.perf_counter()
+    write_shuffled(wd, mods, mesh, EIGCNT.format(
+        sol="EIGEN", nget=10, loads="", step="", nier=20000))
+    log(f"phase eigen_workdir: box_hex8({e}) shuffled, EIGEN 10 modes, "
+        f"{3 * mesh.n_node} dofs, {e ** 3} hex8, written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    reset_kernel_launches(mods)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = mods["run_directory"](wd, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = kernel_launch_counts(mods)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    er, model = out["eigen"], out["model"]
+    cg = [hh["cg"] for hh in er.history]
+    secs = [hh["s"] for hh in er.history]
+    log(f"phase eigen_main_path: {wall:.2f} s; formulation="
+        f"{model.blocks[0].formulation}, lanczos_iters={er.iters}, "
+        f"applies={len(cg)}, cg per apply {cg}, s per apply "
+        f"{[round(s, 3) for s in secs]} (mean {np.mean(secs):.3f} s, "
+        f"{1e3 * sum(secs) / max(sum(cg), 1):.4f} ms a CG iteration); "
+        f"peak device memory {peak_gb:.3f} GB; kernel launches {launches}")
+    log(f"  frequencies (Hz): {[float(f) for f in er.freq]}")
+    kes = mods["static"].compute_element_stiffness(model)
+    mass = mods["dynamic"].lumped_mass_vector(model)
+    free = torch.ones(model.n_dof_total, dtype=torch.float64, device="cuda")
+    free[torch.as_tensor(model.fixed_dofs, device="cuda")] = 0.0
+    phi = torch.as_tensor(er.eigenvectors, device="cuda")
+    res = []
+    for k in range(phi.shape[1]):
+        kp = element_force(model, kes, phi[:, k]) * free
+        r = kp - float(er.eigenvalues[k]) * mass * phi[:, k] * free
+        res.append(float(torch.linalg.norm(r) / torch.linalg.norm(kp)))
+    orth = float((phi.T @ (mass[:, None] * phi) - torch.eye(
+        phi.shape[1], dtype=torch.float64, device="cuda")).abs().max())
+    log(f"  ||K phi - lambda M phi|| / ||K phi|| (index_add_) = {res}; "
+        f"max |Phi^T M Phi - I| = {orth!r}")
+    if any(launches.values()):
+        raise AssertionError(f"eigen_main_path launched kernels {launches}")
+    if len(res) != 10 or not max(res) <= 1e-6 or not orth <= 1e-8:
+        raise AssertionError("eigen_main_path: eigenpairs fail their gates")
+    return wd, mesh, er
+
+
+def phase_freq_main_path(mods, wd, mesh, er, nf=200):
+    """A !DYNAMIC idx_resp = 2 deck on the eigen path's work directory:
+    !EIGENREAD of its 0.log and .res modes, !FLOAD in z at X1's corner
+    (y = z = max), ``nf`` frequencies from 0.8 f1 to 1.1 f3, light
+    Rayleigh damping (ray_m = 0.01 omega1).  Held to: the displacement
+    amplitude has a local maximum within one frequency step of each of
+    the first three eigenfrequencies whose mode the load excites
+    (|phi^T F| >= 1e-3 of the largest)."""
+    x1 = mesh.node_groups["X1"]
+    corner = int(mesh.node_ids[x1[np.argmax(mesh.coords[x1, 1] +
+                                            mesh.coords[x1, 2])]])
+    f = er.freq
+    f0, f1 = 0.8 * float(f[0]), 1.1 * float(f[2])
+    shutil.copy(os.path.join(wd, "0.log"), os.path.join(wd, "eigen.log"))
+    with open(os.path.join(wd, "case.cnt"), "w") as fh:
+        fh.write(FREQCNT.format(
+            f0=f0, f1=f1, nf=nf, ray_m=0.01 * 2 * np.pi * float(f[0]),
+            nmode=len(f), loads=f"!FLOAD, LOAD CASE=1\n {corner}, 3, 1.0\n"))
+    reset_kernel_launches(mods)
+    t0 = time.perf_counter()
+    out = mods["run_directory"](wd, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = kernel_launch_counts(mods)
+    fr, model = out["freq"], out["model"]
+    amp = fr.disp_amp_max
+    F = np.zeros(model.n_dof_total)
+    F[model.mesh.id2idx[corner] * 3 + 2] = 1.0
+    pf = np.abs(fr.eigen.eigenvectors.T @ F)
+    df = fr.freqs[1] - fr.freqs[0]
+    peaks = [i for i in range(1, len(amp) - 1)
+             if amp[i] >= amp[i - 1] and amp[i] >= amp[i + 1]]
+    log(f"phase freq_main_path: {wall:.2f} s; {len(fr.freqs)} frequencies "
+        f"{f0!r}..{f1!r} Hz, !EIGENREAD of {len(pf)} modes; |phi^T F| of "
+        f"the first three {[float(v) for v in pf[:3]]}; amplitude peaks at "
+        f"{[float(fr.freqs[i]) for i in peaks]} Hz; kernel launches "
+        f"{launches}")
+    if any(launches.values()):
+        raise AssertionError(f"freq_main_path launched kernels {launches}")
+    if not np.isfinite(amp).all() or amp.shape != (nf,):
+        raise AssertionError("freq_main_path: amplitudes not finite")
+    for k in range(3):
+        if pf[k] >= 1e-3 * pf.max() and not any(
+                abs(fr.freqs[i] - f[k]) <= df for i in peaks):
+            raise AssertionError(f"freq_main_path: no amplitude peak at "
+                                 f"mode {k + 1} ({f[k]!r} Hz)")
+
+
+def small_heat_mesh(mods, kind):
+    """The small heat decks' meshes with the heat material (T-dependent
+    specific heat and conductivity), !ZERO and an initial 20, interior
+    nodes moved by a seeded draw (no ties by symmetry)."""
+    mg = mods["meshgen"]
+    mesh = {"hex8": lambda: mg.box_hex8(4, 3, 2, lx=4.0, ly=1.0, lz=0.7),
+            "tet10": lambda: tet10_mesh(mods, (2, 2, 1)),
+            "quad": lambda: mg.box_plane(4, 3, lx=2.0),
+            "iface": lambda: mg.hex8_pair_541(2)}[kind]()
+    heat_material(mesh, items={1: [[7.8e-6]], 2: [[460.0, 0.0],
+                                                  [520.0, 400.0]],
+                               3: [[50.0, 0.0], [42.0, 150.0],
+                                   [30.0, 400.0]]})
+    c = mesh.coords
+    side = np.zeros(mesh.n_node, bool)
+    for ax in range(3):
+        if np.ptp(c[:, ax]):
+            side |= np.isclose(c[:, ax], c[:, ax].min()) | \
+                np.isclose(c[:, ax], c[:, ax].max())
+    side |= np.isclose(c[:, 0], 1.0) & (kind == "iface")
+    jit = np.random.default_rng(5).uniform(-0.0025, 0.0025, c.shape)
+    jit[side] = 0.0
+    jit[:, np.ptp(c, axis=0) == 0] = 0.0
+    mesh.coords = c + jit
+    return mesh
+
+
+def small_heat_deck(mods, kind, transient, path):
+    mesh = small_heat_mesh(mods, kind)
+    egrp = "SOLID" if kind == "iface" else "ALL"
+    loads = (f"!CFLUX\n {int(mesh.node_ids[-1])}, 2.0\n!DFLUX\n {egrp}, BF, "
+             "0.5\n!SFILM\n SHI, 0.02, 20.0\n!SRADIATE\n SHI, 5.67e-11, "
+             "300.0\n")
+    if kind == "hex8" and transient:
+        loads += ("!WELD_LINE\n 120.0, 10.0, 0.5, 1.0\n ALL, 1, 0.0, 4.0, "
+                  "0.7, 0.0\n")
+    steps = "1.0e-4, 3.0e-4" if transient else "0.0, 0.0"
+    cnt = HEATCNT.format(heat=steps + ", 0.0, 0.0, 20, 1.0e-6", fix=100.0,
+                         loads=loads, nier=2000, resid="1.0e-12",
+                         write="!WRITE, RESULT\n")
+    shi = side_faces(mods, mesh, 1, block=1 if kind == "iface" else 0)
+    return write_shuffled(path, mods, mesh, cnt, sgroups={"SHI": shi})
+
+
+def rel_diff(a, b) -> float:
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def cg_close(a, b) -> bool:
+    return len(a) == len(b) and all(abs(x - y) <= 1 for x, y in zip(a, b))
+
+
+def phase_heat_eigen_small_reference(mods) -> dict:
+    """Small decks through run_directory on the card and on the CPU
+    (which the CPU tests hold to the JAX package): steady and transient
+    heat on hex8 (the transient with a weld line), tet10 and a 2-D quad
+    and a transient on the 541 pair, all with film and radiation; EIGEN
+    on tet4 and hex8; frequency response by !EIGENREAD of the hex8 run;
+    STATICEIGEN on tet4; a heat result read by a STATIC deck's
+    !TEMPERATURE, READRESULT.  Temperatures, eigenvalues and amplitudes
+    within 1e-10 of the largest, displacements within 1e-8; fixed-point,
+    Lanczos and Newton iterations equal; CG within one per solve.
+    STATICEIGEN's K1 element launches = its Newton iterations, and K1 is
+    held to its plain version at that run's cluster plan with the
+    converged tangent, its planes entry at the run's nodal-smoothing
+    plan.  Returns the K1 entry of the kernels line."""
+    run = mods["run_directory"]
+    base = os.path.join(ROOT, "build", "smoke", "heat_eigen_small")
+
+    def both(label, write):
+        outs = [run(write(os.path.join(base, label.replace(" ", "_"), d)),
+                    device=d) for d in ("cuda", "cpu")]
+        return outs
+
+    for kind, transient in (("hex8", False), ("hex8", True),
+                            ("tet10", False), ("tet10", True),
+                            ("quad", False), ("quad", True),
+                            ("iface", True)):
+        label = f"heat {kind} {'transient' if transient else 'steady'}"
+        g, c = both(label, lambda p: small_heat_deck(mods, kind, transient,
+                                                     p))
+        hg, hc = g["heat"], c["heat"]
+        rel = rel_diff(hg.T, hc.T)
+        fp = [[r["fp"] for r in h.history] for h in (hg, hc)]
+        cg = [[x for r in h.history for x in r["cg"]] for h in (hg, hc)]
+        log(f"phase heat_eigen_small_reference: {label}, cuda vs cpu max "
+            f"rel diff {rel!r}, fixed point {fp[0]} vs {fp[1]}, cg {cg[0]} "
+            f"vs {cg[1]}")
+        if not (rel <= 1e-10 and fp[0] == fp[1] and cg_close(*cg)):
+            raise AssertionError(f"heat_eigen_small_reference: {label}")
+    mg = mods["meshgen"]
+    eig = EIGCNT.format(sol="EIGEN", nget=5, loads="", step="", nier=10000)
+    for name in ("box_tet4", "box_hex8"):
+        mesh = getattr(mg, name)(4, 2, 2, lx=4.0, ly=1.0, lz=0.6)
+        g, c = both(f"eigen {name}", lambda p: write_shuffled(p, mods, mesh,
+                                                               eig))
+        eg, ec = g["eigen"], c["eigen"]
+        rel = rel_diff(eg.eigenvalues, ec.eigenvalues)
+        cg = [[h["cg"] for h in e.history] for e in (eg, ec)]
+        log(f"phase heat_eigen_small_reference: eigen {name}, lanczos "
+            f"{eg.iters} vs {ec.iters}, eigenvalues max rel diff {rel!r}, cg "
+            f"{cg[0]} vs {cg[1]}")
+        if not (eg.iters == ec.iters and rel <= 1e-10 and cg_close(*cg)):
+            raise AssertionError(f"heat_eigen_small_reference: eigen {name}")
+    # frequency response from the hex8 eigen run's files (CPU-written)
+    fq = c["eigen"].freq
+    amps = []
+    for d in ("cuda", "cpu"):
+        wd = os.path.join(base, "freq", d)
+        shutil.rmtree(wd, ignore_errors=True)
+        shutil.copytree(os.path.join(base, "eigen_box_hex8", "cpu"), wd)
+        shutil.copy(os.path.join(wd, "0.log"), os.path.join(wd, "eigen.log"))
+        with open(os.path.join(wd, "case.cnt"), "w") as fh:
+            fh.write(FREQCNT.format(
+                f0=0.5 * float(fq[0]), f1=1.5 * float(fq[2]), nf=30,
+                ray_m=3.0, nmode=5, loads="!FLOAD, LOAD CASE=1\n X1, 3, "
+                "1.0\n!FLOAD, LOAD CASE=2\n X1, 2, 0.5\n"))
+        amps.append(run(wd, device=d)["freq"])
+    rel = max(rel_diff(getattr(amps[0], f), getattr(amps[1], f)) for f in
+              ("disp_amp_max", "vel_amp_max", "acc_amp_max", "disp_re",
+               "disp_im"))
+    log(f"phase heat_eigen_small_reference: frequency response !EIGENREAD, "
+        f"cuda vs cpu max rel diff {rel!r}")
+    if not rel <= 1e-10:
+        raise AssertionError("heat_eigen_small_reference: frequency response")
+    # STATICEIGEN: K1 once per Newton iteration
+    mesh = mg.box_tet4(4, 2, 2, lx=4.0, ly=1.0, lz=0.6)
+    se = EIGCNT.format(sol="STATICEIGEN", nget=5, nier=10000,
+                       loads="!CLOAD\n X1, 3, -20.0\n",
+                       step="!STEP, SUBSTEPS=2, CONVERG=1.0e-8\n")
+    reset_kernel_launches(mods)
+    g = run(write_shuffled(os.path.join(base, "staticeigen", "cuda"), mods,
+                           mesh, se), device="cuda")
+    launches = kernel_launch_counts(mods)
+    c = run(write_shuffled(os.path.join(base, "staticeigen", "cpu"), mods,
+                           mesh, se), device="cpu")
+    nw = [o["static"].newton for o in (g, c)]
+    its = [[h["iter"] for h in n.history] for n in nw]
+    relu = rel_diff(g["static"].u, c["static"].u)
+    rel = rel_diff(g["eigen"].eigenvalues, c["eigen"].eigenvalues)
+    log(f"phase heat_eigen_small_reference: STATICEIGEN box_tet4, newton "
+        f"{its[0]} vs {its[1]}, u max rel diff {relu!r}, lanczos "
+        f"{g['eigen'].iters} vs {c['eigen'].iters}, eigenvalues max rel "
+        f"diff {rel!r}; kernel launches {launches}")
+    if not (its[0] == its[1] and relu <= 1e-8 and rel <= 1e-10 and
+            g["eigen"].iters == c["eigen"].iters):
+        raise AssertionError("heat_eigen_small_reference: STATICEIGEN")
+    if launches["K1"] != nw[0].total_iters or launches["K1 planes"] < 1:
+        raise AssertionError(f"STATICEIGEN: K1 launches {launches}, Newton "
+                             f"iterations {nw[0].total_iters}")
+    model, nl = g["model"], mods["nonlinear"]
+    u = torch.as_tensor(np.asarray(g["static"].u).reshape(-1), device="cuda")
+    kes = []
+    for b in model.blocks:
+        p = nl.BlockPrograms(model, b)
+        u_e = nl._element_values(u, p, model.n_node, model.ndof)
+        s, _ = p.update(u_e * 0.0, u_e, nl.init_block_state(b, p.table,
+                                                            "cuda"))
+        kes.append(p.tangent(u_e, u_e * 0.0, s))
+    setup = mods["static"].cluster_setup(model, {})
+    err = check_k1(mods["segsum"], setup.cprof.plan("cuda"), kes,
+                   [b.conn.shape[1] for b in model.blocks], torch.float64,
+                   "STATICEIGEN converged tangent")
+    conn = np.concatenate([np.asarray(b.conn, np.int64).reshape(-1)
+                           for b in model.blocks])
+    plan = mods["nodal"].node_plan(conn, model.n_node, "cuda")
+    err = max(err, check_planes(mods["segsum"], plan, torch.randn(
+        (13, plan.perm.numel()), dtype=torch.float64, device="cuda",
+        generator=torch.Generator("cuda").manual_seed(13)), torch.float64,
+        "STATICEIGEN nodal smoothing"))
+    # a heat result read by a STATIC deck (!TEMPERATURE, READRESULT)
+    def readresult(p):
+        wd = small_heat_deck(mods, "hex8", False, p)
+        run(wd, device="cpu")
+        with open(os.path.join(wd, "case.cnt"), "w") as fh:
+            fh.write(READCNT)
+        with open(os.path.join(wd, "hecmw_ctrl.dat"), "a") as fh:
+            fh.write("!RESULT, NAME=fstrTEMP, IO=IN\n mesh.res\n")
+        return wd
+    g, c = with_env({"FRONTISTR_TPU_PRECISION": "f64"},
+                    lambda: both("readresult", readresult))
+    relu = rel_diff(g["static"].u, c["static"].u)
+    log(f"phase heat_eigen_small_reference: heat -> !TEMPERATURE, "
+        f"READRESULT static hex8, T max {g['model'].temperature.max()!r}, "
+        f"u max rel diff {relu!r}")
+    if not (relu <= 1e-8 and g["model"].temperature.max() > 90.0):
+        raise AssertionError("heat_eigen_small_reference: READRESULT")
+    return {"launches": launches["K1"], "planes_launches":
+            launches["K1 planes"], "newton_iters": nw[0].total_iters,
+            "max_abs_err": err}
+
+
 def with_env(env: dict, fn):
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
@@ -1517,6 +1989,45 @@ def compare_runs(phase: str, label: str, r_gpu, r_cpu):
                              "different paths")
 
 
+def load_mods() -> dict:
+    """The port's modules the phases use, by name."""
+    sys.path.insert(0, ROOT)
+    from frontistr_tpu_torch import kernels, meshgen, ordering
+    from frontistr_tpu_torch.analysis import dynamic, heat, nonlinear
+    from frontistr_tpu_torch.analysis import static as stmod
+    from frontistr_tpu_torch.assembly import bell, femop, structured
+    from frontistr_tpu_torch.assembly import segsum as sm
+    from frontistr_tpu_torch.assembly.loads import FACE_TABLES
+    from frontistr_tpu_torch.assembly.model import build_struct_model
+    from frontistr_tpu_torch.elements.tables import (HECMW2FSTR_ORDER,
+                                                     get_table)
+    from frontistr_tpu_torch.io.meshio import ElemBlock
+    from frontistr_tpu_torch.io.resfile import read_result
+    from frontistr_tpu_torch.assembly.operators import make_free_mask
+    from frontistr_tpu_torch.io.ctrlio import read_cnt
+    from frontistr_tpu_torch.io.neu import write_static_workdir
+    from frontistr_tpu_torch.meshgen import box_hex8, box_tet4
+    from frontistr_tpu_torch.microbench import gather as mb
+    from frontistr_tpu_torch.microbench import segsum as mbs
+    from frontistr_tpu_torch.ops import element_mv as em
+    from frontistr_tpu_torch.ops import gather as g
+    from frontistr_tpu_torch.post import nodal
+    from frontistr_tpu_torch.run import run_directory
+    from frontistr_tpu_torch.solver import amg
+    return dict(segsum=sm, element_mv=em, static=stmod, bell=bell,
+                structured=structured, ordering=ordering,
+                nonlinear=nonlinear, box_tet4=box_tet4, box_hex8=box_hex8,
+                build_struct_model=build_struct_model, read_cnt=read_cnt,
+                write_static_workdir=write_static_workdir,
+                run_directory=run_directory, amg=amg, nodal=nodal,
+                make_free_mask=make_free_mask, face_tables=FACE_TABLES,
+                hecmw2fstr=HECMW2FSTR_ORDER, ElemBlock=ElemBlock,
+                read_result=read_result, dynamic=dynamic, gather=g,
+                heat=heat, femop=femop, get_table=get_table,
+                meshgen=meshgen, kernels=kernels, microbench_gather=mb,
+                microbench_segsum=mbs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=40,
@@ -1540,6 +2051,13 @@ def main(argv=None) -> int:
                          "(default 69)")
     ap.add_argument("--dyn-hex-steps", type=int, default=10,
                     help="implicit time steps (default 10)")
+    ap.add_argument("--heat-n", type=int, default=100,
+                    help="box_hex8(h, h, h) for the heat path (default 100)")
+    ap.add_argument("--heat-steps", type=int, default=20,
+                    help="heat time steps (default 20)")
+    ap.add_argument("--eigen-n", type=int, default=48,
+                    help="box_hex8(e, e, e) for the eigen and frequency "
+                         "response paths (default 48)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -1548,37 +2066,11 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
-    from frontistr_tpu_torch import kernels, ordering
-    from frontistr_tpu_torch.analysis import dynamic, nonlinear
-    from frontistr_tpu_torch.analysis import static as stmod
-    from frontistr_tpu_torch.assembly import bell, structured
-    from frontistr_tpu_torch.assembly import segsum as sm
-    from frontistr_tpu_torch.assembly.loads import FACE_TABLES
-    from frontistr_tpu_torch.assembly.model import build_struct_model
-    from frontistr_tpu_torch.elements.tables import HECMW2FSTR_ORDER
-    from frontistr_tpu_torch.io.meshio import ElemBlock
-    from frontistr_tpu_torch.io.resfile import read_result
-    from frontistr_tpu_torch.assembly.operators import make_free_mask
-    from frontistr_tpu_torch.io.ctrlio import read_cnt
-    from frontistr_tpu_torch.io.neu import write_static_workdir
-    from frontistr_tpu_torch.meshgen import box_hex8, box_tet4
-    from frontistr_tpu_torch.microbench import gather as mb
-    from frontistr_tpu_torch.microbench import segsum as mbs
-    from frontistr_tpu_torch.ops import element_mv as em
-    from frontistr_tpu_torch.ops import gather as g
-    from frontistr_tpu_torch.post import nodal
-    from frontistr_tpu_torch.run import run_directory
-    from frontistr_tpu_torch.solver import amg
-    mods = dict(segsum=sm, element_mv=em, static=stmod, bell=bell,
-                structured=structured, ordering=ordering,
-                nonlinear=nonlinear, box_tet4=box_tet4, box_hex8=box_hex8,
-                build_struct_model=build_struct_model, read_cnt=read_cnt,
-                write_static_workdir=write_static_workdir,
-                run_directory=run_directory, amg=amg, nodal=nodal,
-                make_free_mask=make_free_mask, face_tables=FACE_TABLES,
-                hecmw2fstr=HECMW2FSTR_ORDER, ElemBlock=ElemBlock,
-                read_result=read_result, dynamic=dynamic, gather=g)
+    mods = load_mods()
+    sm, em, g = mods["segsum"], mods["element_mv"], mods["gather"]
+    bell, stmod = mods["bell"], mods["static"]
+    box_tet4, box_hex8 = mods["box_tet4"], mods["box_hex8"]
+    mb, mbs = mods["microbench_gather"], mods["microbench_segsum"]
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1590,7 +2082,7 @@ def main(argv=None) -> int:
 
     # 2. build: one nvcc per kernel source, all at once
     t0 = time.perf_counter()
-    libs = kernels.build(verbose=True)
+    libs = mods["kernels"].build(verbose=True)
     log(f"phase build: {', '.join(os.path.relpath(p, ROOT) for p in libs.values())} "
         f"in {time.perf_counter() - t0:.2f} s")
 
@@ -1650,6 +2142,20 @@ def main(argv=None) -> int:
         phase_dynamic_implicit_main_path(args, mods)
     torch.cuda.empty_cache()
     phase_dynamic_small_reference(mods)
+
+    # 11. the heat path, the eigen path and the frequency response from
+    #     its files (the matrix-free operator and the incidence
+    #     gather-sum, no kernel), then small decks on the card and on the
+    #     CPU, STATICEIGEN's K1 launches among them
+    torch.cuda.empty_cache()
+    phase_heat_main_path(args, mods)
+    torch.cuda.empty_cache()
+    wd, mesh, er = phase_eigen_main_path(args, mods)
+    phase_freq_main_path(mods, wd, mesh, er)
+    del mesh, er
+    torch.cuda.empty_cache()
+    k1_row["staticeigen_small_reference"] = \
+        phase_heat_eigen_small_reference(mods)
 
     log(f"phase total: {time.perf_counter() - t_start:.2f} s")
     log(smi)

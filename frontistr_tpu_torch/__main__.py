@@ -4,6 +4,8 @@
 import argparse
 import sys
 
+import numpy as np
+
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="frontistr_tpu_torch",
@@ -25,27 +27,43 @@ def main(argv=None):
         p.error("--device cuda: no CUDA device is available")
     from frontistr_tpu_torch.run import run_directory
     out = run_directory(args.workdir, device=args.device)
-    if "dynamic" in out:
-        dr = out["dynamic"]
-        cg = sum(sum(h["cg"]) for h in dr.history)
-        print(f"### dynamic: {dr.arm} steps={dr.steps} "
-              f"newton_iters={sum(h['newton'] for h in dr.history)} "
-              f"cg_iters={cg}")
-        print(f"### frontistr_tpu_torch completed "
-              f"({out['total_time']:.2f} s)")
-        return 0
-    res = out["static"]
-    if res.newton is not None:
-        nw = res.newton
-        print(f"### newton: policy={res.policy} substeps={nw.substeps} "
-              f"iterations={nw.total_iters} cutbacks={nw.cutbacks} "
-              f"cg_iters={sum(h['cg_iters'] for h in nw.history)}")
-    else:
-        print(f"### solve: policy={res.policy} iters={res.iters} "
-              f"passes={res.passes} relres={res.relres:.3e}")
+    for line in _summary(out):
+        print(line)
     print(f"### frontistr_tpu_torch completed ({out['total_time']:.2f} s)")
     return 0
 
+
+def _summary(out):
+    """One line for each result of a ``run_directory`` output."""
+    if "heat" in out:
+        hr = out["heat"]
+        yield (f"### heat: steps={hr.steps} fixed_point_iters={hr.iters} "
+               f"cg_iters={sum(sum(h['cg']) for h in hr.history)}")
+    if "freq" in out:
+        fr = out["freq"]
+        k = int(np.argmax(fr.disp_amp_max))
+        yield (f"### frequency response: {len(fr.freqs)} frequencies, "
+               f"peak disp_amp_max {fr.disp_amp_max[k]:.6e} at "
+               f"{fr.freqs[k]:.6e} Hz")
+    if "dynamic" in out:
+        dr = out["dynamic"]
+        cg = sum(sum(h["cg"]) for h in dr.history)
+        yield (f"### dynamic: {dr.arm} steps={dr.steps} "
+               f"newton_iters={sum(h['newton'] for h in dr.history)} "
+               f"cg_iters={cg}")
+    res = out.get("static")
+    if res is not None and res.newton is not None:
+        nw = res.newton
+        yield (f"### newton: policy={res.policy} substeps={nw.substeps} "
+               f"iterations={nw.total_iters} cutbacks={nw.cutbacks} "
+               f"cg_iters={sum(h['cg_iters'] for h in nw.history)}")
+    elif res is not None:
+        yield (f"### solve: policy={res.policy} iters={res.iters} "
+               f"passes={res.passes} relres={res.relres:.3e}")
+    if "eigen" in out:
+        er = out["eigen"]
+        yield (f"### eigen: lanczos_iters={er.iters} "
+               f"first_freq={er.freq[0]:.6e} Hz")
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -37,6 +37,25 @@ FACE_TABLES: Dict[int, List] = {
           (232, [3, 2, 1, 9, 5, 8]), (232, [3, 0, 2, 7, 6, 9])],
     361: [(241, [0, 1, 2, 3]), (241, [7, 6, 5, 4]), (241, [4, 5, 1, 0]),
           (241, [5, 6, 2, 1]), (241, [6, 7, 3, 2]), (241, [7, 4, 0, 3])],
+    # the faces of the heat slice's other element types
+    362: [(242, [0, 1, 2, 3, 8, 9, 10, 11]),
+          (242, [7, 6, 5, 4, 14, 13, 12, 15]),
+          (242, [4, 5, 1, 0, 12, 17, 8, 16]),
+          (242, [5, 6, 2, 1, 13, 18, 9, 17]),
+          (242, [6, 7, 3, 2, 14, 19, 10, 18]),
+          (242, [7, 4, 0, 3, 15, 16, 11, 19])],
+    351: [(231, [0, 1, 2]), (231, [5, 4, 3]), (241, [3, 4, 1, 0]),
+          (241, [4, 5, 2, 1]), (241, [5, 3, 0, 2])],
+    352: [(232, [0, 1, 2, 6, 7, 8]), (232, [5, 4, 3, 10, 9, 11]),
+          (242, [3, 4, 1, 0, 9, 13, 6, 12]),
+          (242, [4, 5, 2, 1, 10, 14, 7, 13]),
+          (242, [5, 3, 0, 2, 11, 12, 8, 14])],
+    # 2D edges (faces of plane elements; face elements are line2/line3)
+    231: [(111, [0, 1]), (111, [1, 2]), (111, [2, 0])],
+    232: [(112, [0, 1, 3]), (112, [1, 2, 4]), (112, [2, 0, 5])],
+    241: [(111, [0, 1]), (111, [1, 2]), (111, [2, 3]), (111, [3, 0])],
+    242: [(112, [0, 1, 4]), (112, [1, 2, 5]), (112, [2, 3, 6]),
+          (112, [3, 0, 7])],
 }
 
 _LTYPE = {"BX": 1, "BY": 2, "BZ": 3, "GRAV": 4, "CENT": 5,

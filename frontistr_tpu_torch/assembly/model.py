@@ -2,7 +2,8 @@
 loads (torch port of ``frontistr_tpu/assembly/model.py``, the slice the
 solid STATIC and NLSTATIC paths need: tet4, tet10 and hex8 blocks of an
 isotropic ELASTIC or !PLASTIC material, CLOAD, DLOAD and TEMPERATURE
-loads).
+loads, the temperatures given by node group or read from a heat run's
+result, ``!TEMPERATURE, READRESULT``).
 
 The model itself stays host numpy, as in the JAX package: the symbolic
 profiles are built from it on the host, and ``analysis/static.py`` moves
@@ -202,8 +203,6 @@ def check_slice(mesh: Mesh, cfg: AnalysisConfig) -> None:
     for name, cards in unported:
         if cards:
             raise NotImplementedError(f"{name} card")
-    if any(c.iparam("READRESULT", 0) > 0 for c in cfg.temperatures):
-        raise NotImplementedError("!TEMPERATURE, READRESULT")
     for b in mesh.blocks:
         if b.etype not in SLICE_ETYPES:
             raise NotImplementedError(
@@ -285,6 +284,10 @@ def build_struct_model(mesh: Mesh, cfg: AnalysisConfig,
     if cfg.temperatures:
         T = loads.collect_temperature(mesh, cfg.temperatures, n_node,
                                       cfg.reftemp, lgrp)
+        if T is None and getattr(cfg, "temp_read_field", None) is not None:
+            # READRESULT import (readtemp.f90): the nodal field of a heat
+            # run's result file, set by the runner
+            T = np.asarray(cfg.temp_read_field, float)
         if T is not None:
             model.temperature = T
             tl = loads.thermal_load(model, T)

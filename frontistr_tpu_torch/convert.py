@@ -9,8 +9,10 @@ turns per-block Newton states (dicts of arrays: stress, strain, the
 plastic state ``pstrain``/``pstrain_new``/``yielded``/``back`` and the
 rest of ``init_block_state``) into the port's, and
 ``plastic_params_from_numpy`` a ``PlasticParams`` of the JAX package into
-the port's.  They read attributes and arrays only and import nothing of
-JAX, so the parity tests can feed both packages identical inputs.
+the port's, and ``heat_model_from_numpy`` a heat model
+(``frontistr_tpu.analysis.heat.HeatModel``) into the port's.  They read
+attributes and arrays only and import nothing of JAX, so the parity
+tests can feed both packages identical inputs.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from frontistr_tpu_torch.analysis import heat
 from frontistr_tpu_torch.assembly.model import KBlock, StructModel
 from frontistr_tpu_torch.device import resolve
 from frontistr_tpu_torch.fem import material as mat
@@ -93,3 +96,37 @@ def plastic_params_from_numpy(src) -> PlasticParams:
         table=None if src.table is None
         else np.asarray(src.table, np.float64),
         yield_func=str(src.yield_func))
+
+
+def heat_model_from_numpy(src, device="cuda") -> heat.HeatModel:
+    """Port ``HeatModel`` solved on ``device`` from ``src``'s fields: the
+    coordinates, the blocks (connectivity, material tables, interface
+    section), the FIXTEMP set, the constant flux, the film and radiation
+    entries and the weld lines.  The mesh and deck are carried as they
+    are."""
+    blocks = [heat.HeatBlock(
+        int(b.etype), np.asarray(b.elem_ids), np.asarray(b.conn),
+        float(b.thick), np.asarray(b.cond_table, np.float64),
+        np.asarray(b.rho_table, np.float64),
+        np.asarray(b.cp_table, np.float64),
+        None if b.iface is None else tuple(float(v) for v in b.iface))
+        for b in src.blocks]
+
+    def entries(rows):
+        return [(int(bi), np.asarray(sel, np.int64), int(face), float(c),
+                 float(sink)) for bi, sel, face, c, sink in rows]
+
+    welds = [heat.WeldLine(
+        float(w.current), float(w.voltage), float(w.coe), float(w.v),
+        int(w.xyz), float(w.n1), float(w.n2), float(w.distol),
+        float(w.tstart),
+        [(int(bi), np.asarray(sel, np.int64)) for bi, sel in w.elems])
+        for w in src.weldlines]
+    return heat.HeatModel(
+        src.mesh, src.cfg, int(src.n_node),
+        np.asarray(src.coords, np.float64), int(src.dim), blocks,
+        np.asarray(src.fixtemp_nodes, np.int64),
+        np.asarray(src.fixtemp_vals, np.float64),
+        np.asarray(src.f_const, np.float64), entries(src.films),
+        entries(src.radiates), zero_temp=float(src.zero_temp),
+        weldlines=welds, device=resolve(device))

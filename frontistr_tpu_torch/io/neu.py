@@ -1,7 +1,8 @@
 """HECMW-ENTIRE ``.msh`` writer (``write_fstr_msh`` copied from
-``frontistr_tpu/io/neu.py``; the NEU reader is not part of the port
-yet) and ``write_static_workdir``, which writes a runnable STATIC work
-directory for a generated mesh."""
+``frontistr_tpu/io/neu.py``, plus the initial conditions and !ZERO; the
+NEU reader is not part of the port yet) and ``write_static_workdir``,
+which writes a runnable work directory for a generated mesh and a
+deck."""
 
 from __future__ import annotations
 
@@ -58,6 +59,12 @@ def write_fstr_msh(mesh: Mesh, path: str) -> None:
                     f"{int(mesh.node_ids[nd])}, {int(df)}, {float(cf)!r}"
                     for nd, df, cf in zip(eq.nodes, eq.dofs, eq.coefs))
                     + "\n")
+        for typ, rows in mesh.initial_conditions.items():
+            f.write(f"!INITIAL CONDITION, TYPE={typ}\n")
+            f.writelines(f" {int(mesh.node_ids[int(k)])}, {float(v)!r}\n"
+                         for k, v in rows if k >= 0)
+        if mesh.zero_temp:
+            f.write(f"!ZERO\n {float(mesh.zero_temp)!r}\n")
         f.write("!END\n")
 
 

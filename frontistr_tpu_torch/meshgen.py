@@ -3,7 +3,9 @@
 The reference ships meshes for most fixtures but tutorials 01/02/04/15/16/18
 omit theirs, and benchmarking needs arbitrary-size meshes (BASELINE.md
 "1M DOF").  This generator produces ``Mesh`` objects directly (same dataclass
-the .msh reader yields) for box domains in hex8/hex20/tet4/prism6.
+the .msh reader yields) for box domains in hex8 and tet4, plane boxes
+of quad4 or tri3 (the 2-D heat decks) and two hex8 cubes joined by 541
+gap elements (the heat interface decks).
 """
 
 from __future__ import annotations
@@ -89,3 +91,80 @@ def box_tet4(nx: int, ny: int, nz: int, **kw) -> Mesh:
     m.elem_groups = {"ALL": block.elem_ids}
     m.structured = None          # tets take no stencil fast path
     return m
+
+
+def box_plane(nx: int, ny: int, lx: float = 1.0, ly: float = 1.0,
+              etype: int = 241, thick: float = 0.5) -> Mesh:
+    """Plane box of nx*ny quad4 (241) elements in the x-y plane, or
+    2*nx*ny tri3 (231), each quad split along its 0-2 diagonal; a section
+    of thickness ``thick`` and the node groups X0/X1/Y0/Y1/ALL."""
+    assert etype in (231, 241)
+    xs, ys = np.linspace(0, lx, nx + 1), np.linspace(0, ly, ny + 1)
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    coords = np.stack([X.ravel(), Y.ravel(), np.zeros(X.size)], axis=1)
+    n_node = coords.shape[0]
+    I, J = (a.ravel() for a in np.meshgrid(np.arange(nx), np.arange(ny),
+                                           indexing="ij"))
+    q = np.stack([I * (ny + 1) + J, (I + 1) * (ny + 1) + J,
+                  (I + 1) * (ny + 1) + J + 1, I * (ny + 1) + J + 1], axis=1)
+    conn = (np.concatenate([q[:, [0, 1, 2]], q[:, [0, 2, 3]]])
+            if etype == 231 else q).astype(np.int32)
+    elem_ids = np.arange(1, len(conn) + 1, dtype=np.int64)
+    node_ids = np.arange(1, n_node + 1, dtype=np.int64)
+    idx = np.arange(n_node).reshape(nx + 1, ny + 1)
+    groups = {"ALL": np.arange(n_node, dtype=np.int64),
+              "X0": idx[0].astype(np.int64), "X1": idx[-1].astype(np.int64),
+              "Y0": idx[:, 0].astype(np.int64),
+              "Y1": idx[:, -1].astype(np.int64)}
+    return Mesh(
+        header="generated plane box", coords=coords, node_ids=node_ids,
+        id2idx={int(g): int(g) - 1 for g in node_ids},
+        blocks=[ElemBlock(etype, elem_ids, conn, conn, 0)],
+        sections=[Section("SOLID", "ALL", "M1", [thick])],
+        materials={"M1": MaterialDef("M1", {})}, node_groups=groups,
+        elem_groups={"ALL": elem_ids}, surf_groups={}, amplitudes={},
+        equations=[], contact_pairs=[], initial_conditions={})
+
+
+def hex8_pair_541(n: int, gap_section=(0.05, 2.0, 5.67e-11, 5.67e-11)
+                  ) -> Mesh:
+    """Two ``box_hex8(n, n, n)`` unit cubes side by side along x (the
+    right one on [1, 2]), the nodes of their touching faces apart and
+    joined by n*n 541 gap elements: nodes 1-4 a face of the left cube,
+    5-8 the matching nodes of the right one.  Element groups SOLID (both
+    cubes, section 1) and GAP (section 2, ``!SECTION, TYPE=INTERFACE``
+    with ``gap_section`` = thickness, conductance, rr1, rr2); node groups
+    X0 (x = 0), X1 (x = 2) and ALL."""
+    a = box_hex8(n, n, n)
+    na = a.n_node
+    coords = np.concatenate([a.coords, a.coords + [1.0, 0.0, 0.0]])
+    ca = a.blocks[0].conn.astype(np.int64)
+    face = [1, 2, 6, 5]                 # the +x face of an FSTR hex8
+    left = ca[np.isclose(a.coords[ca[:, face], 0], 1.0).all(axis=1)][:, face]
+    # the right cube's node at a left node's (y, z) is the node at x = 0
+    # with the same grid index: box_hex8 numbers x slowest
+    right = left - n * (n + 1) ** 2 + na
+    gap = np.concatenate([left, right], axis=1).astype(np.int32)
+    E = len(ca)
+    ids = [np.arange(1, E + 1), np.arange(E + 1, 2 * E + 1),
+           np.arange(2 * E + 1, 2 * E + 1 + len(gap))]
+    nn = len(coords)
+    x = coords[:, 0]
+    node_ids = np.arange(1, nn + 1, dtype=np.int64)
+    return Mesh(
+        header="generated 541 pair", coords=coords, node_ids=node_ids,
+        id2idx={int(g): int(g) - 1 for g in node_ids},
+        blocks=[ElemBlock(361, ids[0], ca.astype(np.int32),
+                          ca.astype(np.int32), 0),
+                ElemBlock(361, ids[1], (ca + na).astype(np.int32),
+                          (ca + na).astype(np.int32), 0),
+                ElemBlock(541, ids[2], gap, gap, 1)],
+        sections=[Section("SOLID", "SOLID", "M1", [1.0]),
+                  Section("INTERFACE", "GAP", "M1", list(gap_section))],
+        materials={"M1": MaterialDef("M1", {})},
+        node_groups={"ALL": np.arange(nn, dtype=np.int64),
+                     "X0": np.flatnonzero(np.isclose(x, 0.0)),
+                     "X1": np.flatnonzero(np.isclose(x, 2.0))},
+        elem_groups={"SOLID": np.concatenate(ids[:2]), "GAP": ids[2]},
+        surf_groups={}, amplitudes={}, equations=[], contact_pairs=[],
+        initial_conditions={})

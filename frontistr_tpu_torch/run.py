@@ -1,21 +1,29 @@
 """Top-level analysis runner (torch port of the STATIC / NLSTATIC /
-DYNAMIC dispatch of ``frontistr_tpu/run.py``; reference fstr_main,
-fistr1/src/main/fistr_main.f90:38-114): read the control files, reorder,
-run the analysis on the chosen device, write ``0.log`` and ``FSTR.msg``
-(and ``FSTR.sta`` for the Newton driver).
+DYNAMIC / HEAT / EIGEN / STATICEIGEN dispatch of ``frontistr_tpu/run.py``;
+reference fstr_main, fistr1/src/main/fistr_main.f90:38-114): read the
+control files, reorder, run the analysis on the chosen device, write
+``0.log`` and ``FSTR.msg`` (and ``FSTR.sta`` for the Newton driver).
 
 A linear-elastic STATIC deck runs the linear static analysis; NLSTATIC,
 or any deck with geometric nonlinearity or a !PLASTIC material, runs the
 Newton driver of ``analysis/nonlinear.py``; DYNAMIC (time history) runs
 ``analysis/dynamic.py``, implicit Newmark or explicit central
-difference, with ``dyna_*.out`` monitor files beside the log.
+difference, with ``dyna_*.out`` monitor files beside the log; a DYNAMIC
+deck with ``idx_resp = 2`` is a frequency response by modal
+superposition (``analysis/freq.py``), its modes from ``!EIGENREAD`` files
+or an in-process Lanczos run; HEAT runs ``analysis/heat.py``, steady or
+transient; EIGEN the shift-invert Lanczos of ``analysis/eigen.py``;
+STATICEIGEN the Newton driver and then Lanczos about its converged
+tangent.  ``!TEMPERATURE, READRESULT=n`` imports the nodal temperatures
+of a heat run's result files (the fstrTEMP binding) as the thermal load.
 ``!WRITE, RESULT`` writes ``<!RESULT name>.0.<step>``, text or
 (``TYPE=BINARY``) binary, as the JAX runner does: the final static
-result as step 1, a dynamic run's DISPLACEMENT, VELOCITY and
-ACCELERATION every FREQUENCY steps (and at the last step).  Everything
-else the JAX runner dispatches (heat, eigen, frequency response, u-p
-flow, visualization output, restart, sharding, profiling, user modules)
-raises ``NotImplementedError`` naming what was asked for.
+result as step 1; a dynamic run's DISPLACEMENT, VELOCITY and
+ACCELERATION and a heat run's TEMPERATURE every FREQUENCY steps (and at
+the last step); one file a mode for EIGEN.  Everything else the JAX
+runner dispatches (u-p flow, visualization output, restart, sharding,
+profiling, user modules) raises ``NotImplementedError`` naming what was
+asked for.
 """
 
 from __future__ import annotations
@@ -24,15 +32,26 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from frontistr_tpu_torch import device as devmod
 from frontistr_tpu_torch import ordering
+from frontistr_tpu_torch.analysis.dynamic import run_dynamic
+from frontistr_tpu_torch.analysis.eigen import run_eigen
+from frontistr_tpu_torch.analysis.freq import (load_eigenread,
+                                               run_frequency,
+                                               run_static_eigen)
+from frontistr_tpu_torch.analysis.heat import run_heat
+from frontistr_tpu_torch.analysis.nonlinear import run_nonlinear_static
+from frontistr_tpu_torch.analysis.static import run_linear_static
+from frontistr_tpu_torch.assembly.model import build_struct_model
 from frontistr_tpu_torch.fem import material as mat
 from frontistr_tpu_torch.io import logio
 from frontistr_tpu_torch.io.ctrlio import read_cnt
 from frontistr_tpu_torch.io.hecmw_ctrl import read_hecmw_ctrl
 from frontistr_tpu_torch.io.meshio import read_mesh
-from frontistr_tpu_torch.io.resfile import (write_result, write_result_bin,
+from frontistr_tpu_torch.io.resfile import (read_result_any, write_result,
+                                            write_result_bin,
                                             write_static_result)
 
 # JAX-package switches whose feature this slice does not carry
@@ -45,7 +64,8 @@ def _check_request(ctrl, cfg) -> None:
         if os.environ.get(name, "") not in ("", "0"):
             raise NotImplementedError(f"{name} (not in the torch port yet)")
     sol = cfg.solution_type.upper()
-    if sol not in ("STATIC", "NLSTATIC", "DYNAMIC"):
+    if sol not in ("STATIC", "NLSTATIC", "DYNAMIC", "HEAT", "EIGEN",
+                   "STATICEIGEN"):
         raise NotImplementedError(f"solution type {sol}")
     for flag, card in ((cfg.write_visual, "!WRITE, VISUAL"),
                        (cfg.restart is not None, "!RESTART"),
@@ -57,15 +77,15 @@ def _check_request(ctrl, cfg) -> None:
 def run_directory(workdir: str, log_name: str = "0.log",
                   device="cuda") -> dict:
     """Run the analysis configured by ``workdir/hecmw_ctrl.dat`` on
-    ``device``.  Returns a dict with the mesh, deck, model, the
-    ``StaticResult`` under "static" (its ``timings`` hold every phase's
-    seconds, its ``newton`` the Newton driver's stats) or the
-    ``DynamicResult`` under "dynamic" (with "_snapshots", the steps whose
-    result file was written during the run), and "total_time"."""
-    from frontistr_tpu_torch.analysis.dynamic import run_dynamic
-    from frontistr_tpu_torch.analysis.nonlinear import run_nonlinear_static
-    from frontistr_tpu_torch.analysis.static import run_linear_static
-    from frontistr_tpu_torch.assembly.model import build_struct_model
+    ``device``.  Returns a dict with the mesh, deck and model (the
+    ``HeatModel`` of a heat run: ``out["heat"].solver.model``), the
+    result under its analysis's key: "static" (a ``StaticResult``; its
+    ``timings`` hold every phase's seconds, its ``newton`` the Newton
+    driver's stats), "dynamic" (a ``DynamicResult``), "heat" (a
+    ``HeatResult``), "eigen" (an ``EigenResult``; STATICEIGEN has both
+    "static" and "eigen") or "freq" (a ``FreqResult``); "_snapshots",
+    the steps whose result file was written during a transient run;
+    "timings" (seconds by phase) and "total_time"."""
     dev = devmod.resolve(device)
     t_start = time.time()
     timings: dict = {}
@@ -78,33 +98,52 @@ def run_directory(workdir: str, log_name: str = "0.log",
         raise NotImplementedError("!MESH REFINE")
     cfg = read_cnt(ctrl.path(ctrl.control()))
     _check_request(ctrl, cfg)
+    sol = cfg.solution_type.upper()
     with devmod.Phase(timings, "read", dev):
         mesh = read_mesh(ctrl.path(mb))
-    if cfg.solution_type.upper() == "DYNAMIC" and \
-            any(b.etype == 3414 for b in mesh.blocks):
+    if sol == "DYNAMIC" and any(b.etype == 3414 for b in mesh.blocks):
         raise NotImplementedError("u-p flow meshes (3414) in DYNAMIC")
     with devmod.Phase(timings, "reorder", dev):
         mesh = ordering.maybe_reorder(mesh)
+    _read_temperature_result(ctrl, cfg, mesh)
+    log_path = os.path.join(workdir, log_name)
+    out = {"mesh": mesh, "cfg": cfg, "ctrl": ctrl, "timings": timings}
+    if sol == "HEAT":
+        return _finish(workdir, out, t_start, time.time(),
+                       **_run_heat(ctrl, cfg, mesh, log_path, dev, timings))
     with devmod.Phase(timings, "model", dev):
         model = build_struct_model(mesh, cfg, device=dev)
     t_pre = time.time()
-    log_path = os.path.join(workdir, log_name)
-    out = {"mesh": mesh, "cfg": cfg, "ctrl": ctrl, "model": model}
-    if cfg.solution_type.upper() == "DYNAMIC":
-        cb, written = _snapshot_cb(ctrl, cfg, mesh)
+    out["model"] = model
+    d = cfg.dynamic
+    if sol == "DYNAMIC" and d is not None and d.idx_resp == 2:
+        return _finish(workdir, out, t_start, t_pre,
+                       freq=_run_frequency(ctrl, cfg, model, workdir,
+                                           log_path))
+    if sol == "DYNAMIC":
+        cb, written = _snapshot_cb(ctrl, cfg, _dynamic_result_writer, mesh)
         dr = run_dynamic(model, log_path=log_path, on_interval=cb)
         dr.timings.update(timings)
         if cfg.write_result and ctrl.result() is not None and \
                 dr.steps not in written:
-            with devmod.Phase(dr.timings, "result", dev):
+            with devmod.Phase(timings, "result", dev):
                 _dynamic_result_writer(ctrl, mesh)(dr.steps, None, dr.u,
                                                    dr.vel, dr.acc)
-        total = time.time() - t_start
-        _write_msg(workdir, t_pre - t_start, total)
-        out.update(dynamic=dr, _snapshots=written, total_time=total)
-        return out
-    if cfg.solution_type.upper() == "NLSTATIC" or cfg.nlgeom or \
-            _needs_newton(model):
+        return _finish(workdir, out, t_start, t_pre, dynamic=dr,
+                       _snapshots=written)
+    if sol == "EIGEN":
+        er = run_eigen(model, log_path=log_path)
+        if cfg.write_result and ctrl.result() is not None:
+            with devmod.Phase(timings, "result", dev):
+                _write_modes(ctrl, mesh, model, er)
+        return _finish(workdir, out, t_start, t_pre, eigen=er)
+    if sol == "STATICEIGEN":
+        # fstr_main kstSTATICEIGEN (fistr_main.f90:84-85): the EGLIST
+        # block is appended to the Newton driver's 0.log
+        res, er = run_static_eigen(model, log_path=log_path,
+                                   timings=timings)
+        out["eigen"] = er
+    elif sol == "NLSTATIC" or cfg.nlgeom or _needs_newton(model):
         res = run_nonlinear_static(model, log_path=log_path,
                                    timings=timings)
     else:
@@ -122,16 +161,111 @@ def run_directory(workdir: str, log_name: str = "0.log",
             write_static_result(
                 ctrl.path(rb) + ".0.1", mesh, model, res, step=1,
                 binary=rb.params.get("TYPE", "TEXT").upper() == "BINARY")
+    return _finish(workdir, out, t_start, t_pre, static=res)
+
+
+def _finish(workdir, out, t_start, t_pre, **results) -> dict:
     total = time.time() - t_start
     _write_msg(workdir, t_pre - t_start, total)
-    out.update(static=res, total_time=total)
+    out.update(results, total_time=total)
     return out
 
 
-def _snapshot_cb(ctrl, cfg, mesh):
+def _read_temperature_result(ctrl, cfg, mesh) -> None:
+    """'!TEMPERATURE, READRESULT=n[,SSTEP=s][,INTERVAL=i]': the nodal
+    temperatures of the fstrTEMP result binding's last snapshot
+    ``<base>.0.<k>`` (k = s, s+i, ... <= n; readtemp.f90
+    read_temperature_result) become ``cfg.temp_read_field``, in mesh
+    order; nodes the file does not name stay at REFTEMP.  Without the
+    binding or a file, nothing is imported, as in the JAX runner."""
+    tr = [c for c in cfg.temperatures if c.iparam("READRESULT", 0) > 0]
+    rb = ctrl.result("fstrTEMP") if tr else None
+    if rb is None:
+        return
+    base = ctrl.path(rb)
+    c0 = tr[0]
+    last = None
+    for k in range(c0.iparam("SSTEP", 1), c0.iparam("READRESULT", 1) + 1,
+                   c0.iparam("INTERVAL", 1)):
+        if os.path.exists(f"{base}.0.{k}"):
+            last = f"{base}.0.{k}"
+    if last is None:
+        return
+    comps = read_result_any(last)
+    vals = np.asarray(comps["node_comps"][0][1]).reshape(-1)
+    T = np.full(mesh.n_node, cfg.reftemp, float)
+    for nid, v in zip(comps["node_ids"], vals):
+        idx = mesh.id2idx.get(int(nid))
+        if idx is not None:
+            T[idx] = v
+    cfg.temp_read_field = T
+
+
+def _run_heat(ctrl, cfg, mesh, log_path, dev, timings) -> dict:
+    cb, written = _snapshot_cb(ctrl, cfg, _heat_result_writer, mesh)
+    hr = run_heat(mesh, cfg, log_path=log_path, on_interval=cb, device=dev,
+                  timings=timings)
+    if cfg.write_result and ctrl.result() is not None and \
+            hr.steps not in written:
+        # the final state, when the cadence did not write it
+        with devmod.Phase(timings, "result", dev):
+            _heat_result_writer(ctrl, mesh)(hr.steps, None, hr.T)
+    return dict(heat=hr, _snapshots=written)
+
+
+def _run_frequency(ctrl, cfg, model, workdir, log_path):
+    """Frequency response (fstr_frequency_analysis): the !DYNAMIC row-2
+    fields are the frequency window (f_start, f_end, n_points), Rayleigh
+    from row 4; the modes from the !EIGENREAD files, else an in-process
+    Lanczos run; the 0.log table of the amplitude maxima."""
+    d = cfg.dynamic
+    eig_in = None
+    if cfg.eigenread is not None:
+        eig_in = load_eigenread(cfg.eigenread, workdir, ctrl, model)
+    fr = run_frequency(model, d.t_start, d.t_end, n_freq=max(d.n_step, 1),
+                       ray_alpha=d.ray_m, ray_beta=d.ray_k,
+                       eigen_result=eig_in)
+    with open(log_path, "w") as fh:
+        fh.write(" FREQUENCY RESPONSE (modal superposition)\n")
+        if cfg.eigenread is not None:
+            fh.write("  modes imported via !EIGENREAD\n" if eig_in
+                     is not None else
+                     "  EIGENREAD files missing; modes recomputed "
+                     "in-process\n")
+        fh.write("  freq        disp_amp_max  vel_amp_max   "
+                 "acc_amp_max\n")
+        for k in range(len(fr.freqs)):
+            fh.write(f"  {fr.freqs[k]:12.4E}{fr.disp_amp_max[k]:14.6E}"
+                     f"{fr.vel_amp_max[k]:14.6E}"
+                     f"{fr.acc_amp_max[k]:14.6E}\n")
+    return fr
+
+
+def _write_modes(ctrl, mesh, model, er) -> None:
+    """One result file a mode, ``<base>.0.<k>`` with the mode's
+    DISPLACEMENT and its frequency in the header."""
+    base, wr = _result_sink(ctrl)
+    eids = np.concatenate([b.elem_ids for b in mesh.blocks])
+    for k in range(er.eigenvectors.shape[1]):
+        phi = er.eigenvectors[:, k].reshape(mesh.n_node, model.ndof)
+        wr(base + f".0.{k+1}",
+           f"*fstrresult eigen mode={k+1} freq={er.freq[k]:.6e}",
+           mesh.node_ids, eids, [("DISPLACEMENT", phi[:, :3])], [])
+
+
+def _result_sink(ctrl):
+    """(path base, writer) of the !RESULT binding: text, or binary with
+    ``TYPE=BINARY`` (hecmw_control.c:1235-1275)."""
+    rb = ctrl.result()
+    return ctrl.path(rb), (write_result_bin if rb.params.get(
+        "TYPE", "TEXT").upper() == "BINARY" else write_result)
+
+
+def _snapshot_cb(ctrl, cfg, writer, mesh):
     """The result half of the JAX runner's per-interval output
-    (``_snapshot_cb``; fstr_solve_dynamic's result cadence):
-    ``cb(step, t, u, vel, acc)`` writes the step's result file every
+    (``_snapshot_cb``; heat_solve_TRAN.f90:268-270 and
+    fstr_solve_dynamic's result cadence): ``cb(step, t, *fields)``
+    writes the step's result file through ``writer(ctrl, mesh)`` every
     !WRITE, RESULT FREQUENCY steps.  Returns (cb, written steps); cb is
     None without !WRITE, RESULT."""
     rfreq = cfg.result_frequency if (cfg.write_result and
@@ -139,7 +273,7 @@ def _snapshot_cb(ctrl, cfg, mesh):
     written: set = set()
     if not rfreq:
         return None, written
-    write = _dynamic_result_writer(ctrl, mesh)
+    write = writer(ctrl, mesh)
 
     def cb(step, t, *fields):
         if step % rfreq == 0:
@@ -150,12 +284,9 @@ def _snapshot_cb(ctrl, cfg, mesh):
 
 def _dynamic_result_writer(ctrl, mesh):
     """``write(step, t, u, vel, acc)``: ``<!RESULT name>.0.<step>`` with
-    DISPLACEMENT, VELOCITY and ACCELERATION, text or (``TYPE=BINARY``)
-    binary; ``t`` None leaves the time out of the header."""
-    rb = ctrl.result()
-    base = ctrl.path(rb)
-    wr = write_result_bin if rb.params.get("TYPE", "TEXT").upper() == \
-        "BINARY" else write_result
+    DISPLACEMENT, VELOCITY and ACCELERATION; ``t`` None leaves the time
+    out of the header."""
+    base, wr = _result_sink(ctrl)
     eids = np.concatenate([b.elem_ids for b in mesh.blocks])
 
     def write(step, t, *fields):
@@ -165,6 +296,23 @@ def _dynamic_result_writer(ctrl, mesh):
         wr(base + f".0.{step}", head, mesh.node_ids, eids,
            [("DISPLACEMENT", u[:, :3]), ("VELOCITY", v[:, :3]),
             ("ACCELERATION", a[:, :3])], [])
+    return write
+
+
+def _heat_result_writer(ctrl, mesh):
+    """``write(step, t, T)``: ``<!RESULT name>.0.<step>`` with the nodal
+    TEMPERATURE (T a host array or a device tensor); ``t`` None leaves
+    the time out of the header."""
+    base, wr = _result_sink(ctrl)
+    eids = np.concatenate([b.elem_ids for b in mesh.blocks])
+
+    def write(step, t, T):
+        if isinstance(T, torch.Tensor):
+            T = T.cpu().numpy()
+        head = f"*fstrresult heat step={step}" + \
+            (f" time={t:.6e}" if t is not None else "")
+        wr(base + f".0.{step}", head, mesh.node_ids, eids,
+           [("TEMPERATURE", np.asarray(T).reshape(-1, 1))], [])
     return write
 
 

@@ -13,7 +13,8 @@ from frontistr_tpu_torch.assembly.loads import FACE_TABLES
 from frontistr_tpu_torch.elements.tables import HECMW2FSTR_ORDER
 from frontistr_tpu_torch.io.meshio import ElemBlock
 from frontistr_tpu_torch.io.neu import write_static_workdir
-from frontistr_tpu_torch.meshgen import box_hex8, box_tet4
+from frontistr_tpu_torch.meshgen import (box_hex8, box_plane, box_tet4,
+                                         hex8_pair_541)
 
 # the six edges of a tet in the FSTR order of 342's mid-edge nodes 4..9
 TET10_EDGES = ((0, 1), (1, 2), (2, 0), (0, 3), (1, 3), (2, 3))
@@ -108,3 +109,114 @@ def dyn_deck(eqa=11, n_step=20, dt=4e-9, loads="", typ="", gamma=0.5,
                       typ=typ, gamma=gamma, beta=beta, ray_m=ray_m,
                       ray_k=ray_k, monit=monit, every=every, loads=loads,
                       conv=conv, plastic=plastic, resid=resid, write=write)
+
+
+# ---- heat decks -------------------------------------------------------
+HEAT_ITEMS = {1: [[7.8e-6]], 2: [[460.0, 0.0], [520.0, 400.0]],
+              3: [[50.0, 0.0], [42.0, 150.0], [30.0, 400.0]]}
+
+
+def _face_corners(ftype):
+    return {111: 2, 112: 2, 231: 3, 232: 3, 241: 4, 242: 4}[ftype]
+
+
+def side_faces(mesh, axis, high=True, block=0):
+    """(n, 2) rows (element id, face number) of the faces of block
+    ``block`` on the box side where coordinate ``axis`` is largest
+    (``high``) or smallest."""
+    b = mesh.blocks[block]
+    x = mesh.coords[:, axis]
+    on_side = np.isclose(x, x.max() if high else x.min())
+    rows = []
+    for f, (ft, ln) in enumerate(FACE_TABLES[b.etype], start=1):
+        on = on_side[b.conn[:, ln[:_face_corners(ft)]]].all(axis=1)
+        rows.extend((int(e), f) for e in b.elem_ids[on])
+    return np.asarray(rows, np.int64)
+
+
+def heat_mesh(kind, seed=5):
+    """The heat decks' meshes: "hex8" ``box_hex8(4, 3, 2)`` 4 x 1 x 0.7,
+    "tet4" ``box_tet4(3, 2, 2)``, "tet10" ``tet10_box(2, 2, 1)``, "quad"
+    and "tri" ``box_plane(4, 3)`` 2 x 1, "iface" ``hex8_pair_541(2)``;
+    the heat material (T-dependent specific heat and conductivity),
+    !ZERO -273.15 and an initial temperature of 20 on every node.  Nodes
+    off the box's sides move by up to 2.5% of its shortest side, drawn
+    from ``seed``, so no two nodes share a temperature by symmetry."""
+    if kind == "hex8":
+        m = box_hex8(4, 3, 2, lx=4.0, ly=1.0, lz=0.7)
+    elif kind == "tet4":
+        m = box_tet4(3, 2, 2)
+    elif kind == "tet10":
+        m = tet10_box(2, 2, 1)
+    elif kind in ("quad", "tri"):
+        m = box_plane(4, 3, lx=2.0, etype=231 if kind == "tri" else 241)
+    else:
+        m = hex8_pair_541(2)
+    m.materials["M1"].items = {k: [list(r) for r in v]
+                               for k, v in HEAT_ITEMS.items()}
+    m.zero_temp = -273.15
+    m.initial_conditions = {"TEMPERATURE": np.stack(
+        [np.arange(m.n_node), np.full(m.n_node, 20.0)], 1)}
+    c = m.coords
+    side = np.zeros(m.n_node, bool)
+    for ax in range(3):
+        if not np.ptp(c[:, ax]):
+            continue
+        side |= np.isclose(c[:, ax], c[:, ax].min()) | \
+            np.isclose(c[:, ax], c[:, ax].max())
+    if kind == "iface":
+        side |= np.isclose(c[:, 0], 1.0) | np.isclose(c[:, 0], 2.0)
+    h = np.min([np.ptp(c[:, ax]) for ax in range(3) if np.ptp(c[:, ax])])
+    jit = np.random.default_rng(seed).uniform(-0.1, 0.1, c.shape) * h / 4
+    jit[side] = 0.0
+    jit[:, np.ptp(c, axis=0) == 0] = 0.0
+    m.coords = c + jit
+    return m
+
+
+HEAT = ("!SOLUTION, TYPE=HEAT\n!HEAT\n {heat}\n!FIXTEMP\n X0, 100.0\n"
+        "{loads}!SOLVER, METHOD=CG\n 2000, 1\n {resid}, 1.0, 0.0\n"
+        "{write}!END\n")
+HEAT_LOADS = ("!CFLUX\n {node}, 2.0\n!DFLUX\n {egrp}, BF, 0.5\n"
+              "!SFLUX\n SHI, 0.3\n!SFILM\n SHI, 0.02, 20.0\n"
+              "!SRADIATE\n SHI, 5.67e-11, 300.0\n")
+WELD = "!WELD_LINE\n 120.0, 10.0, 0.5, 1.0\n {egrp}, 1, 0.0, {lx}, 0.7, 0.0\n"
+
+
+def heat_deck(mesh, transient=True, weld=False, resid="1.0e-12",
+              write=""):
+    """A HEAT deck for ``heat_mesh``: X0 at 100; a CFLUX on the last
+    node, a body flux, and a flux, a film and radiation on the surface
+    group SHI (the faces of the box's high-y side; ``write_heat_deck``
+    writes it); transient: 3 steps of 1e-4 s (alpha dt about 1.4 mm^2, a
+    few elements' squares); ``weld`` a weld line along x over the
+    box."""
+    egrp = "SOLID" if "SOLID" in mesh.elem_groups else "ALL"
+    loads = HEAT_LOADS.format(node=int(mesh.node_ids[-1]), egrp=egrp)
+    if weld:
+        loads += WELD.format(egrp=egrp, lx=float(np.ptp(mesh.coords[:, 0])))
+    return HEAT.format(heat="1.0e-4, 3.0e-4, 0.0, 0.0, 20, 1.0e-6"
+                       if transient
+                       else "0.0, 0.0, 0.0, 0.0, 20, 1.0e-6",
+                       loads=loads, resid=resid, write=write)
+
+
+def shi_faces(mesh):
+    """The surface group SHI of the heat decks: the faces on the high-y
+    side of the first block (of the right cube of the 541 pair)."""
+    return side_faces(mesh, 1, block=1 if mesh.blocks[-1].etype == 541
+                      else 0)
+
+
+def write_heat_deck(path, mesh, cnt, seed=3):
+    """The heat deck in ``path`` with the mesh's nodes shuffled; surface
+    group SHI (``shi_faces``) and the element groups of ``mesh``."""
+    rows = shi_faces(mesh)
+    order = np.random.default_rng(seed).permutation(mesh.n_node)
+    groups = {g: v for g, v in mesh.elem_groups.items()
+              if g not in {s.egrp for s in mesh.sections}}
+    write_static_workdir(str(path), ordering.permute_mesh(mesh, order), cnt,
+                         ngroups=tuple(g for g in ("X0", "X1")
+                                       if g in mesh.node_groups),
+                         egroups=groups, sgroups={"SHI": rows})
+    return str(path)

@@ -183,8 +183,9 @@ def test_cli_cuda_without_card_is_an_error(tmp_path):
 def test_unported_requests_raise(tmp_path, card):
     cnt = CNT.replace("!SOLUTION, TYPE=STATIC", card) if "SOLUTION" in card \
         else CNT.replace("!END\n", card + "\n!END\n")
-    if "NLSTATIC" in card:
-        # the Newton driver runs NLSTATIC; a solver it lacks still raises
+    if "NLSTATIC" in card or "EIGEN" in card:
+        # the Newton driver runs NLSTATIC and Lanczos runs EIGEN; a
+        # solver they lack still raises
         cnt = cnt.replace("METHOD=CG", "METHOD=DIRECT")
     wd = _workdir(tmp_path / "wd", n=(2, 2, 2), cnt=cnt)
     with pytest.raises(NotImplementedError):
