@@ -4,7 +4,8 @@ once, checks the answers and prints the result.
 
     python3 chip_smoke.py [--n N] [--hex H] [--newton-n M] [--plastic P]
                           [--dyn-n D] [--dyn-steps S] [--dyn-hex X]
-                          [--dyn-hex-steps T]
+                          [--dyn-hex-steps T] [--heat-n H] [--heat-steps S]
+                          [--eigen-n E] [--hex20-n H] [--direct-n D]
 
 - The nonlinear static (Newton) tet path through
   ``frontistr_tpu_torch.run.run_directory`` (the function behind
@@ -37,6 +38,18 @@ once, checks the answers and prints the result.
   solve's true relres checked; then small dynamics decks on the card
   and on the CPU.  These paths launch one kernel, K1's planes entry,
   once each, in the final nodal smoothing.
+- The heat, eigen and frequency-response paths (no kernel), then small
+  decks of those families on the card and on the CPU.
+- The hex20_mpc path through ``run_directory``: NLSTATIC on a shuffled
+  hex20 box of h (default 44: 1,075,275 dofs, 85,184 elements of type
+  362), X1's u_z tied by !EQUATION to one master node, the load and a
+  !SPRING on the master; K1 once per Newton iteration at m = 60 beside
+  the spring block, its planes entry in the AMG setups, the nodal
+  smoothing and every reduction of the elimination.  Then K1 at m = 60
+  against its plain version and index_add_; METHOD=DIRECT on a shuffled
+  box_hex8(d) (default 20), STATIC and NLSTATIC, against the CG path;
+  the slice's small decks (prisms, hex20, !EQUATION, !SPRING,
+  ROT_CENTER, DIRECT, ESTCOND, DUMPTYPE) on the card and on the CPU.
 
 The run needs a CUDA card and exits non-zero without one, or when any
 phase fails.  Work directories and the kernel build go under ``build/``
@@ -211,7 +224,7 @@ def write_plastic_workdir(path, mods, mesh, cnt):
     return mesh.n_node * 3
 
 
-def phase_k1_check(sm, bell, box_tet4, box_hex8, tet10):
+def phase_k1_check(sm, bell, box_tet4, box_hex8, tet10, hex20):
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     # random sorted segments: empty slots and segments past 1024 entries
@@ -231,7 +244,9 @@ def phase_k1_check(sm, bell, box_tet4, box_hex8, tet10):
                             ("box_hex8(20) cluster", box_hex8(20, 20, 20),
                              8),
                             ("tet10 of box_tet4(12) cluster",
-                             tet10((12, 12, 12)), 10)):
+                             tet10((12, 12, 12)), 10),
+                            ("hex20 of box_hex8(8) cluster",
+                             hex20((8, 8, 8)), 20)):
         conn = mesh.blocks[0].conn
         cprof = bell.build_cluster_profile([conn], mesh.n_node, 3)
         m = 3 * nn
@@ -259,26 +274,58 @@ def write_workdir(path: str, dims, ordering, box_tet4, write_workdir_fn,
     return mesh.n_node * 3
 
 
-def constrained_relres(model, kes, f, u_fix, free, x) -> float:
+def constrained_relres(model, kes, f, u_fix, free, x, gfac=0.0) -> float:
     """||b_c - A_c x|| / ||b_c|| of the system P K P x + (I-P) x =
     P (f - K u_fix) + (I-P) u_fix, with K applied by scattering the
-    element matrices with index_add_ (independent of the cluster,
-    stencil and incidence operators).  f, u_fix, free, x: float64 device
-    vectors."""
+    element matrices and the model's spring blocks with index_add_
+    (independent of the cluster, stencil and incidence operators).  With
+    !EQUATION, of the eliminated system: T^T (b_c - A_c x) over
+    T^T (b_c - A_c g), g the equations' constants times ``gfac`` on the
+    dependent dofs, T^T applied by index_add_ from the mesh's equations.
+    f, u_fix, free, x: float64 device vectors."""
     dev = kes[0].device
     n = model.n_dof_total
+    _, ex_dofs, ex_kes, _ = model.extras
+    pairs = [(b.dofs, ke) for b, ke in zip(model.blocks, kes)] + \
+        list(zip(ex_dofs, ex_kes))
 
     def K(v):
         y = torch.zeros(n, dtype=torch.float64, device=dev)
-        for b, ke in zip(model.blocks, kes):
-            d = torch.as_tensor(b.dofs, dtype=torch.int64, device=dev)
+        for d, ke in pairs:
+            d = torch.as_tensor(d, dtype=torch.int64, device=dev)
+            ke = torch.as_tensor(ke, dtype=torch.float64, device=dev)
             y.index_add_(0, d.reshape(-1),
                          torch.einsum("eij,ej->ei", ke, v[d]).reshape(-1))
         return y
-    f_eff = f - K(u_fix)
-    b_c = f_eff * free + u_fix * (1 - free)
-    r = (f_eff - K(x * free)) * free + (u_fix - x) * (1 - free)
-    return float(torch.linalg.norm(r) / torch.linalg.norm(b_c))
+
+    def A_c(v):
+        return K(v * free) * free + v * (1 - free)
+    b_c = (f - K(u_fix)) * free + u_fix * (1 - free)
+    r = b_c - A_c(x)
+    if not model.mesh.equations:
+        return float(torch.linalg.norm(r) / torch.linalg.norm(b_c))
+    eqs = model.mesh.equations
+    dep = torch.as_tensor([int(e.nodes[0]) * 3 + int(e.dofs[0]) - 1
+                           for e in eqs], device=dev)
+    mast = torch.as_tensor([int(nd) * 3 + int(d) - 1 for e in eqs
+                            for nd, d in zip(e.nodes[1:], e.dofs[1:])],
+                           device=dev)
+    coef = torch.as_tensor([-float(c) / float(e.coefs[0]) for e in eqs
+                            for c in e.coefs[1:]], dtype=torch.float64,
+                           device=dev)
+    rows = torch.as_tensor([k for k, e in enumerate(eqs)
+                            for _ in e.nodes[1:]], device=dev)
+    keep = torch.ones(n, dtype=torch.float64, device=dev)
+    keep[dep] = 0.0
+
+    def Tt(y):
+        return (y.index_add(0, mast, coef * y[dep][rows])) * keep
+    g = torch.zeros(n, dtype=torch.float64, device=dev)
+    g[dep] = torch.as_tensor([float(e.const) / float(e.coefs[0])
+                              for e in eqs], dtype=torch.float64,
+                             device=dev) * gfac
+    return float(torch.linalg.norm(Tt(r)) /
+                 torch.linalg.norm(Tt(b_c - A_c(g))))
 
 
 def true_relres(model, u: np.ndarray, kes) -> float:
@@ -837,16 +884,17 @@ def spy_solves(nl, solves: list):
     def checked_solver(model, free, gather, mixed, timings=None):
         solve = real(model, free, gather, mixed, timings)
 
-        def checked(kes, B, dirichlet_inc):
-            x = solve(kes, B, dirichlet_inc)
+        def checked(kes, B, dirichlet_inc, gfac=0.0):
+            x = solve(kes, B, dirichlet_inc, gfac)
             for k in ("last_iters", "last_passes", "last_relres"):
                 setattr(checked, k, getattr(solve, k))
             solves.append(dict(
                 cg_iters=solve.last_iters, passes=solve.last_passes,
                 relres=solve.last_relres,
                 true_relres=constrained_relres(model, kes, B, dirichlet_inc,
-                                               free, x)))
+                                               free, x, gfac)))
             return x
+        checked.mpc = solve.mpc
         return checked
     return checked_solver
 
@@ -1717,10 +1765,14 @@ def small_heat_mesh(mods, kind):
     specific heat and conductivity), !ZERO and an initial 20, interior
     nodes moved by a seeded draw (no ties by symmetry)."""
     mg = mods["meshgen"]
-    mesh = {"hex8": lambda: mg.box_hex8(4, 3, 2, lx=4.0, ly=1.0, lz=0.7),
-            "tet10": lambda: tet10_mesh(mods, (2, 2, 1)),
-            "quad": lambda: mg.box_plane(4, 3, lx=2.0),
-            "iface": lambda: mg.hex8_pair_541(2)}[kind]()
+    if isinstance(kind, int):          # a 3-D solid type
+        mesh = solid_mesh(mods, kind, (3, 2, 2), lx=3.0, ly=1.0, lz=0.7)
+    else:
+        mesh = {"hex8": lambda: mg.box_hex8(4, 3, 2, lx=4.0, ly=1.0,
+                                            lz=0.7),
+                "tet10": lambda: tet10_mesh(mods, (2, 2, 1)),
+                "quad": lambda: mg.box_plane(4, 3, lx=2.0),
+                "iface": lambda: mg.hex8_pair_541(2)}[kind]()
     heat_material(mesh, items={1: [[7.8e-6]], 2: [[460.0, 0.0],
                                                   [520.0, 400.0]],
                                3: [[50.0, 0.0], [42.0, 150.0],
@@ -1739,8 +1791,8 @@ def small_heat_mesh(mods, kind):
     return mesh
 
 
-def small_heat_deck(mods, kind, transient, path):
-    mesh = small_heat_mesh(mods, kind)
+def small_heat_deck(mods, kind, transient, path, mesh=None, method="CG"):
+    mesh = small_heat_mesh(mods, kind) if mesh is None else mesh
     egrp = "SOLID" if kind == "iface" else "ALL"
     loads = (f"!CFLUX\n {int(mesh.node_ids[-1])}, 2.0\n!DFLUX\n {egrp}, BF, "
              "0.5\n!SFILM\n SHI, 0.02, 20.0\n!SRADIATE\n SHI, 5.67e-11, "
@@ -1753,7 +1805,8 @@ def small_heat_deck(mods, kind, transient, path):
                          loads=loads, nier=2000, resid="1.0e-12",
                          write="!WRITE, RESULT\n")
     shi = side_faces(mods, mesh, 1, block=1 if kind == "iface" else 0)
-    return write_shuffled(path, mods, mesh, cnt, sgroups={"SHI": shi})
+    return write_shuffled(path, mods, mesh, cnt.replace(
+        "METHOD=CG", f"METHOD={method}"), sgroups={"SHI": shi})
 
 
 def rel_diff(a, b) -> float:
@@ -1989,19 +2042,571 @@ def compare_runs(phase: str, label: str, r_gpu, r_cpu):
                              "different paths")
 
 
+# ---- PR: direct solves, MPC / springs, 3-D prisms and hex20 ----------------
+HEX20_EDGES = ((0, 1), (1, 2), (2, 3), (3, 0), (4, 5), (5, 6), (6, 7), (7, 4),
+               (0, 4), (1, 5), (2, 6), (3, 7))
+PRISM15_EDGES = ((0, 1), (1, 2), (2, 0), (3, 4), (4, 5), (5, 3), (0, 3),
+                 (1, 4), (2, 5))
+
+
+def regroup(mesh):
+    """The box's face node groups X0..Z1 and ALL from its coordinates."""
+    c = mesh.coords
+    for g in ("X0", "X1", "Y0", "Y1", "Z0", "Z1"):
+        x = c[:, "XYZ".index(g[0])]
+        mesh.node_groups[g] = np.flatnonzero(np.isclose(
+            x, x.max() if g[1] == "1" else x.min())).astype(np.int64)
+    mesh.node_groups["ALL"] = np.arange(len(c), dtype=np.int64)
+    mesh.node_ids = np.arange(1, len(c) + 1, dtype=np.int64)
+    mesh.id2idx = {int(g): int(g) - 1 for g in mesh.node_ids}
+    mesh.structured = None
+    return mesh
+
+
+def prism6_mesh(mods, dims, **kw):
+    """``box_hex8(*dims)`` with every hex split into two 351 prisms."""
+    m = mods["box_hex8"](*dims, **kw)
+    h = m.blocks[0].conn
+    conn = np.concatenate([h[:, [0, 1, 2, 4, 5, 6]],
+                           h[:, [0, 2, 3, 4, 6, 7]]]).astype(np.int32)
+    ids = np.arange(1, len(conn) + 1, dtype=np.int64)
+    m.blocks = [mods["ElemBlock"](351, ids, conn, conn.copy(), 0)]
+    m.elem_groups = {"ALL": ids}
+    return regroup(m)
+
+
+def raise_order(mods, m, etype):
+    """A 351 or 361 mesh raised to 352 or 362 by mid-edge nodes."""
+    lin = m.blocks[0].conn.astype(np.int64)
+    edges = np.stack([np.sort(lin[:, list(e)], axis=1) for e in
+                      (HEX20_EDGES if etype == 362 else PRISM15_EDGES)], 1)
+    uniq, inv = np.unique(edges.reshape(-1, 2), axis=0, return_inverse=True)
+    conn = np.concatenate([lin, m.n_node + inv.reshape(len(lin), -1)],
+                          axis=1).astype(np.int32)
+    m.coords = np.concatenate([m.coords, m.coords[uniq].mean(axis=1)])
+    hecmw = conn.copy()                  # fstr[k] = hecmw[TABLE[k] - 1]
+    if etype in mods["hecmw2fstr"]:
+        hecmw[:, np.asarray(mods["hecmw2fstr"][etype]) - 1] = conn
+    m.blocks = [mods["ElemBlock"](etype, m.blocks[0].elem_ids, conn, hecmw,
+                                  0)]
+    return regroup(m)
+
+
+def hex20_mesh(mods, dims, **kw):
+    """``box_hex8(*dims)`` raised to hex20 (362): (n+1)^3 corners and
+    3 n (n+1)^2 edge midpoints on a cube of n."""
+    return raise_order(mods, mods["box_hex8"](*dims, **kw), 362)
+
+
+def solid_mesh(mods, etype, dims, **kw):
+    return {341: lambda: mods["box_tet4"](*dims, **kw),
+            342: lambda: tet10_mesh(mods, dims),
+            351: lambda: prism6_mesh(mods, dims, **kw),
+            352: lambda: raise_order(mods, prism6_mesh(mods, dims, **kw),
+                                     352),
+            361: lambda: mods["box_hex8"](*dims, **kw),
+            362: lambda: hex20_mesh(mods, dims, **kw)}[etype]()
+
+
+def tie_face(mods, mesh, group="X1", dof=3, master=None):
+    """Tie ``dof`` of every node of ``group`` to one master node of it
+    (by default its first) by 1:-1 !EQUATIONs; returns the master."""
+    nodes = mesh.node_groups[group]
+    m = int(nodes[0]) if master is None else int(master)
+    mesh.equations = [mods["Equation"](np.asarray([int(k), m]),
+                                       np.asarray([dof, dof]),
+                                       np.asarray([1.0, -1.0]), 0.0)
+                      for k in nodes if int(k) != m]
+    return m
+
+
+# the hex20_mpc deck: the Newton cell's NLSTATIC deck with X1's u_z tied
+# to one master node (a rigid end plate), the load on the master, and a
+# spring from the master to the ground; f64 policy as the Newton cell
+MPCCNT = ("!VERSION\n 3\n!SOLUTION, TYPE=NLSTATIC\n!BOUNDARY\n X0, 1, 3, 0.0\n"
+          "!CLOAD\n {mast}, 3, {load!r}\n!SPRING\n {mast}, 3, {k!r}\n"
+          "!MATERIAL, NAME=M1\n!ELASTIC\n 210000.0, 0.3\n!STEP, SUBSTEPS=1\n"
+          " BOUNDARY, 1\n LOAD, 1\n!SOLVER, METHOD={method}, ITERLOG=NO, "
+          "TIMELOG=NO\n 10000, 1\n {resid}, 1.0, 0.0\n!END\n")
+
+
+def phase_hex20_mpc_main_path(args, mods) -> dict:
+    """The hex20_mpc cell through run_directory: NLSTATIC (total
+    Lagrange) in the f64 policy on a shuffled hex20 box of n (default
+    44: 358,425 nodes, 1,075,275 dofs, 85,184 elements of type 362), X0
+    fixed, every X1 node's u_z tied by !EQUATION to the node at X1's
+    middle, a !CLOAD of -(X1's node count)/2 in z there and a !SPRING to
+    the ground in z of 1e-3 E A / L.  (At the full -(X1's node count),
+    -5,985, Newton fails on this box: the St. Venant-Kirchhoff material
+    collapses in compression where the stress is singular, a smallest
+    principal stretch of 0.113 already on a box of 32;
+    ``python -m frontistr_tpu_torch.microbench.hex20_load``, PERF.md
+    §6.)  Per
+    Newton iteration: rres/rxnrm, CG, passes, the solver's relres and an
+    independent index_add_ true relres of the eliminated system (<=
+    1e-8).  At the end max |u_z(dep) - u_z(master)| <= 1e-10 max|u|; K1
+    element launches = Newton iterations; K1 planes launches = 2 per AMG
+    setup + 1 per nodal smoothing + 1 per reduction T^T (``mpc_Tt``).
+    The first solve is then repeated on the same system: the same CG
+    count and a bit-equal answer.  Returns the counts, the model and
+    the first tangent's K1 inputs."""
+    nl, sm, ex = mods["nonlinear"], mods["segsum"], mods["extras"]
+    n = args.hex20_n
+    wd = os.path.join(ROOT, "build", "smoke", f"hex20_mpc{n}")
+    t0 = time.perf_counter()
+    mesh = hex20_mesh(mods, (n, n, n))
+    x1 = mesh.node_groups["X1"]
+    mid = x1[np.argmin(np.linalg.norm(mesh.coords[x1] - [1.0, 0.5, 0.5],
+                                      axis=1))]
+    mast = tie_face(mods, mesh, master=mid)
+    k = 1e-3 * 210000.0 * 1.0 / 1.0               # 1e-3 E A / L
+    cnt = MPCCNT.format(mast=int(mesh.node_ids[mast]),
+                        load=-0.5 * len(x1), k=k, method="CG",
+                        resid="1.0e-8")
+    write_shuffled(wd, mods, mesh, cnt)
+    log(f"phase hex20_mpc_workdir: hex20 box of {n} shuffled, "
+        f"{mesh.n_node} nodes, {3 * mesh.n_node} dofs, "
+        f"{len(mesh.blocks[0].elem_ids)} elements of type 362, "
+        f"{len(mesh.equations)} equations on one master, spring k={k!r}, "
+        f"written in {time.perf_counter() - t0:.2f} s")
+    del mesh
+    solves, first = [], {}
+    real = nl.make_constrained_solver
+    spy = spy_solves(nl, solves)
+
+    def keep_first(model, free, gather, mixed, timings=None):
+        solve = spy(model, free, gather, mixed, timings)
+
+        def call(kes, B, dirichlet_inc, gfac=0.0):
+            if not first:
+                first.update(kes=kes, B=B, dinc=dirichlet_inc, gfac=gfac,
+                             solve=solve)
+            t0 = time.perf_counter()
+            x = solve(kes, B, dirichlet_inc, gfac)
+            torch.cuda.synchronize()
+            log(f"  solve {len(solves)}: cg {solves[-1]['cg_iters']}, "
+                f"true relres {solves[-1]['true_relres']!r}, "
+                f"{time.perf_counter() - t0:.2f} s")
+            call.last_iters, call.last_passes, call.last_relres = \
+                solve.last_iters, solve.last_passes, solve.last_relres
+            if "x" not in first:
+                first.update(x=x.clone(), iters=solve.last_iters)
+            return x
+        call.mpc = solve.mpc
+        return call
+    calls = {"setup_amg": 0, "smooth": 0, "mpc_Tt": 0}
+    amg, nodal = mods["amg"], mods["nodal"]
+    real_fns = (amg.setup_amg, nodal.smooth, ex.mpc_Tt)
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return call
+    nl.make_constrained_solver = keep_first
+    amg.setup_amg = counted("setup_amg", real_fns[0])
+    nodal.smooth = counted("smooth", real_fns[1])
+    ex.mpc_Tt = counted("mpc_Tt", real_fns[2])
+    reset_kernel_launches(mods)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        out = with_env({"FRONTISTR_TPU_PRECISION": "f64"},
+                       lambda: mods["run_directory"](wd, device="cuda"))
+        wall = time.perf_counter() - t0
+    finally:
+        nl.make_constrained_solver = real
+        amg.setup_amg, nodal.smooth, ex.mpc_Tt = real_fns
+    launches = kernel_launch_counts(mods)
+    reductions = calls["mpc_Tt"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res, model = out["static"], out["model"]
+    nw, tm = res.newton, res.timings
+    keys = ("tangent", "assembly", "amg_setup", "solve", "update")
+    log(f"phase hex20_mpc_main_path: {wall:.2f} s; policy={res.policy} "
+        f"newton_iters={nw.total_iters} cutbacks={nw.cutbacks} "
+        f"cg_iters={[s['cg_iters'] for s in solves]} K1 launches="
+        f"{launches['K1']} (element), K1 planes launches="
+        f"{launches['K1 planes']} ({calls['setup_amg']} AMG setups x "
+        f"{PLANES_PER_AMG_SETUP} + {calls['smooth']} nodal smoothings + "
+        f"{reductions} reductions T^T), peak device memory {peak_gb:.3f} GB")
+    log("  phase seconds: " + " ".join(
+        f"{k}={tm.get(k, 0.0):.3f}" for k in
+        keys + ("read", "reorder", "model", "profile", "post")))
+    for h, sv in zip(nw.history, solves):
+        log(f"  step {h['step']} substep {h['substep']} it {h['iter']}: "
+            f"rres={h['rres']!r} rxnrm={h['rxnrm']!r} "
+            f"cg_iters={sv['cg_iters']} passes={sv['passes']} "
+            f"relres={sv['relres']!r} true_relres={sv['true_relres']!r}; "
+            + " ".join(f"{k}={h[k]:.3f}" for k in keys))
+    if len(solves) != len(nw.history) or not solves:
+        raise AssertionError("hex20_mpc_main_path: solves and iterations "
+                             "do not pair up")
+    last = nw.history[-1]
+    if res.policy != "f64" or nw.cutbacks or \
+            min(last["rres"], last["rxnrm"]) >= 1e-6:
+        raise AssertionError("hex20_mpc_main_path: Newton did not converge "
+                             "without cutbacks in the f64 policy")
+    if not all(sv["true_relres"] <= 1e-8 for sv in solves):
+        raise AssertionError("a linear solve's true relres is above 1e-8")
+    u = res.u
+    if not (u.shape == (model.n_node, 3) and np.isfinite(u).all()):
+        raise AssertionError("displacements not finite / wrong shape")
+    eqs = model.mesh.equations
+    dep = np.asarray([int(e.nodes[0]) for e in eqs])
+    mst = np.asarray([int(e.nodes[1]) for e in eqs])
+    tie = float(np.abs(u[dep, 2] - u[mst, 2]).max())
+    log(f"  max |u_z(dep) - u_z(master)| = {tie!r}, max|u| = "
+        f"{float(np.abs(u).max())!r}")
+    if not tie <= 1e-10 * np.abs(u).max():
+        raise AssertionError("hex20_mpc_main_path: the tie does not hold")
+    if launches["K1"] != nw.total_iters:
+        raise AssertionError(f"K1 launches {launches['K1']} != Newton "
+                             f"iterations {nw.total_iters}")
+    if calls["setup_amg"] < 1 or reductions < 1 or \
+            launches["K1 planes"] != PLANES_PER_AMG_SETUP * \
+            calls["setup_amg"] + calls["smooth"] + reductions:
+        raise AssertionError(f"K1 planes launches {launches['K1 planes']} "
+                             f"do not add up: {calls}")
+    with open(os.path.join(wd, "FSTR.sta")) as fh:
+        if "HAS COMPLETED SUCCESSFULLY" not in fh.read():
+            raise AssertionError("FSTR.sta does not report success")
+    cg_iters = [sv["cg_iters"] for sv in solves]
+    # the first solve again on the same system
+    again = first["solve"](first["kes"], first["B"], first["dinc"],
+                           first["gfac"])
+    same = torch.equal(again, first["x"])
+    log(f"  first solve repeated: cg {first['iters']} then "
+        f"{first['solve'].last_iters}, bit-equal answer {same}")
+    if first["solve"].last_iters != first["iters"] or not same:
+        raise AssertionError("hex20_mpc_main_path: a repeated solve "
+                             "differs")
+    return {"launches": launches["K1"], "planes_launches":
+            launches["K1 planes"], "newton_iters": nw.total_iters,
+            "cg_iters": cg_iters, "reductions": reductions, "wall_s": wall, "peak_gb": peak_gb,
+            "model": model, "kes": first["kes"]}
+
+
+def phase_k1_m60_time(mods, model, kes, launches) -> dict:
+    """K1 at m = 60 on the hex20_mpc cell's cluster profile (the hex20
+    block and the one-node spring block) with the cell's first tangent,
+    float64: held to its plain version, timed with it and with one
+    index_add_ of the entries in slot order.  Then the planes entry at
+    the cell's AMG level-1 and level-2 plans and nodal smoothing, and
+    the MPC reduction T^T twice on the card (bit-equal) and against the
+    CPU.  Returns the kernels-line row."""
+    sm, bell, ex = mods["segsum"], mods["bell"], mods["extras"]
+    plan = bell.cluster_profile_from_model(model).plan("cuda")
+    ex_kes = ex.extra_tensors(model, "cuda")[0]
+    kd = [k.contiguous() for k in list(kes) + ex_kes]
+    nns = [b.conn.shape[1] for b in model.blocks] + list(model.extras[3])
+    err = check_k1(sm, plan, kd, nns, torch.float64,
+                   "hex20_mpc first tangent m = 60 + springs")
+    ms = cuda_ms(lambda: sm.segsum(plan, kd, nns, 3))
+    plain_ms = cuda_ms(lambda: sm.segsum_reference(plan, kd, nns, 3))
+    ent = sm.entry_planes(kd, nns, 3)[:, plan.perm.long()]
+    out = torch.zeros((9, plan.n_slots), dtype=torch.float64, device="cuda")
+    seg = plan.seg_sorted.long()
+    library_ms = cuda_ms(lambda: out.index_add_(1, seg, ent))
+    del ent, out
+    P = plan.perm.numel()
+    nbytes = (sum(k.numel() for k in kd) * 8 + P * 4
+              + (plan.n_slots + 1) * 4 + 9 * plan.n_slots * 8)
+    bound_ms, bound_by = bound(nbytes, 9 * P, torch.float64)
+    log(f"phase k1_m60_time: {kd[0].shape[0]} hex20 + {kd[-1].shape[0]} "
+        f"spring blocks, P={P} pairs, n_slots={plan.n_slots} float64: "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, index_add_ "
+        f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms "
+        f"({nbytes / 1e9:.3f} GB)")
+    setup = mods["static"].cluster_setup(model, {})
+    errs = check_path_planes(mods, model, setup.amaps,
+                             torch.Generator("cuda").manual_seed(8))
+    m = ex.mpc_arrays(model.mesh, 3, model.n_dof_total, "cuda")
+    y = torch.randn(model.n_dof_total, dtype=torch.float64, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(9))
+    a, b = ex.mpc_Tt(m, y), ex.mpc_Tt(m, y)
+    mc = ex.mpc_arrays(model.mesh, 3, model.n_dof_total, "cpu")
+    want = ex.mpc_Tt(mc, y.cpu())
+    e_tt = float((a.cpu() - want).abs().max())
+    log(f"  MPC reduction T^T through the planes entry ({m.umast.numel()} "
+        f"master slots, {m.src_k.numel()} terms): bit-equal relaunch "
+        f"{torch.equal(a, b)}, against the CPU plain version "
+        f"max_abs_err={e_tt!r}")
+    if not (torch.equal(a, b) and e_tt <= F64_TOL * float(want.abs().max())):
+        raise AssertionError("the MPC reduction does not repeat or "
+                             "disagrees with its plain version")
+    return {"name": "segsum_m60", "entry": "element, m = 60 (hex20_mpc)",
+            "route": "cuda", "source": "frontistr_tpu_torch/csrc/segsum.cu",
+            "replaces": "frontistr_tpu/assembly/segsum_pallas.py:121",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "planes_max_abs_err": max(errs.values()),
+            "mpc_reduction_max_abs_err": e_tt}
+
+
+def phase_direct(args, mods) -> dict:
+    """METHOD=DIRECT on a shuffled box_hex8(d) (default 20: 27,783 dofs),
+    STATIC and NLSTATIC (one substep) through run_directory on the card: the element
+    matrices on the card, one host SuperLU factor a solve (the JAX
+    package's semantics).  Logged: the factor and the back-substitution
+    seconds.  u held to the CG path's answer (f64 policy, RESID 1e-12)
+    within 1e-8 of max|u|.  Then one torch.linalg.cholesky of the dense
+    constrained K at that size, timed as a yardstick only."""
+    direct = mods["direct"]
+    d = args.direct_n
+    mesh = mods["box_hex8"](d, d, d)
+    out = {}
+    for sol in ("STATIC", "NLSTATIC"):
+        runs = {}
+        for method, resid in (("DIRECT", "1.0e-8"), ("CG", "1.0e-12")):
+            cnt = EXTRA_CNT.format(sol=sol, head="", bc="",
+                                   loads="!CLOAD\n X1, 3, -1.0\n",
+                                   method=method, opt="", resid=resid
+                                   ).replace("SUBSTEPS=2", "SUBSTEPS=1")
+            wd = os.path.join(ROOT, "build", "smoke", "direct",
+                              f"{sol}_{method}")
+            write_shuffled(wd, mods, mesh, cnt)
+            secs = {"factor": 0.0, "n": 0}
+            real = direct.factor
+
+            def timed(A, real=real):
+                t0 = time.perf_counter()
+                lu = real(A)
+                secs["factor"] += time.perf_counter() - t0
+                secs["n"] += 1
+                return lu
+            direct.factor = timed
+            try:
+                t0 = time.perf_counter()
+                o = with_env({"FRONTISTR_TPU_PRECISION": "f64"},
+                             lambda: mods["run_directory"](wd,
+                                                           device="cuda"))
+                wall = time.perf_counter() - t0
+            finally:
+                direct.factor = real
+            runs[method] = (o, wall, secs)
+        (od, wall, secs), (oc, wall_cg, _) = runs["DIRECT"], runs["CG"]
+        u, uc = od["static"].u, oc["static"].u
+        rel = rel_diff(u, uc)
+        solve_s = od["static"].timings.get("solve", 0.0)
+        log(f"phase direct: {sol} box_hex8({d}) {3 * mesh.n_node} dofs: "
+            f"{wall:.2f} s ({secs['n']} factors {secs['factor']:.3f} s, "
+            f"solve phase {solve_s:.3f} s, so back-substitution and "
+            f"assembly {solve_s - secs['factor']:.3f} s); the CG path "
+            f"{wall_cg:.2f} s; u against CG max rel diff {rel!r}")
+        if not (secs["n"] >= 1 and rel <= 1e-8 and np.isfinite(u).all()):
+            raise AssertionError(f"direct: {sol} disagrees with the CG path")
+        out[sol] = {"wall_s": wall, "factors": secs["n"],
+                    "factor_s": secs["factor"], "rel_to_cg": rel}
+    # the yardstick: one dense Cholesky of the constrained K
+    model = od["model"]
+    kes = mods["static"].compute_element_stiffness(model)
+    n = model.n_dof_total
+    A = torch.zeros((n, n), dtype=torch.float64, device="cuda")
+    for b, ke in zip(model.blocks, kes):
+        dd = torch.as_tensor(b.dofs, dtype=torch.int64, device="cuda")
+        A.index_put_((dd[:, :, None].expand(-1, -1, dd.shape[1]),
+                      dd[:, None, :].expand(-1, dd.shape[1], -1)), ke,
+                     accumulate=True)
+    free = torch.ones(n, dtype=torch.float64, device="cuda")
+    free[torch.as_tensor(model.fixed_dofs, device="cuda")] = 0.0
+    A = A * free[:, None] * free[None, :] + torch.diag(1.0 - free)
+    chol_ms = cuda_ms(lambda: torch.linalg.cholesky(A), reps=2, warmup=1)
+    log(f"  torch.linalg.cholesky of the dense constrained K ({n} x {n}, "
+        f"{n * n * 8 / 1e9:.3f} GB): {chol_ms:.3f} ms (a yardstick, not "
+        f"a path)")
+    del A
+    torch.cuda.empty_cache()
+    out["cholesky_ms"] = chol_ms
+    return out
+
+
+EXTRA_CNT = ("!VERSION\n 3\n!SOLUTION, TYPE={sol}\n{head}!BOUNDARY\n"
+             " X0, 1, 3, 0.0\n{bc}{loads}!MATERIAL, NAME=M1\n!ELASTIC\n"
+             " 210000.0, 0.3\n!DENSITY\n 7.85e-9\n!STEP, SUBSTEPS=2\n"
+             " BOUNDARY, 1\n LOAD, 1\n!SOLVER, METHOD={method}, ITERLOG=NO, "
+             "TIMELOG=NO{opt}\n 10000, 1\n {resid}, 1.0, 0.0\n!END\n")
+
+
+def phase_extras_small_reference(mods) -> None:
+    """Small decks through run_directory on the card and on the CPU
+    (which the CPU tests hold to the JAX package): the prisms 351/352
+    and hex20 362 in STATIC, NLSTATIC, implicit DYNAMIC, EIGEN and HEAT;
+    !EQUATION (an X1 face tied in z) with a !SPRING in STATIC and
+    NLSTATIC, !EQUATION in DYNAMIC, EIGEN and HEAT; ROT_CENTER
+    (rotational !BOUNDARY under NLSTATIC, a torque !CLOAD); METHOD=DIRECT
+    in each family; ESTCOND.  Fields within 1e-8 of the largest
+    (temperatures and eigenvalues 1e-10), Newton, Lanczos and
+    fixed-point counts equal, CG within one a solve."""
+    run = mods["run_directory"]
+    base = os.path.join(ROOT, "build", "smoke", "extras_small")
+    dyn = ("!DYNAMIC\n 1, 1\n 0.0, 4.0e-6, 4, 1.0e-6\n 0.5, 0.25\n"
+           " 1, 1, 1000.0, 1.0e-9\n 10, 0, 1\n")
+    eig = "!EIGEN\n 3, 1.0e-8, 60\n"
+
+    def deck(sol, head="", bc="", loads="!CLOAD\n X1, 3, -50.0\n",
+             method="CG", opt="", resid="1.0e-10"):
+        return EXTRA_CNT.format(sol=sol, head=head, bc=bc, loads=loads,
+                                method=method, opt=opt, resid=resid)
+
+    def center(mesh, side):
+        c = mesh.coords
+        x = c[:, 0].max() if side == "X1" else c[:, 0].min()
+        mesh.node_groups["CEN"] = np.asarray([np.argmin(np.linalg.norm(
+            c - [x, c[:, 1].mean(), c[:, 2].mean()], axis=1))], np.int64)
+        return mesh
+
+    def compare(label, make, kind, env=None):
+        outs = []
+        for d in ("cuda", "cpu"):
+            wd = os.path.join(base, label.replace(" ", "_"), d)
+            outs.append(with_env(env or {"FRONTISTR_TPU_PRECISION": "f64"},
+                                 lambda: run(make(wd), device=d)))
+        g, c = outs
+        if kind == "static":
+            a, b = g["static"], c["static"]
+            rel = rel_diff(a.u, b.u)
+            cnt = ([h["iter"] for h in a.newton.history],
+                   [h["iter"] for h in b.newton.history]) \
+                if a.newton is not None else (a.iters, b.iters)
+            ok = rel <= 1e-8 and (cnt[0] == cnt[1] if a.newton is not None
+                                  else abs(a.iters - b.iters) <= 1)
+        elif kind == "dynamic":
+            a, b = g["dynamic"], c["dynamic"]
+            rel = max(rel_diff(getattr(a, f), getattr(b, f))
+                      for f in ("u", "vel", "acc"))
+            cnt = ([len(h["cg"]) for h in a.history],
+                   [len(h["cg"]) for h in b.history])
+            ok = rel <= 1e-8 and cnt[0] == cnt[1]
+        elif kind == "eigen":
+            a, b = g["eigen"], c["eigen"]
+            rel = rel_diff(a.eigenvalues, b.eigenvalues)
+            cnt = (a.iters, b.iters)
+            ok = rel <= 1e-10 and cnt[0] == cnt[1]
+        else:
+            a, b = g["heat"], c["heat"]
+            rel = rel_diff(a.T, b.T)
+            cnt = ([r["fp"] for r in a.history], [r["fp"] for r in b.history])
+            ok = rel <= 1e-10 and cnt[0] == cnt[1]
+        log(f"phase extras_small_reference: {label}, cuda vs cpu max rel "
+            f"diff {rel!r}, counts {cnt[0]} vs {cnt[1]}")
+        if not ok:
+            raise AssertionError(f"extras_small_reference: {label}")
+
+    def shuffled(mesh, cnt, ngroups=("X0", "X1")):
+        return lambda wd: write_shuffled(wd, mods, mesh, cnt,
+                                         ngroups=ngroups)
+
+    for et in (351, 352, 362):
+        dims = (3, 2, 2) if et != 362 else (2, 2, 1)
+        m = solid_mesh(mods, et, dims)
+        compare(f"{et} STATIC", shuffled(m, deck("STATIC")), "static")
+        compare(f"{et} NLSTATIC", shuffled(m, deck("NLSTATIC",
+                loads="!CLOAD\n X1, 3, -300.0\n")), "static")
+        compare(f"{et} DYNAMIC", shuffled(m, deck("DYNAMIC", head=dyn,
+                loads="!CLOAD\n X1, 3, -1.0\n")), "dynamic")
+        big = solid_mesh(mods, et, (3, 2, 1), lx=300.0, ly=200.0, lz=100.0)
+        compare(f"{et} EIGEN", shuffled(big, deck("EIGEN", head=eig)),
+                "eigen")
+        compare(f"{et} HEAT", lambda wd, et=et: small_heat_deck(
+            mods, et, True, wd), "heat")
+    # !EQUATION and !SPRING
+    for et, sol in ((341, "STATIC"), (362, "STATIC"), (341, "NLSTATIC")):
+        m = solid_mesh(mods, et, (3, 2, 2) if et != 362 else (2, 2, 1))
+        mid = int(m.node_ids[tie_face(mods, m)])
+        compare(f"MPC spring {et} {sol}", shuffled(m, deck(
+            sol, loads=f"!CLOAD\n {mid}, 3, -20.0\n!SPRING\n {mid}, 3, "
+            "50.0\n")), "static")
+    m = solid_mesh(mods, 361, (3, 2, 2))
+    mid = int(m.node_ids[tie_face(mods, m)])
+    compare("MPC DYNAMIC", shuffled(m, deck("DYNAMIC", head=dyn,
+            loads=f"!CLOAD\n {mid}, 3, -5.0\n")), "dynamic")
+    m = solid_mesh(mods, 361, (4, 2, 2), lx=400.0, ly=100.0, lz=100.0)
+    tie_face(mods, m)
+    compare("MPC EIGEN", shuffled(m, deck("EIGEN", head=eig, loads="")),
+            "eigen")
+
+    def heat_tied(wd):
+        hm = small_heat_mesh(mods, "hex8")
+        tie_face(mods, hm, dof=1)
+        return small_heat_deck(mods, "hex8", True, wd, mesh=hm)
+    compare("MPC HEAT", heat_tied, "heat")
+    # ROT_CENTER
+    m = center(solid_mesh(mods, 361, (3, 2, 2)), "X1")
+    compare("ROT_CENTER boundary NLSTATIC", shuffled(m, deck(
+        "NLSTATIC", bc="!BOUNDARY, ROT_CENTER=CEN\n X1, 1, 1, 0.2\n",
+        loads=""), ("X0", "X1", "CEN")), "static")
+    m = center(solid_mesh(mods, 361, (3, 2, 2)), "X0")
+    compare("ROT_CENTER torque STATIC", shuffled(m, deck(
+        "STATIC", loads="!CLOAD, ROT_CENTER=CEN\n X1, 3, 7.0\n"),
+        ("X0", "X1", "CEN")), "static")
+    # METHOD=DIRECT in each family, ESTCOND
+    m = solid_mesh(mods, 342, (3, 2, 2))
+    for sol in ("STATIC", "NLSTATIC"):
+        compare(f"DIRECT {sol}", shuffled(m, deck(
+            sol, method="DIRECT", loads="!CLOAD\n X1, 3, -300.0\n")),
+            "static")
+    m = solid_mesh(mods, 361, (3, 2, 2))
+    compare("DIRECT DYNAMIC", shuffled(m, deck("DYNAMIC", head=dyn,
+            method="DIRECT", loads="!CLOAD\n X1, 3, -1.0\n")), "dynamic")
+    m = solid_mesh(mods, 361, (4, 2, 2), lx=400.0, ly=100.0, lz=100.0)
+    compare("DIRECT EIGEN", shuffled(m, deck("EIGEN", head=eig, loads="",
+                                             method="DIRECT")), "eigen")
+    compare("DIRECT HEAT", lambda wd: small_heat_deck(
+        mods, "hex8", True, wd, method="DIRECT"), "heat")
+    compare("ESTCOND STATIC", shuffled(solid_mesh(mods, 341, (3, 2, 2)),
+                                       deck("STATIC", opt=", ESTCOND=1")),
+            "static")
+    # DUMPTYPE=MM (set on the deck's solver record: no .cnt parser of
+    # either package reads it): the files of the two devices
+    dumps = []
+    for d in ("cuda", "cpu"):
+        wd = os.path.join(base, "dump", d)
+        shutil.rmtree(wd, ignore_errors=True)
+        os.makedirs(wd)
+        with open(os.path.join(wd, "case.cnt"), "w") as fh:
+            fh.write(deck("STATIC").replace("!SOLVER", "!SPRING\n 1, 2, "
+                                            "40.0\n!SOLVER"))
+        cfg = mods["read_cnt"](os.path.join(wd, "case.cnt"))
+        cfg.solver.dumptype = "MM"
+        model = mods["build_struct_model"](
+            solid_mesh(mods, 341, (2, 2, 2)), cfg, device=d)
+        cwd = os.getcwd()
+        os.chdir(wd)
+        try:
+            mods["static"].solve_linear(
+                model, mods["static"].compute_element_stiffness(model))
+        finally:
+            os.chdir(cwd)
+        name, = [f for f in os.listdir(wd) if f.startswith("dump_matrix")]
+        with open(os.path.join(wd, name)) as fh:
+            dumps.append(fh.read().splitlines())
+    vals = [np.asarray([float(ln.split()[2]) for ln in dd[2:]])
+            for dd in dumps]
+    same = [[ln.split()[:2] for ln in dd] for dd in dumps]
+    rel = rel_diff(*vals) if same[0] == same[1] else float("inf")
+    log(f"phase extras_small_reference: DUMPTYPE=MM tet4 with a spring, "
+        f"{len(vals[0])} entries, cuda vs cpu max rel diff {rel!r}, "
+        f"byte-equal {dumps[0] == dumps[1]}")
+    if not rel <= 1e-12:
+        raise AssertionError("extras_small_reference: DUMPTYPE")
+
+
 def load_mods() -> dict:
     """The port's modules the phases use, by name."""
     sys.path.insert(0, ROOT)
     from frontistr_tpu_torch import kernels, meshgen, ordering
     from frontistr_tpu_torch.analysis import dynamic, heat, nonlinear
     from frontistr_tpu_torch.analysis import static as stmod
-    from frontistr_tpu_torch.assembly import bell, femop, structured
+    from frontistr_tpu_torch.assembly import bell, extras, femop, structured
     from frontistr_tpu_torch.assembly import segsum as sm
     from frontistr_tpu_torch.assembly.loads import FACE_TABLES
     from frontistr_tpu_torch.assembly.model import build_struct_model
     from frontistr_tpu_torch.elements.tables import (HECMW2FSTR_ORDER,
                                                      get_table)
-    from frontistr_tpu_torch.io.meshio import ElemBlock
+    from frontistr_tpu_torch.io.meshio import ElemBlock, Equation
     from frontistr_tpu_torch.io.resfile import read_result
     from frontistr_tpu_torch.assembly.operators import make_free_mask
     from frontistr_tpu_torch.io.ctrlio import read_cnt
@@ -2013,8 +2618,9 @@ def load_mods() -> dict:
     from frontistr_tpu_torch.ops import gather as g
     from frontistr_tpu_torch.post import nodal
     from frontistr_tpu_torch.run import run_directory
-    from frontistr_tpu_torch.solver import amg
-    return dict(segsum=sm, element_mv=em, static=stmod, bell=bell,
+    from frontistr_tpu_torch.solver import amg, direct
+    return dict(extras=extras, direct=direct, Equation=Equation,
+                segsum=sm, element_mv=em, static=stmod, bell=bell,
                 structured=structured, ordering=ordering,
                 nonlinear=nonlinear, box_tet4=box_tet4, box_hex8=box_hex8,
                 build_struct_model=build_struct_model, read_cnt=read_cnt,
@@ -2058,6 +2664,12 @@ def main(argv=None) -> int:
     ap.add_argument("--eigen-n", type=int, default=48,
                     help="box_hex8(e, e, e) for the eigen and frequency "
                          "response paths (default 48)")
+    ap.add_argument("--hex20-n", type=int, default=44,
+                    help="the hex20 box of the hex20_mpc path (default 44: "
+                         "1,075,275 dofs)")
+    ap.add_argument("--direct-n", type=int, default=20,
+                    help="box_hex8(d, d, d) for the METHOD=DIRECT path "
+                         "(default 20: 27,783 dofs)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -2089,7 +2701,8 @@ def main(argv=None) -> int:
     # 3. each kernel against its plain version
     log("phase k1_check:")
     phase_k1_check(sm, bell, box_tet4, box_hex8,
-                   lambda dims: tet10_mesh(mods, dims))
+                   lambda dims: tet10_mesh(mods, dims),
+                   lambda dims: hex20_mesh(mods, dims))
     log("phase k2_check:")
     phase_k2_check(em)
     log("phase gather_check:")
@@ -2157,9 +2770,23 @@ def main(argv=None) -> int:
     k1_row["staticeigen_small_reference"] = \
         phase_heat_eigen_small_reference(mods)
 
+    # 12. the hex20_mpc path (K1 once per Newton iteration at m = 60 with
+    #     the spring block, its planes entry in the AMG setups, the nodal
+    #     smoothing and every MPC reduction), then K1 at its shapes;
+    #     METHOD=DIRECT; small decks of this slice on the card and the CPU
+    torch.cuda.empty_cache()
+    cell = phase_hex20_mpc_main_path(args, mods)
+    k1_m60_row = phase_k1_m60_time(mods, cell.pop("model"), cell.pop("kes"),
+                                   cell["launches"])
+    k1_m60_row["hex20_mpc_main_path"] = cell
+    torch.cuda.empty_cache()
+    k1_m60_row["direct"] = phase_direct(args, mods)
+    torch.cuda.empty_cache()
+    phase_extras_small_reference(mods)
+
     log(f"phase total: {time.perf_counter() - t_start:.2f} s")
     log(smi)
-    log(json.dumps({"kernels": [k1_row, k2_row] + gather_rows}))
+    log(json.dumps({"kernels": [k1_row, k1_m60_row, k2_row] + gather_rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -34,11 +34,14 @@ output).  The only host reads of an implicit step are CG's convergence
 scalar and the Newton residual norm.
 
 The effective system c1 K + c2 M is solved by a block-Jacobi PCG on the
-matrix-free ``femop.FEOperator`` (tol = RESID, maxiter = NIER).  What the
-JAX package also runs in dynamics and the port does not yet (contact,
-!EQUATION, METHOD=DIRECT and the band factorisation, sharding, restart,
-the coupler, frequency response, shells and beams) raises
-``NotImplementedError`` naming itself.
+matrix-free ``femop.FEOperator`` (tol = RESID, maxiter = NIER), with
+!EQUATION eliminated around it (``assembly/extras.py``); METHOD=DIRECT
+factors it on the host (``solver/direct.py``).  What the JAX package
+also runs in dynamics and the port does not yet (contact, the band
+factorisation, sharding, restart, the coupler, frequency response,
+shells and beams) raises ``NotImplementedError`` naming itself, and so
+do the cards the JAX package's dynamics drop without effect: !EQUATION
+in an explicit run, !SPRING (ROADMAP, queue 3, fault 2).
 """
 
 from __future__ import annotations
@@ -59,15 +62,15 @@ from frontistr_tpu_torch.analysis.nonlinear import (BlockPrograms,
                                                     _qforce,
                                                     init_block_state)
 from frontistr_tpu_torch.analysis.static import StaticResult
-from frontistr_tpu_torch.assembly import femop, loads
+from frontistr_tpu_torch.assembly import extras, femop, loads
 from frontistr_tpu_torch.assembly import operators as old_ops
 from frontistr_tpu_torch.assembly.model import StructModel, collect_cload
 from frontistr_tpu_torch.device import Phase
 from frontistr_tpu_torch.elements.quadhi import mass_tables
 from frontistr_tpu_torch.io import logio
+from frontistr_tpu_torch.solver import direct
 from frontistr_tpu_torch.solver.cg import pcg
 
-_DIRECT = ("DIRECT", "DIRECTMKL", "MUMPS", "MKL", "DIRECTLAG")
 F64 = torch.float64
 
 
@@ -237,11 +240,11 @@ def _check_request(model: StructModel) -> None:
             raise NotImplementedError(f"{name} in dynamics")
     if os.environ.get("FRONTISTR_TPU_DIRECT", "").lower() == "band":
         raise NotImplementedError("FRONTISTR_TPU_DIRECT=band in dynamics")
-    if cfg.solver.method.upper() in _DIRECT and d.idx_eqa != 11:
-        raise NotImplementedError(f"!SOLVER METHOD={cfg.solver.method} in "
-                                  "dynamics")
+    # the JAX package's explicit run prints a warning and drops the
+    # !EQUATION constraints; its dynamics leave !SPRING out of K
+    explicit_eq = model.mesh.equations if d.idx_eqa == 11 else []
     for name, cards in (("!CONTACT", cfg.contacts),
-                        ("!EQUATION", model.mesh.equations),
+                        ("!EQUATION in explicit dynamics", explicit_eq),
                         ("!SPRING", cfg.springs),
                         ("!TEMPERATURE", cfg.temperatures),
                         ("!AMPLITUDE in the .cnt", cfg.amplitudes)):
@@ -370,26 +373,40 @@ def make_effective_solver(model, free, gather, mass, c1: float,
         P A P x + (I-P) x = (B - A d) * P + d * (I-P),  A = c1 K + c2 M,
 
     d = dirichlet_inc, by PCG with the block-Jacobi inverse of A's nodal
-    diagonal blocks (tol RESID, maxiter NIER).  ``solve.prepare(kes)``
-    builds the operator and preconditioner once for a tangent that
-    stays (the linear arm), ``solve.operator(kes)`` the stiffness
-    operator alone; ``solve.last_iters`` / ``last_relres`` describe the
-    last call."""
+    diagonal blocks (tol RESID, maxiter NIER); with !EQUATION on the
+    eliminated system T^T A T (its constants held at 0: the rate form).
+    METHOD=DIRECT without !EQUATION factors the constrained A on the host
+    instead (SuperLU), once per ``prepare`` and back-substituted at every
+    call with it: once a run on the linear arm, every iteration on the
+    Newton arm.  ``solve.prepare(kes)`` builds the operator and the
+    preconditioner or factor once for a tangent that stays (the linear
+    arm), ``solve.operator(kes)`` the stiffness operator alone;
+    ``solve.last_iters`` / ``last_relres`` describe the last call."""
     sv = model.cfg.solver
     dev = model.device
     dofs = [torch.as_tensor(b.dofs, dtype=torch.int64, device=dev)
             for b in model.blocks]
     nn, nd = model.n_node, model.ndof
+    mpc = extras.mpc_arrays(model.mesh, nd, nn * nd, dev)
+    use_direct = sv.method.upper() in direct.METHODS and mpc is None
 
     def operator(kes):
         return femop.FEOperator(list(kes), dofs, gather, nn, nd, free)
 
     def prepare(kes):
         op = operator(kes)
+        if use_direct:
+            import scipy.sparse as sp
+            A = (c1 * direct.assemble_csr(op.kes, dofs, nn * nd)
+                 + sp.diags(c2 * direct.host(mass))).tocsr()
+            return op, direct.factor_constrained(A, free)
         return op, op.block_jacobi(scale=c1, diag_add=c2 * mass)
 
     def solve(kes, B, dirichlet_inc, prepared=None):
         op, M = prepared if prepared is not None else prepare(kes)
+        if use_direct:
+            solve.last_iters, solve.last_relres = 0, 0.0
+            return torch.as_tensor(M(B, dirichlet_inc), device=dev)
 
         def A_raw(x):
             return c1 * op.matvec(x) + c2 * mass * x
@@ -400,9 +417,14 @@ def make_effective_solver(model, free, gather, mass, c1: float,
 
         b_c = (B - A_raw(dirichlet_inc)) * free + \
             dirichlet_inc * (1.0 - free)
-        res = pcg(A_eff, b_c, M=M, tol=sv.resid, maxiter=sv.nier)
+        A_cg = A_eff
+        if mpc is not None:
+            b_c = extras.mpc_reduce_rhs(mpc, A_eff, b_c)
+            A_cg = extras.mpc_wrap(mpc, A_eff)
+            M = extras.mpc_precond(mpc, M)
+        res = pcg(A_cg, b_c, M=M, tol=sv.resid, maxiter=sv.nier)
         solve.last_iters, solve.last_relres = int(res.iters), res.relres
-        return res.x
+        return res.x if mpc is None else extras.mpc_recover(mpc, res.x)
 
     solve.operator, solve.prepare = operator, prepare
     solve.last_iters, solve.last_relres = 0, float("nan")

@@ -16,9 +16,15 @@ fstr_EIG_output.f90:44-86.
 
 K keeps the zero-mass dofs: only Dirichlet dofs and the dofs of nodes no
 element touches are pinned, and Lanczos runs in the M-seminorm over the
-dofs that carry mass.  What the JAX package also runs and the port does
-not yet (METHOD=DIRECT and its band factorisation, !EQUATION, sharding,
-shells and beams) raises ``NotImplementedError`` naming itself.
+dofs that carry mass.  !EQUATION is eliminated inside each apply (the
+reduced pencil T^T K T, T^T M T, every vector kept in range(T)).
+METHOD=DIRECT factors the constrained K once on the host (SuperLU,
+``solver/direct.py``) and back-substitutes at every apply; with
+!EQUATION it takes the eliminated CG, as in the JAX package.  What the
+JAX package also runs and the port does not (the band factorisation,
+sharding, shells and beams) raises ``NotImplementedError`` naming
+itself, and so does !SPRING, which the JAX package's eigen analysis
+leaves out of K without a word (ROADMAP, queue 3, fault 2).
 """
 
 from __future__ import annotations
@@ -33,14 +39,14 @@ import torch
 
 from frontistr_tpu_torch.analysis.dynamic import lumped_mass_vector
 from frontistr_tpu_torch.analysis.static import compute_element_stiffness
-from frontistr_tpu_torch.assembly import femop
+from frontistr_tpu_torch.assembly import extras, femop
 from frontistr_tpu_torch.assembly import operators as old_ops
 from frontistr_tpu_torch.assembly.model import StructModel
 from frontistr_tpu_torch.device import synchronize
+from frontistr_tpu_torch.solver import direct
 from frontistr_tpu_torch.solver.cg import pcg
 
 F64 = torch.float64
-_DIRECT = ("DIRECT", "DIRECTMKL", "MUMPS", "MKL", "DIRECTLAG")
 
 
 @dataclasses.dataclass
@@ -58,16 +64,13 @@ class EigenResult:
 
 
 def _check_request(model: StructModel) -> None:
-    if model.cfg.solver.method.upper() in _DIRECT:
-        raise NotImplementedError(f"!SOLVER METHOD={model.cfg.solver.method}"
-                                  " in eigen analysis")
     if os.environ.get("FRONTISTR_TPU_DIRECT", "").lower() == "band":
         raise NotImplementedError("FRONTISTR_TPU_DIRECT=band in eigen "
                                   "analysis")
     if os.environ.get("FRONTISTR_TPU_SHARDS", "") not in ("", "0"):
         raise NotImplementedError("sharded Lanczos (FRONTISTR_TPU_SHARDS)")
-    if model.mesh.equations:
-        raise NotImplementedError("!EQUATION in eigen analysis")
+    if model.cfg.springs:
+        raise NotImplementedError("!SPRING in eigen analysis")
     if model.ndof == 6 or any(b.kind != "solid" for b in model.blocks):
         raise NotImplementedError("shell and beam blocks (6 dof) in eigen "
                                   "analysis")
@@ -109,24 +112,47 @@ def run_eigen(model: StructModel, log_path: Optional[str] = None,
               for b in model.blocks],
         gather=gather, n_node=model.n_node, ndof=model.ndof,
         free_mask=k_act)
-    precond = op.block_jacobi()
     nier = cfg.solver.nier
     history: List[dict] = []
+    # !EQUATION: the dependent-dof elimination inside the apply
+    mpc = extras.mpc_arrays(model.mesh, model.ndof, n, dev)
+    precond = extras.mpc_precond(mpc, op.block_jacobi())
+    A = op.apply_constrained if mpc is None else \
+        extras.mpc_wrap(mpc, op.apply_constrained)
+    direct_solve = None
+    if cfg.solver.method.upper() in direct.METHODS and mpc is None:
+        # METHOD=DIRECT: one host factor of the constrained K, back-
+        # substituted at every apply (set_arrays_DirectSolver)
+        direct_solve = direct.factor_constrained(
+            direct.assemble_csr(op.kes, op.dofs, n), k_active)
 
     def shift_invert(q):
         """w = K^{-1} (M q) on the Dirichlet-constrained system."""
         t0 = time.perf_counter()
-        res = pcg(op.apply_constrained, (mass * q) * k_act, M=precond,
-                  tol=1e-10, maxiter=nier)
-        x = res.x * k_act
+        b = (mass * q) * k_act
+        if direct_solve is not None:
+            x = torch.as_tensor(direct_solve(b), device=dev)
+            iters = 0
+        else:
+            if mpc is not None:
+                b = extras.mpc_Tt(mpc, b)
+            res = pcg(A, b, M=precond, tol=1e-10, maxiter=nier)
+            x, iters = res.x, res.iters
+            if mpc is not None:
+                x = extras.mpc_recover(mpc, x)
+        x = x * k_act
         synchronize(dev)
-        history.append(dict(cg=res.iters, s=time.perf_counter() - t0))
+        history.append(dict(cg=iters, s=time.perf_counter() - t0))
         return x
 
     # --- Lanczos with full reorthogonalization (M-inner product) ----------
     rng = np.random.default_rng(0)
     q = torch.as_tensor(active.astype(np.float64) * rng.standard_normal(n),
                         device=dev)
+    if mpc is not None:
+        # the start vector inside the constraint subspace range(T)
+        q = extras.mpc_recover(mpc, q) * torch.as_tensor(
+            active.astype(np.float64), device=dev)
     q = q / torch.sqrt(torch.dot(mass * q, q))
     m_iter = min(maxiter, int(active.sum()))
     V = torch.zeros((m_iter + 1, n), dtype=F64, device=dev)

@@ -28,8 +28,13 @@ repeats to the bit on the card.  The JAX package runs a plain transient
 deck as one ``lax.scan`` and a weld-line deck as an eager loop; both
 compute the same numbers, and the port has one loop: one host read of
 the fixed-point change per iteration and one of the log's extrema per
-step.  What the JAX package also runs and the port does not yet
-(METHOD=DIRECT, !EQUATION ties, sharding, restart) raises
+step.  !EQUATION ties temperatures by the dependent-dof elimination at
+one dof a node (``assembly/extras.py``), their constants at factor 1
+(temperatures are totals).  METHOD=DIRECT assembles K + C/dt into CSR
+and factors it on the host at every fixed-point pass, as the
+conductances change with T (``solver/direct.py``); with !EQUATION it
+takes the eliminated CG, as in the JAX package.  What the JAX package
+also runs and the port does not yet (sharding, restart) raises
 ``NotImplementedError`` naming itself.
 """
 
@@ -42,7 +47,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from frontistr_tpu_torch.assembly import femop
+from frontistr_tpu_torch.assembly import extras, femop
 from frontistr_tpu_torch.assembly.loads import FACE_TABLES
 from frontistr_tpu_torch.device import Phase, resolve
 from frontistr_tpu_torch.elements.tables import ETYPE_INFO, get_table
@@ -50,12 +55,12 @@ from frontistr_tpu_torch.fem.isoparam import jacobians
 from frontistr_tpu_torch.fem.solid import table_tensor
 from frontistr_tpu_torch.io.ctrlio import AnalysisConfig, HeatConfig
 from frontistr_tpu_torch.io.meshio import Mesh
+from frontistr_tpu_torch.solver import direct
 from frontistr_tpu_torch.solver.cg import pcg
 
 F64 = torch.float64
 HEAT_ETYPES = (231, 232, 241, 242, 341, 342, 351, 352, 361, 362)
 HRZ_ETYPES = (232, 242, 342, 352, 362)     # HRZ-lumped capacity
-_DIRECT = ("DIRECT", "DIRECTMKL", "MUMPS", "MKL", "DIRECTLAG")
 
 
 @dataclasses.dataclass
@@ -539,11 +544,6 @@ class HeatResult:
 
 def _check_request(model: HeatModel) -> None:
     cfg = model.cfg
-    if cfg.solver.method.upper() in _DIRECT:
-        raise NotImplementedError(f"!SOLVER METHOD={cfg.solver.method} in "
-                                  "heat analysis")
-    if model.mesh.equations:
-        raise NotImplementedError("!EQUATION in heat analysis")
     if os.environ.get("FRONTISTR_TPU_SHARDS", "") not in ("", "0"):
         raise NotImplementedError("sharded heat (FRONTISTR_TPU_SHARDS)")
     if cfg.restart is not None:
@@ -599,6 +599,9 @@ class _HeatSolver:
         self.f_const = tensor(model.f_const)
         sv = model.cfg.solver
         self.tol, self.maxiter = sv.resid, max(sv.nier, 2000)
+        self.mpc = extras.mpc_arrays(model.mesh, 1, n, dev)
+        self.direct = (sv.method.upper() in direct.METHODS
+                       and self.mpc is None)
         self.last = None           # the last solve's system and solution
 
     def capacity(self, T: torch.Tensor) -> torch.Tensor:
@@ -654,15 +657,31 @@ class _HeatSolver:
             y = op.matvec(xf) + dt_inv_C * xf
             return y * free + x * (1.0 - free)
 
+        if self.direct:
+            # METHOD=DIRECT: host SuperLU on K + diag(C/dt), refactored
+            # every pass (heat_solve_main -> solve_LINEQ)
+            import scipy.sparse as sp
+            Kc = direct.assemble_csr(kes, self.dofs, self.model.n_node) + \
+                sp.diags(direct.host(dt_inv_C))
+            x = direct.factor_constrained(Kc, free)(f, u_fix)
+            return torch.as_tensor(x, device=self.dev), 0
         y_fix = op.matvec(u_fix) + dt_inv_C * u_fix
         b_c = (f - y_fix) * free + u_fix * (1.0 - free)
         D = (op.diag_blocks().reshape(-1) + dt_inv_C) * free ** 2
         D = torch.where(D == 0, 1.0, D)
-        res = pcg(A, b_c, M=lambda r: r / D, tol=self.tol,
-                  maxiter=self.maxiter)
+        A_cg = A
+        M = lambda r: r / D  # noqa: E731
+        if self.mpc is not None:
+            # T_dep = sum c T_m + const at every solve (factor 1)
+            b_c = extras.mpc_reduce_rhs(self.mpc, A, b_c, 1.0)
+            A_cg = extras.mpc_wrap(self.mpc, A)
+            M = extras.mpc_precond(self.mpc, M)
+        res = pcg(A_cg, b_c, M=M, tol=self.tol, maxiter=self.maxiter)
+        x = res.x if self.mpc is None else \
+            extras.mpc_recover(self.mpc, res.x, 1.0)
         self.last = dict(kes=kes, dofs=self.dofs, dt_inv_C=dt_inv_C,
-                         b=b_c, x=res.x, free=free)
-        return res.x, res.iters
+                         b=b_c, x=x, free=free)
+        return x, res.iters
 
 
 def run_heat(mesh: Mesh, cfg: AnalysisConfig,

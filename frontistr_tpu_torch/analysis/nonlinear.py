@@ -23,9 +23,14 @@ or, for linear STATIC decks, IC formulation) of an isotropic ELASTIC or
 MOHR-COULOMB) with the INFINITESIMAL, TOTALLAG or UPDATELAG flag; CLOAD,
 DLOAD and TEMPERATURE loads, DLOAD as a follower load under nlgeom
 (``assembly/loads.FollowerDload``, re-assembled on the device every
-iteration); steps, substeps, AUTOINC, TIME_POINTS.  Anything else the
-JAX driver handles (contact, MPC, springs, rotational BCs, other
-materials, restart, direct solvers, sharding) raises
+iteration); steps, substeps, AUTOINC, TIME_POINTS; !SPRING blocks in
+the tangent and the internal force; !EQUATION eliminated around the
+solve (T^T K T, ``assembly/extras.py``) with the residual reduced the
+same way; rotational !BOUNDARY rows about ROT_CENTER, re-rotated from
+the current positions every substep; METHOD=DIRECT as a host SuperLU
+factor of each tangent (``solver/direct.py``; with !EQUATION the
+iterative elimination, as in the JAX package).  Anything else the JAX
+driver handles (contact, other materials, restart, sharding) raises
 ``NotImplementedError`` naming itself.  The JAX package's jit-argument
 carry (a TPU remote-compile workaround) has no counterpart: PyTorch runs
 eagerly.
@@ -43,10 +48,10 @@ import torch
 from frontistr_tpu_torch.analysis.static import (StaticResult, check_solver,
                                                  cluster_operator,
                                                  cluster_setup, solve_policy)
-from frontistr_tpu_torch.assembly import femop, loads
+from frontistr_tpu_torch.assembly import extras, femop, loads
 from frontistr_tpu_torch.assembly import operators as old_ops
 from frontistr_tpu_torch.assembly.model import (StructModel, collect_boundary,
-                                                collect_cload)
+                                                collect_cload, rot_bc_disp)
 from frontistr_tpu_torch.device import Phase
 from frontistr_tpu_torch.elements.tables import get_table
 from frontistr_tpu_torch.fem import material as mat
@@ -57,6 +62,7 @@ from frontistr_tpu_torch.fem.plastic import (PlasticParams, plastic_tangent,
 from frontistr_tpu_torch.io import logio
 from frontistr_tpu_torch.io.stafile import sta_final, sta_init, sta_status
 from frontistr_tpu_torch.post import nodal as postnodal
+from frontistr_tpu_torch.solver import direct as direct_mod
 from frontistr_tpu_torch.solver.cg import pcg
 from frontistr_tpu_torch.solver.mixed import refined_cg
 
@@ -413,45 +419,76 @@ def make_constrained_solver(model: StructModel, free: torch.Tensor,
                             timings: Optional[dict] = None):
     """The constrained solve of the whole analysis: the symbolic profiles,
     AMG maps and incidence are built here, once; each call
-    ``solve(kes, B, dirichlet_inc)`` assembles the element tangents
-    through K1, sets the preconditioner up and solves
+    ``solve(kes, B, dirichlet_inc, gfac=0.0)`` (``kes`` the element
+    blocks' tangents; the model's spring blocks are appended) assembles
+    the tangents through K1, sets the preconditioner up and solves
 
         P K P x + (I-P) x = (B - K d) * P + d * (I-P),  d = dirichlet_inc
 
     with the refined CG (mixed: float32 cluster CG, float64 matrix-free
-    residuals, at most 6 passes) or the float64 CG.  ``solve.last_iters``,
-    ``solve.last_passes`` and ``solve.last_relres`` describe the last
-    call.  ``gather`` is the incidence gather of
-    ``femop.incidence_gather``."""
+    residuals, at most 6 passes) or the float64 CG.  With !EQUATION the
+    system is eliminated around both operators, T^T K T, the constants
+    scaled by ``gfac`` (``solve.mpc`` holds the tables, None without).
+    METHOD=DIRECT without !EQUATION factors K on the host instead.
+    ``solve.last_iters``, ``solve.last_passes`` and ``solve.last_relres``
+    describe the last call.  ``gather`` is the incidence gather of
+    ``femop.incidence_gather(model, device)``."""
     sv = model.cfg.solver
-    check_solver(sv)
+    method = check_solver(sv)
     timings = {} if timings is None else timings
     dev = model.device
-    setup = cluster_setup(model, timings, policy=_precond_policy(sv))
+    ex_kes, ex_dofs = extras.extra_tensors(model, dev)
     dofs = [torch.as_tensor(b.dofs, dtype=torch.int64, device=dev)
-            for b in model.blocks]
+            for b in model.blocks] + ex_dofs
+    mpc = extras.mpc_arrays(model.mesh, model.ndof, model.n_dof_total, dev)
+
+    def operator(kes):
+        return femop.FEOperator(list(kes) + ex_kes, dofs, gather,
+                                model.n_node, model.ndof, free)
+
+    if method in direct_mod.METHODS and mpc is None:
+        def solve(kes, B, dirichlet_inc, gfac=0.0):
+            # METHOD=DIRECT: host SuperLU on the current tangent
+            # (fstr_solve_NonLinear.f90 -> solve_LINEQ)
+            with Phase(timings, "solve", dev):
+                x = direct_mod.solve_direct(operator(kes), B, dirichlet_inc)
+            return torch.as_tensor(x, device=dev)
+
+        solve.last_iters = solve.last_passes = 0
+        solve.last_relres = 0.0
+        solve.mpc = None
+        return solve
+
+    setup = cluster_setup(model, timings, policy=_precond_policy(sv))
     dtype = torch.float32 if mixed else torch.float64
 
-    def solve(kes, B, dirichlet_inc):
-        op = femop.FEOperator(list(kes), dofs, gather, model.n_node,
-                              model.ndof, free)
+    def solve(kes, B, dirichlet_inc, gfac=0.0):
+        op = operator(kes)
         b_c = op.constrained_rhs(B, dirichlet_inc)
         A, M = cluster_operator(setup, model, kes, free, dtype, timings)
+        A64 = op.apply_constrained
+        if mpc is not None:
+            b_c = extras.mpc_reduce_rhs(mpc, A64, b_c, gfac)
+            A, A64 = extras.mpc_wrap(mpc, A), extras.mpc_wrap(mpc, A64)
+            M = extras.mpc_precond(mpc, M)
         with Phase(timings, "solve", dev):
             if mixed:
-                res = refined_cg(op.apply_constrained, A, M, b_c,
-                                 tol=sv.resid, inner_tol=1e-6,
-                                 maxiter=sv.nier, max_passes=6)
+                res = refined_cg(A64, A, M, b_c, tol=sv.resid,
+                                 inner_tol=1e-6, maxiter=sv.nier,
+                                 max_passes=6)
                 solve.last_passes = res.passes
             else:
                 res = pcg(A, b_c, M=M, tol=sv.resid, maxiter=sv.nier)
                 solve.last_passes = 0
+            x = res.x if mpc is None else \
+                extras.mpc_recover(mpc, res.x, gfac)
         solve.last_iters = int(res.iters)
         solve.last_relres = float(res.relres)
-        return res.x
+        return x
 
     solve.last_iters = solve.last_passes = 0
     solve.last_relres = float("nan")
+    solve.mpc = mpc
     return solve
 
 
@@ -537,11 +574,8 @@ def _check_request(model: StructModel) -> None:
     if os.environ.get("FRONTISTR_TPU_SHARDS", "") not in ("", "0"):
         raise NotImplementedError("sharded Newton (FRONTISTR_TPU_SHARDS)")
     cfg = model.cfg
-    for name, cards in (("!CONTACT", cfg.contacts),
-                        ("!SPRING", cfg.springs),
-                        ("!EQUATION", model.mesh.equations)):
-        if cards:
-            raise NotImplementedError(f"{name} in the Newton driver")
+    if cfg.contacts:
+        raise NotImplementedError("!CONTACT in the Newton driver")
     if cfg.restart is not None:
         raise NotImplementedError("!RESTART in the Newton driver")
 
@@ -770,6 +804,15 @@ def _newton_substep(model, programs, states, u, f_total, free, u_fix_total,
     du = torch.zeros_like(u)
     # prescribed displacement increment of this substep (fstr_AddBC)
     dufix = u_fix_total * (lam2 - lam1)
+    if model.rot_bcs:
+        # rotational BC: the incremental Rodrigues rotation of the current
+        # slave positions about the center (fstr_AddBC.f90:112-160)
+        u_np = u.cpu().numpy()
+        for ent in model.rot_bcs:
+            dofs_r, vals_r = rot_bc_disp(ent, model.coords, u=u_np,
+                                         factor=lam2 - lam1)
+            dufix[torch.as_tensor(dofs_r, device=dev)] = \
+                torch.as_tensor(vals_r, device=dev)
     # multi-step decks: a held part (factor 1.0) plus the ramped part
     gl = f_total * lam2 if f_held is None else f_held + f_total * lam2
     states_cur = states
@@ -789,7 +832,7 @@ def _newton_substep(model, programs, states, u, f_total, free, u_fix_total,
                 gl = follow(u + du, lam2)
         B = gl - Q_cur
         dirichlet_inc = dufix if it == 1 else torch.zeros_like(dufix)
-        dx = solve(kes, B, dirichlet_inc)
+        dx = solve(kes, B, dirichlet_inc, (lam2 - lam1) if it == 1 else 0.0)
         del kes
         with Phase(timings, "update", dev):
             du = du + dx
@@ -801,9 +844,13 @@ def _newton_substep(model, programs, states, u, f_total, free, u_fix_total,
                 new_states.append(ns_)
                 qfs.append(qf)
             states_cur = new_states
-            Q = femop.gather_sum(qfs, gather)
+            Q = femop.gather_sum(qfs + _spring_forces(model, u + du),
+                                 gather)
             Q_cur = Q
-            Bres = (gl - Q) * free
+            # !EQUATION: the residual in the reduced space, so the forces
+            # a constraint carries cancel (fstr_Update_NDForce_MPC)
+            Bres = (gl - Q if solve.mpc is None else
+                    extras.mpc_Tt(solve.mpc, gl - Q)) * free
             # one device->host transfer per Newton iteration
             res_n, qnrm, xnrm, dunrm, n_yield = _conv_norms(
                 Bres, Q, dx, du, new_states)
@@ -852,13 +899,22 @@ def _all_linear(programs):
                for p in programs)
 
 
+def _spring_forces(model, u_tot):
+    """The spring blocks' force rows k u (E, ndof) at the total
+    displacement, in ``model.extras`` order."""
+    ex_kes, ex_dofs = extras.extra_tensors(model, u_tot.device)
+    return [torch.einsum("eij,ej->ei", k, u_tot[d])
+            for k, d in zip(ex_kes, ex_dofs)]
+
+
 def _qforce(model, programs, states, u, du, gather):
-    """Global internal force QFORCE from the per-block updates."""
+    """Global internal force QFORCE from the per-block updates and the
+    springs."""
     qfs = [p.update(_element_values(u, p, model.n_node, model.ndof),
                     _element_values(du, p, model.n_node, model.ndof),
                     s)[1]
            for p, s in zip(programs, states)]
-    return femop.gather_sum(qfs, gather)
+    return femop.gather_sum(qfs + _spring_forces(model, u + du), gather)
 
 
 def _postprocess(model, states, u, Q=None) -> StaticResult:

@@ -13,7 +13,16 @@ step).  Two solve arms, chosen as the JAX package chooses them:
   assembled through the K1 segment-sum kernel, AMG-preconditioned
   (block-Jacobi below FRONTISTR_TPU_AMG_MIN dofs).
 
-Either runs in the "mixed" policy (f32 CG + f64 refinement on the f64
+A deck with !EQUATION takes neither: the JAX package eliminates the
+dependent dofs on the matrix-free operator, T^T K T, and solves with a
+float64 block-Jacobi CG (``assembly/extras.py``).  METHOD=DIRECT (and
+DIRECTMKL, MUMPS, MKL) factors the assembled system on the host
+(``solver/direct.py``); DUMPTYPE writes the assembled matrix
+(``solver/dump.py``) and ESTCOND prints a Lanczos estimate of the
+block-Jacobi-preconditioned operator's condition number
+(``solver/cond.py``).
+
+The iterative arms run in the "mixed" policy (f32 CG + f64 refinement on the f64
 operator, the default of linear STATIC on CUDA; the cluster arm's f64
 operator is the matrix-free ``FEOperator``) or the "f64" policy (a plain
 f64 CG, the default on the CPU and of NLSTATIC).  Under a !TEMPERATURE
@@ -30,7 +39,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from frontistr_tpu_torch.assembly import bell, ell, femop, loads
+from frontistr_tpu_torch.assembly import bell, ell, extras, femop, loads
 from frontistr_tpu_torch.assembly import operators as ops
 from frontistr_tpu_torch.assembly.model import StructModel
 from frontistr_tpu_torch.assembly.structured import (StructuredHexOperator,
@@ -40,7 +49,10 @@ from frontistr_tpu_torch.elements.tables import get_table
 from frontistr_tpu_torch.fem import solid
 from frontistr_tpu_torch.post import nodal as postnodal
 from frontistr_tpu_torch.solver import amg as amgmod
+from frontistr_tpu_torch.solver import direct
 from frontistr_tpu_torch.solver.cg import pcg
+from frontistr_tpu_torch.solver.cond import estimate_condition
+from frontistr_tpu_torch.solver.dump import dump_operator
 from frontistr_tpu_torch.solver.mixed import refined_cg
 
 
@@ -125,12 +137,8 @@ def print_timelog(t_setup: float, t_solve: float) -> None:
 
 def check_solver(sv) -> str:
     method = sv.method.upper()
-    if method not in ("CG", "1"):
+    if method not in ("CG", "1") + direct.METHODS:
         raise NotImplementedError(f"!SOLVER METHOD={sv.method}")
-    if (sv.dumptype or "NONE").upper() not in ("NONE", "", "0"):
-        raise NotImplementedError("!SOLVER DUMPTYPE")
-    if sv.estcond:
-        raise NotImplementedError("!SOLVER ESTCOND")
     if os.environ.get("FRONTISTR_TPU_PRECOND", "") == "cheby":
         raise NotImplementedError("FRONTISTR_TPU_PRECOND=cheby")
     return method
@@ -138,11 +146,12 @@ def check_solver(sv) -> str:
 
 def is_structured(model: StructModel) -> bool:
     """The stencil arm's condition (``static.py:265-268`` of the JAX
-    package): a structured box of one solid hex8 block.  The port runs
-    no MPC or extras, so those conditions hold already."""
+    package): a structured box of one solid hex8 block, without springs
+    or !EQUATION."""
     return (getattr(model.mesh, "structured", None) is not None
             and len(model.blocks) == 1 and model.blocks[0].etype == 361
-            and model.blocks[0].kind == "solid")
+            and model.blocks[0].kind == "solid" and not model.extras[0]
+            and not model.mesh.equations)
 
 
 def _stencil_operators(model: StructModel, kes, free_mask, mixed: bool,
@@ -219,10 +228,29 @@ def solve_linear(model: StructModel, kes,
     f = torch.as_tensor(model.f_ext, device=dev)
     op = femop.from_model(model, kes)
     b_c = op.constrained_rhs(f, u_fix)
+    mpc = extras.mpc_arrays(model.mesh, model.ndof, n, dev)
+    A_mpc = None
+    if mpc is not None:
+        A_mpc = extras.mpc_wrap(mpc, op.apply_constrained)
+        b_c = extras.mpc_reduce_rhs(mpc, op.apply_constrained, b_c, 1.0)
+    if (sv.dumptype or "NONE").upper() not in ("NONE", "", "0"):
+        print(f"### matrix dumped: {dump_matrix(model, kes, sv.dumptype)}")
+    if method in direct.METHODS:
+        if mpc is not None:
+            # the JAX package solves without the elimination and then
+            # overwrites the dependent dofs (static.py:275-280): not the
+            # constrained answer (ROADMAP, queue 3, fault 4)
+            raise NotImplementedError("!SOLVER METHOD=DIRECT with "
+                                      "!EQUATION in linear STATIC")
+        with Phase(timings, "solve", dev):
+            x = direct.solve_direct(op, f, u_fix)
+        return LinearSolve(x, 1, 0.0, 0, "direct", op)
     hl = 2000 if sv.iterlog else 0
     policy = solve_policy(dev)
-    mixed = policy == "mixed" and method == "CG"
-    if is_structured(model):
+    mixed = policy == "mixed" and method == "CG" and mpc is None
+    if mpc is not None:
+        A, A64, M = A_mpc, None, extras.mpc_precond(mpc, op.block_jacobi())
+    elif is_structured(model):
         A64, A, M = _stencil_operators(model, kes, op.free_mask, mixed,
                                        timings)
     else:
@@ -241,14 +269,36 @@ def solve_linear(model: StructModel, kes,
             res = pcg(A, b_c, M=M, tol=sv.resid, maxiter=sv.nier,
                       hist_len=hl)
             passes = 0
-        x = res.x.cpu().numpy()
+        x = res.x if mpc is None else extras.mpc_recover(mpc, res.x, 1.0)
+        x = x.cpu().numpy()
     t2 = time.perf_counter()
     if sv.iterlog:
         print_iterlog(res.hist)
     if sv.timelog:
         print_timelog(t1 - t0, t2 - t1)
+    if sv.estcond:
+        # ESTCOND (hecmw_solver_CG.f90:89): the estimated condition number
+        # of the block-Jacobi-preconditioned operator
+        cond = estimate_condition(A_mpc or op.apply_constrained, n,
+                                  M=op.block_jacobi(), device=dev)
+        print(f"### Condition number estimate (precond K): {cond:.4e}")
     return LinearSolve(x, int(res.iters), float(res.relres), passes,
                        "mixed" if mixed else "f64", op)
+
+
+def dump_matrix(model: StructModel, kes, dumptype: str) -> str:
+    """DUMPTYPE: the float64 scalar block-ELL blocks (N, W, nd, nd), the
+    spring blocks included, read out of K1's cluster slot planes, written
+    by ``solver/dump.py``.  Returns the file's path."""
+    setup = cluster_setup(model, {})
+    _, sb = bell.from_model(model, kes, dtype=torch.float64,
+                            profile=setup.cprof, want_scalar=True,
+                            scalar=setup.prof)
+    nd = model.ndof
+    N, W = setup.prof.cols.shape
+    blocks = sb.reshape(nd, nd, N, W).permute(2, 3, 0, 1)
+    return dump_operator(blocks.cpu().numpy(), setup.prof.cols, nd,
+                         dumptype)
 
 
 def recover_stress(model: StructModel, u_flat: np.ndarray):

@@ -240,8 +240,9 @@ _CPROFILE_CACHE: dict = {}
 def cluster_profile_from_model(model,
                                scalar: Optional[ellmod.ELLProfile] = None
                                ) -> ClusterProfile:
-    """Build (and cache: one profile) the cluster profile of a model."""
-    conns = [b.conn for b in model.blocks]
+    """Build (and cache: one profile) the cluster profile of a model, its
+    spring blocks included."""
+    conns = ellmod.model_conns(model)
     key = ellmod.profile_key(conns, model.n_node, model.ndof) + "-bell"
     prof = _CPROFILE_CACHE.get(key)
     if prof is None:
@@ -257,12 +258,15 @@ def from_model(model, kes, dtype=None,
                want_scalar: bool = False,
                scalar: Optional[ellmod.ELLProfile] = None):
     """Assemble the cluster operator (and optionally the scalar block
-    planes for AMG) from a StructModel + per-block element matrices."""
+    planes for AMG) from a StructModel + per-block element matrices, the
+    model's spring blocks appended."""
+    from frontistr_tpu_torch.assembly.extras import extra_tensors
     if profile is None:
         profile = cluster_profile_from_model(model, scalar=scalar)
+    kes = list(kes) + extra_tensors(model, kes[0].device, kes[0].dtype)[0]
     if dtype is not None:
         kes = [k.to(dtype) for k in kes]
-    nns = [b.conn.shape[1] for b in model.blocks]
+    nns = [c.shape[1] for c in ellmod.model_conns(model)]
     blocks, raw = assemble_cluster(profile, kes, nns)
     dev = raw.device
     free = old_ops.make_free_mask(model.n_dof_total, model.fixed_dofs)

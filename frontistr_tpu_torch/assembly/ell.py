@@ -97,10 +97,17 @@ def profile_key(conns, n_node, ndof) -> str:
 _PROFILE_CACHE: dict = {}
 
 
+def model_conns(model) -> list:
+    """The connectivity of the model's element blocks, then its spring
+    blocks (``model.extras``)."""
+    return [b.conn for b in model.blocks] + \
+        list(getattr(model, "extras", ([],))[0])
+
+
 def profile_from_model(model, n_node: Optional[int] = None) -> ELLProfile:
     """Build (and cache: one profile, they are large) the ELL profile of
-    a StructModel."""
-    conns = [b.conn for b in model.blocks]
+    a StructModel, its spring blocks included."""
+    conns = model_conns(model)
     nn = model.n_node if n_node is None else n_node
     key = profile_key(conns, nn, model.ndof)
     prof = _PROFILE_CACHE.get(key)

@@ -22,6 +22,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from frontistr_tpu_torch.assembly import ell
 from frontistr_tpu_torch.assembly import operators as old_ops
 
 
@@ -126,9 +127,10 @@ def gather_sum(rows, gather: torch.Tensor) -> torch.Tensor:
 
 def incidence_gather(model, device) -> torch.Tensor:
     """(n_node, maxinc, ndof) int64 indices into the concatenated element
-    force rows (plus one zero row at the end): a node's force is the sum
+    force rows, the spring blocks of ``model.extras`` after the element
+    blocks (plus one zero row at the end): a node's force is the sum
     over its incidences."""
-    inc, _ = build_incidence([b.conn for b in model.blocks], model.n_node)
+    inc, _ = build_incidence(ell.model_conns(model), model.n_node)
     nd = model.ndof
     return (torch.as_tensor(inc, dtype=torch.int64, device=device)[:, :, None]
             * nd + torch.arange(nd, device=device))
@@ -136,14 +138,16 @@ def incidence_gather(model, device) -> torch.Tensor:
 
 def from_model(model, kes) -> FEOperator:
     """Build the operator from a StructModel + per-block element matrices
-    (on the matrices' device and dtype)."""
+    (on the matrices' device and dtype), the model's spring blocks
+    appended."""
+    from frontistr_tpu_torch.assembly.extras import extra_tensors
     dev, dt = kes[0].device, kes[0].dtype
     nd = model.ndof
-    gather = incidence_gather(model, dev)
+    ex_kes, ex_dofs = extra_tensors(model, dev, dt)
     free = old_ops.make_free_mask(model.n_dof_total, model.fixed_dofs)
     return FEOperator(
-        kes=list(kes),
+        kes=list(kes) + ex_kes,
         dofs=[torch.as_tensor(b.dofs, dtype=torch.int64, device=dev)
-              for b in model.blocks],
-        gather=gather, n_node=model.n_node, ndof=nd,
+              for b in model.blocks] + ex_dofs,
+        gather=incidence_gather(model, dev), n_node=model.n_node, ndof=nd,
         free_mask=torch.as_tensor(free, dtype=dt, device=dev))

@@ -1,9 +1,12 @@
 """Host-side model builder: mesh + control deck -> element blocks, BCs and
 loads (torch port of ``frontistr_tpu/assembly/model.py``, the slice the
-solid STATIC and NLSTATIC paths need: tet4, tet10 and hex8 blocks of an
-isotropic ELASTIC or !PLASTIC material, CLOAD, DLOAD and TEMPERATURE
-loads, the temperatures given by node group or read from a heat run's
-result, ``!TEMPERATURE, READRESULT``).
+solid analyses need: tet4/tet10, prism6/prism15 and hex8/hex20 blocks
+of an isotropic ELASTIC or !PLASTIC material, CLOAD (with a torque about
+ROT_CENTER), DLOAD and TEMPERATURE loads, the temperatures given by node
+group or read from a heat run's result, ``!TEMPERATURE, READRESULT``;
+rotational !BOUNDARY rows about ROT_CENTER; !SPRING blocks in
+``model.extras``, ``assembly/extras.py``; the mesh's !EQUATION cards are
+eliminated by each analysis).
 
 The model itself stays host numpy, as in the JAX package: the symbolic
 profiles are built from it on the host, and ``analysis/static.py`` moves
@@ -20,7 +23,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from frontistr_tpu_torch.assembly import loads
+from frontistr_tpu_torch.assembly import extras, loads
 from frontistr_tpu_torch.device import resolve
 from frontistr_tpu_torch.elements.tables import get_table
 from frontistr_tpu_torch.fem import material as mat
@@ -65,6 +68,10 @@ class StructModel:
     f_base: Optional[np.ndarray] = None
     dload_grp: Optional[tuple] = None          # (cards, lgrp)
     reftemp: float = 0.0
+    # spring blocks: (conns, dofs, kes, nns) from assembly.extras
+    extras: tuple = ([], [], [], [])
+    # rotational BOUNDARY entries (ROT_CENTER): applied via rot_bc_disp
+    rot_bcs: list = dataclasses.field(default_factory=list)
 
     @property
     def n_dof_total(self) -> int:
@@ -153,7 +160,7 @@ def collect_boundary(mesh: Mesh, cards: List[Card], ndof: int,
         if grpid_filter is not None and gid not in grpid_filter:
             continue
         if c.param("ROT_CENTER"):
-            raise NotImplementedError("!BOUNDARY, ROT_CENTER")
+            continue      # rotational BC rows: collect_rot
         for row in c.data:
             grp = row[0]
             ds = int(float(row[1])) if len(row) > 1 else 1
@@ -180,7 +187,9 @@ def collect_cload(mesh: Mesh, cards: List[Card], ndof: int, n_node: int,
         if grpid_filter is not None and gid not in grpid_filter:
             continue
         if c.param("ROT_CENTER"):
-            raise NotImplementedError("!CLOAD, ROT_CENTER")
+            for ent in collect_rot(mesh, [c], ndof):
+                f += torque_forces(mesh, ent, mesh.coords)
+            continue
         for row in c.data:
             grp = row[0]
             d = int(float(row[1]))
@@ -191,14 +200,96 @@ def collect_cload(mesh: Mesh, cards: List[Card], ndof: int, n_node: int,
     return f
 
 
-SLICE_ETYPES = (341, 342, 361)     # element types the ported slice runs
+def collect_rot(mesh: Mesh, cards: List[Card], ndof: int,
+                grpid_filter=None):
+    """ROT_CENTER entries on !BOUNDARY/!CLOAD: one per card, with the
+    rotation or torque vector accumulated across rows (fstr_AddBC.f90:
+    70-85, fstr_ass_load.f90:51-93).  Returns dicts with 'nodes' (the
+    slave nodes), 'center' (the center group's nodes), 'vec' (3,)."""
+    out = []
+    for c in cards:
+        cg = c.param("ROT_CENTER")
+        if not cg:
+            continue
+        gid = c.iparam("GRPID", 1)
+        if grpid_filter is not None and gid not in grpid_filter:
+            continue
+        vec = np.zeros(3)
+        nodes = None
+        for row in c.data:
+            if len(row) >= 4:               # BOUNDARY: ds, de, val
+                ds, de = int(float(row[1])), int(float(row[2]))
+                val = float(row[3])
+            else:                           # CLOAD: dof, val
+                ds = de = int(float(row[1]))
+                val = float(row[2])
+            for d in range(ds, de + 1):
+                vec[(d - 1) % 3] = val
+            nodes = _resolve_node_group(mesh, row[0])
+        center = _resolve_node_group(mesh, cg)
+        if nodes is None or len(nodes) == 0 or len(center) == 0:
+            continue
+        out.append(dict(nodes=nodes, center=center, vec=vec))
+    return out
+
+
+def torque_forces(mesh: Mesh, ent, coords) -> np.ndarray:
+    """Torque CLOAD: per slave node F = (T/n)(a x r)/|a x r|^2, a the
+    unit axis, r the position relative to the center
+    (fstr_ass_load.f90:95-133): each node carries torque T/n."""
+    ndof = coords.shape[1] if coords.ndim == 2 else 3
+    f = np.zeros(mesh.n_node * 3)
+    vec = ent["vec"]
+    T = float(np.linalg.norm(vec))
+    if T < 1e-16:
+        return f.reshape(mesh.n_node, 3)[:, :ndof].reshape(-1)
+    a = vec / T
+    c = coords[ent["center"]].mean(axis=0)
+    tn = T / len(ent["nodes"])
+    for n in ent["nodes"]:
+        r = coords[int(n)] - c
+        v = np.cross(a, r)
+        nv2 = float(v @ v)
+        if nv2 < 1e-16:
+            raise ValueError("torque node coincides with the rotation "
+                             "center (fstr_ass_load.f90:126)")
+        f[3 * int(n):3 * int(n) + 3] = (tn / nv2) * v
+    return f.reshape(mesh.n_node, 3)[:, :ndof].reshape(-1)
+
+
+def rodrigues(vec: np.ndarray, r: np.ndarray) -> np.ndarray:
+    """Rotate r (n, 3) by the rotation vector vec (angle = |vec|)."""
+    th = float(np.linalg.norm(vec))
+    if th < 1e-16:
+        return r.copy()
+    k = vec / th
+    return (r * np.cos(th) + np.cross(k, r) * np.sin(th)
+            + np.outer(r @ k, k) * (1.0 - np.cos(th)))
+
+
+def rot_bc_disp(ent, coords, u=None, factor: float = 1.0) -> tuple:
+    """Prescribed displacement increment of a rotational BC: du =
+    R(factor vec) r - r, r the current slave position relative to the
+    center (fstr_AddBC.f90:112-160).  Returns (dofs, values)."""
+    nd = coords.shape[1]
+    cur = coords if u is None else coords + u.reshape(-1, nd)
+    c = cur[ent["center"]].mean(axis=0)
+    r = cur[ent["nodes"]] - c
+    r3 = np.zeros((len(r), 3))
+    r3[:, :nd] = r
+    du = rodrigues(ent["vec"] * factor, r3) - r3
+    dofs = (np.asarray(ent["nodes"])[:, None] * nd
+            + np.arange(nd)[None, :]).reshape(-1)
+    return dofs.astype(np.int64), du[:, :nd].reshape(-1)
+
+
+SLICE_ETYPES = (341, 342, 351, 352, 361, 362)   # the ported solid types
 
 
 def check_slice(mesh: Mesh, cfg: AnalysisConfig) -> None:
     """Raise on any card or element type of the deck outside the ported
     slice."""
-    unported = [("!SPRING", cfg.springs), ("!CONTACT", cfg.contacts),
-                ("!EMBED", cfg.embeds), ("!EQUATION", mesh.equations),
+    unported = [("!CONTACT", cfg.contacts), ("!EMBED", cfg.embeds),
                 ("!ORIENTATION", cfg.orientations)]
     for name, cards in unported:
         if cards:
@@ -206,8 +297,8 @@ def check_slice(mesh: Mesh, cfg: AnalysisConfig) -> None:
     for b in mesh.blocks:
         if b.etype not in SLICE_ETYPES:
             raise NotImplementedError(
-                f"element type {b.etype} (the port runs tet4, 341, "
-                "tet10, 342, and hex8, 361, so far)")
+                f"element type {b.etype} (the port runs the 3-D solids "
+                "341, 342, 351, 352, 361 and 362 so far)")
 
 
 def formulation_361(cfg: AnalysisConfig, section_id: int) -> str:
@@ -269,11 +360,24 @@ def build_struct_model(mesh: Mesh, cfg: AnalysisConfig,
     grpid = set(step.boundary_groups) if step.boundary_groups else None
     fixed_dofs, fixed_vals = collect_boundary(mesh, cfg.boundaries, ndof,
                                               grpid)
+    rot_bcs = collect_rot(mesh, cfg.boundaries, ndof, grpid)
+    if rot_bcs:
+        # rotational BC slaves are Dirichlet in all dofs; the linear path
+        # takes the full-angle Rodrigues values, the Newton loop replaces
+        # them incrementally per substep
+        add_d, add_v = zip(*(rot_bc_disp(ent, coords) for ent in rot_bcs))
+        keep = ~np.isin(fixed_dofs, np.concatenate(add_d))
+        fixed_dofs = np.concatenate([fixed_dofs[keep], *add_d])
+        fixed_vals = np.concatenate([fixed_vals[keep], *add_v])
+        order = np.argsort(fixed_dofs)
+        fixed_dofs, fixed_vals = fixed_dofs[order], fixed_vals[order]
     lgrp = set(step.load_groups) if step.load_groups else None
     f_ext = collect_cload(mesh, cfg.cloads, ndof, n_node, lgrp)
     model = StructModel(mesh, cfg, ndof, dim, n_node, coords, blocks,
                         fixed_dofs, fixed_vals, f_ext, device=dev,
                         nlgeom=cfg.nlgeom, reftemp=cfg.reftemp)
+    model.rot_bcs = rot_bcs
+    model.extras = extras.collect_extras(model, grpid)
     # dead DLOAD and thermal loads of the first step's load groups; the
     # Newton driver re-assembles DLOAD at u under nlgeom (follower)
     if cfg.dloads:

@@ -65,7 +65,11 @@ def model_from_numpy(src, device="cuda",
         else np.asarray(src.temperature, np.float64),
         f_base=None if src.f_base is None
         else np.asarray(src.f_base, np.float64),
-        dload_grp=src.dload_grp)
+        dload_grp=src.dload_grp,
+        extras=tuple([np.asarray(a) for a in field]
+                     for field in getattr(src, "extras", ([],) * 4)[:3])
+        + (list(getattr(src, "extras", ([],) * 4)[3]),),
+        rot_bcs=list(getattr(src, "rot_bcs", [])))
     if kes is None:
         return model
     return model, [torch.tensor(np.asarray(k, np.float64), device=dev)

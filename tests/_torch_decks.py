@@ -48,6 +48,79 @@ def tet10_box(nx, ny, nz):
     return m
 
 
+# mid-edge nodes of the quadratic solids, FSTR order (post/nodal.py)
+QUAD_EDGES = {
+    352: ((0, 1), (1, 2), (2, 0), (3, 4), (4, 5), (5, 3), (0, 3), (1, 4),
+          (2, 5)),
+    362: ((0, 1), (1, 2), (2, 3), (3, 0), (4, 5), (5, 6), (6, 7), (7, 4),
+          (0, 4), (1, 5), (2, 6), (3, 7)),
+}
+
+
+def _regroup(m):
+    """The box's face node groups X0..Z1 and ALL from its coordinates."""
+    c = m.coords
+    for g in ("X0", "X1", "Y0", "Y1", "Z0", "Z1"):
+        x = c[:, "XYZ".index(g[0])]
+        m.node_groups[g] = np.flatnonzero(
+            np.isclose(x, x.max() if g[1] == "1" else x.min())
+        ).astype(np.int64)
+    m.node_groups["ALL"] = np.arange(len(c), dtype=np.int64)
+    m.node_ids = np.arange(1, len(c) + 1, dtype=np.int64)
+    m.id2idx = {int(g): int(g) - 1 for g in m.node_ids}
+    m.structured = None
+    return m
+
+
+def prism6_box(nx, ny, nz, **kw):
+    """``box_hex8(nx, ny, nz)`` with every hex split into two 351 prisms
+    along its bottom face's 0-2 diagonal."""
+    m = box_hex8(nx, ny, nz, **kw)
+    h = m.blocks[0].conn
+    conn = np.concatenate([h[:, [0, 1, 2, 4, 5, 6]],
+                           h[:, [0, 2, 3, 4, 6, 7]]]).astype(np.int32)
+    ids = np.arange(1, len(conn) + 1, dtype=np.int64)
+    m.blocks = [ElemBlock(351, ids, conn, conn.copy(), 0)]
+    m.elem_groups = {"ALL": ids}
+    return _regroup(m)
+
+
+def raise_order(m, etype):
+    """The linear solid mesh ``m`` (351 or 361) raised to ``etype`` (352
+    or 362): one node at the middle of every edge, shared by the
+    elements around it."""
+    lin = m.blocks[0].conn.astype(np.int64)
+    edges = np.stack([np.sort(lin[:, list(e)], axis=1)
+                      for e in QUAD_EDGES[etype]], 1)
+    uniq, inv = np.unique(edges.reshape(-1, 2), axis=0, return_inverse=True)
+    mid = m.n_node + inv.reshape(len(lin), -1)
+    m.coords = np.concatenate([m.coords, m.coords[uniq].mean(axis=1)])
+    conn = np.concatenate([lin, mid], axis=1).astype(np.int32)
+    hecmw = conn.copy()
+    if etype in HECMW2FSTR_ORDER:
+        hecmw[:, np.asarray(HECMW2FSTR_ORDER[etype]) - 1] = conn
+    b = m.blocks[0]
+    m.blocks = [ElemBlock(etype, b.elem_ids, conn, hecmw, 0)]
+    return _regroup(m)
+
+
+def hex20_box(nx, ny, nz, **kw):
+    """``box_hex8(nx, ny, nz)`` raised to 362: (n+1)^3 corners and
+    3 n (n+1)^2 edge midpoints on a cube of n."""
+    return raise_order(box_hex8(nx, ny, nz, **kw), 362)
+
+
+def prism15_box(nx, ny, nz, **kw):
+    return raise_order(prism6_box(nx, ny, nz, **kw), 352)
+
+
+def solid_box(etype, nx, ny, nz, **kw):
+    """A box of one 3-D solid type: 341, 342, 351, 352, 361 or 362."""
+    return {341: box_tet4, 342: tet10_box, 351: prism6_box,
+            352: prism15_box, 361: box_hex8, 362: hex20_box}[etype](
+                nx, ny, nz, **kw)
+
+
 def top_faces(mesh):
     """(n, 2) rows (element id, face number) of the faces on the box's
     top (z = max) side."""
@@ -60,6 +133,22 @@ def top_faces(mesh):
         on = top[b.conn[:, ln[:ncorner]]].all(axis=1)
         rows.extend((int(e), f) for e in b.elem_ids[on])
     return np.asarray(rows, np.int64)
+
+
+def run_both(path, mesh, cnt, ngroups=("X0", "X1"), seed=3):
+    """The deck through the port and the JAX package on the CPU, the
+    mesh's nodes shuffled; returns (port output, JAX output, port dir,
+    JAX dir) of ``run_directory``."""
+    import shutil
+    import frontistr_tpu.run as jrun
+    from frontistr_tpu_torch.run import run_directory
+    order = np.random.default_rng(seed).permutation(mesh.n_node)
+    wd, wj = str(path / "port"), str(path / "jax")
+    write_static_workdir(wd, ordering.permute_mesh(mesh, order), cnt,
+                         ngroups=ngroups)
+    shutil.copytree(wd, wj)
+    oj = jrun.run_directory(wj)
+    return run_directory(wd, device="cpu"), oj, wd, wj
 
 
 def write_deck(path, mesh, cnt, seed=3, amplitudes=None):
@@ -137,7 +226,9 @@ def side_faces(mesh, axis, high=True, block=0):
 def heat_mesh(kind, seed=5):
     """The heat decks' meshes: "hex8" ``box_hex8(4, 3, 2)`` 4 x 1 x 0.7,
     "tet4" ``box_tet4(3, 2, 2)``, "tet10" ``tet10_box(2, 2, 1)``, "quad"
-    and "tri" ``box_plane(4, 3)`` 2 x 1, "iface" ``hex8_pair_541(2)``;
+    and "tri" ``box_plane(4, 3)`` 2 x 1, "iface" ``hex8_pair_541(2)``,
+    an element type number (351, 352, 362) ``solid_box(kind, 3, 2, 2)``
+    3 x 1 x 0.7;
     the heat material (T-dependent specific heat and conductivity),
     !ZERO -273.15 and an initial temperature of 20 on every node.  Nodes
     off the box's sides move by up to 2.5% of its shortest side, drawn
@@ -148,6 +239,8 @@ def heat_mesh(kind, seed=5):
         m = box_tet4(3, 2, 2)
     elif kind == "tet10":
         m = tet10_box(2, 2, 1)
+    elif isinstance(kind, int):
+        m = solid_box(kind, 3, 2, 2, lx=3.0, ly=1.0, lz=0.7)
     elif kind in ("quad", "tri"):
         m = box_plane(4, 3, lx=2.0, etype=231 if kind == "tri" else 241)
     else:

@@ -40,7 +40,6 @@ from frontistr_tpu_torch.analysis import heat
 from frontistr_tpu_torch.assembly.loads import FACE_TABLES
 from frontistr_tpu_torch.convert import heat_model_from_numpy
 from frontistr_tpu_torch.elements.tables import get_table
-from frontistr_tpu_torch.io.meshio import Equation
 from frontistr_tpu_torch.io.resfile import read_result_any
 from frontistr_tpu_torch.run import run_directory
 
@@ -229,17 +228,8 @@ def test_heat_readresult_static_matches_jax(tmp_path, monkeypatch):
         atol=1e-8 * np.abs(uj).max())
 
 
-def _equation(mesh):
-    mesh.equations = [Equation(np.asarray([0, 1]), np.asarray([1, 1]),
-                               np.asarray([1.0, -1.0]), 0.0)]
-    return mesh
-
-
 UNPORTED = {
     # name: (deck edit, env, mesh edit, message)
-    "method_direct": (lambda c: c.replace("METHOD=CG", "METHOD=DIRECT"),
-                      {}, None, "METHOD=DIRECT"),
-    "equation": (None, {}, _equation, "EQUATION"),
     "shards": (None, {"FRONTISTR_TPU_SHARDS": "2"}, None,
                "FRONTISTR_TPU_SHARDS"),
     "restart": (lambda c: c.replace("!END", "!RESTART, FREQUENCY=2\n!END"),

@@ -323,12 +323,12 @@ def test_states_from_numpy_types():
 
 # ---------------- refusals --------------------------------------------------
 
-@pytest.mark.parametrize("what", ["direct", "ssor", "shards", "restart"])
+@pytest.mark.parametrize("what", ["gmres", "ssor", "shards", "restart"])
 def test_unported_requests_raise(tmp_path, env, what):
     cnt = _cnt()
     mesh = None
-    if what == "direct":
-        cnt = cnt.replace("METHOD=CG", "METHOD=DIRECT")
+    if what == "gmres":
+        cnt = cnt.replace("METHOD=CG", "METHOD=GMRES")
     elif what == "ssor":
         env.setenv("FRONTISTR_TPU_PRECOND", "ssor")
     elif what == "shards":

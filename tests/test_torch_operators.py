@@ -64,7 +64,10 @@ def test_model_build_matches_jax(tmp_path, models):
             assert np.array_equal(getattr(b, name), getattr(jb, name))
 
 
-@pytest.mark.parametrize("extra", ["!SPRING\n 1, 1, 1.0\n"])
+@pytest.mark.parametrize("extra", [
+    "!ORIENTATION, NAME=OR1, DEFINITION=COORDINATES\n"
+    " 1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0\n",
+    "!EMBED, NAME=EM1\n X1, X0\n"])
 def test_unported_cards_raise(tmp_path, extra):
     p = tmp_path / "case.cnt"
     p.write_text(CNT.replace("!END\n", extra + "!END\n"))
@@ -102,8 +105,8 @@ def test_unported_element_type_raises(tmp_path):
     p = tmp_path / "case.cnt"
     p.write_text(CNT)
     mesh = box_hex8(2, 2, 2)
-    mesh.blocks = [dataclasses.replace(mesh.blocks[0], etype=362)]
-    with pytest.raises(NotImplementedError, match="element type 362"):
+    mesh.blocks = [dataclasses.replace(mesh.blocks[0], etype=241)]
+    with pytest.raises(NotImplementedError, match="element type 241"):
         build_struct_model(mesh, read_cnt(str(p)), device="cpu")
 
 

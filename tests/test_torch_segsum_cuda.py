@@ -1,7 +1,9 @@
 """K1 on the card: the CUDA segment-sum kernels (the element assembly
 ``segsum`` and the planes entry ``segsum_planes``) against their plain
 PyTorch versions on the same inputs, and the AMG setup and the nodal
-smoothing that sum through the planes entry, run twice.  The file
+smoothing that sum through the planes entry, run twice; K1 at the
+hex20 (m = 60) and spring shapes and the !EQUATION reduction that sums
+through the planes entry, run twice.  The file
 imports nothing of JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_segsum_cuda.py
@@ -152,6 +154,54 @@ def test_kernel_tet10_cluster_on_card(cuda_device, dtype):
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     _assert_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_hex20_spring_cluster_on_card(cuda_device, dtype):
+    """The cluster profile of a hex20 (362) mesh with a one-node spring
+    block beside it: m = 60 and m = 3 in one launch, the hex20_mpc
+    path's shapes."""
+    from _torch_decks import hex20_box
+    mesh = hex20_box(6, 5, 4)
+    conns = [mesh.blocks[0].conn,
+             mesh.node_groups["X1"][:1].reshape(1, 1).astype(np.int32)]
+    plan = bell.build_cluster_profile(conns, mesh.n_node, 3).plan(
+        cuda_device)
+    rng = np.random.default_rng(13)
+    kes = [torch.as_tensor(rng.standard_normal((c.shape[0], m, m)),
+                           dtype=dtype, device=cuda_device)
+           for c, m in zip(conns, (60, 3))]
+    got = sm.segsum(plan, kes, [20, 1], 3)
+    again = sm.segsum(plan, kes, [20, 1], 3)
+    want = sm.segsum_reference(plan, kes, [20, 1], 3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_mpc_reduction_repeats_bit_equal_on_card(cuda_device):
+    """The !EQUATION reduction T^T (``extras.mpc_Tt``) sums through the
+    planes entry: hundreds of dependents on one master, twice on the
+    card bit-equal, and within 1e-12 of the CPU's plain version."""
+    from _torch_decks import hex20_box
+    from frontistr_tpu_torch.assembly import extras
+    from frontistr_tpu_torch.io.meshio import Equation
+    mesh = hex20_box(6, 5, 4)
+    x1 = mesh.node_groups["X1"]
+    mesh.equations = [Equation(np.asarray([int(k), int(x1[0])]),
+                               np.asarray([3, 3]), np.asarray([1.0, -1.0]),
+                               0.0) for k in x1[1:]]
+    n = mesh.n_node * 3
+    y = torch.as_tensor(np.random.default_rng(14).standard_normal(n))
+    m = extras.mpc_arrays(mesh, 3, n, cuda_device)
+    got = extras.mpc_Tt(m, y.to(cuda_device))
+    again = extras.mpc_Tt(m, y.to(cuda_device))
+    want = extras.mpc_Tt(extras.mpc_arrays(mesh, 3, n, "cpu"), y)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _assert_close(got.cpu(), want, torch.float64)
 
 
 @pytest.mark.cuda

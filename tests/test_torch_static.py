@@ -183,10 +183,12 @@ def test_cli_cuda_without_card_is_an_error(tmp_path):
 def test_unported_requests_raise(tmp_path, card):
     cnt = CNT.replace("!SOLUTION, TYPE=STATIC", card) if "SOLUTION" in card \
         else CNT.replace("!END\n", card + "\n!END\n")
-    if "NLSTATIC" in card or "EIGEN" in card:
-        # the Newton driver runs NLSTATIC and Lanczos runs EIGEN; a
-        # solver they lack still raises
-        cnt = cnt.replace("METHOD=CG", "METHOD=DIRECT")
+    if "NLSTATIC" in card:
+        # the Newton driver runs NLSTATIC; a solver it lacks still raises
+        cnt = cnt.replace("METHOD=CG", "METHOD=GMRES")
+    elif "EIGEN" in card:
+        # Lanczos runs EIGEN; a card it lacks still raises
+        cnt = cnt.replace("!END\n", "!SPRING\n 1, 3, 10.0\n!END\n")
     wd = _workdir(tmp_path / "wd", n=(2, 2, 2), cnt=cnt)
     with pytest.raises(NotImplementedError):
         run_directory(wd, device="cpu")
