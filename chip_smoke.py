@@ -6,6 +6,7 @@ once, checks the answers and prints the result.
                           [--dyn-n D] [--dyn-steps S] [--dyn-hex X]
                           [--dyn-hex-steps T] [--heat-n H] [--heat-steps S]
                           [--eigen-n E] [--hex20-n H] [--direct-n D]
+                          [--plane-n P] [--hyper-n H] [--hyper-substeps S]
 
 - The nonlinear static (Newton) tet path through
   ``frontistr_tpu_torch.run.run_directory`` (the function behind
@@ -32,7 +33,8 @@ once, checks the answers and prints the result.
   tet10 Drucker-Prager and STATIC DLOAD + TEMPERATURE decks.
 - The dynamics paths through ``run_directory``: explicit central
   difference on a shuffled ``box_tet4(d, d, d)`` (default d=69), dt half
-  the smallest element's critical step, S steps (1000), the equation of
+  the smallest element's critical step, S steps (500; 1000 through PR
+  11), the equation of
   motion checked at the last step; implicit Newmark on a shuffled
   ``box_hex8(x, x, x)`` (69), IC, Rayleigh damping, T steps (10), every
   solve's true relres checked; then small dynamics decks on the card
@@ -41,8 +43,8 @@ once, checks the answers and prints the result.
 - The heat, eigen and frequency-response paths (no kernel), then small
   decks of those families on the card and on the CPU.
 - The hex20_mpc path through ``run_directory``: NLSTATIC on a shuffled
-  hex20 box of h (default 44: 1,075,275 dofs, 85,184 elements of type
-  362), X1's u_z tied by !EQUATION to one master node, the load and a
+  hex20 box of h (default 36: 595,515 dofs, 46,656 elements of type
+  362; 44 and 1,075,275 dofs through PR 11), X1's u_z tied by !EQUATION to one master node, the load and a
   !SPRING on the master; K1 once per Newton iteration at m = 60 beside
   the spring block, its planes entry in the AMG setups, the nodal
   smoothing and every reduction of the elimination.  Then K1 at m = 60
@@ -50,6 +52,14 @@ once, checks the answers and prints the result.
   box_hex8(d) (default 20), STATIC and NLSTATIC, against the CG path;
   the slice's small decks (prisms, hex20, !EQUATION, !SPRING,
   ROT_CENTER, DIRECT, ESTCOND, DUMPTYPE) on the card and on the CPU.
+- The plane path through ``run_directory``: NLSTATIC on a shuffled
+  plane-strain quad8 (242) box of p x p (default 408: 1,002,050 dofs,
+  166,464 elements), the AMG at nd = 2; K1's nd = 2 element entry once
+  per Newton iteration.  Then K1 at nd = 2 against its plain version and
+  index_add_; the hex20_mpc deck with a NEOHOOKE material at its full
+  load on a box of h (default 32); small decks of the 2-D solids and the
+  hyperelastic, viscoelastic (!TRS), creep, orthotropic, E(T) and user
+  materials on the card and on the CPU.
 
 The run needs a CUDA card and exits non-zero without one, or when any
 phase fails.  Work directories and the kernel build go under ``build/``
@@ -150,11 +160,11 @@ def check_same(name: str, got, again, want, dtype, label: str) -> float:
     return err
 
 
-def check_k1(sm, plan, kes, nns, dtype, label: str) -> float:
+def check_k1(sm, plan, kes, nns, dtype, label: str, nd: int = 3) -> float:
     kes = [k.to(dtype) for k in kes]
-    return check_same("K1", sm.segsum(plan, kes, nns, 3),
-                      sm.segsum(plan, kes, nns, 3),
-                      sm.segsum_reference(plan, kes, nns, 3), dtype, label)
+    return check_same("K1", sm.segsum(plan, kes, nns, nd),
+                      sm.segsum(plan, kes, nns, nd),
+                      sm.segsum_reference(plan, kes, nns, nd), dtype, label)
 
 
 def check_planes(sm, plan, values, dtype, label: str) -> float:
@@ -402,21 +412,10 @@ def phase_newton_main_path(args, mods):
                          NLCNT.format(load=-1.0))
     log(f"phase newton_workdir: box_tet4({m}) shuffled, NLSTATIC, {ndof} "
         f"dofs, written in {time.perf_counter() - t0:.2f} s")
-    solves = []
+    solves, calls = [], {}
     real = nl.make_constrained_solver
-    calls = {"setup_amg": 0, "smooth": 0}
-    amg, nodal = mods["amg"], mods["nodal"]
-    real_setup, real_smooth = amg.setup_amg, nodal.smooth
-
-    def counted(name, fn):
-        def call(*a, **kw):
-            calls[name] += 1
-            return fn(*a, **kw)
-        return call
-
     nl.make_constrained_solver = spy_solves(nl, solves)
-    amg.setup_amg = counted("setup_amg", real_setup)
-    nodal.smooth = counted("smooth", real_smooth)
+    restore = counting(mods, calls)
     sm.segsum.launches = 0
     sm.segsum_planes.launches = 0
     try:
@@ -426,7 +425,7 @@ def phase_newton_main_path(args, mods):
         wall = time.perf_counter() - t0
     finally:
         nl.make_constrained_solver = real
-        amg.setup_amg, nodal.smooth = real_setup, real_smooth
+        restore()
     launches = sm.segsum.launches
     planes = sm.segsum_planes.launches
     res, model = out["static"], out["model"]
@@ -625,8 +624,8 @@ def check_path_planes(mods, model, amaps, gen) -> dict:
     """K1's planes entry held to its plain version, on random float64
     values, at its three shapes on a main path: the AMG level-1 and
     level-2 Galerkin sums (their plans, nv*nv planes) and the nodal
-    smoothing (the mesh's node plan, 2*6 + 1 planes).  Returns
-    {shape: max_abs_err}."""
+    smoothing (the mesh's node plan, 2*6 + 1 planes in 3-D, 2*3 + 1 in
+    2-D).  Returns {shape: max_abs_err}."""
     sm = mods["segsum"]
     conn = np.concatenate([np.asarray(b.conn, np.int64).reshape(-1)
                            for b in model.blocks])
@@ -634,7 +633,8 @@ def check_path_planes(mods, model, amaps, gen) -> dict:
     shapes = (("AMG level 1", plan1, amaps.nv ** 2),
               ("AMG level 2", plan2, amaps.nv ** 2),
               ("nodal smoothing",
-               mods["nodal"].node_plan(conn, model.n_node, "cuda"), 13))
+               mods["nodal"].node_plan(conn, model.n_node, "cuda"),
+               13 if model.dim == 3 else 7))
     return {label: check_planes(sm, p, torch.randn(
                 (V, p.perm.numel()), dtype=torch.float64, device="cuda",
                 generator=gen), torch.float64, label)
@@ -897,6 +897,68 @@ def spy_solves(nl, solves: list):
         checked.mpc = solve.mpc
         return checked
     return checked_solver
+
+
+def counting(mods, calls: dict):
+    """Wrap amg.setup_amg, nodal.smooth and extras.mpc_Tt to count their
+    calls into ``calls`` (from 0); returns the function that restores
+    them."""
+    amg, nodal, ex = mods["amg"], mods["nodal"], mods["extras"]
+    real = (amg.setup_amg, nodal.smooth, ex.mpc_Tt)
+    calls.update(setup_amg=0, smooth=0, mpc_Tt=0)
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return call
+    amg.setup_amg = counted("setup_amg", real[0])
+    nodal.smooth = counted("smooth", real[1])
+    ex.mpc_Tt = counted("mpc_Tt", real[2])
+
+    def restore():
+        amg.setup_amg, nodal.smooth, ex.mpc_Tt = real
+    return restore
+
+
+def keep_first_solver(nl, solves: list, first: dict):
+    """``spy_solves`` that also keeps the first solve's inputs, solver
+    and answer in ``first`` (to repeat it) and logs every solve."""
+    spy = spy_solves(nl, solves)
+
+    def make(model, free, gather, mixed, timings=None):
+        solve = spy(model, free, gather, mixed, timings)
+
+        def call(kes, B, dirichlet_inc, gfac=0.0):
+            if not first:
+                first.update(kes=kes, B=B, dinc=dirichlet_inc, gfac=gfac,
+                             solve=solve)
+            t0 = time.perf_counter()
+            x = solve(kes, B, dirichlet_inc, gfac)
+            torch.cuda.synchronize()
+            log(f"  solve {len(solves)}: cg {solves[-1]['cg_iters']}, "
+                f"true relres {solves[-1]['true_relres']!r}, "
+                f"{time.perf_counter() - t0:.2f} s")
+            call.last_iters, call.last_passes, call.last_relres = \
+                solve.last_iters, solve.last_passes, solve.last_relres
+            if "x" not in first:
+                first.update(x=x.clone(), iters=solve.last_iters)
+            return x
+        call.mpc = solve.mpc
+        return call
+    return make
+
+
+def repeat_first(first: dict, label: str) -> None:
+    """The first solve again on the same system: the same CG count and a
+    bit-equal answer."""
+    again = first["solve"](first["kes"], first["B"], first["dinc"],
+                           first["gfac"])
+    same = torch.equal(again, first["x"])
+    log(f"  first solve repeated: cg {first['iters']} then "
+        f"{first['solve'].last_iters}, bit-equal answer {same}")
+    if first["solve"].last_iters != first["iters"] or not same:
+        raise AssertionError(f"{label}: a repeated solve differs")
 
 
 def phase_plastic_main_path(args, mods) -> dict:
@@ -1211,7 +1273,7 @@ def dyn_phases(dr) -> str:
 def phase_dynamic_explicit_main_path(args, mods) -> dict:
     """Explicit central difference through run_directory on a shuffled
     box_tet4(m) (default m=69: 1,029,000 dofs): dt half the critical
-    step of the smallest element, ``--dyn-steps`` steps (1000), X1's
+    step of the smallest element, ``--dyn-steps`` steps (500), X1's
     load ramped over the first 10% of the run, a monitor at X1's corner
     every 10 steps.  Holds the last step to the equation of motion
     M a_n = f(t_n) - K u_n on the free dofs, K u_n by an index_add_ of
@@ -2133,7 +2195,7 @@ MPCCNT = ("!VERSION\n 3\n!SOLUTION, TYPE=NLSTATIC\n!BOUNDARY\n X0, 1, 3, 0.0\n"
 def phase_hex20_mpc_main_path(args, mods) -> dict:
     """The hex20_mpc cell through run_directory: NLSTATIC (total
     Lagrange) in the f64 policy on a shuffled hex20 box of n (default
-    44: 358,425 nodes, 1,075,275 dofs, 85,184 elements of type 362), X0
+    36: 198,505 nodes, 595,515 dofs, 46,656 elements of type 362), X0
     fixed, every X1 node's u_z tied by !EQUATION to the node at X1's
     middle, a !CLOAD of -(X1's node count)/2 in z there and a !SPRING to
     the ground in z of 1e-3 E A / L.  (At the full -(X1's node count),
@@ -2170,43 +2232,10 @@ def phase_hex20_mpc_main_path(args, mods) -> dict:
         f"{len(mesh.equations)} equations on one master, spring k={k!r}, "
         f"written in {time.perf_counter() - t0:.2f} s")
     del mesh
-    solves, first = [], {}
+    solves, first, calls = [], {}, {}
     real = nl.make_constrained_solver
-    spy = spy_solves(nl, solves)
-
-    def keep_first(model, free, gather, mixed, timings=None):
-        solve = spy(model, free, gather, mixed, timings)
-
-        def call(kes, B, dirichlet_inc, gfac=0.0):
-            if not first:
-                first.update(kes=kes, B=B, dinc=dirichlet_inc, gfac=gfac,
-                             solve=solve)
-            t0 = time.perf_counter()
-            x = solve(kes, B, dirichlet_inc, gfac)
-            torch.cuda.synchronize()
-            log(f"  solve {len(solves)}: cg {solves[-1]['cg_iters']}, "
-                f"true relres {solves[-1]['true_relres']!r}, "
-                f"{time.perf_counter() - t0:.2f} s")
-            call.last_iters, call.last_passes, call.last_relres = \
-                solve.last_iters, solve.last_passes, solve.last_relres
-            if "x" not in first:
-                first.update(x=x.clone(), iters=solve.last_iters)
-            return x
-        call.mpc = solve.mpc
-        return call
-    calls = {"setup_amg": 0, "smooth": 0, "mpc_Tt": 0}
-    amg, nodal = mods["amg"], mods["nodal"]
-    real_fns = (amg.setup_amg, nodal.smooth, ex.mpc_Tt)
-
-    def counted(name, fn):
-        def call(*a, **kw):
-            calls[name] += 1
-            return fn(*a, **kw)
-        return call
-    nl.make_constrained_solver = keep_first
-    amg.setup_amg = counted("setup_amg", real_fns[0])
-    nodal.smooth = counted("smooth", real_fns[1])
-    ex.mpc_Tt = counted("mpc_Tt", real_fns[2])
+    nl.make_constrained_solver = keep_first_solver(nl, solves, first)
+    restore = counting(mods, calls)
     reset_kernel_launches(mods)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2217,7 +2246,7 @@ def phase_hex20_mpc_main_path(args, mods) -> dict:
         wall = time.perf_counter() - t0
     finally:
         nl.make_constrained_solver = real
-        amg.setup_amg, nodal.smooth, ex.mpc_Tt = real_fns
+        restore()
     launches = kernel_launch_counts(mods)
     reductions = calls["mpc_Tt"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2273,15 +2302,7 @@ def phase_hex20_mpc_main_path(args, mods) -> dict:
         if "HAS COMPLETED SUCCESSFULLY" not in fh.read():
             raise AssertionError("FSTR.sta does not report success")
     cg_iters = [sv["cg_iters"] for sv in solves]
-    # the first solve again on the same system
-    again = first["solve"](first["kes"], first["B"], first["dinc"],
-                           first["gfac"])
-    same = torch.equal(again, first["x"])
-    log(f"  first solve repeated: cg {first['iters']} then "
-        f"{first['solve'].last_iters}, bit-equal answer {same}")
-    if first["solve"].last_iters != first["iters"] or not same:
-        raise AssertionError("hex20_mpc_main_path: a repeated solve "
-                             "differs")
+    repeat_first(first, "hex20_mpc_main_path")
     return {"launches": launches["K1"], "planes_launches":
             launches["K1 planes"], "newton_iters": nw.total_iters,
             "cg_iters": cg_iters, "reductions": reductions, "wall_s": wall, "peak_gb": peak_gb,
@@ -2594,6 +2615,393 @@ def phase_extras_small_reference(mods) -> None:
         raise AssertionError("extras_small_reference: DUMPTYPE")
 
 
+# ---- PR: the 2-D solids through K1's nd = 2 entry, the other materials ----
+PLANECNT = ("!VERSION\n 3\n!SOLUTION, TYPE=NLSTATIC\n!BOUNDARY\n"
+            " X0, 1, 2, 0.0\n!CLOAD\n X1, 2, -1.0\n!MATERIAL, NAME=M1\n"
+            "!ELASTIC\n 210000.0, 0.3\n!STEP, SUBSTEPS=1\n BOUNDARY, 1\n"
+            " LOAD, 1\n!SOLVER, METHOD=CG, ITERLOG=NO, TIMELOG=NO\n"
+            " 10000, 1\n 1.0e-8, 1.0, 0.0\n!END\n")
+
+
+def phase_plane_main_path(args, mods) -> dict:
+    """The plane cell through run_directory: NLSTATIC (total Lagrange) in
+    the f64 policy on a shuffled plane-strain quad8 (242) box of n x n
+    (default 408: 501,025 nodes, 1,002,050 dofs, 166,464 elements),
+    section thickness 1, X0 fixed, X1 loaded -1 in y per node, the AMG
+    at nd = 2 (three rigid modes).  Per Newton iteration rres/rxnrm, CG,
+    an independent index_add_ true relres (<= 1e-8); the phase split, ms
+    a CG iteration and the peak memory; K1 element launches (the nd = 2
+    entry) = Newton iterations, planes launches = 2 per AMG setup + 1
+    per nodal smoothing.  The first solve is repeated: the same CG count
+    and a bit-equal answer.  Returns the counts, the model and the first
+    tangent."""
+    nl = mods["nonlinear"]
+    n = args.plane_n
+    wd = os.path.join(ROOT, "build", "smoke", f"plane{n}")
+    t0 = time.perf_counter()
+    mesh = mods["meshgen"].box_plane(n, n, etype=242, thick=1.0, opt=1)
+    write_shuffled(wd, mods, mesh, PLANECNT)
+    log(f"phase plane_workdir: quad8 box of {n} x {n} shuffled, "
+        f"{mesh.n_node} nodes, {2 * mesh.n_node} dofs, "
+        f"{len(mesh.blocks[0].elem_ids)} elements of type 242, plane "
+        f"strain, written in {time.perf_counter() - t0:.2f} s")
+    del mesh
+    solves, first, calls = [], {}, {}
+    real = nl.make_constrained_solver
+    nl.make_constrained_solver = keep_first_solver(nl, solves, first)
+    restore = counting(mods, calls)
+    reset_kernel_launches(mods)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        out = with_env({"FRONTISTR_TPU_PRECISION": "f64"},
+                       lambda: mods["run_directory"](wd, device="cuda"))
+        wall = time.perf_counter() - t0
+    finally:
+        nl.make_constrained_solver = real
+        restore()
+    launches = kernel_launch_counts(mods)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res, model = out["static"], out["model"]
+    nw, tm = res.newton, res.timings
+    cg = [sv["cg_iters"] for sv in solves]
+    ms_cg = 1e3 * tm.get("solve", 0.0) / max(sum(cg), 1)
+    keys = ("tangent", "assembly", "amg_setup", "solve", "update")
+    log(f"phase plane_main_path: {wall:.2f} s; policy={res.policy} "
+        f"newton_iters={nw.total_iters} cutbacks={nw.cutbacks} "
+        f"cg_iters={cg} ({ms_cg:.3f} ms a CG iteration) K1 launches="
+        f"{launches['K1']} (element, nd = 2), K1 planes launches="
+        f"{launches['K1 planes']} ({calls['setup_amg']} AMG setups "
+        f"x {PLANES_PER_AMG_SETUP} + {calls['smooth']} nodal "
+        f"smoothings), peak device memory {peak_gb:.3f} GB")
+    log("  phase seconds: " + " ".join(
+        f"{k}={tm.get(k, 0.0):.3f}" for k in
+        ("read", "reorder", "model", "profile") + keys + ("post",)))
+    for h, sv in zip(nw.history, solves):
+        log(f"  step {h['step']} substep {h['substep']} it {h['iter']}: "
+            f"rres={h['rres']!r} rxnrm={h['rxnrm']!r} "
+            f"cg_iters={sv['cg_iters']} relres={sv['relres']!r} "
+            f"true_relres={sv['true_relres']!r}; "
+            + " ".join(f"{k}={h[k]:.3f}" for k in keys))
+    if len(solves) != len(nw.history) or not solves:
+        raise AssertionError("plane_main_path: solves and iterations do "
+                             "not pair up")
+    last = nw.history[-1]
+    if res.policy != "f64" or nw.cutbacks or \
+            min(last["rres"], last["rxnrm"]) >= 1e-6:
+        raise AssertionError("plane_main_path: Newton did not converge "
+                             "without cutbacks in the f64 policy")
+    if not all(sv["true_relres"] <= 1e-8 for sv in solves):
+        raise AssertionError("a linear solve's true relres is above 1e-8")
+    if not (model.dim == 2 and res.u.shape == (model.n_node, 2)
+            and np.isfinite(res.u).all() and res.u[:, 1].min() < 0):
+        raise AssertionError("plane_main_path: displacements not finite, "
+                             "of the wrong shape or not downwards")
+    if launches["K1"] != nw.total_iters:
+        raise AssertionError(f"K1 launches {launches['K1']} != Newton "
+                             f"iterations {nw.total_iters}")
+    if calls["setup_amg"] < 1 or launches["K1 planes"] != \
+            PLANES_PER_AMG_SETUP * calls["setup_amg"] + calls["smooth"]:
+        raise AssertionError(f"K1 planes launches {launches['K1 planes']} "
+                             f"do not add up: {calls}")
+    repeat_first(first, "plane_main_path")
+    return {"launches": launches["K1"], "planes_launches":
+            launches["K1 planes"], "newton_iters": nw.total_iters,
+            "cg_iters": cg, "ms_per_cg_iter": ms_cg, "wall_s": wall,
+            "peak_gb": peak_gb,
+            "phase_s": {k: tm.get(k, 0.0) for k in
+                        ("read", "reorder", "model", "profile") + keys
+                        + ("post",)},
+            "model": model, "kes": first["kes"]}
+
+
+def phase_k1_nd2_time(mods, model, kes, cell) -> list:
+    """K1's nd = 2 element entry on the plane cell's cluster profile
+    (m = 16) with its first tangent, float64: held to its plain version,
+    timed with it and with one index_add_ of the entries in slot order,
+    against its bytes bound.  Then the planes entry at the cell's 2-D
+    AMG level-1 and level-2 plans and nodal smoothing (held to the plain
+    version), timed at the level-1 shapes.  Returns two kernels-line
+    rows."""
+    sm, bell = mods["segsum"], mods["bell"]
+    plan = bell.cluster_profile_from_model(model).plan("cuda")
+    kd = [k.contiguous() for k in kes]
+    nns = [b.conn.shape[1] for b in model.blocks]
+    err = check_k1(sm, plan, kd, nns, torch.float64,
+                   "plane quad8 first tangent m = 16", nd=2)
+    check_k1(sm, plan, kd, nns, torch.float32,
+             "plane quad8 first tangent m = 16", nd=2)
+    ms = cuda_ms(lambda: sm.segsum(plan, kd, nns, 2))
+    plain_ms = cuda_ms(lambda: sm.segsum_reference(plan, kd, nns, 2))
+    ent = sm.entry_planes(kd, nns, 2)[:, plan.perm.long()]
+    out = torch.zeros((4, plan.n_slots), dtype=torch.float64, device="cuda")
+    seg = plan.seg_sorted.long()
+    library_ms = cuda_ms(lambda: out.index_add_(1, seg, ent))
+    del ent, out
+    P = plan.perm.numel()
+    nbytes = (sum(k.numel() for k in kd) * 8 + P * 4
+              + (plan.n_slots + 1) * 4 + 4 * plan.n_slots * 8)
+    bound_ms, bound_by = bound(nbytes, 4 * P, torch.float64)
+    log(f"phase k1_nd2_time: {kd[0].shape[0]} quad8 elements, P={P} "
+        f"pairs, n_slots={plan.n_slots} float64: kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms, bound "
+        f"{bound_ms:.3f} ms ({nbytes / 1e9:.3f} GB)")
+    setup = mods["static"].cluster_setup(model, {})
+    if setup.amaps is None or setup.amaps.nd != 2:
+        raise AssertionError("k1_nd2_time: the plane deck takes no 2-D AMG")
+    errs = check_path_planes(mods, model, setup.amaps,
+                             torch.Generator("cuda").manual_seed(12))
+    plan1, _ = setup.amaps.plans("cuda")
+    V = setup.amaps.nv ** 2
+    vals = torch.randn((V, plan1.perm.numel()), dtype=torch.float64,
+                       device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(13))
+    p_ms = cuda_ms(lambda: sm.segsum_planes(vals, plan1))
+    p_plain = cuda_ms(lambda: sm.segsum_planes_reference(vals, plan1))
+    p_out = torch.zeros((V, plan1.n_slots), dtype=torch.float64,
+                        device="cuda")
+    g_vals, g_seg = vals[:, plan1.perm.long()], plan1.seg_sorted.long()
+    p_lib = cuda_ms(lambda: p_out.index_add_(1, g_seg, g_vals))
+    R = plan1.perm.numel()
+    p_bytes = V * R * 8 + R * 4 + (plan1.n_slots + 1) * 4 + \
+        V * plan1.n_slots * 8
+    p_bound, p_by = bound(p_bytes, V * R, torch.float64)
+    log(f"  planes entry at the 2-D AMG level 1: V={V}, R={R}, "
+        f"n_slots={plan1.n_slots}: kernel {p_ms:.3f} ms, plain "
+        f"{p_plain:.3f} ms, index_add_ {p_lib:.3f} ms, bound "
+        f"{p_bound:.3f} ms")
+    common = {"route": "cuda", "source": "frontistr_tpu_torch/csrc/segsum.cu",
+              "replaces": "frontistr_tpu/assembly/segsum_pallas.py:121"}
+    return [dict(common, name="segsum_nd2",
+                 entry="element, nd = 2, m = 16 (plane quad8)",
+                 launches=cell["launches"], max_abs_err=err, ms=ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=library_ms,
+                 plane_main_path={k: v for k, v in cell.items()
+                                  if k not in ("model", "kes")}),
+            dict(common, name="segsum_planes_nd2",
+                 entry="planes, the 2-D AMG (nv = 3) and nodal smoothing",
+                 launches=cell["planes_launches"],
+                 max_abs_err=max(errs.values()), ms=p_ms,
+                 plain_ms=p_plain, bound_ms=p_bound, bound_by=p_by,
+                 library_ms=p_lib)]
+
+
+HYPER_LAW = "!HYPERELASTIC, TYPE=NEOHOOKE\n 1.0, 1.0\n"
+
+
+def phase_hyper_main_path(args, mods) -> dict:
+    """The hex20_mpc deck (``phase_hex20_mpc_main_path``) on a shuffled
+    hex20 box of n (default 32: 140,481 nodes, 421,443 dofs) at its
+    specified total load, -(X1's node count on the box of 44) = -5,985
+    at the master, with !HYPERELASTIC, TYPE=NEOHOOKE (the (E, nu) law
+    of ``fem/hyper.py``, S and D by torch.func per gauss point) in
+    ``--hyper-substeps`` substeps, f64 policy.  Logged: Newton
+    iterations per substep, cutbacks, the smallest principal stretch
+    over the integration points after every substep, the wall.  Checks:
+    Newton converges, every solve's true relres <= 1e-8, the tie within
+    1e-10 max|u|, K1 element launches = Newton iterations."""
+    nl = mods["nonlinear"]
+    from frontistr_tpu_torch.microbench.hex20_load import (CELL_LOAD,
+                                                           stretches)
+    n = args.hyper_n
+    wd = os.path.join(ROOT, "build", "smoke", f"hyper{n}")
+    mesh = hex20_mesh(mods, (n, n, n))
+    x1 = mesh.node_groups["X1"]
+    mid = x1[np.argmin(np.linalg.norm(mesh.coords[x1] - [1.0, 0.5, 0.5],
+                                      axis=1))]
+    mast = tie_face(mods, mesh, master=mid)
+    cnt = MPCCNT.format(mast=int(mesh.node_ids[mast]), load=-CELL_LOAD,
+                        k=210.0, method="CG", resid="1.0e-8").replace(
+        "!STEP, SUBSTEPS=1\n",
+        HYPER_LAW + f"!STEP, SUBSTEPS={args.hyper_substeps}\n")
+    write_shuffled(wd, mods, mesh, cnt)
+    log(f"phase hyper_workdir: hex20 box of {n} shuffled, {mesh.n_node} "
+        f"nodes, {3 * mesh.n_node} dofs, NEOHOOKE, total load "
+        f"{-CELL_LOAD!r} at the master, {args.hyper_substeps} substeps")
+    del mesh
+    solves, subs = [], []
+    real_solver, real_sub = nl.make_constrained_solver, nl._newton_substep
+    nl.make_constrained_solver = spy_solves(nl, solves)
+
+    def substep(model, programs, states, u, *a, **kw):
+        out = real_sub(model, programs, states, u, *a, **kw)
+        lo, hi = stretches(model, u + out[1])
+        subs.append(dict(tag=kw.get("tag"), converged=out[0],
+                         iters=out[3], stretch_min=lo, stretch_max=hi))
+        log(f"  substep {kw.get('tag')}: converged={out[0]} "
+            f"iterations={out[3]} stretch min={lo!r} max={hi!r}")
+        return out
+    nl._newton_substep = substep
+    reset_kernel_launches(mods)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        out = with_env({"FRONTISTR_TPU_PRECISION": "f64"},
+                       lambda: mods["run_directory"](wd, device="cuda"))
+        wall = time.perf_counter() - t0
+    finally:
+        nl.make_constrained_solver, nl._newton_substep = real_solver, \
+            real_sub
+    launches = kernel_launch_counts(mods)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res, model = out["static"], out["model"]
+    nw = res.newton
+    u = res.u
+    eqs = model.mesh.equations
+    dep = np.asarray([int(e.nodes[0]) for e in eqs])
+    mst = np.asarray([int(e.nodes[1]) for e in eqs])
+    tie = float(np.abs(u[dep, 2] - u[mst, 2]).max())
+    log(f"phase hyper_main_path: {wall:.2f} s; newton_iters="
+        f"{nw.total_iters} cutbacks={nw.cutbacks} cg_iters="
+        f"{[s['cg_iters'] for s in solves]} K1 launches={launches['K1']}; "
+        f"smallest stretch {min(s['stretch_min'] for s in subs)!r}; "
+        f"u_z at the master {float(u[mst[0], 2])!r}; tie {tie!r}; peak "
+        f"device memory {peak_gb:.3f} GB; tangent "
+        f"{res.timings.get('tangent', 0.0):.3f} s, update "
+        f"{res.timings.get('update', 0.0):.3f} s")
+    if not all(sv["true_relres"] <= 1e-8 for sv in solves):
+        raise AssertionError("a linear solve's true relres is above 1e-8")
+    if not (np.isfinite(u).all() and tie <= 1e-10 * np.abs(u).max()):
+        raise AssertionError("hyper_main_path: displacements not finite "
+                             "or the tie does not hold")
+    if launches["K1"] != nw.total_iters:
+        raise AssertionError(f"K1 launches {launches['K1']} != Newton "
+                             f"iterations {nw.total_iters}")
+    return {"newton_iters": nw.total_iters, "cutbacks": nw.cutbacks,
+            "substeps": [{k: v for k, v in s.items() if k != "tag"}
+                         for s in subs],
+            "wall_s": wall, "peak_gb": peak_gb, "launches": launches["K1"]}
+
+
+MAT_CNT = ("!VERSION\n 3\n!SOLUTION, TYPE={sol}\n{head}!BOUNDARY\n"
+           " X0, 1, 3, 0.0\n{bc}{loads}!MATERIAL, NAME=M1\n!ELASTIC\n"
+           " 210000.0, 0.3\n!DENSITY\n 7.85e-9\n{mat}{step}"
+           "!SOLVER, METHOD=CG, ITERLOG=NO, TIMELOG=NO\n 10000, 1\n"
+           " 1.0e-10, 1.0, 0.0\n!END\n")
+STEP2 = "!STEP, SUBSTEPS=2\n BOUNDARY, 1\n LOAD, 1\n"
+VISCO_STEP = ("!STEP, TYPE=VISCO, SUBSTEPS=4, CONVERG=1.0e-8\n 0.25, 1.0\n"
+              " BOUNDARY, 1\n LOAD, 1\n")
+
+
+def _register_umat(mods):
+    """Isotropic elasticity scaled by the card's constant, as a umat of
+    the port's registry (``frontistr_tpu_torch.user``)."""
+    from frontistr_tpu_torch import user
+    E_, nu = 210000.0, 0.3
+    lam = E_ * nu / ((1 + nu) * (1 - 2 * nu))
+    mu = E_ / (2 * (1 + nu))
+    D6 = np.zeros((6, 6))
+    D6[:3, :3] = lam
+    D6[np.arange(3), np.arange(3)] += 2 * mu
+    D6[np.arange(3, 6), np.arange(3, 6)] = mu
+
+    @user.register_umat("M1")
+    def umat(matl, strain, stress, fstat, dtime, ttime):
+        D = torch.as_tensor(D6, dtype=strain.dtype,
+                            device=strain.device) * matl[0]
+        return (D.expand(strain.shape + (6,)),
+                torch.einsum("kl,...l->...k", D, strain), fstat + 1.0)
+    return user
+
+
+def phase_materials_small_reference(mods) -> None:
+    """Small decks through run_directory on the card and on the CPU
+    (which the CPU tests hold to the JAX package): each 2-D type x
+    sect_opt in NLSTATIC; MOONEY-RIVLIN and ARRUDA-BOYCE; viscoelastic
+    with !TRS under a temperature field; Norton creep; orthotropic in an
+    !ORIENTATION frame; temperature-dependent !ELASTIC; a !USER_MATERIAL
+    through a registered umat; implicit DYNAMIC and EIGEN on a 2-D mesh.
+    Fields within 1e-8 of the largest (eigenvalues 1e-10), Newton and
+    Lanczos counts equal."""
+    run = mods["run_directory"]
+    base = os.path.join(ROOT, "build", "smoke", "materials_small")
+    box_plane = mods["meshgen"].box_plane
+
+    def deck(sol="NLSTATIC", head="", bc="", loads="!CLOAD\n X1, 3, -300.0\n",
+             mat="", step=STEP2):
+        return MAT_CNT.format(sol=sol, head=head, bc=bc, loads=loads,
+                              mat=mat, step=step)
+
+    def compare(label, mesh, cnt, kind="static"):
+        outs = []
+        for d in ("cuda", "cpu"):
+            wd = os.path.join(base, label.replace(" ", "_"), d)
+            write_shuffled(wd, mods, mesh, cnt)
+            outs.append(with_env({"FRONTISTR_TPU_PRECISION": "f64"},
+                                 lambda: run(wd, device=d)))
+        g, c = outs
+        if kind == "static":
+            a, b = g["static"], c["static"]
+            rel = rel_diff(a.u, b.u)
+            cnt_ = ([h["iter"] for h in a.newton.history],
+                    [h["iter"] for h in b.newton.history])
+        elif kind == "dynamic":
+            a, b = g["dynamic"], c["dynamic"]
+            rel = max(rel_diff(getattr(a, f), getattr(b, f))
+                      for f in ("u", "vel", "acc"))
+            cnt_ = ([len(h["cg"]) for h in a.history],
+                    [len(h["cg"]) for h in b.history])
+        else:
+            a, b = g["eigen"], c["eigen"]
+            rel = rel_diff(a.eigenvalues, b.eigenvalues)
+            cnt_ = (a.iters, b.iters)
+        log(f"phase materials_small_reference: {label}, cuda vs cpu max "
+            f"rel diff {rel!r}, counts {cnt_[0]} vs {cnt_[1]}")
+        if not (rel <= (1e-10 if kind == "eigen" else 1e-8)
+                and cnt_[0] == cnt_[1]):
+            raise AssertionError(f"materials_small_reference: {label}")
+
+    plane_loads = "!CLOAD\n X1, 2, -300.0\n"
+    for et in (231, 232, 241, 242):
+        for opt in (0, 1, 2):
+            compare(f"{et} sect_opt {opt} NLSTATIC",
+                    box_plane(4, 2, lx=2.0, etype=et, thick=0.5, opt=opt),
+                    deck(loads=plane_loads))
+    hexm = mods["box_hex8"](3, 2, 2)
+    compare("MOONEY-RIVLIN", hexm, deck(
+        mat="!HYPERELASTIC, TYPE=MOONEY-RIVLIN\n 40000.0, 5000.0, 1.2e-5\n"))
+    compare("ARRUDA-BOYCE", hexm, deck(
+        mat="!HYPERELASTIC, TYPE=ARRUDA-BOYCE\n 80000.0, 2.5, 1.2e-5\n"))
+    compare("VISCOELASTIC TRS", hexm, deck(
+        bc=" X1, 1, 1, 0.002\n", loads="!TEMPERATURE\n ALL, 35.0\n"
+        " X1, 50.0\n", step=VISCO_STEP,
+        mat="!VISCOELASTIC\n 0.3, 0.5\n 0.3, 2.0\n!TRS, DEFINITION=WLF\n"
+        " 20.0, 8.86, 101.6\n"))
+    compare("CREEP", hexm, deck(loads="!CLOAD\n X1, 1, 400.0\n",
+                                step=VISCO_STEP,
+                                mat="!CREEP, TYPE=NORTON\n 1.0e-12, 3.0, "
+                                    "0.0\n"))
+    compare("ORTHOTROPIC ORIENTATION", hexm, deck(
+        mat="!ELASTIC, TYPE=ORTHOTROPIC\n 200000., 100000., 50000., 0.3, "
+            "0.2, 0.25, 40000., 30000., 20000.\n!SECTION, SECNUM=1, "
+            "ORIENTATION=OR1\n!ORIENTATION, NAME=OR1, DEFINITION="
+            "COORDINATES\n 0.6, 0.8, 0.0, -0.8, 0.6, 0.5, 0.0, 0.0, 0.0\n"))
+    compare("ELASTIC(T)", hexm, deck(
+        head="!REFTEMP\n 0.0\n", loads="!CLOAD\n X1, 3, -300.0\n"
+        "!TEMPERATURE\n ALL, 50.0\n X1, 250.0\n",
+        mat="!ELASTIC\n 210000.0, 0.30, 0.0\n 150000.0, 0.28, 100.0\n"
+            " 90000.0, 0.25, 300.0\n!EXPANSION_COEFF\n 1.2e-5\n"))
+    user = _register_umat(mods)
+    try:
+        compare("USER_MATERIAL", hexm, deck(
+            mat="!USER_MATERIAL, NSTATUS=1, INFINITE\n 1.5\n"))
+    finally:
+        user.clear()
+    dyn = ("!DYNAMIC\n 1, 1\n 0.0, 4.0e-6, 4, 1.0e-6\n 0.5, 0.25\n"
+           " 1, 1, 1000.0, 1.0e-9\n 10, 0, 1\n")
+    compare("242 DYNAMIC", box_plane(4, 2, lx=2.0, etype=242, thick=0.5,
+                                     opt=1),
+            deck("DYNAMIC", head=dyn, loads="!CLOAD\n X1, 2, -1.0\n"),
+            "dynamic")
+    compare("232 EIGEN", box_plane(4, 2, lx=300.0, ly=100.0, etype=232,
+                                   thick=10.0),
+            deck("EIGEN", head="!EIGEN\n 3, 1.0e-8, 60\n", loads=""),
+            "eigen")
+
+
 def load_mods() -> dict:
     """The port's modules the phases use, by name."""
     sys.path.insert(0, ROOT)
@@ -2650,8 +3058,8 @@ def main(argv=None) -> int:
     ap.add_argument("--dyn-n", type=int, default=69,
                     help="box_tet4(m, m, m) for the explicit dynamics path "
                          "(default 69)")
-    ap.add_argument("--dyn-steps", type=int, default=1000,
-                    help="explicit time steps (default 1000)")
+    ap.add_argument("--dyn-steps", type=int, default=500,
+                    help="explicit time steps (default 500)")
     ap.add_argument("--dyn-hex", type=int, default=69,
                     help="box_hex8(h, h, h) for the implicit dynamics path "
                          "(default 69)")
@@ -2664,12 +3072,20 @@ def main(argv=None) -> int:
     ap.add_argument("--eigen-n", type=int, default=48,
                     help="box_hex8(e, e, e) for the eigen and frequency "
                          "response paths (default 48)")
-    ap.add_argument("--hex20-n", type=int, default=44,
-                    help="the hex20 box of the hex20_mpc path (default 44: "
-                         "1,075,275 dofs)")
+    ap.add_argument("--hex20-n", type=int, default=36,
+                    help="the hex20 box of the hex20_mpc path (default 36: "
+                         "595,515 dofs)")
     ap.add_argument("--direct-n", type=int, default=20,
                     help="box_hex8(d, d, d) for the METHOD=DIRECT path "
                          "(default 20: 27,783 dofs)")
+    ap.add_argument("--plane-n", type=int, default=408,
+                    help="the quad8 box of the plane path (default 408: "
+                         "1,002,050 dofs)")
+    ap.add_argument("--hyper-n", type=int, default=32,
+                    help="the hex20 box of the hyperelastic path "
+                         "(default 32: 421,443 dofs)")
+    ap.add_argument("--hyper-substeps", type=int, default=4,
+                    help="substeps of the hyperelastic path (default 4)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -2784,9 +3200,25 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_extras_small_reference(mods)
 
+    # 13. the plane path (K1's nd = 2 element entry once per Newton
+    #     iteration, its planes entry in the 2-D AMG setups and the nodal
+    #     smoothing), then K1 at nd = 2 at its shapes; the NEOHOOKE
+    #     hex20_mpc deck; small decks of this slice on the card and the
+    #     CPU
+    torch.cuda.empty_cache()
+    cell = phase_plane_main_path(args, mods)
+    nd2_rows = phase_k1_nd2_time(mods, cell.pop("model"), cell.pop("kes"),
+                                 cell)
+    del cell
+    torch.cuda.empty_cache()
+    k1_m60_row["hyper_main_path"] = phase_hyper_main_path(args, mods)
+    torch.cuda.empty_cache()
+    phase_materials_small_reference(mods)
+
     log(f"phase total: {time.perf_counter() - t_start:.2f} s")
     log(smi)
-    log(json.dumps({"kernels": [k1_row, k1_m60_row, k2_row] + gather_rows}))
+    log(json.dumps({"kernels": [k1_row, k1_m60_row] + nd2_rows + [k2_row]
+                    + gather_rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -67,6 +67,7 @@ from frontistr_tpu_torch.assembly import operators as old_ops
 from frontistr_tpu_torch.assembly.model import StructModel, collect_cload
 from frontistr_tpu_torch.device import Phase
 from frontistr_tpu_torch.elements.quadhi import mass_tables
+from frontistr_tpu_torch.fem.isoparam import det_inv_small
 from frontistr_tpu_torch.io import logio
 from frontistr_tpu_torch.solver import direct
 from frontistr_tpu_torch.solver.cg import pcg
@@ -93,14 +94,10 @@ def lumped_mass_vector(model: StructModel, gather=None) -> torch.Tensor:
                     for a in mass_tables(b.etype))
         ce = coords[torch.as_tensor(b.conn, dtype=torch.int64, device=dev)]
         J = torch.einsum("qni,enj->eqij", dN, ce)
-        det = (J[..., 0, 0] * (J[..., 1, 1] * J[..., 2, 2]
-                               - J[..., 1, 2] * J[..., 2, 1])
-               - J[..., 0, 1] * (J[..., 1, 0] * J[..., 2, 2]
-                                 - J[..., 1, 2] * J[..., 2, 0])
-               + J[..., 0, 2] * (J[..., 1, 0] * J[..., 2, 1]
-                                 - J[..., 1, 1] * J[..., 2, 0])).abs()
+        det = det_inv_small(J)[0].abs()
         rho = torch.as_tensor(b.density, dtype=F64, device=dev)
-        wdet = w[None, :] * det                               # (E, nq)
+        # a 2-D block integrates over its section's thickness
+        wdet = w[None, :] * det * (b.thick if model.dim == 2 else 1.0)
         mii = torch.einsum("qn,eq->en", N * N, wdet) * rho[:, None]
         total = wdet.sum(dim=1) * rho                         # element mass
         diag_sum = mii.sum(dim=1)
@@ -352,14 +349,16 @@ class _StepClock:
                 for a, b in zip(self.marks, self.marks[1:])]
 
 
-def _update(model, programs, states, u, du, gather):
+def _update(model, programs, states, u, du, gather, t=0.0, dt=0.0):
     """Element update of every block from the committed ``states`` at
-    u + du: (new states, internal force Q)."""
+    u + du (``t``, ``dt`` the step's time and increment, as the
+    rate-dependent materials read them): (new states, internal force
+    Q)."""
     new_states, qfs = [], []
     nn, nd = model.n_node, model.ndof
     for p, s in zip(programs, states):
         ns_, qf = p.update(_element_values(u, p, nn, nd),
-                           _element_values(du, p, nn, nd), s)
+                           _element_values(du, p, nn, nd), s, t, dt)
         new_states.append(ns_)
         qfs.append(qf)
     return new_states, femop.gather_sum(qfs, gather)
@@ -524,7 +523,8 @@ def _run_implicit(model: StructModel, log_path, on_interval=None):
     if linear:
         ze = [_element_values(zero, p, model.n_node, ndof)
               for p in programs]
-        kes0 = [p.tangent(z, z, s) for p, z, s in zip(programs, ze, states)]
+        kes0 = [p.tangent(z, z, s, 0.0, dt)
+                for p, z, s in zip(programs, ze, states)]
         prepared = solve.prepare(kes0)
         Q = _qforce(model, programs, states, u, zero, gather)
         for i in range(1, d.n_step + 1):
@@ -539,7 +539,8 @@ def _run_implicit(model: StructModel, log_path, on_interval=None):
             with Phase(ts, "solve", dev):
                 du = solve(kes0, B, dirichlet_increment(u, vel, acc, t),
                            prepared)
-            states, Q = _update(model, programs, states, u, du, gather)
+            states, Q = _update(model, programs, states, u, du, gather, t,
+                                dt)
             states = [_commit_state(s) for s in states]
             acc, vel = -a1 * acc - a2 * vel + a3 * du, \
                 -b1 * acc - b2 * vel + b3 * du
@@ -562,7 +563,7 @@ def _run_implicit(model: StructModel, log_path, on_interval=None):
             for it in range(1, max(step.max_iter, 1) + 1):
                 kes = [p.tangent(_element_values(u, p, model.n_node, ndof),
                                  _element_values(du, p, model.n_node, ndof),
-                                 s) for p, s in zip(programs, states_i)]
+                                 s, t, dt) for p, s in zip(programs, states_i)]
                 X_ray = vec2 - b3 * du
                 B = f_ext - Q + mass * (vec1 - a3 * du + d.ray_m * X_ray)
                 if d.ray_k != 0.0:
@@ -584,7 +585,7 @@ def _run_implicit(model: StructModel, log_path, on_interval=None):
                 cgs.append(solve.last_iters)
                 du = du + dx
                 states_i, Q = _update(model, programs, states_i, u, du,
-                                      gather)
+                                      gather, t, dt)
             acc, vel = -a1 * acc - a2 * vel + a3 * du, \
                 -b1 * acc - b2 * vel + b3 * du
             u = u + du
@@ -674,7 +675,7 @@ def _run_explicit(model: StructModel, log_path, on_interval=None):
         vel = a2 * (X - disp3)
         # one stress/state update per step (fstr_dynamic_nlexplicit:278-296)
         states, Q = _update(model, programs, states, disp1, X - disp1,
-                            gather)
+                            gather, t, dt)
         states = [_commit_state(s) for s in states]
         disp3, disp1 = disp1, X
         mon.record(i, t, X, vel, acc)

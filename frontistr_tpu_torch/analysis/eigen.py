@@ -240,8 +240,10 @@ def write_eigen_log(path: str, res: EigenResult, ndof: int,
                 "----------  ----------  ----------  ----------  "
                 "----------\n")
         for i in range(len(res.eigenvalues)):
-            p = res.partfactor[i]
-            e = res.effmass[i]
+            # a 2-D deck has no Z column: written as 0 (the JAX package's
+            # writer fails there, ROADMAP queue 3)
+            p = np.pad(res.partfactor[i][:3], (0, max(0, 3 - ndof)))
+            e = np.pad(res.effmass[i][:3], (0, max(0, 3 - ndof)))
             f.write(f"{i+1:5d}  {res.eigenvalues[i]:10.4E}  "
                     f"{res.ang_freq[i]:10.4E}  {res.freq[i]:10.4E}  "
                     f"{p[0]:10.4E}  {p[1]:10.4E}  {p[2]:10.4E}  "

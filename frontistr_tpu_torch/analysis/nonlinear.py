@@ -17,10 +17,17 @@ fstr_solve_NonLinear.f90:29-167).
 - divergence (MAXITER, MAXRES) cuts the substep back by Rc and restarts
   it from the committed state (fstr_solve_NLGEOM.f90:151-195).
 
-The slice: 3-D solid blocks (tet4, tet10, and hex8 in its B-bar, F-bar
-or, for linear STATIC decks, IC formulation) of an isotropic ELASTIC or
-!PLASTIC material (``fem/plastic.py``: MISES, DRUCKER-PRAGER,
-MOHR-COULOMB) with the INFINITESIMAL, TOTALLAG or UPDATELAG flag; CLOAD,
+The slice: the 2-D solids (tri3, tri6, quad4, quad8; plane stress,
+plane strain, axisymmetric, with the section thickness) and the 3-D
+solids (tet4/tet10, prism6/prism15, hex8/hex20, hex8 in its B-bar,
+F-bar or, for linear STATIC decks, IC formulation) of an ELASTIC
+(isotropic, orthotropic in its !ORIENTATION frame, or E(T), nu(T) from
+the !ELASTIC rows), !PLASTIC (``fem/plastic.py``: MISES,
+DRUCKER-PRAGER, MOHR-COULOMB), hyperelastic (``fem/hyper.py``),
+viscoelastic with !TRS or Norton creep (``fem/visco.py``, their clock
+the VISCO step's increment) or user material (``user.py``) with the
+INFINITESIMAL, TOTALLAG or UPDATELAG flag (the 2-D blocks: ELASTIC or
+!PLASTIC, not UPDATELAG, as in the JAX package); CLOAD,
 DLOAD and TEMPERATURE loads, DLOAD as a follower load under nlgeom
 (``assembly/loads.FollowerDload``, re-assembled on the device every
 iteration); steps, substeps, AUTOINC, TIME_POINTS; !SPRING blocks in
@@ -30,7 +37,7 @@ same way; rotational !BOUNDARY rows about ROT_CENTER, re-rotated from
 the current positions every substep; METHOD=DIRECT as a host SuperLU
 factor of each tangent (``solver/direct.py``; with !EQUATION the
 iterative elimination, as in the JAX package).  Anything else the JAX
-driver handles (contact, other materials, restart, sharding) raises
+driver handles (contact, restart, sharding) raises
 ``NotImplementedError`` naming itself.  The JAX package's jit-argument
 carry (a TPU remote-compile workaround) has no counterpart: PyTorch runs
 eagerly.
@@ -45,6 +52,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from frontistr_tpu_torch import user
 from frontistr_tpu_torch.analysis.static import (StaticResult, check_solver,
                                                  cluster_operator,
                                                  cluster_setup, solve_policy)
@@ -56,9 +64,12 @@ from frontistr_tpu_torch.device import Phase
 from frontistr_tpu_torch.elements.tables import get_table
 from frontistr_tpu_torch.fem import material as mat
 from frontistr_tpu_torch.fem import solid
+from frontistr_tpu_torch.fem.hyper import make_hyper_fns
 from frontistr_tpu_torch.fem.isoparam import jacobians
 from frontistr_tpu_torch.fem.plastic import (PlasticParams, plastic_tangent,
                                              return_mapping)
+from frontistr_tpu_torch.fem.visco import (creep_return, creep_tangent,
+                                           trs_shift, visco_D, visco_update)
 from frontistr_tpu_torch.io import logio
 from frontistr_tpu_torch.io.stafile import sta_final, sta_init, sta_status
 from frontistr_tpu_torch.post import nodal as postnodal
@@ -67,19 +78,38 @@ from frontistr_tpu_torch.solver.cg import pcg
 from frontistr_tpu_torch.solver.mixed import refined_cg
 
 
+HYPER = (mat.HYPERELASTIC_NEOHOOKE, mat.HYPERELASTIC_MOONEYRIVLIN,
+         mat.HYPERELASTIC_ARRUDABOYCE)
+MATERIALS = (mat.ELASTIC, mat.EPLASTIC, mat.VISCOELASTIC, mat.CREEP,
+             mat.USERMATERIAL) + HYPER
+
+
 def init_block_state(block, table, device="cpu") -> dict:
-    """Zero gauss state of a solid block (the JAX package's keys)."""
+    """Zero gauss state of a solid block (the JAX package's keys: the
+    strains and stresses, the plastic state, ``fstat`` of a user
+    material, the Prony terms ``vq``/``vq_new`` and the committed
+    deviatoric strain ``ven`` of a viscoelastic one)."""
     if block.kind != "solid" or table is None:
         raise NotImplementedError(f"{block.kind} blocks in the Newton "
                                   "driver")
     E, nq = len(block.elem_ids), table.nq
     ns = 6 if table.dim == 3 else 4
-    z = torch.zeros((E, nq, ns), dtype=torch.float64, device=device)
-    zs = torch.zeros((E, nq), dtype=torch.float64, device=device)
-    return dict(strain=z, stress=z, strain_bak=z, stress_bak=z,
-                pstrain=zs, pstrain_new=zs,
-                yielded=torch.zeros((E, nq), dtype=torch.bool,
-                                    device=device), back=z)
+
+    def zeros(*shape):
+        return torch.zeros((E, nq) + shape, dtype=torch.float64,
+                           device=device)
+    z, zs = zeros(ns), zeros()
+    st = dict(strain=z, stress=z, strain_bak=z, stress_bak=z,
+              pstrain=zs, pstrain_new=zs,
+              yielded=torch.zeros((E, nq), dtype=torch.bool,
+                                  device=device), back=z)
+    m = block.material
+    if m.mtype == mat.USERMATERIAL:
+        st["fstat"] = zeros(max(m.user_nstatus, 1))
+    if m.mtype == mat.VISCOELASTIC and m.visco_consts is not None:
+        nterms = len(np.asarray(m.visco_consts).reshape(-1, 2))
+        st.update(vq=zeros(nterms, ns), vq_new=zeros(nterms, ns), ven=z)
+    return st
 
 
 def _plastic_params(m: mat.Material) -> PlasticParams:
@@ -94,9 +124,13 @@ def _plastic_params(m: mat.Material) -> PlasticParams:
 
 
 class BlockPrograms:
-    """TANGENT / UPDATE for one solid element block of an isotropic
-    ELASTIC or !PLASTIC material; hex8 blocks in their formulation
-    (B-bar, F-bar, and IC for linear STATIC decks)."""
+    """TANGENT / UPDATE for one solid element block (2-D or 3-D) of an
+    ELASTIC (isotropic, orthotropic or temperature-dependent), !PLASTIC,
+    hyperelastic, viscoelastic, creep or user material; hex8 blocks in
+    their formulation (B-bar, F-bar, and IC for linear STATIC decks).
+    ``time`` and ``dtime`` are the substep's end time and its increment
+    (0 outside a VISCO step), as the rate-dependent materials read
+    them."""
 
     def __init__(self, model: StructModel, block):
         self.block = block
@@ -104,34 +138,80 @@ class BlockPrograms:
         if block.kind != "solid":
             raise NotImplementedError(f"{block.kind} blocks in the Newton "
                                       "driver")
-        if m.mtype not in (mat.ELASTIC, mat.EPLASTIC) or \
-                m.ortho_consts is not None:
-            name = "ORTHOTROPIC" if m.mtype == mat.ELASTIC else m.mtype
-            raise NotImplementedError(f"material {name} in the Newton "
+        if m.mtype not in MATERIALS:
+            raise NotImplementedError(f"material {m.mtype} in the Newton "
                                       "driver")
         self.table = get_table(block.etype)
-        if self.table.dim != 3:
-            raise NotImplementedError(f"element type {block.etype} in the "
-                                      "Newton driver")
+        self.dim = self.table.dim
+        self.ns = 6 if self.dim == 3 else 4
+        if self.dim == 2 and m.mtype not in (mat.ELASTIC, mat.EPLASTIC):
+            # the laws are written in six strain components
+            raise NotImplementedError(f"material {m.mtype} on the 2-D "
+                                      f"element type {block.etype}")
+        if self.dim == 2 and m.nlgeom == mat.UPDATELAG:
+            # GEOMAT is 3-D only in the JAX package ("UL currently 3D
+            # only")
+            raise NotImplementedError("updated Lagrange (CAUCHY) on the "
+                                      f"2-D element type {block.etype}")
         self.mtype = m.mtype
         self.flag = m.nlgeom
+        self.thick = float(block.thick)
         self.pl = _plastic_params(m) if m.mtype == mat.EPLASTIC else None
         dev = model.device
         self.conn = torch.as_tensor(block.conn, dtype=torch.int64,
                                     device=dev)
         self.coords_e = torch.as_tensor(model.coords[block.conn],
                                         device=dev)
-        # one material over the block: keep one (1, ns, ns) matrix
+        # one material over the block: keep one (1, ...) matrix
         D_np = np.asarray(block.D)
         self._De_shape = D_np.shape
         if D_np.shape[0] > 1 and not np.any(D_np[1:] != D_np[:1]):
             D_np = D_np[:1]
         self.D_e = torch.as_tensor(D_np, dtype=torch.float64, device=dev)
         self.iso_lm = None
-        if D_np.shape[0] == 1 and m.mtype == mat.ELASTIC:
+        if D_np.shape[0] == 1 and D_np.ndim == 3 and self.dim == 3 and \
+                m.mtype == mat.ELASTIC and m.ortho_consts is None:
             E_, nu = float(m.youngs), float(m.poisson)
             self.iso_lm = (E_ * nu / ((1 + nu) * (1 - 2 * nu)),
                            E_ / (2 * (1 + nu)))
+
+        def scalar(v):
+            return torch.as_tensor(v, dtype=torch.float64, device=dev)
+        if m.mtype in HYPER:
+            # NEOHOOKE reads the material's (E, nu); the reference's law
+            # ignores the !HYPERELASTIC card values
+            self.pk2, self.hyper_tangent = make_hyper_fns(
+                m.mtype, (m.youngs, m.poisson)
+                if m.mtype == mat.HYPERELASTIC_NEOHOOKE else m.hyper_consts)
+        if m.mtype == mat.VISCOELASTIC:
+            vt = np.asarray(m.visco_consts).reshape(-1, 2)
+            self.v_mus, self.v_taus = scalar(vt[:, 0]), scalar(vt[:, 1])
+            self.v_G = m.youngs / (2.0 * (1.0 + m.poisson))
+            self.v_K = m.youngs / (3.0 * (1.0 - 2.0 * m.poisson))
+            # TRS reduced time at every gauss point: dt' = a(T) dt
+            # (Viscoelastic.f90:128)
+            self.v_tshift = None
+            if m.trs_consts is not None and model.temperature is not None:
+                tq = torch.einsum(
+                    "qn,en->eq", solid.table_tensor(self.table, "N",
+                                                    self.coords_e),
+                    scalar(model.temperature)[self.conn])
+                self.v_tshift = trs_shift(tq, m.trs_consts, m.trs_def)
+        if m.mtype == mat.USERMATERIAL:
+            fn = user.get_umat(m.name)
+            if fn is None:
+                raise ValueError(
+                    f"!USER_MATERIAL '{m.name}': no umat registered; "
+                    "register one with frontistr_tpu_torch.user."
+                    "register_umat or set FRONTISTR_TPU_USER_MODULE")
+            self.user_fn = fn
+            self.user_matl = scalar(m.user_consts if m.user_consts
+                                    is not None else np.zeros(0))
+        if m.mtype == mat.CREEP:
+            cc = np.asarray(m.creep_consts).reshape(-1)
+            self.c_A, self.c_n = float(cc[0]), float(cc[1])
+            self.c_m = float(cc[2]) if len(cc) > 2 else 0.0
+            self.c_G = m.youngs / (2.0 * (1.0 + m.poisson))
 
     @property
     def bbar(self) -> bool:
@@ -149,19 +229,48 @@ class BlockPrograms:
         """Full-shape elastic D (a broadcast view if compressed)."""
         return self.D_e.expand(self._De_shape)
 
-    def _material_D(self, state) -> torch.Tensor:
+    def _De_q(self) -> torch.Tensor:
+        """The elastic D at every gauss point, (E, nq, ns, ns)."""
+        D = self._De()
+        return D if D.dim() == 4 else \
+            D[:, None].expand(-1, self.table.nq, -1, -1)
+
+    def _De_eps(self, eps) -> torch.Tensor:
+        """De eps at every gauss point."""
+        D = self._De()
+        if D.dim() == 4:
+            return torch.einsum("eqkl,eql->eqk", D, eps)
+        return torch.einsum("ekl,eql->eqk", D, eps)
+
+    def _material_D(self, state, time=0.0, dtime=0.0) -> torch.Tensor:
+        if self.mtype in HYPER:
+            # the tangent at the current strain, per gauss point
+            return self.hyper_tangent(state["strain"])
         if self.mtype == mat.EPLASTIC:
-            De = self._De()[:, None].expand(-1, self.table.nq, -1, -1)
-            return plastic_tangent(self.pl, De, state["stress"],
+            return plastic_tangent(self.pl, self._De_q(), state["stress"],
                                    state["pstrain_new"], state["back"],
                                    state["yielded"])
+        if self.mtype == mat.VISCOELASTIC:
+            if self.v_tshift is not None:
+                return visco_D(dtime * self.v_tshift, self.v_G, self.v_K,
+                               self.v_mus, self.v_taus)
+            return visco_D(self.D_e.new_tensor(dtime), self.v_G, self.v_K,
+                           self.v_mus, self.v_taus)[None]
+        if self.mtype == mat.USERMATERIAL:
+            return self.user_fn(self.user_matl, state["strain"],
+                                state["stress"], state["fstat"], dtime,
+                                time)[0]
+        if self.mtype == mat.CREEP:
+            return creep_tangent(self._De_q(), state["stress"],
+                                 state["pstrain_new"], self.c_G, self.c_A,
+                                 self.c_n, self.c_m, time, dtime)
         return self.D_e
 
     # ---------------- tangent (fstr_StiffMatrix / STF_C3) ----------------
-    def tangent(self, u_e, ddu_e, state):
+    def tangent(self, u_e, ddu_e, state, time=0.0, dtime=0.0):
         table, flag, x0 = self.table, self.flag, self.coords_e
         total = u_e + ddu_e
-        D = self._material_D(state)
+        D = self._material_D(state, time, dtime)
         if flag == mat.INFINITESIMAL:
             if self.ic:
                 return solid.stiffness_hex8ic(table, x0, D)
@@ -173,7 +282,7 @@ class BlockPrograms:
                                               mat.INFINITESIMAL, bbar=True)
             if self.iso_lm is not None:
                 return solid.stiffness_linear_iso(table, x0, *self.iso_lm)
-            return solid.stiffness_linear(table, x0, D)
+            return solid.stiffness_linear(table, x0, D, thick=self.thick)
         if flag == mat.UPDATELAG:
             # D <- D - geomat(sigma) (STF_C3:117-120)
             D = (D[:, None] if D.dim() == 3 else D) - \
@@ -182,11 +291,12 @@ class BlockPrograms:
             return solid.stiffness_nlgeom_fbar(table, x0, total, D,
                                                state["stress"], flag)
         return solid.stiffness_nlgeom(table, x0, total, D, state["stress"],
-                                      flag, bbar=self.bbar)
+                                      flag, thick=self.thick,
+                                      bbar=self.bbar)
 
     # ---------------- update (fstr_UpdateNewton / UPDATE_C3) -------------
-    def update(self, u_e, ddu_e, state):
-        table, flag = self.table, self.flag
+    def update(self, u_e, ddu_e, state, time=0.0, dtime=0.0):
+        table, flag, thick = self.table, self.flag, self.thick
         dt = self.coords_e.dtype
         total = u_e + ddu_e
         if flag == mat.UPDATELAG:
@@ -199,7 +309,7 @@ class BlockPrograms:
             disp = total
         dN = solid.table_tensor(table, "dN", elem)
         det, gderiv = jacobians(dN, elem)
-        S = solid._selector(3, elem)
+        S = solid._selector(self.dim, elem)
         # displacement gradient at the quadrature points: (E, nq, dim, dim)
         dudx = torch.einsum("end,eqnj->eqdj", disp, gderiv)
         # small-strain part (UPDATE_C3:131-139)
@@ -236,24 +346,33 @@ class BlockPrograms:
                 C[..., 2, 0]], dim=-1)
             fb_ctx = (Jr, g1, g1_ave, eps)
             new_state["strain"] = eps
-            new_state["stress"] = self._stress_total(eps)
-        elif flag == mat.TOTALLAG:
-            # Green-Lagrange quadratic terms (UPDATE_C3:154-168)
-            eps = eps + torch.einsum("kij,eqdi,eqdj->eqk", 0.5 * S, dudx,
-                                     dudx)
+            new_state["stress"] = self._stress_total(eps, state, new_state,
+                                                     time, dtime)
+        elif flag in (mat.TOTALLAG, mat.INFINITESIMAL):
+            if flag == mat.TOTALLAG:
+                # Green-Lagrange quadratic terms (UPDATE_C3:154-168)
+                eps = eps + torch.einsum("kij,eqdi,eqdj->eqk", 0.5 * S,
+                                         dudx, dudx)
             new_state["strain"] = eps
-            new_state["stress"] = self._stress_total(eps)
-        elif flag == mat.INFINITESIMAL:
-            new_state["strain"] = eps
-            new_state["stress"] = self._stress_total(eps)
+            new_state["stress"] = self._stress_total(eps, state, new_state,
+                                                     time, dtime)
         else:  # UPDATELAG: incremental with Jaumann rotation
             new_state["strain"] = state["strain_bak"] + eps
-            dsig = self._stress_total(eps)
             rot = 0.5 * (dudx - dudx.transpose(-1, -2))
-            sig_b = solid._stress_tensor(state["stress_bak"])
+            sig_b = solid._stress_tensor(state["stress_bak"], self.dim)
             dum = rot @ sig_b - sig_b @ rot
-            new_state["stress"] = state["stress_bak"] + dsig + \
-                _tensor_to_voigt(dum)
+            sig = state["stress_bak"] + self._De_eps(eps) + \
+                _tensor_to_voigt(dum, self.ns)
+            if self.mtype == mat.CREEP and dtime > 0.0:
+                # Norton return on the rotated trial (UPDATE_C3
+                # UPDATELAG NORTON arm)
+                sig, dg, _ = creep_return(sig, self.c_G, self.c_A,
+                                          self.c_n, self.c_m, time, dtime)
+                new_state["pstrain_new"] = dg
+            elif self.mtype == mat.CREEP:
+                new_state["pstrain_new"] = torch.zeros_like(
+                    state["pstrain_new"])
+            new_state["stress"] = sig
 
         if self.mtype == mat.EPLASTIC:
             sig, p_new, yielded, back = return_mapping(
@@ -282,7 +401,7 @@ class BlockPrograms:
             qf2 = torch.einsum("eq,eqnd,eq->end", sf, z1q, wdet)
             qf = (qf0 + qf1 + qf2).reshape(gderiv.shape[0], -1)
         elif flag == mat.TOTALLAG:
-            qf = _qf_totallag(table, S, gderiv, det, dudx, sig)
+            qf = _qf_totallag(table, S, gderiv, det, dudx, sig, thick)
             if self.bbar:
                 qf = qf + _qf_bbar_extra(table, gderiv, g0, det, sig)
         elif flag == mat.UPDATELAG:
@@ -304,7 +423,7 @@ class BlockPrograms:
                 qf2 = torch.einsum("eq,eqnd,eq->end", tr_s, z1q, wdet)
                 qf = (qf0 + qf2).reshape(gderiv1.shape[0], -1)
             else:
-                qf = solid.internal_force(table, elem1, sig)
+                qf = solid.internal_force(table, elem1, sig, thick=thick)
                 if self.bbar:
                     g01 = solid.centroid_gderiv(table, elem1)
                     qf = qf + _qf_bbar_extra(table, gderiv1, g01, det1,
@@ -320,15 +439,30 @@ class BlockPrograms:
             qf = torch.einsum("eij,ej->ei", ke,
                               disp.reshape(ke.shape[0], -1))
         else:
-            qf = solid.internal_force(table, self.coords_e, sig)
+            qf = solid.internal_force(table, self.coords_e, sig,
+                                      thick=thick)
         return new_state, qf
 
-    def _stress_total(self, eps):
-        """Stress from strain, sigma = De eps (per quadrature point)."""
-        D = self._De()
-        if D.dim() == 4:
-            return torch.einsum("eqkl,eql->eqk", D, eps)
-        return torch.einsum("ekl,eql->eqk", D, eps)
+    def _stress_total(self, eps, state, new_state, time, dtime):
+        """Stress from the total strain (INFINITE / TOTALLAG arms)."""
+        if self.mtype == mat.USERMATERIAL:
+            # the uUpdate plug point (umat.f90:30-41)
+            _, sig, new_state["fstat"] = self.user_fn(
+                self.user_matl, eps, state["stress"], state["fstat"],
+                dtime, time)
+            return sig
+        if self.mtype in HYPER:
+            return self.pk2(eps)
+        if self.mtype == mat.VISCOELASTIC and dtime != 0.0:
+            dte = dtime * self.v_tshift if self.v_tshift is not None \
+                else dtime
+            sig, new_state["vq_new"] = visco_update(
+                eps, state["vq"], state["ven"], dte, self.v_G, self.v_K,
+                self.v_mus, self.v_taus)
+            return sig
+        if self.mtype == mat.VISCOELASTIC:
+            new_state["vq_new"] = state["vq"]
+        return self._De_eps(eps)
 
 
 def _geomat(stress):
@@ -349,10 +483,14 @@ def _geomat(stress):
     return G
 
 
-def _tensor_to_voigt(t):
-    """3x3 tensor -> Voigt (11, 22, 33, 12, 23, 31)."""
-    return torch.stack([t[..., 0, 0], t[..., 1, 1], t[..., 2, 2],
-                        t[..., 0, 1], t[..., 1, 2], t[..., 2, 0]], -1)
+def _tensor_to_voigt(t, ns):
+    """Tensor -> Voigt: 3-D (11, 22, 33, 12, 23, 31); 2-D (11, 22, 12)
+    and a zero fourth component."""
+    if ns == 6:
+        return torch.stack([t[..., 0, 0], t[..., 1, 1], t[..., 2, 2],
+                            t[..., 0, 1], t[..., 1, 2], t[..., 2, 0]], -1)
+    return torch.stack([t[..., 0, 0], t[..., 1, 1], t[..., 0, 1],
+                        torch.zeros_like(t[..., 0, 0])], -1)
 
 
 def _fbar_jr(table, det0, dudx0, g1):
@@ -386,17 +524,17 @@ def _qf_bbar_extra(table, gderiv, g0, det, stress):
         .reshape(E, nn * dim)
 
 
-def _qf_totallag(table, S, gderiv, det, dudx, stress):
+def _qf_totallag(table, S, gderiv, det, dudx, stress, thick=1.0):
     """qf = (B0 + B1)^T S integrated on the reference configuration
-    (UPDATE_C3:252-297)."""
+    (UPDATE_C3:252-297; a 2-D block over its thickness)."""
     w = solid.table_tensor(table, "weights", det)
-    wdet = w[None, :] * det
+    E, _, nn, dim = gderiv.shape
+    wdet = (w * (thick if dim == 2 else 1.0))[None, :] * det
     qf0 = torch.einsum("kdj,eqnj,eqk,eq->end", S, gderiv, stress, wdet)
     # B1[k, (n, d)] = S[k, i, j] dudx[d, i] g[n, j]
     qf1 = torch.einsum("kij,eqdi,eqnj,eqk,eq->end", S, dudx, gderiv, stress,
                        wdet)
-    E, nn = gderiv.shape[0], gderiv.shape[2]
-    return (qf0 + qf1).reshape(E, nn * 3)
+    return (qf0 + qf1).reshape(E, nn * dim)
 
 
 # ---------------- the linear solve of each Newton iteration ---------------
@@ -659,11 +797,14 @@ def run_nonlinear_static(model: StructModel, log_path: Optional[str] = None,
             lam2 = (t + dt) / t_end
             lam1 = t / t_end
             sub += 1
+            # the rate-dependent materials' clock: the substep's end time
+            # and, in a VISCO step only, its increment
+            tincr = dt if step.solution == "VISCO" else 0.0
             converged, du, new_states, iters, Q_last = _newton_substep(
                 model, programs, states, u, f_ramp, free, u_fix_total,
                 lam1, lam2, step, gather, solver, f_held=f_held,
                 follow=follow, timings=timings, stats=stats,
-                tag=(cstep, sub))
+                tag=(cstep, sub), ctime=t + dt, tincr=tincr)
             stats.total_iters += iters
             stats.max_iters = max(stats.max_iters, iters)
             if not converged:
@@ -783,6 +924,14 @@ def _commit_state(s):
     out["strain_bak"] = s["strain"]
     out["stress_bak"] = s["stress"]
     out["pstrain"] = s["pstrain_new"]
+    if "vq" in s:
+        # updateViscoElasticState: the new Prony terms and the committed
+        # deviatoric strain
+        out["vq"] = s["vq_new"]
+        eps = s["strain"]
+        th = (eps[..., 0] + eps[..., 1] + eps[..., 2]) / 3.0
+        out["ven"] = torch.cat([eps[..., :3] - th[..., None],
+                                0.5 * eps[..., 3:]], -1)
     return out
 
 
@@ -793,11 +942,13 @@ def _element_values(v: torch.Tensor, p: BlockPrograms, n_node: int,
 
 def _newton_substep(model, programs, states, u, f_total, free, u_fix_total,
                     lam1, lam2, step, gather, solve, f_held=None,
-                    follow=None, timings=None, stats=None, tag=(1, 1)):
+                    follow=None, timings=None, stats=None, tag=(1, 1),
+                    ctime=0.0, tincr=0.0):
     """One substep's Newton loop from the committed ``(u, states)``;
     ``follow(u, lam2)`` (``_follower``) replaces the external load at
-    the start of every iteration.  Returns (converged, du, states,
-    iterations, Q)."""
+    the start of every iteration; ``ctime``/``tincr`` the materials'
+    time and increment.  Returns (converged, du, states, iterations,
+    Q)."""
     n_node, ndof = model.n_node, model.ndof
     dev = model.device
     timings = {} if timings is None else timings
@@ -819,14 +970,16 @@ def _newton_substep(model, programs, states, u, f_total, free, u_fix_total,
     conv = False
     iters = 0
     with Phase(timings, "update", dev):
-        Q_cur = _qforce(model, programs, states_cur, u, du, gather)
+        Q_cur = _qforce(model, programs, states_cur, u, du, gather, ctime,
+                        tincr)
     for it in range(1, step.max_iter + 1):
         iters = it
         t0 = dict(timings)
         with Phase(timings, "tangent", dev):
             kes = [p.tangent(_element_values(u, p, n_node, ndof),
-                             _element_values(du, p, n_node, ndof), s)
-               for p, s in zip(programs, states_cur)]
+                             _element_values(du, p, n_node, ndof), s,
+                             ctime, tincr)
+                   for p, s in zip(programs, states_cur)]
         if follow is not None:
             with Phase(timings, "follower_load", dev):
                 gl = follow(u + du, lam2)
@@ -840,7 +993,8 @@ def _newton_substep(model, programs, states, u, f_total, free, u_fix_total,
             new_states, qfs = [], []
             for p, s in zip(programs, states_cur):
                 ns_, qf = p.update(_element_values(u, p, n_node, ndof),
-                                   _element_values(du, p, n_node, ndof), s)
+                                   _element_values(du, p, n_node, ndof), s,
+                                   ctime, tincr)
                 new_states.append(ns_)
                 qfs.append(qf)
             states_cur = new_states
@@ -907,12 +1061,12 @@ def _spring_forces(model, u_tot):
             for k, d in zip(ex_kes, ex_dofs)]
 
 
-def _qforce(model, programs, states, u, du, gather):
+def _qforce(model, programs, states, u, du, gather, time=0.0, dtime=0.0):
     """Global internal force QFORCE from the per-block updates and the
     springs."""
     qfs = [p.update(_element_values(u, p, model.n_node, model.ndof),
                     _element_values(du, p, model.n_node, model.ndof),
-                    s)[1]
+                    s, time, dtime)[1]
            for p, s in zip(programs, states)]
     return femop.gather_sum(qfs + _spring_forces(model, u + du), gather)
 

@@ -320,7 +320,8 @@ def recover_stress(model: StructModel, u_flat: np.ndarray):
             eps_el = eps - torch.as_tensor(
                 loads.thermal_strains(model, b, model.temperature),
                 device=dev)
-        sig = torch.einsum("ekl,eql->eqk", D, eps_el)
+        sig = torch.einsum("eqkl,eql->eqk" if D.dim() == 4 else
+                           "ekl,eql->eqk", D, eps_el)
         block_data.append(dict(etype=b.etype, conn=b.conn,
                                gauss_strain=eps, gauss_stress=sig))
     return u, postnodal.smooth(model.n_node, block_data, model.dim)

@@ -26,6 +26,7 @@ import torch
 
 from frontistr_tpu_torch.elements.tables import get_table
 from frontistr_tpu_torch.fem.isoparam import (det_inv_small,
+                                              strain_selector_2d,
                                               strain_selector_3d)
 from frontistr_tpu_torch.fem.solid import table_tensor
 
@@ -111,7 +112,10 @@ def _face_pressure(etype, coords_e, dim, thick, face_no, val):
         N = ft.N[q]
         dN = ft.dN[q]                                      # (nsur, fdim)
         g = np.einsum("end,nf->edf", fc, dN)               # (E, dim, fdim)
-        normal = np.cross(g[:, :, 0], g[:, :, 1])          # area-weighted
+        if dim == 3:
+            normal = np.cross(g[:, :, 0], g[:, :, 1])      # area-weighted
+        else:                     # an edge of a 2-D block, its thickness
+            normal = np.stack([-g[:, 1, 0], g[:, 0, 0]], axis=1) * thick
         w = ft.weights[q] * val
         out[:, lnodes, :] += w * N[None, :, None] * normal[:, None, :]
     return out
@@ -156,7 +160,7 @@ def thermal_strains(model, block, temperature: np.ndarray):
     ns = block.D.shape[-1]
     eps = np.zeros(T_e.shape[:1] + (t.nq, ns))
     dT = alpha * (tq - model.reftemp)
-    for k in range(3):
+    for k in range(3 if model.dim == 3 else 2):     # 2-D: UPDATE_C2 EPSTH
         eps[:, :, k] = dT
     return eps
 
@@ -165,7 +169,7 @@ def thermal_load(model, temperature: np.ndarray) -> np.ndarray:
     """TLOAD: f = int B^T D eps_th dV (TLOAD_C3)."""
     ndof = model.ndof
     f = np.zeros(model.n_node * ndof)
-    S = strain_selector_3d()
+    S = strain_selector_3d() if model.dim == 3 else strain_selector_2d()
     for b in model.blocks:
         t = get_table(b.etype)
         coords_e = model.coords[b.conn]
@@ -173,7 +177,8 @@ def thermal_load(model, temperature: np.ndarray) -> np.ndarray:
         det = np.linalg.det(J)
         Jinv = np.linalg.inv(J)
         g = np.einsum("qni,eqji->eqnj", t.dN, Jinv)
-        wdet = t.weights[None, :] * det
+        scale = b.thick if model.dim == 2 else 1.0
+        wdet = (t.weights * scale)[None, :] * det
         epsth = thermal_strains(model, b, temperature)
         if b.D.ndim == 4:
             sig = np.einsum("eqkl,eql->eqk", b.D, epsth)
@@ -283,7 +288,8 @@ class FollowerDload(torch.nn.Module):
     def __init__(self, model, cards, grpid_filter=None):
         super().__init__()
         dev = model.device
-        self.n_node, self.ndof = model.n_node, model.ndof
+        self.n_node, self.ndof, self.dim = model.n_node, model.ndof, \
+            model.dim
         faces: Dict[int, list] = {}
         self.body = []
         for (bi, rows, face, ltype, params, _) in _dload_groups(
@@ -296,11 +302,14 @@ class FollowerDload(torch.nn.Module):
                 self.body.append((_shape_tensors(b.etype, dev),
                                   torch.as_tensor(conn, dtype=torch.int64,
                                                   device=dev),
-                                  ltype, params, float(b.material.density)))
+                                  ltype, params, float(b.material.density),
+                                  b.thick if model.dim == 2 else 1.0))
                 continue
             ftype, lnodes = FACE_TABLES[b.etype][face - 1]
+            # an edge of a 2-D block carries its section's thickness
             faces.setdefault(ftype, []).append(
-                (conn[:, lnodes], np.full(len(rows), float(params[0]))))
+                (conn[:, lnodes], np.full(len(rows), float(params[0]) * (
+                    b.thick if model.dim == 2 else 1.0))))
         self.faces = []
         for ftype, ents in faces.items():
             self.faces.append((_shape_tensors(ftype, dev), torch.as_tensor(
@@ -312,19 +321,23 @@ class FollowerDload(torch.nn.Module):
             np.asarray(model.coords, np.float64), device=dev))
 
     def forward(self, u: torch.Tensor) -> torch.Tensor:
-        xd = self.coords0 + u.reshape(self.n_node, self.ndof)[:, :3]
+        dim = self.dim
+        xd = self.coords0 + u.reshape(self.n_node, self.ndof)[:, :dim]
         nodes, vals = [], []
         for (dN, N, w), fnodes, pv in self.faces:
-            fc = xd[fnodes]                                # (Ef, nsur, 3)
-            g = torch.einsum("end,qnf->eqdf", fc, dN)      # (Ef, nq, 3, 2)
-            normal = torch.linalg.cross(g[..., 0], g[..., 1], dim=-1)
+            fc = xd[fnodes]                              # (Ef, nsur, dim)
+            g = torch.einsum("end,qnf->eqdf", fc, dN)    # (Ef, nq, dim, fd)
+            if dim == 3:
+                normal = torch.linalg.cross(g[..., 0], g[..., 1], dim=-1)
+            else:                               # the edge's outer normal
+                normal = torch.stack([-g[..., 1, 0], g[..., 0, 0]], -1)
             out = torch.einsum("q,e,qn,eqd->end", w, pv, N, normal)
             nodes.append(fnodes.reshape(-1))
-            vals.append(out.reshape(-1, 3))
-        for tabs, conn, ltype, params, rho in self.body:
+            vals.append(out.reshape(-1, dim))
+        for tabs, conn, ltype, params, rho, scale in self.body:
             nodes.append(conn.reshape(-1))
             vals.append(_body_force_t(tabs, xd[conn], ltype, params,
-                                      rho).reshape(-1, 3))
+                                      rho, scale).reshape(-1, dim))
         f = u.new_zeros((self.n_node, self.ndof))
         if nodes:
             f.index_add_(0, torch.cat(nodes), torch.cat(vals))
@@ -339,13 +352,15 @@ def _shape_tensors(etype, device):
                  for name in ("dN", "N", "weights"))
 
 
-def _body_force_t(tabs, coords_e, ltype, params, rho):
-    """Torch twin of ``_body_force`` (3-D), with the element type's
-    ``_shape_tensors``: (E, nn, 3)."""
+def _body_force_t(tabs, coords_e, ltype, params, rho, scale=1.0):
+    """Torch twin of ``_body_force``, with the element type's
+    ``_shape_tensors`` and ``scale`` the thickness of a 2-D block:
+    (E, nn, dim)."""
     dN, N, w = tabs
     dt, dev = coords_e.dtype, coords_e.device
+    dim = coords_e.shape[-1]
     J = torch.einsum("qni,enj->eqij", dN, coords_e)
-    wdet, _ = det_inv_small(J)
+    wdet = det_inv_small(J)[0] * scale
     val = float(params[0])
     if ltype in (1, 2, 3):
         pl = torch.einsum("qn,eq,q->en", N, wdet, w)
@@ -353,13 +368,14 @@ def _body_force_t(tabs, coords_e, ltype, params, rho):
         out[:, :, ltype - 1] = val * pl
         return out
     if ltype == 4:                                   # GRAV
-        v = np.asarray(params[1:4])
+        v = np.asarray(params[1:1 + dim])
         v = torch.as_tensor(v / np.linalg.norm(v), dtype=dt, device=dev)
         pl = torch.einsum("qn,eq,q->en", N, wdet, w)
         return val * rho * pl[:, :, None] * v[None, None, :]
     if ltype == 5:                                   # CENT
-        A = torch.as_tensor(np.asarray(params[1:4]), dtype=dt, device=dev)
-        R = np.asarray(params[4:7])
+        A = torch.as_tensor(np.asarray(params[1:4])[:dim], dtype=dt,
+                            device=dev)
+        R = np.asarray(params[4:7])[:dim]
         Rt = torch.as_tensor(R, dtype=dt, device=dev)
         xq = torch.einsum("qn,end->eqd", N, coords_e)
         proj = (torch.einsum("eqd,d->eq", xq - A, Rt) /

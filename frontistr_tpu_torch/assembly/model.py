@@ -1,12 +1,16 @@
 """Host-side model builder: mesh + control deck -> element blocks, BCs and
 loads (torch port of ``frontistr_tpu/assembly/model.py``, the slice the
-solid analyses need: tet4/tet10, prism6/prism15 and hex8/hex20 blocks
-of an isotropic ELASTIC or !PLASTIC material, CLOAD (with a torque about
+solid analyses need: the 2-D solids tri3/tri6/quad4/quad8 (plane stress,
+plane strain or axisymmetric by the section's sect_opt, with its
+thickness) and the 3-D solids tet4/tet10, prism6/prism15 and hex8/hex20,
+of an ELASTIC (isotropic, temperature-dependent, or orthotropic in a
+section's !ORIENTATION frame), !PLASTIC, !HYPERELASTIC, !VISCOELASTIC
+(with !TRS), !CREEP or !USER_MATERIAL material; CLOAD (with a torque about
 ROT_CENTER), DLOAD and TEMPERATURE loads, the temperatures given by node
 group or read from a heat run's result, ``!TEMPERATURE, READRESULT``;
 rotational !BOUNDARY rows about ROT_CENTER; !SPRING blocks in
 ``model.extras``, ``assembly/extras.py``; the mesh's !EQUATION cards are
-eliminated by each analysis).
+eliminated by each analysis; a registered uload adds its force).
 
 The model itself stays host numpy, as in the JAX package: the symbolic
 profiles are built from it on the host, and ``analysis/static.py`` moves
@@ -23,6 +27,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from frontistr_tpu_torch import user
 from frontistr_tpu_torch.assembly import extras, loads
 from frontistr_tpu_torch.device import resolve
 from frontistr_tpu_torch.elements.tables import get_table
@@ -100,29 +105,39 @@ def _resolve_material(mesh: Mesh, cnt_mats: Dict[str, CntMaterial],
             m.expansion = it3[0][0]
     cm = cnt_mats.get(name)
     if cm is None and "" in cnt_mats:
+        # header-less material cards bind to the mesh-defined material
         cm = cnt_mats[""]
     if cm is None:
         return m
-    for sub in ("hyperelastic", "viscoelastic", "trs", "creep",
-                "user_material", "fluid"):
-        if getattr(cm, sub) is not None:
-            raise NotImplementedError(f"!{sub.upper()} material card")
+    if cm.fluid is not None:
+        raise NotImplementedError("!FLUID material card")
+
+    def _flag(card, default):
+        # strain measure under nlgeom (fstr_ctrl_material.f90): INFINITE,
+        # CAUCHY (updated Lagrange), KIRCHHOFF (total Lagrange)
+        return (mat.INFINITESIMAL if card.has("INFINITE") else
+                mat.UPDATELAG if card.has("CAUCHY") else
+                mat.TOTALLAG if card.has("KIRCHHOFF") else default)
     if cm.elastic is not None:
-        if (cm.elastic.param("TYPE") or "").upper().startswith("ORTHO"):
-            raise NotImplementedError("!ELASTIC, TYPE=ORTHOTROPIC")
         rows = cm.elastic.rows_f()
-        if len(rows) > 1:
-            raise NotImplementedError("temperature-dependent !ELASTIC")
-        m.youngs, m.poisson = rows[0][0], rows[0][1]
-        # strain measure under nlgeom (fstr_ctrl_material.f90):
-        # INFINITE, CAUCHY (updated Lagrange), else total Lagrange
-        m.nlgeom = (mat.INFINITESIMAL if cm.elastic.has("INFINITE") else
-                    mat.UPDATELAG if cm.elastic.has("CAUCHY") else
-                    mat.TOTALLAG)
+        if (cm.elastic.param("TYPE") or "").upper().startswith("ORTHO"):
+            c9 = [v for row in rows for v in row][:9]
+            m.ortho_consts = np.asarray(c9)
+            m.youngs, m.poisson = c9[0], c9[3]
+        else:
+            # rows of (E, nu, temperature): temperature-dependent when
+            # more than one (elastic_at_T)
+            m.elastic_table = np.asarray(rows)
+            m.youngs, m.poisson = rows[0][0], rows[0][1]
+        m.nlgeom = _flag(cm.elastic, mat.TOTALLAG)
     if cm.density is not None:
         m.density = cm.density.rows_f()[0][0]
     if cm.expansion is not None:
         m.expansion = cm.expansion.rows_f()[0][0]
+    if cm.hyperelastic is not None:
+        m.mtype = (cm.hyperelastic.param("TYPE") or "MOONEY-RIVLIN").upper()
+        m.hyper_consts = np.asarray(cm.hyperelastic.rows_f()[0])
+        m.nlgeom = _flag(cm.hyperelastic, mat.TOTALLAG)
     if cm.plastic is not None:
         c = cm.plastic
         m.mtype = mat.EPLASTIC
@@ -132,9 +147,28 @@ def _resolve_material(mesh: Mesh, cnt_mats: Dict[str, CntMaterial],
             [v for row in c.rows_f() for v in row]).reshape(
                 len(c.data), -1) if c.data else None
         # a plastic block's strain measure defaults to updated Lagrange
-        m.nlgeom = (mat.INFINITESIMAL if c.has("INFINITE") else
-                    mat.TOTALLAG if c.has("KIRCHHOFF") else
-                    mat.UPDATELAG)
+        m.nlgeom = _flag(c, mat.UPDATELAG)
+    if cm.viscoelastic is not None:
+        m.mtype = mat.VISCOELASTIC
+        m.visco_consts = np.asarray(cm.viscoelastic.rows_f())
+        m.nlgeom = _flag(cm.viscoelastic, mat.TOTALLAG)
+    if cm.trs is not None:
+        m.trs_consts = np.asarray(cm.trs.rows_f())
+        m.trs_def = (cm.trs.param("DEFINITION") or "WLF").upper()
+    if cm.creep is not None:
+        m.mtype = mat.CREEP
+        m.creep_consts = np.asarray(cm.creep.rows_f()[0])
+        m.nlgeom = _flag(cm.creep, mat.UPDATELAG)
+    if cm.user_material is not None:
+        # '!USER_MATERIAL, NSTATUS=n' and rows of constants
+        # (fstr_ctrl_material.f90:31-51); the update comes from the
+        # frontistr_tpu_torch.user registry
+        m.mtype = mat.USERMATERIAL
+        m.user_nstatus = cm.user_material.iparam("NSTATUS", 1)
+        rows = cm.user_material.rows_f()
+        m.user_consts = np.asarray([v for row in rows for v in row]) \
+            if rows else np.zeros(0)
+        m.nlgeom = _flag(cm.user_material, mat.INFINITESIMAL)
     return m
 
 
@@ -283,22 +317,64 @@ def rot_bc_disp(ent, coords, u=None, factor: float = 1.0) -> tuple:
     return dofs.astype(np.int64), du[:, :nd].reshape(-1)
 
 
-SLICE_ETYPES = (341, 342, 351, 352, 361, 362)   # the ported solid types
+def _orientation_frame(cfg: AnalysisConfig, sect_id: int):
+    """The 3x3 local frame (rows the local axes) of '!SECTION, SECNUM=n,
+    ORIENTATION=name', from '!ORIENTATION, DEFINITION=COORDINATES' points
+    a, b, c (fstr_setup.f90:1517-1570: x = (a-c)/|a-c|, z = x cross
+    (b-c), y = z cross x); None when the section names none."""
+    name = None
+    for c in cfg.sections:
+        if c.iparam("SECNUM", 0) == sect_id + 1:
+            name = (c.param("ORIENTATION") or "").upper() or None
+    if name is None:
+        return None
+    known = [(c.param("NAME") or "").upper() for c in cfg.orientations]
+    if name not in known:
+        raise ValueError(f"!SECTION references undefined ORIENTATION "
+                         f"'{name}' (defined: {known or 'none'})")
+    for c in cfg.orientations:
+        if (c.param("NAME") or "").upper() != name:
+            continue
+        dfn = (c.param("DEFINITION") or "COORDINATES").upper()
+        if dfn != "COORDINATES":
+            raise NotImplementedError("ORIENTATION DEFINITION=NODES")
+        vals = [float(v) for v in c.rows_f()[0]] + [0.0] * 9
+        a, b, c0 = (np.asarray(vals[k:k + 3]) for k in (0, 3, 6))
+        f1 = (a - c0) / np.linalg.norm(a - c0)
+        f3 = np.cross(f1, b - c0)
+        f3 = f3 / np.linalg.norm(f3)
+        return np.stack([f1, np.cross(f3, f1), f3])
+    return None
+
+
+def _iset_from_section(sec) -> int:
+    # fstr_setup.f90:1012-1021: sect_opt 0 -> plane stress, 1 -> plane
+    # strain, 2 -> axisymmetric
+    return {0: mat.PLANE_STRESS, 1: mat.PLANE_STRAIN,
+            2: mat.AXISYMMETRIC}.get(sec.opt, mat.PLANE_STRESS)
+
+
+SOLID2D_ETYPES = (231, 232, 241, 242)           # plane solids, 2 dofs a node
+SOLID3D_ETYPES = (341, 342, 351, 352, 361, 362)
+SLICE_ETYPES = SOLID2D_ETYPES + SOLID3D_ETYPES  # the ported solid types
 
 
 def check_slice(mesh: Mesh, cfg: AnalysisConfig) -> None:
     """Raise on any card or element type of the deck outside the ported
-    slice."""
-    unported = [("!CONTACT", cfg.contacts), ("!EMBED", cfg.embeds),
-                ("!ORIENTATION", cfg.orientations)]
+    slice.  !EMBED raises too: the JAX package parses it, warns and
+    drops it (``frontistr_tpu/run.py:180-181``)."""
+    unported = [("!CONTACT", cfg.contacts), ("!EMBED", cfg.embeds)]
     for name, cards in unported:
         if cards:
             raise NotImplementedError(f"{name} card")
     for b in mesh.blocks:
         if b.etype not in SLICE_ETYPES:
             raise NotImplementedError(
-                f"element type {b.etype} (the port runs the 3-D solids "
-                "341, 342, 351, 352, 361 and 362 so far)")
+                f"element type {b.etype} (the port runs the 2-D solids "
+                "231, 232, 241 and 242 and the 3-D solids 341, 342, 351, "
+                "352, 361 and 362 so far)")
+    if {b.etype in SOLID2D_ETYPES for b in mesh.blocks} == {True, False}:
+        raise NotImplementedError("2-D and 3-D solids in one mesh")
 
 
 def formulation_361(cfg: AnalysisConfig, section_id: int) -> str:
@@ -326,7 +402,8 @@ def build_struct_model(mesh: Mesh, cfg: AnalysisConfig,
     error)."""
     dev = resolve(device)
     check_slice(mesh, cfg)
-    dim = ndof = 3
+    dim = ndof = 2 if mesh.blocks and \
+        mesh.blocks[0].etype in SOLID2D_ETYPES else 3
     n_node = mesh.n_node
     coords = mesh.coords[:, :dim].copy()
 
@@ -344,7 +421,20 @@ def build_struct_model(mesh: Mesh, cfg: AnalysisConfig,
         else:
             m.nlgeom = mat.INFINITESIMAL
         E = len(b.elem_ids)
-        D1 = mat.elastic_D(m.youngs, m.poisson, mat.D3)
+        thick, iset = 1.0, mat.D3
+        if dim == 2:
+            # the section's sect_opt and thickness (fstr_setup.f90)
+            iset = _iset_from_section(sec) if sec else mat.PLANE_STRESS
+            thick = sec.values[0] if sec and sec.values else 1.0
+        if m.ortho_consts is not None and dim == 3:
+            D1 = mat.elastic_D_ortho(m.ortho_consts)
+            frame = _orientation_frame(cfg, b.section_id)
+            if frame is not None:
+                D1 = mat.rotate_D(D1, frame)
+        else:
+            # a 2-D orthotropic block takes the isotropic D of (E1, nu12),
+            # as in the JAX package
+            D1 = mat.elastic_D(m.youngs, m.poisson, iset)
         D = np.broadcast_to(D1, (E,) + D1.shape).copy()
         nn = table.nn
         dofs = (b.conn[:, :, None] * ndof +
@@ -352,7 +442,7 @@ def build_struct_model(mesh: Mesh, cfg: AnalysisConfig,
         form = formulation_361(cfg, b.section_id) if b.etype == 361 \
             else "FI"
         blocks.append(KBlock(b.etype, b.elem_ids, b.conn,
-                             dofs.astype(np.int32), D, 1.0, mat.D3,
+                             dofs.astype(np.int32), D, thick, iset,
                              np.full(E, m.density), m, b.section_id,
                              formulation=form))
 
@@ -394,8 +484,24 @@ def build_struct_model(mesh: Mesh, cfg: AnalysisConfig,
             T = np.asarray(cfg.temp_read_field, float)
         if T is not None:
             model.temperature = T
+            # temperature-dependent E(T), nu(T): per-gauss-point D before
+            # the thermal load is assembled (elastic_at_T)
+            for b in model.blocks:
+                et = b.material.elastic_table
+                if et is not None and len(np.asarray(et)) > 1:
+                    t = get_table(b.etype)
+                    tq = np.einsum("qn,en->eq", t.N, T[b.conn])
+                    b.D = mat.elastic_D_batch(*mat.elastic_at_T(et, tq),
+                                              b.iset)
             tl = loads.thermal_load(model, T)
             model.f_ext = model.f_ext + tl
             if model.f_base is not None:
                 model.f_base = model.f_base + tl
+    # the uload plug point (uload.f90 'uloading'): the registered extra
+    # external force
+    fu = user.uload_total(model.coords, ndof)
+    if fu is not None:
+        model.f_ext = model.f_ext + np.asarray(fu).reshape(-1)
+        if model.f_base is not None:
+            model.f_base = model.f_base + np.asarray(fu).reshape(-1)
     return model

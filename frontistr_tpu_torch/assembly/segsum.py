@@ -153,7 +153,7 @@ def element_schedule(plan: SegsumPlan, nns: Sequence[int], nd: int,
     """The element kernel's per-plan arrays, on the plan's device (built
     at the first call of ``segsum`` with these ``nns`` and value size,
     then kept on the plan).  The kernel runs two passes: pass 1 sums the
-    non-empty slots (the items) tile by tile into an (items, 9) buffer,
+    non-empty slots (the items) tile by tile into an (items, nd*nd) buffer,
     pass 2 writes the planes in blocks of WRITE_SLOTS consecutive slots.
 
     Raw entry p of block b is pair (a, c) of element e, (a, c, e) with e
@@ -351,7 +351,7 @@ def segsum(plan: SegsumPlan, kes: Sequence[torch.Tensor],
     sc = element_schedule(plan, nns, nd, kes[0].element_size())
     out = kes[0].new_empty((nd * nd, plan.n_slots))
     sums = kes[0].new_empty((sc.nz_slot.numel(), nd * nd))
-    launch.launch(fn, dev, is_double, sc.rb_src.dtype == torch.int64,
+    launch.launch(fn, dev, nd, is_double, sc.rb_src.dtype == torch.int64,
                   sc.loc.data_ptr(), sc.rb_src.data_ptr(),
                   sc.rb_ptr.data_ptr(), sc.item_k0.data_ptr(),
                   sc.item_k1.data_ptr(), sc.tile_ptr.data_ptr(), sc.n_tiles,
@@ -433,8 +433,8 @@ def _plan_elements(*args):
     dtype = kes[0].dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"segsum: dtype {dtype} (float32/float64 only)")
-    if nd != 3:
-        raise ValueError(f"segsum: nd={nd} (3-D solids, nd=3, only)")
+    if nd not in (2, 3):
+        raise ValueError(f"segsum: nd={nd} (the solids: nd = 2 or 3)")
     if not 1 <= len(kes) <= _MAX_BLOCKS or len(kes) != len(nns):
         raise ValueError(f"segsum: {len(kes)} element blocks "
                          f"(1..{_MAX_BLOCKS} supported)")
@@ -467,7 +467,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # each ends in (stream, device index)
 _SIGNATURES = {
     "fstr_segsum": (
-        [_I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _L, _I, _I, _I,
+        [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _L, _I, _I, _I,
          ctypes.POINTER(_P), ctypes.POINTER(_L), ctypes.POINTER(_I), _I, _P,
          _P, _P, _I], _I),
     "fstr_segsum_planes": ([_I, _P, _I, _L, _P, _P, _L, _P, _P, _I], _I),

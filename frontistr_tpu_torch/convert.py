@@ -2,8 +2,10 @@
 
 ``model_from_numpy`` takes the numpy fields of a model of the JAX
 package (``frontistr_tpu.assembly.model.StructModel``: coords, block
-connectivity, dofs and elastic matrices, Dirichlet dofs and values,
-external force) and builds the port's ``StructModel`` on a device, plus
+connectivity, dofs, elastic matrices, section type and thickness, the
+material's constants (plastic, hyperelastic, Prony rows and TRS, creep,
+the E(T) table, orthotropic, user), Dirichlet dofs and values, external
+force) and builds the port's ``StructModel`` on a device, plus
 the element matrices as device tensors when given.  ``states_from_numpy``
 turns per-block Newton states (dicts of arrays: stress, strain, the
 plastic state ``pstrain``/``pstrain_new``/``yielded``/``back`` and the
@@ -41,12 +43,24 @@ def model_from_numpy(src, device="cuda",
     blocks = []
     for b in src.blocks:
         sm = b.material
+
+        def arr(name):
+            v = getattr(sm, name, None)
+            return None if v is None else np.asarray(v, np.float64)
         m = mat.Material(sm.name, mtype=sm.mtype, youngs=sm.youngs,
                          poisson=sm.poisson, density=sm.density,
                          expansion=sm.expansion, nlgeom=int(sm.nlgeom),
                          yield_func=sm.yield_func, hardening=sm.hardening,
-                         plastic_consts=None if sm.plastic_consts is None
-                         else np.asarray(sm.plastic_consts, np.float64))
+                         plastic_consts=arr("plastic_consts"),
+                         hyper_consts=arr("hyper_consts"),
+                         visco_consts=arr("visco_consts"),
+                         trs_consts=arr("trs_consts"),
+                         trs_def=getattr(sm, "trs_def", "WLF"),
+                         creep_consts=arr("creep_consts"),
+                         elastic_table=arr("elastic_table"),
+                         ortho_consts=arr("ortho_consts"),
+                         user_consts=arr("user_consts"),
+                         user_nstatus=int(getattr(sm, "user_nstatus", 0)))
         blocks.append(KBlock(
             int(b.etype), np.asarray(b.elem_ids),
             np.asarray(b.conn, np.int32), np.asarray(b.dofs, np.int32),

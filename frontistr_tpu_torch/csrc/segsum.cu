@@ -10,14 +10,16 @@
 // assembly.
 //
 // 1. The element assembly (`make_planes_segsum`).  For every destination
-//    slot s and each of the 9 value planes v = i*3 + j (3-D solids):
+//    slot s and each of the nd*nd value planes v = i*nd + j (nd = 3 for
+//    the 3-D solids, 9 planes; nd = 2 for the 2-D solids, 4 planes):
 //
 //      out[v, s] = sum_{k in [slot_ptr[s], slot_ptr[s+1])} ke(perm[k])[i, j]
 //
 //    where perm lists the raw element pair entries in slot order and raw
 //    entry p is, inside its element block, pair (a, b) of element e in
-//    pair order (a, b, e) with e fastest: ke_b[e, a*3 + i, b*3 + j].
-//    Empty slots come out 0.
+//    pair order (a, b, e) with e fastest: ke_b[e, a*nd + i, b*nd + j].
+//    Empty slots come out 0.  Both entries are one template on ND, so the
+//    nd = 2 record is four values, not nine with five left empty.
 //
 // 2. The planes entry (`make_segsum`): out[v, s] = sum over the segment
 //    of values[v, perm[k]] for V value planes of R entries.
@@ -63,6 +65,13 @@
 // The 2 x 9 x n_items values of the sums buffer are the traffic the
 // bytes bound does not count.
 //
+// The 2-D solids (nd = 2) take the same two passes, instantiated on ND:
+// a row block is 2 x m values (m = 16 for quad8), an item's record four
+// sums (32 or 16 bytes), so a 48 KB stage holds 9/4 as many row blocks of
+// the same m; the schedule (assembly/segsum.py) derives every size from
+// nd.  The sums still run in ascending k, so the 2-D AMG setup repeats
+// bit for bit as the 3-D one does.
+//
 // The planes entry is a simple one-thread-per-(slot, plane) kernel: its
 // callers (the AMG's Galerkin sums, nodal smoothing) run it once or
 // twice per Newton iteration on a few million entries.
@@ -80,14 +89,12 @@ constexpr int kThreads = 256;       // planes kernel, element pass 2
 constexpr int kSumThreads = 128;    // element pass 1
 constexpr int kWriteSlots = 4096;   // WRITE_SLOTS in assembly/segsum.py
 constexpr int kBatch = 8;           // entries a thread loads at once
-constexpr int kND = 3;              // 3-D solids
-constexpr int kNV = kND * kND;      // value planes
 
 template <typename T>
 struct Blocks {
   const T* ke[kMaxBlocks];           // (E_b, m_b, m_b) row-major
   long long start[kMaxBlocks + 1];   // flat offset of block b's first value
-  int m[kMaxBlocks];                 // m_b = nn_b * 3
+  int m[kMaxBlocks];                 // m_b = nn_b * nd
   int nblk;
 };
 
@@ -102,23 +109,25 @@ __device__ __forceinline__ int block_of(const Blocks<T>& bk, long long g) {
 
 // Pass 1, the sums: one block per tile.  The tile's non-empty slots are
 // items [tile_ptr[tile], tile_ptr[tile+1]) with entries [item_k0, item_k1);
-// item `it` leaves its nine sums at sums[it*9 .. it*9+8].
+// item `it` leaves its ND*ND sums at sums[it*ND*ND ..].
 //
-// The tile's row blocks (rows a*3..a*3+2 of one element matrix, 3 x m_b
-// values from flat offset rb_src[r]) are [rb_ptr[tile], rb_ptr[tile+1]); entry
-// k reads value (i, j) of its sub-block at loc[k] + i*m_max + j of the
-// staged row blocks (row block r at r*3*m_max, rows m_max apart).  A tile
-// with more than stage_rb row blocks is read from device memory at the same
-// coordinates.  Shared memory: the stage, then the row blocks' offsets.
-template <typename T, typename I, bool kMulti>
+// The tile's row blocks (rows a*ND..a*ND+ND-1 of one element matrix,
+// ND x m_b values from flat offset rb_src[r]) are [rb_ptr[tile],
+// rb_ptr[tile+1]); entry k reads value (i, j) of its sub-block at loc[k] +
+// i*m_max + j of the staged row blocks (row block r at r*ND*m_max, rows
+// m_max apart).  A tile with more than stage_rb row blocks is read from
+// device memory at the same coordinates.  Shared memory: the stage, then
+// the row blocks' offsets.
+template <int ND, typename T, typename I, bool kMulti>
 __global__ void __launch_bounds__(kSumThreads)
 sums_kernel(const int* __restrict__ loc, const I* __restrict__ rb_src,
             const int* __restrict__ rb_ptr, const int* __restrict__ item_k0,
             const int* __restrict__ item_k1,
             const int* __restrict__ tile_ptr, int m_max, int stage_rb,
             int vec16, const Blocks<T> bk, T* __restrict__ sums) {
+  constexpr int kNV = ND * ND;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int rbs = kND * m_max;
+  const int rbs = ND * m_max;
   T* stage = reinterpret_cast<T*>(smem);
   I* rb_at = reinterpret_cast<I*>(
       smem + ((sizeof(T) * (size_t)stage_rb * rbs + 7) & ~(size_t)7));
@@ -185,7 +194,7 @@ sums_kernel(const int* __restrict__ loc, const I* __restrict__ rb_src,
   }
   __syncthreads();
 
-  // 3. One thread an item: its nine sums, each in ascending k.
+  // 3. One thread an item: its ND*ND sums, each in ascending k.
   for (; it < n_items; it += kSumThreads) {
     if (it != (int)threadIdx.x) {
       k = __ldg(item_k0 + i0 + it);
@@ -204,10 +213,10 @@ sums_kernel(const int* __restrict__ loc, const I* __restrict__ rb_src,
         if (staged) {
           const T* x = stage + l[b];
 #pragma unroll
-          for (int i = 0; i < kND; ++i)
+          for (int i = 0; i < ND; ++i)
 #pragma unroll
-            for (int j = 0; j < kND; ++j)
-              acc[i * kND + j] += x[i * m_max + j];
+            for (int j = 0; j < ND; ++j)
+              acc[i * ND + j] += x[i * m_max + j];
         } else {
           const int r = l[b] / rbs;
           const long long g = __ldg(rb_src + r0 + r);
@@ -215,10 +224,10 @@ sums_kernel(const int* __restrict__ loc, const I* __restrict__ rb_src,
           const int m = kMulti ? bk.m[blk] : m_max;
           const T* x = bk.ke[blk] + (g - bk.start[blk]) + (l[b] - r * rbs);
 #pragma unroll
-          for (int i = 0; i < kND; ++i)
+          for (int i = 0; i < ND; ++i)
 #pragma unroll
-            for (int j = 0; j < kND; ++j)
-              acc[i * kND + j] += __ldg(x + i * m + j);
+            for (int j = 0; j < ND; ++j)
+              acc[i * ND + j] += __ldg(x + i * m + j);
         }
       }
       k += kBatch;
@@ -235,9 +244,9 @@ sums_kernel(const int* __restrict__ loc, const I* __restrict__ rb_src,
 
 // Pass 2, the planes: one block per kWriteSlots consecutive slots.  The
 // block's non-empty slots, ascending, are nz_slot[nz_ptr[tile] ..
-// nz_ptr[tile+1]) with their sums at sums[nz_item*9 ..]; every slot of
+// nz_ptr[tile+1]) with their sums at sums[nz_item*kNV ..]; every slot of
 // the block is written, zeros included.
-template <typename T>
+template <int kNV, typename T>
 __global__ void __launch_bounds__(kThreads)
 planes_out_kernel(const int* __restrict__ nz_slot,
                   const int* __restrict__ nz_item,
@@ -253,7 +262,7 @@ planes_out_kernel(const int* __restrict__ nz_slot,
   __syncthreads();
   const int n = n_slots - s0 < kWriteSlots ? (int)(n_slots - s0)
                                            : kWriteSlots;
-  // a thread a slot: its item's nine sums (one record) to the nine planes,
+  // a thread a slot: its item's kNV sums (one record) to the kNV planes,
   // the warp's stores to each plane consecutive
   for (int t = threadIdx.x; t < n; t += kThreads) {
     const int item = item_of[t];
@@ -280,16 +289,16 @@ struct Schedule {
   long long n_slots;
 };
 
-template <typename T, typename I, bool kMulti>
+template <int ND, typename T, typename I, bool kMulti>
 int launch_passes(const Schedule& sc, const Blocks<T>& bk, void* sums,
                   void* out, cudaStream_t stream, int device) {
   const size_t smem =
-      ((sizeof(T) * (size_t)sc.stage_rb * kND * sc.m_max + 7) & ~(size_t)7) +
+      ((sizeof(T) * (size_t)sc.stage_rb * ND * sc.m_max + 7) & ~(size_t)7) +
       sizeof(I) * (size_t)sc.stage_rb;
   const long long n_write = (sc.n_slots + kWriteSlots - 1) / kWriteSlots;
   cudaError_t attr = cudaSuccess;
   const int rc = on_device(device, [&] {
-    auto pass1 = sums_kernel<T, I, kMulti>;
+    auto pass1 = sums_kernel<ND, T, I, kMulti>;
     attr = cudaFuncSetAttribute(
         pass1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (attr == cudaSuccess)     // shared memory over L1: more tiles an SM
@@ -304,14 +313,15 @@ int launch_passes(const Schedule& sc, const Blocks<T>& bk, void* sums,
           static_cast<T*>(sums));
     attr = cudaGetLastError();
     if (attr != cudaSuccess) return;
-    planes_out_kernel<T><<<(unsigned)n_write, kThreads, 0, stream>>>(
+    planes_out_kernel<ND * ND, T><<<(unsigned)n_write, kThreads, 0,
+                                    stream>>>(
         sc.nz_slot, sc.nz_item, sc.nz_ptr, sc.n_slots,
         static_cast<const T*>(sums), static_cast<T*>(out));
   });
   return attr != cudaSuccess ? (int)attr : rc;
 }
 
-template <typename T>
+template <int ND, typename T>
 int dispatch_elements(int idx64, const Schedule& sc,
                       const void* const* ke_ptrs, const long long* starts,
                       const int* ms, int nblk, void* sums, void* out,
@@ -325,14 +335,14 @@ int dispatch_elements(int idx64, const Schedule& sc,
   }
   bk.start[nblk] = starts[nblk];
   if (nblk == 1)
-    return idx64 ? launch_passes<T, long long, false>(sc, bk, sums, out,
-                                                      stream, device)
-                 : launch_passes<T, int, false>(sc, bk, sums, out, stream,
-                                                device);
-  return idx64 ? launch_passes<T, long long, true>(sc, bk, sums, out, stream,
-                                                   device)
-               : launch_passes<T, int, true>(sc, bk, sums, out, stream,
-                                             device);
+    return idx64 ? launch_passes<ND, T, long long, false>(sc, bk, sums, out,
+                                                          stream, device)
+                 : launch_passes<ND, T, int, false>(sc, bk, sums, out,
+                                                    stream, device);
+  return idx64 ? launch_passes<ND, T, long long, true>(sc, bk, sums, out,
+                                                       stream, device)
+               : launch_passes<ND, T, int, true>(sc, bk, sums, out, stream,
+                                                 device);
 }
 
 // The planes entry: one thread per (slot, plane).  Threads of a block
@@ -393,16 +403,17 @@ int launch_planes(const void* values, int V, long long R, const int* slot_ptr,
 // The element assembly, over the schedule assembly/segsum.py builds (all
 // int32 but rb_src, int64 when idx64): pass 1 over n_tiles tiles, from
 // loc (P), rb_src, rb_ptr and tile_ptr (n_tiles+1), item_k0 and item_k1,
-// into sums (n_items, 9) of the element type; tiles of at most stage_rb
-// row blocks (3 rows of m_max values) are staged, by 16-byte copies when
+// into sums (n_items, nd*nd) of the element type; tiles of at most
+// stage_rb row blocks (nd rows of m_max values) are staged, by 16-byte
+// copies when
 // vec16 (every row block laid out alike and 16-byte aligned in memory and
 // in the stage).  Pass 2 over blocks of
 // kWriteSlots slots, from nz_slot and nz_item (the non-empty slots,
-// ascending, and their items) and nz_ptr, into out (9, n_slots).  Host
-// arrays: ke_ptrs (nblk) to the element matrices, starts (nblk+1) their
-// flat offsets, ms (nblk) their widths m_b <= m_max.  is_double selects
-// float64 over float32.
-extern "C" int fstr_segsum(int is_double, int idx64, const void* loc,
+// ascending, and their items) and nz_ptr, into out (nd*nd, n_slots).
+// Host arrays: ke_ptrs (nblk) to the element matrices, starts (nblk+1)
+// their flat offsets, ms (nblk) their widths m_b <= m_max.  nd is 2 (the
+// 2-D solids) or 3; is_double selects float64 over float32.
+extern "C" int fstr_segsum(int nd, int is_double, int idx64, const void* loc,
                            const void* rb_src, const void* rb_ptr,
                            const void* item_k0, const void* item_k1,
                            const void* tile_ptr, int n_tiles,
@@ -413,7 +424,7 @@ extern "C" int fstr_segsum(int is_double, int idx64, const void* loc,
                            const long long* starts, const int* ms, int nblk,
                            void* sums, void* out, void* stream, int device) {
   if (nblk < 1 || nblk > kMaxBlocks) return -1;
-  if (n_tiles < 0 || stage_rb < 0 || m_max < 1 || n_slots < 0 ||
+  if ((nd != 2 && nd != 3) || n_tiles < 0 || stage_rb < 0 || m_max < 1 || n_slots < 0 ||
       n_slots >= 0x7fffffffLL)
     return -2;
   for (int b = 0; b < nblk; ++b)
@@ -429,11 +440,19 @@ extern "C" int fstr_segsum(int is_double, int idx64, const void* loc,
                     static_cast<const int*>(nz_ptr), n_tiles, m_max,
                     stage_rb, vec16, n_slots};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_double)
-    return dispatch_elements<double>(idx64, sc, ke_ptrs, starts, ms, nblk,
-                                     sums, out, st, device);
-  return dispatch_elements<float>(idx64, sc, ke_ptrs, starts, ms, nblk, sums,
-                                  out, st, device);
+  if (nd == 2)
+    return is_double ? dispatch_elements<2, double>(idx64, sc, ke_ptrs,
+                                                    starts, ms, nblk, sums,
+                                                    out, st, device)
+                     : dispatch_elements<2, float>(idx64, sc, ke_ptrs, starts,
+                                                   ms, nblk, sums, out, st,
+                                                   device);
+  return is_double ? dispatch_elements<3, double>(idx64, sc, ke_ptrs, starts,
+                                                  ms, nblk, sums, out, st,
+                                                  device)
+                   : dispatch_elements<3, float>(idx64, sc, ke_ptrs, starts,
+                                                 ms, nblk, sums, out, st,
+                                                 device);
 }
 
 // The planes entry: values (V, R) and out (V, n_slots) of the element

@@ -1,4 +1,4 @@
-"""Batched solid element kernels (torch port of
+"""Batched solid element kernels, 2-D and 3-D (torch port of
 ``frontistr_tpu/fem/solid.py``): the small-strain arms
 (``stiffness_linear``, its isotropic closed form ``stiffness_linear_iso``,
 ``strains_at_gauss``, ``internal_force``; reference STF_C3 / UPDATE_C3,
@@ -66,8 +66,9 @@ def stiffness_linear(table: ElementTable, coords_e: torch.Tensor,
     Args:
       table: static element tables.
       coords_e: (E, nn, dim).
-      D_e: (E, ns, ns) elastic matrices, or (1, ns, ns) for a
-        block-constant material.
+      D_e: (E, ns, ns) elastic matrices, (1, ns, ns) for a
+        block-constant material, or (E, nq, ns, ns) per quadrature point
+        (E(T), nu(T); a material tangent).
       thick: section thickness (2D only; STF_C2 PARAM1).
 
     Returns: (E, nn*dim, nn*dim) element stiffness.
@@ -81,9 +82,12 @@ def stiffness_linear(table: ElementTable, coords_e: torch.Tensor,
     m = nn * table.dim
     nq = table.nq
     B = torch.einsum("kdj,eqnj->eqknd", S, gderiv).reshape(E, nq, ns, m)
-    # DB[e,q,k,j] = D[e,k,l] B[e,q,l,j] as one (E, ns, nq*m) batched matmul
-    B2 = B.transpose(1, 2).reshape(E, ns, nq * m)
-    DB = torch.matmul(D_e, B2).reshape(E, ns, nq, m).transpose(1, 2)
+    if D_e.dim() == 4:
+        DB = torch.matmul(D_e, B)
+    else:
+        # DB[e,q,k,j] = D[e,k,l] B[e,q,l,j]: one (E, ns, nq*m) matmul
+        B2 = B.transpose(1, 2).reshape(E, ns, nq * m)
+        DB = torch.matmul(D_e, B2).reshape(E, ns, nq, m).transpose(1, 2)
     wdet = (w * scale)[None, :] * det                       # (E, nq)
     DB = DB * wdet[:, :, None, None]
     # k[e,i,j] = sum_{q,k} B[e,q,k,i] DB[e,q,k,j]
@@ -112,8 +116,13 @@ def stiffness_linear_iso(table: ElementTable, coords_e: torch.Tensor,
     return ke.reshape(E, n * 3, n * 3)
 
 
-def _stress_tensor(sig: torch.Tensor) -> torch.Tensor:
-    """Voigt stress (11, 22, 33, 12, 23, 13) -> full 3x3 tensor."""
+def _stress_tensor(sig: torch.Tensor, dim: int = 3) -> torch.Tensor:
+    """Voigt stress -> full tensor: 3-D (11, 22, 33, 12, 23, 13) -> 3x3,
+    2-D (11, 22, 12, ...) -> 2x2."""
+    if dim == 2:
+        s11, s22, s12 = sig[..., 0], sig[..., 1], sig[..., 2]
+        return torch.stack([torch.stack([s11, s12], -1),
+                            torch.stack([s12, s22], -1)], -2)
     s11, s22, s33, s12, s23, s13 = (sig[..., i] for i in range(6))
     return torch.stack([torch.stack([s11, s12, s13], -1),
                         torch.stack([s12, s22, s23], -1),
@@ -288,10 +297,11 @@ def stiffness_nlgeom_fbar(table: ElementTable, coords_e: torch.Tensor,
 
 def stiffness_nlgeom(table: ElementTable, coords_e: torch.Tensor,
                      u_e: torch.Tensor, D_e: torch.Tensor,
-                     stress_e: torch.Tensor, flag: int,
+                     stress_e: torch.Tensor, flag: int, thick: float = 1.0,
                      bbar: bool = False) -> torch.Tensor:
     """Tangent stiffness with geometric terms (STF_C3 TOTALLAG /
-    UPDATELAG arms, static_LIB_3d.f90:137-204; 3D).  ``bbar`` adds the
+    UPDATELAG arms, static_LIB_3d.f90:137-204; a 2-D block integrates
+    over its ``thick``ness, STF_C2).  ``bbar`` adds the
     hex8 volumetric centroid correction of STF_C3D8Bbar; with the
     INFINITESIMAL flag (B-bar small strain) there is no geometric term.
 
@@ -310,11 +320,12 @@ def stiffness_nlgeom(table: ElementTable, coords_e: torch.Tensor,
     w = table_tensor(table, "weights", coords_e)
     E, nn, dim = coords_e.shape
     m = nn * dim
+    scale = thick if dim == 2 else 1.0
     eye = torch.eye(dim, dtype=dt, device=coords_e.device)
     k = torch.zeros((E, m, m), dtype=dt, device=coords_e.device)
     for q in range(table.nq):
         g = gderiv[:, q]                                  # (E, nn, dim)
-        wg = w[q] * det[:, q]
+        wg = (w[q] * scale) * det[:, q]
         B = b_matrix(S, g)
         if bbar:
             B = torch.cat([B[:, :3] + _bbar_correction(g, g0), B[:, 3:]],
@@ -330,7 +341,7 @@ def stiffness_nlgeom(table: ElementTable, coords_e: torch.Tensor,
         if flag == INFINITESIMAL:
             continue
         # initial-stress stiffness: delta_ij g[a]^T sigma g[b]
-        Sm = _stress_tensor(stress_e[:, q])
+        Sm = _stress_tensor(stress_e[:, q], dim)
         gsg = torch.matmul(torch.matmul(g, Sm), g.transpose(1, 2)) \
             * wg[:, None, None]                           # (E, nn, nn)
         k += (gsg[:, :, None, :, None] * eye[None, None, :, None, :]) \
@@ -339,14 +350,16 @@ def stiffness_nlgeom(table: ElementTable, coords_e: torch.Tensor,
 
 
 def internal_force(table: ElementTable, coords_e: torch.Tensor,
-                   stress_e: torch.Tensor) -> torch.Tensor:
+                   stress_e: torch.Tensor,
+                   thick: float = 1.0) -> torch.Tensor:
     """Equivalent nodal force qf = sum_q w det B^T sigma (UPDATE_C3
-    tail).  stress_e: (E, nq, ns).  Returns (E, nn*dim)."""
+    tail; a 2-D block over its ``thick``ness).  stress_e: (E, nq, ns).
+    Returns (E, nn*dim)."""
     det, gderiv = jacobians(table_tensor(table, "dN", coords_e), coords_e)
     S = _selector(table.dim, coords_e)
     w = table_tensor(table, "weights", coords_e)
     E, nn, dim = coords_e.shape
-    wdet = w[None, :] * det
+    wdet = (w * (thick if dim == 2 else 1.0))[None, :] * det
     qf = torch.einsum("kdj,eqnj,eqk,eq->end", S, gderiv, stress_e, wdet)
     return qf.reshape(E, nn * dim)
 

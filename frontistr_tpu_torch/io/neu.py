@@ -47,7 +47,8 @@ def write_fstr_msh(mesh: Mesh, path: str) -> None:
                                             for v in row) + "\n")
         for sec in mesh.sections:
             f.write(f"!SECTION, TYPE={sec.stype}, EGRP={sec.egrp}, "
-                    f"MATERIAL={sec.material}\n")
+                    f"MATERIAL={sec.material}"
+                    + (f", SECOPT={sec.opt}" if sec.opt else "") + "\n")
             if sec.values:
                 f.write(" " + ", ".join(repr(float(v))
                                         for v in sec.values) + "\n")

@@ -15,6 +15,7 @@ from typing import Dict, Tuple
 import numpy as np
 
 from frontistr_tpu_torch.io.meshio import Mesh, Section, MaterialDef, ElemBlock
+from frontistr_tpu_torch.elements.tables import HECMW2FSTR_ORDER
 
 
 def box_hex8(nx: int, ny: int, nz: int,
@@ -94,33 +95,50 @@ def box_tet4(nx: int, ny: int, nz: int, **kw) -> Mesh:
 
 
 def box_plane(nx: int, ny: int, lx: float = 1.0, ly: float = 1.0,
-              etype: int = 241, thick: float = 0.5) -> Mesh:
+              etype: int = 241, thick: float = 0.5, opt: int = 0) -> Mesh:
     """Plane box of nx*ny quad4 (241) elements in the x-y plane, or
-    2*nx*ny tri3 (231), each quad split along its 0-2 diagonal; a section
-    of thickness ``thick`` and the node groups X0/X1/Y0/Y1/ALL."""
-    assert etype in (231, 241)
+    2*nx*ny tri3 (231), each quad split along its 0-2 diagonal; the
+    quadratic 242 (quad8) and 232 (tri6) carry a node at the middle of
+    every edge, shared by the elements around it.  A section of
+    thickness ``thick`` and sect_opt ``opt`` (0 plane stress, 1 plane
+    strain, 2 axisymmetric) and the node groups X0/X1/Y0/Y1/ALL."""
+    assert etype in (231, 232, 241, 242)
     xs, ys = np.linspace(0, lx, nx + 1), np.linspace(0, ly, ny + 1)
     X, Y = np.meshgrid(xs, ys, indexing="ij")
     coords = np.stack([X.ravel(), Y.ravel(), np.zeros(X.size)], axis=1)
-    n_node = coords.shape[0]
     I, J = (a.ravel() for a in np.meshgrid(np.arange(nx), np.arange(ny),
                                            indexing="ij"))
     q = np.stack([I * (ny + 1) + J, (I + 1) * (ny + 1) + J,
                   (I + 1) * (ny + 1) + J + 1, I * (ny + 1) + J + 1], axis=1)
     conn = (np.concatenate([q[:, [0, 1, 2]], q[:, [0, 2, 3]]])
-            if etype == 231 else q).astype(np.int32)
+            if etype in (231, 232) else q).astype(np.int64)
+    if etype in (232, 242):
+        # the mid-edge nodes, FSTR order: edges (0,1), (1,2), (2,0) of a
+        # triangle, (0,1), (1,2), (2,3), (3,0) of a quad
+        nc = conn.shape[1]
+        edges = np.stack([np.sort(conn[:, [k, (k + 1) % nc]], axis=1)
+                          for k in range(nc)], 1)
+        uniq, inv = np.unique(edges.reshape(-1, 2), axis=0,
+                              return_inverse=True)
+        conn = np.concatenate([conn, len(coords) + inv.reshape(-1, nc)], 1)
+        coords = np.concatenate([coords, coords[uniq].mean(axis=1)])
+    conn = conn.astype(np.int32)
+    hecmw = conn.copy()          # the .msh order: fstr[k] = hecmw[T[k]-1]
+    if etype in HECMW2FSTR_ORDER:
+        hecmw[:, np.asarray(HECMW2FSTR_ORDER[etype]) - 1] = conn
+    n_node = coords.shape[0]
     elem_ids = np.arange(1, len(conn) + 1, dtype=np.int64)
     node_ids = np.arange(1, n_node + 1, dtype=np.int64)
-    idx = np.arange(n_node).reshape(nx + 1, ny + 1)
-    groups = {"ALL": np.arange(n_node, dtype=np.int64),
-              "X0": idx[0].astype(np.int64), "X1": idx[-1].astype(np.int64),
-              "Y0": idx[:, 0].astype(np.int64),
-              "Y1": idx[:, -1].astype(np.int64)}
+    groups = {"ALL": np.arange(n_node, dtype=np.int64)}
+    for g, ax, x in (("X0", 0, 0.0), ("X1", 0, lx), ("Y0", 1, 0.0),
+                     ("Y1", 1, ly)):
+        groups[g] = np.flatnonzero(np.isclose(coords[:, ax], x)) \
+            .astype(np.int64)
     return Mesh(
         header="generated plane box", coords=coords, node_ids=node_ids,
         id2idx={int(g): int(g) - 1 for g in node_ids},
-        blocks=[ElemBlock(etype, elem_ids, conn, conn, 0)],
-        sections=[Section("SOLID", "ALL", "M1", [thick])],
+        blocks=[ElemBlock(etype, elem_ids, conn, hecmw, 0)],
+        sections=[Section("SOLID", "ALL", "M1", [thick], opt=opt)],
         materials={"M1": MaterialDef("M1", {})}, node_groups=groups,
         elem_groups={"ALL": elem_ids}, surf_groups={}, amplitudes={},
         equations=[], contact_pairs=[], initial_conditions={})

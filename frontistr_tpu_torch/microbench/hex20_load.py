@@ -4,7 +4,7 @@ compressed there.
 
     python -m frontistr_tpu_torch.microbench.hex20_load \\
         [--runs 16:1 24:1 32:1 44:0.5 44:0.75 44:1] [--maxiter 7] \\
-        [--cap-s 200]
+        [--cap-s 200] [--neohooke] [--substeps 1]
 
 Run it from the repository root (it builds the deck with
 ``chip_smoke.py``'s helpers).  Each run ``n:scale`` is the smoke's
@@ -20,8 +20,11 @@ substep, the smallest and largest principal stretch sqrt(eig(F^T F))
 over the elements' 27 integration points of ``u + du``.  The
 material is linear in the Green-Lagrange strain (St. Venant-
 Kirchhoff): in uniaxial compression its first Piola stress falls again
-below a stretch of 1/sqrt(3) = 0.577.  ``--cap-s`` ends a run after
-that many seconds.  It needs a card.
+below a stretch of 1/sqrt(3) = 0.577.  ``--neohooke`` gives the block
+!HYPERELASTIC, TYPE=NEOHOOKE instead (the same E and nu; its energy
+grows without bound as J -> 0), ``--substeps`` the load in that many
+substeps.  ``--cap-s`` ends a run after that many seconds.  It needs a
+card.
 """
 
 from __future__ import annotations
@@ -77,7 +80,7 @@ def _traced_pcg(real):
     return pcg
 
 
-def run(cs, mods, n, scale, maxiter, cap_s):
+def run(cs, mods, n, scale, maxiter, cap_s, neohooke=False, substeps=1):
     mesh = cs.hex20_mesh(mods, (n, n, n))
     x1 = mesh.node_groups["X1"]
     mid = x1[np.argmin(np.linalg.norm(mesh.coords[x1] - [1.0, 0.5, 0.5],
@@ -86,11 +89,14 @@ def run(cs, mods, n, scale, maxiter, cap_s):
     cnt = cs.MPCCNT.format(mast=int(mesh.node_ids[mast]),
                            load=-scale * CELL_LOAD, k=210.0, method="CG",
                            resid="1.0e-8").replace(
-        "SUBSTEPS=1\n", f"SUBSTEPS=1, MAXITER={maxiter}\n")
-    wd = os.path.join(cs.ROOT, "build", "hex20_load", f"n{n}_s{scale}")
+        "!STEP, SUBSTEPS=1\n", (cs.HYPER_LAW if neohooke else "")
+        + f"!STEP, SUBSTEPS={substeps}, MAXITER={maxiter}\n")
+    wd = os.path.join(cs.ROOT, "build", "hex20_load",
+                      f"n{n}_s{scale}" + ("_neohooke" if neohooke else ""))
     cs.write_shuffled(wd, mods, mesh, cnt)
     print(f"run n={n} scale={scale}: {3 * mesh.n_node} dofs, total load "
-          f"{-scale * CELL_LOAD!r}", flush=True)
+          f"{-scale * CELL_LOAD!r}, {'NEOHOOKE' if neohooke else 'SVK'}, "
+          f"{substeps} substep(s)", flush=True)
     real = nonlinear._newton_substep
 
     def substep(model, programs, states, u, *a, **kw):
@@ -129,6 +135,8 @@ def main(argv=None) -> int:
                              "44:1"])
     ap.add_argument("--maxiter", type=int, default=7)
     ap.add_argument("--cap-s", type=int, default=200)
+    ap.add_argument("--neohooke", action="store_true")
+    ap.add_argument("--substeps", type=int, default=1)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("hex20_load: needs a CUDA card", file=sys.stderr)
@@ -144,7 +152,8 @@ def main(argv=None) -> int:
     os.environ["FRONTISTR_TPU_DEBUG_NEWTON"] = "1"
     for r in args.runs:
         n, scale = r.split(":")
-        run(cs, mods, int(n), float(scale), args.maxiter, args.cap_s)
+        run(cs, mods, int(n), float(scale), args.maxiter, args.cap_s,
+            args.neohooke, args.substeps)
     return 0
 
 

@@ -20,9 +20,11 @@ of a heat run's result files (the fstrTEMP binding) as the thermal load.
 (``TYPE=BINARY``) binary, as the JAX runner does: the final static
 result as step 1; a dynamic run's DISPLACEMENT, VELOCITY and
 ACCELERATION and a heat run's TEMPERATURE every FREQUENCY steps (and at
-the last step); one file a mode for EIGEN.  Everything else the JAX
-runner dispatches (u-p flow, visualization output, restart, sharding,
-profiling, user modules) raises ``NotImplementedError`` naming what was
+the last step); one file a mode for EIGEN.  FRONTISTR_TPU_USER_MODULE
+names a Python file that registers umat/uload hooks in
+``frontistr_tpu_torch.user``; it is imported before the analysis.
+Everything else the JAX runner dispatches (u-p flow, visualization
+output, restart, sharding, profiling) raises ``NotImplementedError`` naming what was
 asked for.
 """
 
@@ -35,7 +37,7 @@ import numpy as np
 import torch
 
 from frontistr_tpu_torch import device as devmod
-from frontistr_tpu_torch import ordering
+from frontistr_tpu_torch import ordering, user
 from frontistr_tpu_torch.analysis.dynamic import run_dynamic
 from frontistr_tpu_torch.analysis.eigen import run_eigen
 from frontistr_tpu_torch.analysis.freq import (load_eigenread,
@@ -56,7 +58,7 @@ from frontistr_tpu_torch.io.resfile import (read_result_any, write_result,
 
 # JAX-package switches whose feature this slice does not carry
 _UNPORTED_ENV = ("FRONTISTR_TPU_SHARDS", "FRONTISTR_TPU_PROFILE",
-                 "FRONTISTR_TPU_USER_MODULE", "FRONTISTR_TPU_COORDINATOR")
+                 "FRONTISTR_TPU_COORDINATOR")
 
 
 def _check_request(ctrl, cfg) -> None:
@@ -98,6 +100,8 @@ def run_directory(workdir: str, log_name: str = "0.log",
         raise NotImplementedError("!MESH REFINE")
     cfg = read_cnt(ctrl.path(ctrl.control()))
     _check_request(ctrl, cfg)
+    # the user plug-in module (umat / uload), FRONTISTR_TPU_USER_MODULE
+    user.load_user_module()
     sol = cfg.solution_type.upper()
     with devmod.Phase(timings, "read", dev):
         mesh = read_mesh(ctrl.path(mb))

@@ -313,3 +313,27 @@ def write_heat_deck(path, mesh, cnt, seed=3):
                                        if g in mesh.node_groups),
                          egroups=groups, sgroups={"SHI": rows})
     return str(path)
+
+
+# ---- the 2-D solids ----------------------------------------------------
+def write_plane_deck(path, mesh, cnt, seed=3):
+    """A plane deck in ``path``, the mesh's nodes shuffled; node groups
+    X0, X1, Y0, Y1 and the surface group EX1 (the element edges on the
+    box's x = max side)."""
+    order = np.random.default_rng(seed).permutation(mesh.n_node)
+    write_static_workdir(str(path), ordering.permute_mesh(mesh, order), cnt,
+                         ngroups=("X0", "X1", "Y0", "Y1"),
+                         sgroups={"EX1": side_faces(mesh, 0)})
+    return str(path)
+
+
+def run_both_plane(path, mesh, cnt, seed=3):
+    """``run_both`` for a plane deck written by ``write_plane_deck``."""
+    import shutil
+    import frontistr_tpu.run as jrun
+    from frontistr_tpu_torch.run import run_directory
+    wd, wj = str(path / "port"), str(path / "jax")
+    write_plane_deck(wd, mesh, cnt, seed)
+    shutil.copytree(wd, wj)
+    oj = jrun.run_directory(wj)
+    return run_directory(wd, device="cpu"), oj, wd, wj

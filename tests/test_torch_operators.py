@@ -65,13 +65,14 @@ def test_model_build_matches_jax(tmp_path, models):
 
 
 @pytest.mark.parametrize("extra", [
-    "!ORIENTATION, NAME=OR1, DEFINITION=COORDINATES\n"
-    " 1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0\n",
+    "!CONTACT, GRPID=1\n CP1, 0.0, 1.0e+5\n",
     "!EMBED, NAME=EM1\n X1, X0\n"])
 def test_unported_cards_raise(tmp_path, extra):
+    """!CONTACT and !EMBED raise (!ORIENTATION runs since the materials
+    slice: tests/test_torch_ortho_user.py)."""
     p = tmp_path / "case.cnt"
     p.write_text(CNT.replace("!END\n", extra + "!END\n"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match=extra.split(",")[0]):
         build_struct_model(box_tet4(2, 2, 2), read_cnt(str(p)),
                            device="cpu")
 
@@ -105,8 +106,8 @@ def test_unported_element_type_raises(tmp_path):
     p = tmp_path / "case.cnt"
     p.write_text(CNT)
     mesh = box_hex8(2, 2, 2)
-    mesh.blocks = [dataclasses.replace(mesh.blocks[0], etype=241)]
-    with pytest.raises(NotImplementedError, match="element type 241"):
+    mesh.blocks = [dataclasses.replace(mesh.blocks[0], etype=731)]
+    with pytest.raises(NotImplementedError, match="element type 731"):
         build_struct_model(mesh, read_cnt(str(p)), device="cpu")
 
 

@@ -93,8 +93,9 @@ def test_wrapper_rejects_bad_input():
     plan, ke, _ = _nodal_case(*_seg_cases()["random"], 1, torch.float64)
     with pytest.raises(TypeError):
         sm.segsum(plan, [ke.to(torch.float16)], [1], 3)
-    with pytest.raises(ValueError):
-        sm.segsum(plan, [ke[:, :2, :2].contiguous()], [1], 2)  # nd=3 only
+    with pytest.raises(ValueError):       # nd = 2 or 3 only
+        sm.segsum(plan, [torch.zeros((ke.shape[0], 4, 4),
+                                     dtype=ke.dtype)], [1], 4)
     with pytest.raises(ValueError):
         sm.segsum(plan, [ke.transpose(1, 2)], [1], 3)
 
@@ -432,3 +433,29 @@ def test_planes_rejects_bad_input(fault, error):
            "device": lambda: good.to("meta")}[fault]()
     with pytest.raises(error):
         sm.segsum_planes(bad, plan)
+
+
+@pytest.mark.parametrize("etype", [231, 232, 241, 242])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_plane_cluster_assembly_matches_jax(etype, dtype):
+    """nd = 2: the cluster assembly of a plane box's element matrices
+    (the element entry's four planes) against the JAX package's."""
+    from frontistr_tpu_torch.meshgen import box_plane
+    mesh = box_plane(7, 5, etype=etype)
+    conns = [mesh.blocks[0].conn]
+    nn = conns[0].shape[1]
+    jprof = jbell.build_cluster_profile(conns, mesh.n_node, 2)
+    prof = bell.build_cluster_profile(conns, mesh.n_node, 2)
+    kes = [np.random.default_rng(4).standard_normal(
+        (conns[0].shape[0], 2 * nn, 2 * nn))]
+    jd = jnp.float32 if dtype == torch.float32 else jnp.float64
+    want_b, want_r = jbell._assemble_jit(
+        jprof.device(), tuple(jnp.asarray(k, jd) for k in kes), (nn,))
+    got_b, got_r = bell.assemble_cluster(
+        prof, [torch.as_tensor(k, dtype=dtype) for k in kes], [nn])
+    want_r = np.stack([np.asarray(p) for p in want_r])
+    assert got_r.shape == want_r.shape and got_r.shape[0] == 4
+    scale = np.abs(want_r).max()
+    assert np.abs(got_r.numpy() - want_r).max() <= TOL[dtype] * scale
+    assert np.abs(got_b.numpy() - np.asarray(want_b)).max() \
+        <= TOL[dtype] * scale

@@ -3,7 +3,9 @@
 PyTorch versions on the same inputs, and the AMG setup and the nodal
 smoothing that sum through the planes entry, run twice; K1 at the
 hex20 (m = 60) and spring shapes and the !EQUATION reduction that sums
-through the planes entry, run twice.  The file
+through the planes entry, run twice; the element entry at nd = 2 (the
+2-D solids' four planes) on one-node and plane-box cluster profiles, and
+a quad8 deck's 2-D AMG setup run twice.  The file
 imports nothing of JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_segsum_cuda.py
@@ -27,7 +29,7 @@ from frontistr_tpu_torch.assembly import bell, femop
 from frontistr_tpu_torch.assembly import segsum as sm
 from frontistr_tpu_torch.assembly.model import build_struct_model
 from frontistr_tpu_torch.io.ctrlio import read_cnt
-from frontistr_tpu_torch.meshgen import box_tet4
+from frontistr_tpu_torch.meshgen import box_plane, box_tet4
 from frontistr_tpu_torch.post import nodal
 from frontistr_tpu_torch.solver import amg
 
@@ -321,3 +323,90 @@ def test_nodal_smoothing_repeats_bit_equal_on_card(cuda_device):
                              for d in block_data], 3)
     scale = np.abs(cpu["stress"]).max()
     assert np.abs(a["stress"] - cpu["stress"]).max() <= 1e-12 * scale
+
+
+# ---- the nd = 2 entry (the 2-D solids 231/232/241/242) -------------------
+
+PLANE_CNT = ("!VERSION\n 3\n!SOLUTION, TYPE=STATIC\n!BOUNDARY\n"
+             " X0, 1, 2, 0.0\n!CLOAD\n X1, 2, -1.0\n!MATERIAL, NAME=M1\n"
+             "!ELASTIC\n 210000.0, 0.3\n!SOLVER, METHOD=CG\n 10000, 1\n"
+             " 1.0e-8, 1.0, 0.0\n!END\n")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "empty_slots", "long_segment",
+                                  "lengths"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_nd2_matches_plain_on_card(cuda_device, case, dtype):
+    """One-node 'elements' with nd = 2: raw entry p is ke[p] (2, 2)."""
+    seg, n_slots = _seg_case(case)
+    rng = np.random.default_rng(12)
+    P = len(seg)
+    plan = sm.make_plan(rng.permutation(P).astype(np.int32), seg, n_slots,
+                        (P,), cuda_device)
+    ke = torch.as_tensor(rng.standard_normal((P, 2, 2)), dtype=dtype,
+                         device=cuda_device)
+    before = sm.segsum.launches
+    got = sm.segsum(plan, [ke], [1], 2)
+    again = sm.segsum(plan, [ke], [1], 2)
+    want = sm.segsum_reference(plan, [ke], [1], 2)
+    torch.cuda.synchronize()
+    assert sm.segsum.launches == before + 2 and got.shape[0] == 4
+    assert torch.equal(got, again)
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("etype", [231, 232, 241, 242])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_plane_cluster_on_card(cuda_device, etype, dtype):
+    """The cluster profile of a plane box (nd = 2, m = 6, 12, 8 or 16)
+    over several chunks of clusters: the element entry against its plain
+    version, and a relaunch bit-equal."""
+    mesh = box_plane(23, 17, etype=etype)
+    conn = mesh.blocks[0].conn
+    nn = conn.shape[1]
+    prof = bell.build_cluster_profile([conn], mesh.n_node, 2)
+    plan = prof.plan(cuda_device)
+    kes = [torch.as_tensor(np.random.default_rng(13).standard_normal(
+        (conn.shape[0], 2 * nn, 2 * nn)), dtype=dtype, device=cuda_device)]
+    got = sm.segsum(plan, kes, [nn], 2)
+    again = sm.segsum(plan, kes, [nn], 2)
+    want = sm.segsum_reference(plan, kes, [nn], 2)
+    torch.cuda.synchronize()
+    assert got.shape == (4, plan.n_slots)
+    assert torch.equal(got, again)
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_planes_nd2_amg_repeats_bit_equal_on_card(cuda_device, tmp_path,
+                                                  dtype):
+    """A quad8 deck's AMG setup at nd = 2 (three rigid modes): the planes
+    entry at its level-1 shapes against the plain version, and two
+    setups bit-equal."""
+    p = tmp_path / "case.cnt"
+    p.write_text(PLANE_CNT)
+    model = build_struct_model(box_plane(30, 20, etype=242),
+                               read_cnt(str(p)), device=cuda_device)
+    kes = stmod.compute_element_stiffness(model)
+    setup = stmod.cluster_setup(model, {}, policy="amg")
+    cop, sb = bell.from_model(model, kes, dtype=dtype,
+                              profile=setup.cprof, want_scalar=True,
+                              scalar=setup.prof)
+    cop = dataclasses.replace(cop, free_mask=femop.from_model(
+        model, kes).free_mask.to(dtype))
+    args = (setup.amaps, sb, setup.cols, setup.coords.to(dtype),
+            cop.free_mask)
+    before = sm.segsum_planes.launches
+    lv, again = amg.coarse_levels(*args), amg.coarse_levels(*args)
+    assert sm.segsum_planes.launches == before + 4
+    for name in ("Bo", "blocks1", "Dinv1", "dense2", "A2inv"):
+        assert torch.equal(getattr(lv, name), getattr(again, name)), name
+    assert setup.amaps.nd == 2 and setup.amaps.nv == 3
+    plan01, _ = setup.amaps.plans(cuda_device)
+    vals = torch.randn((9, plan01.perm.numel()), dtype=dtype,
+                       device=cuda_device)
+    _assert_close(sm.segsum_planes(vals, plan01),
+                  sm.segsum_planes_reference(vals, plan01), dtype)
