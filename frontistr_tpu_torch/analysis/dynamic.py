@@ -36,12 +36,16 @@ scalar and the Newton residual norm.
 The effective system c1 K + c2 M is solved by a block-Jacobi PCG on the
 matrix-free ``femop.FEOperator`` (tol = RESID, maxiter = NIER), with
 !EQUATION eliminated around it (``assembly/extras.py``); METHOD=DIRECT
-factors it on the host (``solver/direct.py``).  What the JAX package
-also runs in dynamics and the port does not yet (contact, the band
-factorisation, sharding, restart, the coupler, frequency response,
-shells and beams) raises ``NotImplementedError`` naming itself, and so
-do the cards the JAX package's dynamics drop without effect: !EQUATION
-in an explicit run, !SPRING (ROADMAP, queue 3, fault 2).
+factors it on the host (``solver/direct.py``).  A contact deck takes
+the Newton loop with the static driver's SLAGRANGE or penalty arm on
+c1 K + c2 M (``nonlinear.ContactState``): every pass restarts the
+step's increment, the SLAGRANGE active set frozen for the pass.  What
+the JAX package also runs in dynamics and the port does not yet (the
+band factorisation, sharding, restart, the coupler, frequency
+response, shells and beams) raises ``NotImplementedError`` naming
+itself, and so do the cards the JAX package's dynamics drop without
+effect: !EQUATION and !CONTACT in an explicit run, !SPRING (ROADMAP,
+queue 3, fault 2).
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ import numpy as np
 import torch
 
 from frontistr_tpu_torch.analysis.nonlinear import (BlockPrograms,
+                                                    ContactState,
                                                     _all_linear,
                                                     _commit_state,
                                                     _element_values,
@@ -240,8 +245,7 @@ def _check_request(model: StructModel) -> None:
     # the JAX package's explicit run prints a warning and drops the
     # !EQUATION constraints; its dynamics leave !SPRING out of K
     explicit_eq = model.mesh.equations if d.idx_eqa == 11 else []
-    for name, cards in (("!CONTACT", cfg.contacts),
-                        ("!EQUATION in explicit dynamics", explicit_eq),
+    for name, cards in (("!EQUATION in explicit dynamics", explicit_eq),
                         ("!SPRING", cfg.springs),
                         ("!TEMPERATURE", cfg.temperatures),
                         ("!AMPLITUDE in the .cnt", cfg.amplitudes)):
@@ -426,6 +430,7 @@ def make_effective_solver(model, free, gather, mass, c1: float,
         return res.x if mpc is None else extras.mpc_recover(mpc, res.x)
 
     solve.operator, solve.prepare = operator, prepare
+    solve.mpc = mpc
     solve.last_iters, solve.last_relres = 0, float("nan")
     return solve
 
@@ -490,6 +495,15 @@ def _run_implicit(model: StructModel, log_path, on_interval=None):
     u_fix = _tensor(dev, old_ops.full_fixed_vector(n, model.fixed_dofs,
                                              model.fixed_vals))
     solve = make_effective_solver(model, free, gather, mass, c1, c2)
+    # contact (fstr_dynamic_nlimplicit.f90:374+): the static driver's
+    # SLAGRANGE or penalty arm on the effective matrix c1 K + c2 M
+    contact = ContactState.make(model, gather, timings, eff=(c1, c2),
+                                mass=mass)
+    if contact is not None:
+        contact.build(free)
+        if cfg.solver.method.upper() in direct.METHODS:
+            print("### NOTE: METHOD=DIRECT with !EQUATION/contact rides "
+                  "the iterative eliminated solve in dynamics")
 
     def dirichlet_increment(u, vel, acc, t):
         """Constrained-dof increment of step t: u_fix - u, and the
@@ -517,7 +531,8 @@ def _run_implicit(model: StructModel, log_path, on_interval=None):
     # Newton loop instead.  For a linear model the Newton loop is one
     # solve a step (it = 2 only re-measures the residual), so the two
     # agree at CG tolerance.
-    linear = (on_interval is None and _all_linear(programs)
+    linear = (on_interval is None and contact is None
+              and _all_linear(programs)
               and os.environ.get("FRONTISTR_TPU_IMPLICIT_SCAN", "1") != "0")
     t0 = time.perf_counter()
     if linear:
@@ -555,43 +570,72 @@ def _run_implicit(model: StructModel, log_path, on_interval=None):
             vec1 = a1 * acc + a2 * vel
             vec2 = b1 * acc + b2 * vel
             f_ext = _external_force(f_groups, t, zero)
-            du = zero
-            states_i = states
-            resb = None
-            cgs, ts = [], {}
-            Q = _qforce(model, programs, states_i, u, du, gather)
-            for it in range(1, max(step.max_iter, 1) + 1):
-                kes = [p.tangent(_element_values(u, p, model.n_node, ndof),
-                                 _element_values(du, p, model.n_node, ndof),
-                                 s, t, dt) for p, s in zip(programs, states_i)]
-                X_ray = vec2 - b3 * du
-                B = f_ext - Q + mass * (vec1 - a3 * du + d.ray_m * X_ray)
-                if d.ray_k != 0.0:
-                    B = B + rayleigh_k(kes, X_ray)
-                dinc = dirichlet_increment(u, vel, acc, t) if it == 1 \
-                    else zero
-                Bf = B * free
-                bnorm = float(torch.dot(Bf, Bf))
-                if it == 1:
-                    resb = max(bnorm, 1e-300)
-                res_rel = np.sqrt(bnorm / resb)
-                if os.environ.get("FRONTISTR_TPU_DEBUG_NEWTON"):
-                    print(f" dyn i={i} it={it} res={res_rel:.6e}",
-                          flush=True)
-                if it > 1 and res_rel < step.converg:
+            cgs, ts, passes = [], {}, []
+            for cont_it in range(max(step.max_contiter, 1)
+                                 if contact is not None else 1):
+                # each contact pass restarts the step's Newton increment
+                # from the committed state (the reference's
+                # loopFORcontactAnalysis inside the dynamic loop)
+                du = zero
+                states_i = states
+                resb = None
+                if contact is not None and contact.slag is not None:
+                    contact.freeze(contact.search(u))
+                Q = _qforce(model, programs, states_i, u, du, gather)
+                newton = 0
+                for it in range(1, max(step.max_iter, 1) + 1):
+                    kes = [p.tangent(_element_values(u, p, model.n_node,
+                                                     ndof),
+                                     _element_values(du, p, model.n_node,
+                                                     ndof), s, t, dt)
+                           for p, s in zip(programs, states_i)]
+                    X_ray = vec2 - b3 * du
+                    B = f_ext - Q + mass * (vec1 - a3 * du +
+                                            d.ray_m * X_ray)
+                    if d.ray_k != 0.0:
+                        B = B + rayleigh_k(kes, X_ray)
+                    dinc = dirichlet_increment(u, vel, acc, t) if it == 1 \
+                        else zero
+                    if contact is not None:
+                        B, Bres = contact.dyn_residual(B, u + du, dinc,
+                                                       free)
+                    else:
+                        # !EQUATION: the residual in the reduced space
+                        Bres = B if solve.mpc is None else \
+                            extras.mpc_Tt(solve.mpc, B)
+                    Bf = Bres * free
+                    bnorm = float(torch.dot(Bf, Bf))
+                    if it == 1:
+                        resb = max(bnorm, 1e-300)
+                    res_rel = np.sqrt(bnorm / resb)
+                    if os.environ.get("FRONTISTR_TPU_DEBUG_NEWTON"):
+                        print(f" dyn i={i} it={it} res={res_rel:.6e}",
+                              flush=True)
+                    if it > 1 and res_rel < step.converg:
+                        break
+                    with Phase(ts, "solve", dev):
+                        if contact is None:
+                            dx = solve(kes, B, dinc)
+                            cgs.append(solve.last_iters)
+                        else:
+                            dx = contact.dyn_solve(kes, B, dinc)
+                            cgs.append(contact.solver.last_iters)
+                    newton += 1
+                    du = du + dx
+                    states_i, Q = _update(model, programs, states_i, u, du,
+                                          gather, t, dt)
+                passes.append(newton)
+                if contact is None or contact.settled(u + du):
                     break
-                with Phase(ts, "solve", dev):
-                    dx = solve(kes, B, dinc)
-                cgs.append(solve.last_iters)
-                du = du + dx
-                states_i, Q = _update(model, programs, states_i, u, du,
-                                      gather, t, dt)
             acc, vel = -a1 * acc - a2 * vel + a3 * du, \
                 -b1 * acc - b2 * vel + b3 * du
             u = u + du
             states = [_commit_state(s) for s in states_i]
-            history.append(dict(step=i, newton=len(cgs), cg=cgs,
-                                solve_s=ts.get("solve", 0.0)))
+            rec = dict(step=i, newton=len(cgs), cg=cgs,
+                       solve_s=ts.get("solve", 0.0))
+            if contact is not None:
+                rec.update(passes=passes, active=contact.active_set())
+            history.append(rec)
             mon.record(i, t, u, vel, acc)
             clock.mark(i)
             if on_interval is not None:

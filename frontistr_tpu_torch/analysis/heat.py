@@ -548,6 +548,9 @@ def _check_request(model: HeatModel) -> None:
         raise NotImplementedError("sharded heat (FRONTISTR_TPU_SHARDS)")
     if cfg.restart is not None:
         raise NotImplementedError("!RESTART in heat analysis")
+    if cfg.contacts:
+        # the JAX package's heat analysis never reads the card
+        raise NotImplementedError("!CONTACT in HEAT")
 
 
 class _HeatSolver:

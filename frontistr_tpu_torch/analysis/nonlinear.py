@@ -36,9 +36,13 @@ solve (T^T K T, ``assembly/extras.py``) with the residual reduced the
 same way; rotational !BOUNDARY rows about ROT_CENTER, re-rotated from
 the current positions every substep; METHOD=DIRECT as a host SuperLU
 factor of each tangent (``solver/direct.py``; with !EQUATION the
-iterative elimination, as in the JAX package).  Anything else the JAX
-driver handles (contact, restart, sharding) raises
-``NotImplementedError`` naming itself.  The JAX package's jit-argument
+iterative elimination, as in the JAX package); node-to-surface contact
+(``ContactState``: a search every Newton iteration, the SLAGRANGE,
+augmented-Lagrange with Coulomb friction, saddle-point and DIRECT arms
+of ``analysis/contact.py``, the outer loop of contact passes with the
+SLAGRANGE active-set scan or the AL update).  Anything else the JAX
+driver handles (restart, sharding) raises ``NotImplementedError``
+naming itself.  The JAX package's jit-argument
 carry (a TPU remote-compile workaround) has no counterpart: PyTorch runs
 eagerly.
 """
@@ -53,6 +57,7 @@ import numpy as np
 import torch
 
 from frontistr_tpu_torch import user
+from frontistr_tpu_torch.analysis import contact as contact_mod
 from frontistr_tpu_torch.analysis.static import (StaticResult, check_solver,
                                                  cluster_operator,
                                                  cluster_setup, solve_policy)
@@ -60,6 +65,9 @@ from frontistr_tpu_torch.assembly import extras, femop, loads
 from frontistr_tpu_torch.assembly import operators as old_ops
 from frontistr_tpu_torch.assembly.model import (StructModel, collect_boundary,
                                                 collect_cload, rot_bc_disp)
+from frontistr_tpu_torch.assembly.segsum import IndexAdd
+from frontistr_tpu_torch.contact.ntos import ContactManager
+from frontistr_tpu_torch.contact.slag import lag_rows
 from frontistr_tpu_torch.device import Phase
 from frontistr_tpu_torch.elements.tables import get_table
 from frontistr_tpu_torch.fem import material as mat
@@ -630,6 +638,236 @@ def make_constrained_solver(model: StructModel, free: torch.Tensor,
     return solve
 
 
+# ---------------- contact ---------------------------------------------------
+
+class ContactState:
+    """A contact deck's state in the Newton driver and the implicit
+    dynamics: the manager, the arm (``contact.contact_arm``) and its
+    solve, the SLAGRANGE slots of the current pass; the counterpart of
+    the contact parts of the JAX package's ``run_nonlinear_static``,
+    ``_newton_substep`` and ``_run_implicit``.  ``eff=(c1, c2)`` with
+    the lumped ``mass``: the Newmark effective matrix (dynamics: the
+    SLAGRANGE or the penalty arm, never DIRECT or the saddle arm, as in
+    the JAX package).  Every search runs in the phase
+    ``contact_search``; ``retries`` counts the DIRECT arm's falls back
+    on the iterative solve after a singular factor (the JAX package's
+    solver retry)."""
+
+    def __init__(self, model: StructModel, cm: ContactManager, gather,
+                 timings: dict, eff=None, mass=None):
+        self.model, self.cm, self.gather = model, cm, gather
+        self.timings, self.eff, self.mass = timings, eff, mass
+        dynamic = eff is not None
+        self.direct = not dynamic and \
+            check_solver(model.cfg.solver) in direct_mod.METHODS
+        slag_ok = cm.algo == "SLAGRANGE" and not cm.has_friction
+        self.slag_mpc = False
+        if model.mesh.equations:
+            if self.direct:
+                print("### WARNING: !EQUATION constraints are not applied "
+                      "to the DIRECT contact arms; MPC ignored for this run")
+            elif slag_ok:
+                self.slag_mpc = contact_mod.contact_mpc_disjoint(cm, model)
+                if not self.slag_mpc and dynamic:
+                    print("### WARNING: !EQUATION dofs overlap the contact "
+                          "surfaces; SLAGRANGE+MPC composition is invalid "
+                          "— MPC ignored for this run")
+                elif not self.slag_mpc:
+                    print("### NOTE: !EQUATION dofs overlap the contact "
+                          "surfaces; SLAGRANGE elimination composition is "
+                          "invalid — solving the KKT saddle system "
+                          "iteratively instead (no-elimination arm)")
+        if dynamic:
+            self.arm = "slag" if slag_ok else "al"
+        else:
+            self.arm = contact_mod.contact_arm(model, cm, self.slag_mpc,
+                                               self.direct)
+        self.char = float(np.abs(model.coords).max()) or 1.0
+        self.tol = (cm.ntol if cm.ntol > 0 else 1e-5) * self.char
+        self.g_tol = 1e-8 * max(float(np.abs(model.coords).max()), 1.0)
+        self.solver = self.slag = self.cn = self.cact = self._al = None
+        self.retries = 0
+
+    @classmethod
+    def make(cls, model, gather, timings, eff=None, mass=None):
+        """The contact state of a deck with a !CONTACT card on a mesh
+        !CONTACT PAIR, or None."""
+        if not (model.mesh.contact_pairs and model.cfg.contacts):
+            return None
+        cm = ContactManager(model.mesh, model, model.cfg)
+        return cls(model, cm, gather, timings, eff, mass) if cm.active \
+            else None
+
+    def build(self, free) -> None:
+        """The arm's solve for the step's free mask."""
+        m, g, tm = self.model, self.gather, self.timings
+        kw = dict(eff=self.eff, mass=self.mass, timings=tm)
+        if self.arm == "saddle":
+            self.solver, self.slag = contact_mod.make_saddle_contact_solver(
+                m, free, g, mpc=bool(m.mesh.equations), **kw)
+        elif self.arm == "slag":
+            self.solver, self.slag = contact_mod.make_slag_contact_solver(
+                m, free, g, mpc=self.slag_mpc, **kw)
+        else:
+            self.solver = contact_mod.make_contact_solver(
+                m, free, g, friction=self.cm.has_friction,
+                mpc=not self.direct, **kw)
+
+    def search(self, u_tot: torch.Tensor) -> dict:
+        m = self.model
+        with Phase(self.timings, "contact_search", m.device):
+            return self.cm.search(m.coords + u_tot.cpu().numpy().reshape(
+                m.n_node, m.ndof))
+
+    def _host_kes(self, kes):
+        ex_kes, ex_dofs = extras.extra_tensors(self.model, "cpu")
+        return (list(kes) + ex_kes,
+                [b.dofs for b in self.model.blocks] + ex_dofs)
+
+    def _blocks(self, proj, like):
+        """The penalty blocks of a search: (cdofs, cke, the contact
+        force's plan, the force as a vector like ``like``)."""
+        cdofs, cke, cqf, _, _ = self.cm.device_blocks(proj)
+        add = IndexAdd.build(cdofs, like.device,
+                             keep=(cke != 0.0).any(axis=2) | (cqf != 0.0))
+        Qc = add(torch.zeros_like(like), torch.as_tensor(cqf,
+                                                         device=like.device))
+        return cdofs, cke, add, Qc
+
+    def solve(self, it, kes, B, u_tot, dirichlet_inc, gfac, free):
+        """One Newton iteration's increment: a search at ``u_tot``, then
+        the arm's solve (the SLAGRANGE active set frozen at the pass's
+        first iteration)."""
+        cm, m = self.cm, self.model
+        dev, n = m.device, m.n_dof_total
+        proj = self.search(u_tot)
+        if self.slag is not None:
+            if it == 1:
+                self.freeze(proj)
+            # the saddle arm masks the fixed columns itself, as the JAX
+            # package's does
+            self.cn = self.slag.build(
+                proj, cm.all_slaves, self.cact,
+                *((free, dirichlet_inc) if self.arm == "slag" else ()))
+            if self.direct:
+                # METHOD=DIRECT: explicit Lagrange rows and a host
+                # saddle-point factor; a body held only by contact can be
+                # exactly singular (tangential rigid modes), and then the
+                # iterative arm solves it, as the JAX package does
+                Bl, g = lag_rows(proj, cm.all_slaves, self.cact, m.ndof,
+                                 n, free=free.cpu().numpy())
+                try:
+                    with Phase(self.timings, "solve", dev):
+                        x, _ = direct_mod.solve_direct_lag(
+                            *self._host_kes(kes), n, free, B, Bl, g,
+                            u_fix=dirichlet_inc)
+                    self.solver.last_iters = 0
+                    return torch.as_tensor(x, device=dev)
+                except RuntimeError:
+                    self.retries += 1
+            return self.solver(kes, B, dirichlet_inc, self.cn, gfac)
+        cdofs, cke, add, Qc = self._blocks(proj, B)
+        B = B - Qc
+        if self.direct:
+            with Phase(self.timings, "solve", dev):
+                x = direct_mod.solve_direct_al(
+                    *self._host_kes(kes), n, free, B, cdofs, cke,
+                    u_fix=dirichlet_inc)
+            self.solver.last_iters = 0
+            return torch.as_tensor(x, device=dev)
+        return self.solver(kes, B, dirichlet_inc,
+                           torch.as_tensor(cdofs, dtype=torch.int64,
+                                           device=dev),
+                           torch.as_tensor(cke, device=dev), add, gfac)
+
+    def freeze(self, proj) -> None:
+        """Freeze the SLAGRANGE active set of a pass: the touching,
+        closed slots not released by the last scan (fstr_scan_contact_state
+        runs between passes, never inside Newton)."""
+        self.cact = proj["touching"] & (proj["gap"] <= self.g_tol) & \
+            ~self.cm.slag_released
+        self.cm._last_cact = self.cact
+
+    # ---- implicit dynamics (the JAX package's _run_implicit) ----
+    def dyn_residual(self, B, u_tot, dirichlet_inc, free):
+        """A dynamics Newton iteration: a search at ``u_tot``; returns
+        (B less the penalty arm's contact force, the convergence
+        residual), the SLAGRANGE slots or the penalty blocks kept for
+        ``dyn_solve``."""
+        proj = self.search(u_tot)
+        mpc = self.solver.mpc
+        if self.slag is not None:
+            self.cn = self.slag.build(proj, self.cm.all_slaves, self.cact,
+                                      free, dirichlet_inc)
+            self.cm._last_B = B
+            r = B if mpc is None else extras.mpc_Tt(mpc, B)
+            return B, self.slag.Tt(self.cn, r) * free
+        cdofs, cke, add, Qc = self._blocks(proj, B)
+        self._al = (torch.as_tensor(cdofs, dtype=torch.int64,
+                                    device=B.device),
+                    torch.as_tensor(cke, device=B.device), add)
+        B = B - Qc
+        return B, (B if mpc is None else extras.mpc_Tt(mpc, B))
+
+    def dyn_solve(self, kes, B, dirichlet_inc):
+        if self.slag is not None:
+            return self.solver(kes, B, dirichlet_inc, self.cn)
+        return self.solver(kes, B, dirichlet_inc, *self._al)
+
+    def residual(self, r: torch.Tensor, u_tot: torch.Tensor, free):
+        """The convergence residual of ``r`` = gl - Q at ``u_tot``: in the
+        reduced space under SLAGRANGE (the active set frozen), less the
+        contact force of a new search under the penalty arm; !EQUATION
+        reduced too."""
+        mpc = self.solver.mpc
+        if self.slag is not None:
+            self.cm._last_B = r
+            if mpc is not None:
+                r = extras.mpc_Tt(mpc, r)
+            return self.slag.Tt(self.cn, r) * free
+        r = r - self._blocks(self.search(u_tot), r)[3]
+        if mpc is not None:
+            r = extras.mpc_Tt(mpc, r)
+        return r * free
+
+    def settled(self, u_tot: torch.Tensor) -> bool:
+        """After a converged pass: SLAGRANGE scans the active set
+        (fstr_scan_contact_state: release tensile slots, re-activate
+        penetrating ones), the penalty arm augments (lambda <- p) and
+        tests Uzawa convergence.  True when no further pass is
+        needed."""
+        cm = self.cm
+        proj = self.search(u_tot)
+        touching, gap = proj["touching"], proj["gap"]
+        if self.slag is not None:
+            cact = cm._last_cact
+            lam_c = self.slag.pressure(proj, cm.all_slaves, cact,
+                                       cm._last_B).cpu().numpy()
+            scale = max(float(np.abs(lam_c).max()), 1.0)
+            rel_new = cact & (lam_c < -1e-8 * scale)
+            act_new = (~cact) & touching & (gap < -self.tol)
+            cm.slag_released |= rel_new
+            cm.slag_released &= ~act_new
+            live = touching & ~cm.slag_released
+            pen = float(np.maximum(-gap, 0.0)[live].max()) \
+                if live.any() else 0.0
+            return not rel_new.any() and not act_new.any() and \
+                pen < self.tol
+        pen = float(np.maximum(-gap, 0.0)[touching].max()) \
+            if touching.any() else 0.0
+        lam_pre = cm.lam.copy()
+        cm.augment(proj)
+        dlam = float(np.abs(cm.lam - lam_pre).max()) if cm.lam.size else 0.0
+        return pen < self.tol and dlam <= cm.kn * self.tol
+
+    def active_set(self) -> np.ndarray:
+        """The slots in contact: the last pass's frozen set under
+        SLAGRANGE, lambda > 0 under the penalty arm."""
+        if self.slag is not None:
+            return np.asarray(self.cm._last_cact, bool).copy()
+        return self.cm.lam > 0
+
+
 # ---------------- the substep / Newton driver ------------------------------
 
 def _load_group_universe(cfg):
@@ -704,16 +942,18 @@ class NewtonStats:
     max_iters: int = 0
     cutbacks: int = 0
     # one dict per Newton iteration: step, substep, iter, rres, rxnrm,
-    # cg_iters, passes, relres and the seconds of its phases
+    # cg_iters, passes, relres and the seconds of its phases (a contact
+    # deck: also its contact pass and active slot count)
     history: List[dict] = dataclasses.field(default_factory=list)
+    # a contact deck: one dict per converged substep: step, substep, the
+    # Newton iterations of each contact pass and the active set after it
+    contact: List[dict] = dataclasses.field(default_factory=list)
 
 
 def _check_request(model: StructModel) -> None:
     if os.environ.get("FRONTISTR_TPU_SHARDS", "") not in ("", "0"):
         raise NotImplementedError("sharded Newton (FRONTISTR_TPU_SHARDS)")
     cfg = model.cfg
-    if cfg.contacts:
-        raise NotImplementedError("!CONTACT in the Newton driver")
     if cfg.restart is not None:
         raise NotImplementedError("!RESTART in the Newton driver")
 
@@ -752,6 +992,7 @@ def run_nonlinear_static(model: StructModel, log_path: Optional[str] = None,
     policy = solve_policy(dev, "NLSTATIC")
     mixed = policy == "mixed"
     solver = None
+    contact = ContactState.make(model, gather, timings)
     step_count = 0
     result = None
     Q_last = None
@@ -775,7 +1016,11 @@ def run_nonlinear_static(model: StructModel, log_path: Optional[str] = None,
             f_held = tensor(_assemble_loads_sel(model, cfg, sel_held))
             f_ramp = tensor(_assemble_loads_sel(model, cfg, sel_ramp))
             follow = _follower(model, tensor, (sel_held, sel_ramp))
-        if multi or solver is None:
+        if contact is not None:
+            # the JAX package builds the cluster solver here too, but no
+            # contact solve uses it
+            contact.build(free)
+        elif multi or solver is None:
             solver = make_constrained_solver(model, free, gather, mixed,
                                              timings)
         t_end = step.elapsetime
@@ -800,11 +1045,22 @@ def run_nonlinear_static(model: StructModel, log_path: Optional[str] = None,
             # the rate-dependent materials' clock: the substep's end time
             # and, in a VISCO step only, its increment
             tincr = dt if step.solution == "VISCO" else 0.0
-            converged, du, new_states, iters, Q_last = _newton_substep(
-                model, programs, states, u, f_ramp, free, u_fix_total,
-                lam1, lam2, step, gather, solver, f_held=f_held,
-                follow=follow, timings=timings, stats=stats,
-                tag=(cstep, sub), ctime=t + dt, tincr=tincr)
+            passes = []
+            for cont_it in range(step.max_contiter if contact else 1):
+                converged, du, new_states, iters, Q_last = _newton_substep(
+                    model, programs, states, u, f_ramp, free, u_fix_total,
+                    lam1, lam2, step, gather, solver, f_held=f_held,
+                    follow=follow, timings=timings, stats=stats,
+                    tag=(cstep, sub, cont_it + 1), ctime=t + dt,
+                    tincr=tincr, contact=contact)
+                passes.append(iters)
+                if contact is None or not converged or \
+                        contact.settled(u + du):
+                    break
+            if contact is not None and converged:
+                stats.contact.append(dict(
+                    step=cstep, substep=sub, passes=passes,
+                    active=contact.active_set()))
             stats.total_iters += iters
             stats.max_iters = max(stats.max_iters, iters)
             if not converged:
@@ -942,13 +1198,16 @@ def _element_values(v: torch.Tensor, p: BlockPrograms, n_node: int,
 
 def _newton_substep(model, programs, states, u, f_total, free, u_fix_total,
                     lam1, lam2, step, gather, solve, f_held=None,
-                    follow=None, timings=None, stats=None, tag=(1, 1),
-                    ctime=0.0, tincr=0.0):
+                    follow=None, timings=None, stats=None, tag=(1, 1, 1),
+                    ctime=0.0, tincr=0.0, contact=None):
     """One substep's Newton loop from the committed ``(u, states)``;
     ``follow(u, lam2)`` (``_follower``) replaces the external load at
     the start of every iteration; ``ctime``/``tincr`` the materials'
-    time and increment.  Returns (converged, du, states, iterations,
-    Q)."""
+    time and increment; ``contact`` a contact deck's ``ContactState``
+    (its arm solves instead of ``solve``); ``tag`` (step, substep,
+    contact pass).  Returns (converged, du, states, iterations, Q)."""
+    if contact is not None:
+        solve = contact.solver
     n_node, ndof = model.n_node, model.ndof
     dev = model.device
     timings = {} if timings is None else timings
@@ -985,7 +1244,12 @@ def _newton_substep(model, programs, states, u, f_total, free, u_fix_total,
                 gl = follow(u + du, lam2)
         B = gl - Q_cur
         dirichlet_inc = dufix if it == 1 else torch.zeros_like(dufix)
-        dx = solve(kes, B, dirichlet_inc, (lam2 - lam1) if it == 1 else 0.0)
+        gfac = (lam2 - lam1) if it == 1 else 0.0
+        if contact is None:
+            dx = solve(kes, B, dirichlet_inc, gfac)
+        else:
+            dx = contact.solve(it, kes, B, u + du, dirichlet_inc, gfac,
+                               free)
         del kes
         with Phase(timings, "update", dev):
             du = du + dx
@@ -1003,8 +1267,11 @@ def _newton_substep(model, programs, states, u, f_total, free, u_fix_total,
             Q_cur = Q
             # !EQUATION: the residual in the reduced space, so the forces
             # a constraint carries cancel (fstr_Update_NDForce_MPC)
-            Bres = (gl - Q if solve.mpc is None else
-                    extras.mpc_Tt(solve.mpc, gl - Q)) * free
+            if contact is not None:
+                Bres = contact.residual(gl - Q, u + du, free)
+            else:
+                Bres = (gl - Q if solve.mpc is None else
+                        extras.mpc_Tt(solve.mpc, gl - Q)) * free
             # one device->host transfer per Newton iteration
             res_n, qnrm, xnrm, dunrm, n_yield = _conv_norms(
                 Bres, Q, dx, du, new_states)
@@ -1019,8 +1286,12 @@ def _newton_substep(model, programs, states, u, f_total, free, u_fix_total,
                        rxnrm=rxnrm, cg_iters=solve.last_iters,
                        passes=solve.last_passes, relres=solve.last_relres,
                        yielded=int(n_yield))
+            if contact is not None:
+                rec.update(contact_pass=tag[2],
+                           active=int(np.count_nonzero(contact.active_set()))
+                           if contact.slag is not None else -1)
             for k in ("tangent", "assembly", "amg_setup", "solve",
-                      "update", "follower_load"):
+                      "update", "follower_load", "contact_search"):
                 rec[k] = timings.get(k, 0.0) - t0.get(k, 0.0)
             stats.history.append(rec)
         if os.environ.get("FRONTISTR_TPU_DEBUG_NEWTON"):

@@ -15,10 +15,10 @@
 ``mpc_Tt`` adds each dependent row into its masters.  On a rigid plate
 thousands of dependents share one master, and a scatter-add by CUDA
 atomics would sum them in a different order on each run.  So the sum
-goes through K1's planes entry (``segsum.segsum_planes``) over a plan
-built once: each master's slot sums its own value first, then the
-dependents' terms in equation order, the order of the JAX package's
-``.at[].add``; a relaunch on the card is bit-equal.
+goes through K1's planes entry (``segsum.IndexAdd``) over a plan built
+once: each master sums its own value first, then the dependents' terms
+in equation order, the order of the JAX package's ``.at[].add``; a
+relaunch on the card is bit-equal.
 
 One deliberate deviation (ROADMAP, queue 3, fault 5): the JAX package
 preconditions the eliminated system with the preconditioner of the
@@ -91,17 +91,9 @@ class MPCEliminator:
     coef: torch.Tensor         # (K, maxm) float64, padded with 0
     const: torch.Tensor        # (K,) float64 const / c0
     mask: torch.Tensor         # (n,) float64: 0 on dependent dofs
-    umast: torch.Tensor        # (U,) int64 distinct masters, ascending
     src_k: torch.Tensor        # (R,) int64 equation of each master term
     src_c: torch.Tensor        # (R,) float64 its coefficient
-    plan: segmod.SegsumPlan    # U + R entries -> U master slots
-
-    def Tt_values(self, y: torch.Tensor) -> torch.Tensor:
-        """(1, U + R): the masters' own values, then every dependent's
-        term, in the plan's entry order."""
-        return torch.cat([y[self.umast],
-                          self.src_c.to(y.dtype) * y[self.dep][self.src_k]]
-                         )[None]
+    add: segmod.IndexAdd       # the R terms into their masters
 
 
 def mpc_arrays(mesh, ndof: int, n_dof_total: int, device):
@@ -133,26 +125,19 @@ def mpc_arrays(mesh, ndof: int, n_dof_total: int, device):
         c_arr[k, :len(coefs[k])] = coefs[k]
     mask = np.ones(n_dof_total)
     mask[np.asarray(deps)] = 0.0
-    # the reduction's plan: entries [masters' own values (U), the master
-    # terms in (equation, term) order (R)] -> U slots, each slot's
-    # entries in that order (a stable sort)
+    # the reduction: the master terms in (equation, term) order
     src_k = np.concatenate([np.full(len(m), k, np.int64)
                             for k, m in enumerate(masters)])
     src_m = np.concatenate([np.asarray(m, np.int64) for m in masters])
     src_c = np.concatenate([np.asarray(c, float) for c in coefs])
-    umast = np.unique(src_m)
-    U = len(umast)
-    seg = np.concatenate([np.arange(U), np.searchsorted(umast, src_m)])
-    perm = np.argsort(seg, kind="stable")
-    plan = segmod.make_plan(perm, seg[perm], U, (U + len(src_m),), device)
 
     def t(a, dtype=torch.float64):
         return torch.as_tensor(a, dtype=dtype, device=device)
 
     return MPCEliminator(
         dep=t(deps, torch.int64), mast=t(m_arr, torch.int64), coef=t(c_arr),
-        const=t(consts), mask=t(mask), umast=t(umast, torch.int64),
-        src_k=t(src_k, torch.int64), src_c=t(src_c), plan=plan)
+        const=t(consts), mask=t(mask), src_k=t(src_k, torch.int64),
+        src_c=t(src_c), add=segmod.IndexAdd.build(src_m, device))
 
 
 def mpc_T(m: MPCEliminator, x: torch.Tensor) -> torch.Tensor:
@@ -164,9 +149,8 @@ def mpc_T(m: MPCEliminator, x: torch.Tensor) -> torch.Tensor:
 def mpc_Tt(m: MPCEliminator, y: torch.Tensor) -> torch.Tensor:
     """Reduce: add the dependent rows into their masters (through K1's
     planes entry, in a fixed order), zero the dependent rows."""
-    if m.umast.numel():
-        y = y.index_put((m.umast,),
-                        segmod.segsum_planes(m.Tt_values(y), m.plan)[0])
+    if m.src_k.numel():
+        y = m.add(y, m.src_c.to(y.dtype) * y[m.dep][m.src_k])
     return y * m.mask.to(y.dtype)
 
 
@@ -187,16 +171,20 @@ def mpc_wrap(m: MPCEliminator, A):
     return apply
 
 
-def mpc_precond(m: MPCEliminator, M):
-    """The preconditioner M restricted to the reduced space, P M P + I
-    on the dependent dofs (P the mask)."""
-    if m is None:
-        return M
-
+def restricted(M, mask: torch.Tensor):
+    """The preconditioner M restricted to the reduced space of an
+    elimination, P M P + (I - P), P = diag(mask) (0 on the eliminated
+    dofs)."""
     def apply(r):
-        mask = m.mask.to(r.dtype)
-        return mask * M(r * mask) + r * (1.0 - mask)
+        p = mask.to(r.dtype)
+        return p * M(r * p) + r * (1.0 - p)
     return apply
+
+
+def mpc_precond(m: MPCEliminator, M):
+    """``restricted`` to the equations' reduced space (M without
+    equations)."""
+    return M if m is None else restricted(M, m.mask)
 
 
 def mpc_reduce_rhs(m: MPCEliminator, A, b: torch.Tensor,

@@ -17,7 +17,8 @@ are 0.
 ``make_segsum``: it sums V value planes (V, R) over any sorted map into
 (V, n_slots).  The AMG's Galerkin products and the nodal smoothing sum
 through it, in a fixed order, so on the card their results repeat bit
-for bit.
+for bit; so do the scatter-adds of ``IndexAdd`` (the !EQUATION and
+contact reductions), an ``index_add`` in a fixed order.
 
 Both wrappers take the plain version for CPU tensors (``index_add_``
 of the values gathered into slot order, by ``seg_sorted``) and for CUDA
@@ -400,6 +401,49 @@ def segsum_planes(values: torch.Tensor, plan: SegsumPlan) -> torch.Tensor:
 
 
 segsum_planes.launches = 0  # planes kernel launches (plain calls excluded)
+
+
+@dataclasses.dataclass(eq=False)
+class IndexAdd:
+    """``y.index_add(0, idx, v)`` of a fixed index list in a fixed order:
+    each distinct target sums its own value first, then the entries
+    aimed at it in list order, through K1's planes entry.  Entries known
+    to carry 0 may stay out of the plan (``keep``): a slot is one
+    thread's serial sum, so thousands of padding entries aimed at one
+    index would serialise the launch."""
+    targets: torch.Tensor        # (U,) int64 distinct targets, ascending
+    keep: torch.Tensor           # (P,) int64 entries in the plan, or None
+    plan: SegsumPlan      # U + P entries -> U slots
+
+    @classmethod
+    def build(cls, idx, device, keep=None) -> "IndexAdd":
+        """The plan of the host index list ``idx`` on ``device``;
+        ``keep`` (a host bool mask over ``idx``) the entries that may be
+        nonzero, all without it."""
+        idx = np.asarray(idx, np.int64).reshape(-1)
+        if keep is not None:
+            keep = np.flatnonzero(np.asarray(keep).reshape(-1))
+            idx = idx[keep]
+        targets = np.unique(idx)
+        U = len(targets)
+        seg = np.concatenate([np.arange(U), np.searchsorted(targets, idx)])
+        perm = np.argsort(seg, kind="stable")
+        plan = make_plan(perm, seg[perm], U, (U + len(idx),), device)
+        dev = plan.perm.device
+        return cls(torch.as_tensor(targets, device=dev),
+                   None if keep is None else torch.as_tensor(keep,
+                                                              device=dev),
+                   plan)
+
+    def __call__(self, y: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """``y`` with ``v`` (one value per entry of the index list) added
+        at the plan's indices."""
+        v = v.reshape(-1)
+        if self.keep is not None:
+            v = v[self.keep]
+        vals = torch.cat([y[self.targets], v.to(y.dtype)])
+        return y.index_put((self.targets,),
+                           segsum_planes(vals[None], self.plan)[0])
 
 
 def _plan_planes(values, perm, slot_ptr):

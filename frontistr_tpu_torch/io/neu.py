@@ -76,8 +76,9 @@ def write_static_workdir(workdir: str, mesh: Mesh, cnt: str,
     the named node groups as ``!NGROUP`` cards, ``egroups`` (name ->
     element ids) as ``!EGROUP``, ``sgroups`` (name -> (n, 2) rows of
     element id and face number) as ``!SGROUP`` and ``amplitudes`` (name
-    -> (n, 2) rows of time and value) as ``!AMPLITUDE`` cards, and the
-    deck ``cnt``."""
+    -> (n, 2) rows of time and value) as ``!AMPLITUDE`` cards, the mesh's
+    contact pairs as ``!CONTACT PAIR`` cards (their groups must be among
+    the written ones), and the deck ``cnt``."""
     os.makedirs(workdir, exist_ok=True)
     msh = os.path.join(workdir, "mesh.msh")
     write_fstr_msh(mesh, msh)
@@ -102,6 +103,9 @@ def write_static_workdir(workdir: str, mesh: Mesh, cnt: str,
             for k in range(0, len(rows), 5):
                 f.write(" " + ", ".join(f"{int(e)}, {int(fc)}"
                                         for e, fc in rows[k:k + 5]) + "\n")
+        for cp in mesh.contact_pairs:
+            f.write(f"!CONTACT PAIR, NAME={cp.name}, TYPE={cp.ctype}\n"
+                    f" {cp.slave}, {cp.master}\n")
         for name, rows in (amplitudes or {}).items():
             # the .msh rows hold value, time pairs (meshio AMPLITUDE)
             f.write(f"!AMPLITUDE, NAME={name}, DEFINITION=TABULAR\n")

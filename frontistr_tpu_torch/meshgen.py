@@ -4,8 +4,9 @@ The reference ships meshes for most fixtures but tutorials 01/02/04/15/16/18
 omit theirs, and benchmarking needs arbitrary-size meshes (BASELINE.md
 "1M DOF").  This generator produces ``Mesh`` objects directly (same dataclass
 the .msh reader yields) for box domains in hex8 and tet4, plane boxes
-of quad4 or tri3 (the 2-D heat decks) and two hex8 cubes joined by 541
-gap elements (the heat interface decks).
+of quad4 or tri3 (the 2-D heat decks), two hex8 cubes joined by 541
+gap elements (the heat interface decks) and two boxes in node-to-surface
+contact (``contact_pair``, the contact decks).
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from frontistr_tpu_torch.io.meshio import Mesh, Section, MaterialDef, ElemBlock
+from frontistr_tpu_torch.io.meshio import (ContactPairDef, ElemBlock,
+                                           MaterialDef, Mesh, Section)
 from frontistr_tpu_torch.elements.tables import HECMW2FSTR_ORDER
 
 
@@ -185,4 +187,79 @@ def hex8_pair_541(n: int, gap_section=(0.05, 2.0, 5.67e-11, 5.67e-11)
                      "X1": np.flatnonzero(np.isclose(x, 2.0))},
         elem_groups={"SOLID": np.concatenate(ids[:2]), "GAP": ids[2]},
         surf_groups={}, amplitudes={}, equations=[], contact_pairs=[],
+        initial_conditions={})
+
+
+def contact_pair(lower: Tuple[int, ...], upper: Tuple[int, ...],
+                 lower_size: Tuple[float, ...], upper_size: Tuple[float, ...],
+                 gap: float = 0.0, etype: int = 361) -> Mesh:
+    """Two boxes in node-to-surface contact: the lower (master) box of
+    ``lower`` = (nx, ny, nz) hex8 elements over ``lower_size`` = (lx,
+    ly, lz) from the origin, the upper (slave) box of ``upper`` elements
+    over ``upper_size`` standing on it (its bottom at z = lz + ``gap``),
+    both in one block; ``etype`` 241 makes them plane quad4 boxes (nx,
+    ny) in the x-y plane, the upper one above y = ly.  Node groups ALL,
+    BOT (the lower box's bottom), TOP (the upper box's top), SLAVE (its
+    bottom), X0, Y0 (both boxes; 3-D) and LOW (the lower box); surface
+    group MAST (the lower box's top faces); contact pair CP1 = (SLAVE,
+    MAST).  Where the two meshes do not match, no slave sits on a face
+    edge inside the master surface."""
+    if etype == 361:
+        make = box_hex8
+        up_axis = 2
+    elif etype == 241:
+        def make(nx, ny, lx=1.0, ly=1.0):
+            m = box_plane(nx, ny, lx=lx, ly=ly, etype=241, thick=1.0, opt=1)
+            m.materials["M1"] = MaterialDef("M1", {1: [[210e3, 0.3]],
+                                                   2: [[7.85e-6]]})
+            return m
+        up_axis = 1
+    else:
+        raise ValueError(f"contact_pair: element type {etype}")
+    dim = len(lower)
+    keys = ("lx", "ly", "lz")[:dim]
+    lo = make(*lower, **dict(zip(keys, lower_size)))
+    hi = make(*upper, **dict(zip(keys, upper_size)))
+    shift = np.zeros(3)
+    shift[up_axis] = lower_size[up_axis] + gap
+    coords = np.concatenate([lo.coords, hi.coords + shift])
+    n_lo = lo.n_node
+    cl = lo.blocks[0].conn.astype(np.int64)
+    conn = np.concatenate([cl, hi.blocks[0].conn + n_lo]).astype(np.int32)
+    hecmw = np.concatenate([lo.blocks[0].conn_hecmw,
+                            hi.blocks[0].conn_hecmw + n_lo]).astype(np.int32)
+    E = len(conn)
+    elem_ids = np.arange(1, E + 1, dtype=np.int64)
+    nn = len(coords)
+    node_ids = np.arange(1, nn + 1, dtype=np.int64)
+    idx = np.arange(nn, dtype=np.int64)
+    h = coords[:, up_axis]
+    top_lo = lower_size[up_axis]
+    groups = {"ALL": idx, "LOW": idx[:n_lo],
+              "BOT": idx[:n_lo][np.isclose(h[:n_lo], 0.0)],
+              "TOP": idx[n_lo:][np.isclose(h[n_lo:], top_lo + gap +
+                                           upper_size[up_axis])],
+              "SLAVE": idx[n_lo:][np.isclose(h[n_lo:], top_lo + gap)]}
+    for g, ax in (("X0", 0), ("Y0", 1))[:dim - 1]:
+        groups[g] = idx[np.isclose(coords[:, ax], 0.0)]
+    # the master surface: the lower box's faces whose corners all lie on
+    # its top
+    from frontistr_tpu_torch.assembly.loads import FACE_TABLES
+    on_top = np.isclose(h, top_lo)
+    on_top[n_lo:] = False
+    rows = []
+    for f, (_, ln) in enumerate(FACE_TABLES[etype], start=1):
+        hit = on_top[cl[:, ln[:4]]].all(axis=1)
+        rows.extend((int(e), f) for e in elem_ids[:len(cl)][hit])
+    return Mesh(
+        header="generated contact pair", coords=coords, node_ids=node_ids,
+        id2idx={int(g): int(g) - 1 for g in node_ids},
+        blocks=[ElemBlock(etype, elem_ids, conn, hecmw, 0)],
+        sections=[Section("SOLID", "ALL", "M1", lo.sections[0].values,
+                          opt=lo.sections[0].opt)],
+        materials={"M1": lo.materials["M1"]}, node_groups=groups,
+        elem_groups={"ALL": elem_ids},
+        surf_groups={"MAST": np.asarray(sorted(rows), np.int64)},
+        amplitudes={}, equations=[],
+        contact_pairs=[ContactPairDef("CP1", "NODE-SURF", "SLAVE", "MAST")],
         initial_conditions={})

@@ -5,8 +5,9 @@ control files, reorder, run the analysis on the chosen device, write
 ``0.log`` and ``FSTR.msg`` (and ``FSTR.sta`` for the Newton driver).
 
 A linear-elastic STATIC deck runs the linear static analysis; NLSTATIC,
-or any deck with geometric nonlinearity or a !PLASTIC material, runs the
-Newton driver of ``analysis/nonlinear.py``; DYNAMIC (time history) runs
+or any deck with geometric nonlinearity, a !PLASTIC material or a
+!CONTACT card on a mesh !CONTACT PAIR, runs the Newton driver of
+``analysis/nonlinear.py``; DYNAMIC (time history) runs
 ``analysis/dynamic.py``, implicit Newmark or explicit central
 difference, with ``dyna_*.out`` monitor files beside the log; a DYNAMIC
 deck with ``idx_resp = 2`` is a frequency response by modal
@@ -147,7 +148,10 @@ def run_directory(workdir: str, log_name: str = "0.log",
         res, er = run_static_eigen(model, log_path=log_path,
                                    timings=timings)
         out["eigen"] = er
-    elif sol == "NLSTATIC" or cfg.nlgeom or _needs_newton(model):
+    elif sol == "NLSTATIC" or cfg.nlgeom or _needs_newton(model) or \
+            (cfg.contacts and mesh.contact_pairs):
+        # a contact deck takes the Newton driver's contact loop, its
+        # material linear or not (the reference's fstr_Newton_contact*)
         res = run_nonlinear_static(model, log_path=log_path,
                                    timings=timings)
     else:

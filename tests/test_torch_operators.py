@@ -68,10 +68,15 @@ def test_model_build_matches_jax(tmp_path, models):
     "!CONTACT, GRPID=1\n CP1, 0.0, 1.0e+5\n",
     "!EMBED, NAME=EM1\n X1, X0\n"])
 def test_unported_cards_raise(tmp_path, extra):
-    """!CONTACT and !EMBED raise (!ORIENTATION runs since the materials
-    slice: tests/test_torch_ortho_user.py)."""
+    """!CONTACT in EIGEN and !EMBED raise (!ORIENTATION runs since the
+    materials slice: tests/test_torch_ortho_user.py; !CONTACT in STATIC,
+    NLSTATIC and implicit DYNAMIC since the contact slice:
+    tests/test_torch_contact_*.py)."""
     p = tmp_path / "case.cnt"
-    p.write_text(CNT.replace("!END\n", extra + "!END\n"))
+    cnt = CNT.replace("!END\n", extra + "!END\n")
+    if extra.startswith("!CONTACT"):
+        cnt = cnt.replace("TYPE=STATIC\n", "TYPE=EIGEN\n!EIGEN\n 3\n")
+    p.write_text(cnt)
     with pytest.raises(NotImplementedError, match=extra.split(",")[0]):
         build_struct_model(box_tet4(2, 2, 2), read_cnt(str(p)),
                            device="cpu")
