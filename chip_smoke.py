@@ -2,7 +2,8 @@
 holds each against its plain PyTorch version, drives the main paths
 once, checks the answers and prints the result.
 
-    python3 chip_smoke.py [--n N] [--hex H] [--newton-n M] [--plastic P]
+    python3 chip_smoke.py [--n N] [--krylov-n K] [--ssor-n S] [--hex H]
+                          [--newton-n M] [--plastic P]
                           [--dyn-n D] [--dyn-steps S] [--dyn-hex X]
                           [--dyn-hex-steps T] [--heat-n H] [--heat-steps S]
                           [--eigen-n E] [--hex20-n H] [--direct-n D]
@@ -17,6 +18,14 @@ once, checks the answers and prints the result.
   tets), one K1 assembly per Newton iteration.
 - The linear-static tet path through ``run_directory``: the STATIC deck
   on a shuffled ``box_tet4(n, n, n)`` (default n=40: 206,763 dofs).
+- The solver menu: the STATIC tet deck with METHOD=BICGSTAB (RESID
+  1e-9) on the newton cell's shuffled ``box_tet4(k)`` (default k=69)
+  through ``run_directory``, the scalar block-ELL operator whose blocks
+  K1 sums once at the ELL profile's plan; GMRES(30) and GPBiCG through
+  ``solve_linear`` on the same model; the CG/AMG answer beside them;
+  GMRES held at ``box_tet4(n)`` when it stops at NIER at k.  Then K1 at
+  that plan.  The Newton deck with PRECOND=10 (multicolor block SSOR)
+  on a shuffled ``box_tet4(s)`` (default s=40; 69 for timing).
 - The structured hex8 path through the library entry points
   ``build_struct_model`` + ``run_linear_static``: ``box_hex8(h, h, h)``
   (default h=69: 1,029,000 dofs, 328,509 elements), stencil operator
@@ -26,32 +35,34 @@ once, checks the answers and prints the result.
   B-bar elements), !PLASTIC Mises, a follower pressure of 56 on the
   top faces of the top element layer, 2 substeps (no gauss point
   yields in the first, some in the second), !WRITE, RESULT read back;
-  one K1 assembly per Newton iteration.  Then K1 at m = 30 (tet10).
+  one K1 assembly per Newton iteration.  Then the same deck interrupted
+  after substep 1 and resumed by !RESTART, bit-equal to it, and K1 at
+  m = 30 (tet10).
 - The gather microbenchmark ``frontistr_tpu_torch.microbench.gather``
   (K3-K6 on the shapes of ``scripts/microbench_pallas_gather.py``).
 - Small decks on the card and on the CPU: tet AMG, hex8 stencil, the
   NLSTATIC tet deck, and the slice's hex8 B-bar and F-bar plastic,
   tet10 Drucker-Prager and STATIC DLOAD + TEMPERATURE decks.
 - The dynamics paths through ``run_directory``: explicit central
-  difference on a shuffled ``box_tet4(d, d, d)`` (default d=69), dt half
+  difference on a shuffled ``box_tet4(d, d, d)`` (default d=55), dt half
   the smallest element's critical step, S steps (500; 1000 through PR
   11), the equation of
   motion checked at the last step; implicit Newmark on a shuffled
-  ``box_hex8(x, x, x)`` (69), IC, Rayleigh damping, T steps (10), every
+  ``box_hex8(x, x, x)`` (55), IC, Rayleigh damping, T steps (10), every
   solve's true relres checked; then small dynamics decks on the card
   and on the CPU.  These paths launch one kernel, K1's planes entry,
   once each, in the final nodal smoothing.
 - The heat, eigen and frequency-response paths (no kernel), then small
   decks of those families on the card and on the CPU.
 - The hex20_mpc path through ``run_directory``: NLSTATIC on a shuffled
-  hex20 box of h (default 36: 595,515 dofs, 46,656 elements of type
-  362; 44 and 1,075,275 dofs through PR 11), X1's u_z tied by
+  hex20 box of h (default 32: 421,443 dofs, 32,768 elements of type
+  362), X1's u_z tied by
   !EQUATION to one master node, the load and a
   !SPRING on the master; K1 once per Newton iteration at m = 60 beside
   the spring block, its planes entry in the AMG setups, the nodal
   smoothing and every reduction of the elimination.  Then K1 at m = 60
   against its plain version and index_add_; METHOD=DIRECT on a shuffled
-  box_hex8(d) (default 20), STATIC and NLSTATIC, against the CG path;
+  box_hex8(d) (default 16), STATIC and NLSTATIC, against the CG path;
   the slice's small decks (prisms, hex20, !EQUATION, !SPRING,
   ROT_CENTER, DIRECT, ESTCOND, DUMPTYPE) on the card and on the CPU.
 - The plane path through ``run_directory``: NLSTATIC on a shuffled
@@ -71,6 +82,10 @@ once, checks the answers and prints the result.
   against its plain version and index_add_; small contact decks of
   every arm (ALAGRANGE, friction by BiCGSTAB, SLAGRANGE, the saddle
   system by MINRES, DIRECT, !EQUATION ties, implicit dynamics) on the
+  card and on the CPU.
+- Small decks of the solver menu (the methods and ids on the ELL and
+  stencil arms, !EQUATION, Chebyshev, SSOR), of !RESTART (NLSTATIC in
+  both formats, the contact drop, transient heat) and of !ECHO on the
   card and on the CPU.
 
 The run needs a CUDA card and exits non-zero without one, or when any
@@ -121,6 +136,9 @@ F32_TOL, F64_TOL = 1e-4, 1e-12      # x max|plain|
 # K1 planes launches of one AMG setup (solver/amg.py coarse_levels: the
 # level-1 blocks, then the dense level 2); a nodal smoothing makes one
 PLANES_PER_AMG_SETUP = 2
+# the SSOR Newton path's default box: its run at the newton cell's 69
+# (PERF.md) would push the smoke past its time (--ssor-n 69 restores it)
+SSOR_N = 40
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s; non-tensor-core flop/s
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
@@ -973,7 +991,7 @@ def repeat_first(first: dict, label: str) -> None:
         raise AssertionError(f"{label}: a repeated solve differs")
 
 
-def phase_plastic_main_path(args, mods) -> dict:
+def phase_plastic_main_path(args, mods, keep=None) -> dict:
     """The elastoplastic NLSTATIC deck (``PLCNT``) on a shuffled
     box_hex8(p) through run_directory under the port's default policy on
     CUDA (float64): hex8 B-bar, Mises return mapping, the follower
@@ -986,7 +1004,8 @@ def phase_plastic_main_path(args, mods) -> dict:
     on the run's cluster profile with the first Newton tangent, the
     planes entry at the run's AMG level-1 and level-2 plans and its
     nodal-smoothing plan.  Returns the K1 counts of the run and the
-    largest max_abs_err of those checks."""
+    largest max_abs_err of those checks; ``keep`` (a dict) gets the
+    run's displacements under "u"."""
     nl, sm = mods["nonlinear"], mods["segsum"]
     p = args.plastic
     wd = os.path.join(ROOT, "build", "smoke", f"plastic{p}")
@@ -1016,6 +1035,8 @@ def phase_plastic_main_path(args, mods) -> dict:
     planes = sm.segsum_planes.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     res, model = out["static"], out["model"]
+    if keep is not None:
+        keep["u"] = res.u
     nw, tm = res.newton, res.timings
     keys = ("tangent", "update", "assembly", "amg_setup", "solve",
             "follower_load")
@@ -3456,6 +3477,575 @@ def phase_contact_small_reference(mods) -> None:
                                  "DIRECT arm fell back on the iterative one")
 
 
+# ---- the solver menu (the scalar-ELL operator through K1, SSOR,
+# ---- Chebyshev) and !RESTART -------------------------------------------
+# the STATIC tet deck for the Krylov menu: RESID 1e-9, so every method's
+# own residual (BiCGSTAB's and GPBiCG's a recurrence) leaves room under
+# the 1e-8 bar on the independent index_add_ residual
+KRYCNT = CNT.replace("METHOD=CG", "METHOD={method}").replace(
+    " 1.0e-8, 1.0, 0.0", " 1.0e-9, 1.0, 0.0")
+KRYLOV_METHODS = ("BICGSTAB", "GMRES", "GPBICG")
+
+
+def tet_workdir(mods, wd, dims, cnt) -> str:
+    """``write_workdir`` of a shuffled box_tet4(*dims); returns ``wd``."""
+    write_workdir(wd, dims, mods["ordering"], mods["box_tet4"],
+                  mods["write_static_workdir"], cnt)
+    return wd
+
+
+def tet_deck_like_newton(mods, args, wd, m, cnt) -> int:
+    """``cnt`` on the shuffled box_tet4(m) in ``wd``: the newton cell's
+    mesh file copied when m is its box (the same mesh, seed 3), else
+    written.  Returns the dofs."""
+    src = os.path.join(ROOT, "build", "smoke", f"newton{m}")
+    if m != args.newton_n or not os.path.isdir(src):
+        return write_workdir(wd, (m,) * 3, mods["ordering"],
+                             mods["box_tet4"], mods["write_static_workdir"],
+                             cnt)
+    shutil.rmtree(wd, ignore_errors=True)
+    os.makedirs(wd)
+    for name in ("mesh.msh", "hecmw_ctrl.dat"):
+        shutil.copy(os.path.join(src, name), wd)
+    with open(os.path.join(wd, "case.cnt"), "w") as fh:
+        fh.write(cnt)
+    return 3 * (m + 1) ** 3
+
+
+def krylov_solve(mods, model, kes, method, resid=None):
+    """``static.solve_linear`` of ``model`` by ``method`` (its profile and
+    element matrices reused); returns (LinearSolve, solve s, peak GB)."""
+    sv = model.cfg.solver
+    saved = (sv.method, sv.resid)
+    sv.method = method
+    if resid is not None:
+        sv.resid = resid
+    tm = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        sol = mods["static"].solve_linear(model, kes, tm)
+    finally:
+        sv.method, sv.resid = saved
+    return sol, tm["solve"], torch.cuda.max_memory_allocated() / 1e9
+
+
+def krylov_row(method, iters, relres, solve_s, peak_gb, true_rr, u, u_cg):
+    dev_cg = rel_diff(u, u_cg)
+    ms_it = 1e3 * solve_s / max(iters, 1)
+    log(f"  {method}: iterations={iters} relres={relres!r} solve "
+        f"{solve_s:.3f} s ({ms_it:.3f} ms an iteration), peak device "
+        f"memory {peak_gb:.3f} GB, true f64 relres (index_add_) "
+        f"{true_rr!r}, max|u - u_CG|/max|u| = {dev_cg!r}")
+    return dict(iters=iters, relres=relres, solve_s=solve_s,
+                ms_per_iter=ms_it, peak_gb=peak_gb, true_relres=true_rr,
+                vs_cg=dev_cg)
+
+
+def phase_krylov_main_path(args, mods, tet_model) -> dict:
+    """The STATIC tet deck with METHOD=BICGSTAB on a shuffled
+    box_tet4(m) through run_directory: the scalar block-ELL operator (its
+    blocks summed by K1 at the ELL profile's plan, once) with
+    block-Jacobi.  Then GMRES(30) and GPBiCG through ``solve_linear`` on
+    the same model and element matrices (the input and the profile paid
+    once), and the card's CG/AMG answer (mixed policy) as the yardstick.
+    Each method's true f64 relres by an independent index_add_ residual
+    must be <= 1e-8.  GMRES that does not reach the tolerance within
+    the deck's NIER at this width is recorded and then held at the tet
+    path's box_tet4(n) (``tet_model``).  Returns the counts, the model
+    and its element matrices."""
+    sm, stmod = mods["segsum"], mods["static"]
+    m = args.krylov_n
+    wd = os.path.join(ROOT, "build", "smoke", f"krylov{m}")
+    t0 = time.perf_counter()
+    ndof = tet_deck_like_newton(mods, args, wd, m,
+                                KRYCNT.format(method="BICGSTAB"))
+    log(f"phase krylov_workdir: box_tet4({m}) shuffled, STATIC "
+        f"METHOD=BICGSTAB, {ndof} dofs, written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    sm.segsum.launches = 0
+    sm.segsum_planes.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = mods["run_directory"](wd, device="cuda")
+    wall = time.perf_counter() - t0
+    launches, planes = sm.segsum.launches, sm.segsum_planes.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res, model = out["static"], out["model"]
+    tm = res.timings
+    log(f"phase krylov_main_path: {wall:.2f} s; " + " ".join(
+        f"{k}={v:.3f}" for k, v in tm.items()))
+    log(f"  K1 launches={launches} (the scalar-ELL blocks), K1 planes "
+        f"launches={planes} (the nodal smoothing)")
+    if launches != 1:
+        raise AssertionError(f"krylov_main_path: K1 launched {launches} "
+                             "times, expected once at the ELL plan")
+    kes = stmod.compute_element_stiffness(model)
+    sol_cg, cg_s, cg_peak = with_env(
+        {"FRONTISTR_TPU_PRECISION": "f64"},
+        lambda: krylov_solve(mods, model, kes, "CG"))
+    u_cg = sol_cg.x
+    log(f"  CG/AMG yardstick ({sol_cg.policy}): {sol_cg.iters} CG, "
+        f"{sol_cg.passes} passes, solve {cg_s:.3f} s, peak {cg_peak:.3f} "
+        "GB")
+    rows = {"BICGSTAB": krylov_row(
+        "BICGSTAB", res.iters, res.relres, tm["solve"], peak_gb,
+        true_relres(model, res.u, kes), res.u.reshape(-1), u_cg)}
+    resid = model.cfg.solver.resid
+    for method in KRYLOV_METHODS[1:]:
+        sol, s, peak = krylov_solve(mods, model, kes, method)
+        rows[method] = krylov_row(method, sol.iters, sol.relres, s, peak,
+                                  true_relres(model, sol.x, kes), sol.x,
+                                  u_cg)
+    g = rows["GMRES"]
+    if g["relres"] > resid:
+        log(f"  GMRES(30) with block-Jacobi stops at NIER "
+            f"({g['iters']} iterations, relres {g['relres']!r}) at this "
+            f"width; held at the tet path's box_tet4({args.n}) instead")
+        kt = stmod.compute_element_stiffness(tet_model)
+        sol, s, peak = krylov_solve(mods, tet_model, kt, "GMRES", resid)
+        cg40, _, _ = krylov_solve(mods, tet_model, kt, "CG", resid)
+        rows[f"GMRES_n{args.n}"] = krylov_row(
+            f"GMRES at box_tet4({args.n})", sol.iters, sol.relres, s, peak,
+            true_relres(tet_model, sol.x, kt), sol.x, cg40.x)
+        del kt
+    for method, r in rows.items():
+        if method == "GMRES" and f"GMRES_n{args.n}" in rows:
+            continue
+        if not (r["relres"] <= resid and r["true_relres"] <= 1e-8):
+            raise AssertionError(f"krylov_main_path: {method} did not "
+                                 "converge to a true relres <= 1e-8")
+    if not (res.u.shape == (model.n_node, 3) and np.isfinite(res.u).all()):
+        raise AssertionError("displacements not finite / wrong shape")
+    with open(os.path.join(wd, "0.log")) as fh:
+        if "Global Summary" not in fh.read():
+            raise AssertionError("0.log holds no Global Summary")
+    return dict(rows=rows, launches=launches, model=model, kes=kes)
+
+
+def phase_k1_ell_time(mods, model, kes, launches) -> dict:
+    """K1's element entry at the Krylov path's scalar-ELL plan (9 planes
+    of N*W slots, tet4 m = 12) and first tangent, float64 (the type the
+    path assembles in) and float32: against its plain version,
+    index_add_ of the entries in slot order, and its bytes bound."""
+    sm = mods["segsum"]
+    prof = mods["ell"].profile_from_model(model)
+    plan = prof.plan("cuda")
+    nns = [b.conn.shape[1] for b in model.blocks]
+    P = plan.perm.numel()
+    seg = plan.seg_sorted.long()
+    row = {"name": "segsum_ell", "route": "cuda",
+           "entry": "element, scalar-ELL plan (krylov_main_path)",
+           "source": "frontistr_tpu_torch/csrc/segsum.cu",
+           "replaces": "frontistr_tpu/assembly/segsum_pallas.py:121",
+           "launches": launches}
+    for dt in (torch.float32, torch.float64):
+        kd = [k.to(dt) for k in kes]
+        err = check_k1(sm, plan, kd, nns, dt, "scalar-ELL plan")
+        ms = cuda_ms(lambda: sm.segsum(plan, kd, nns, 3))
+        plain_ms = cuda_ms(lambda: sm.segsum_reference(plan, kd, nns, 3))
+        ent = sm.entry_planes(kd, nns, 3)[:, plan.perm.long()]
+        out = torch.zeros((9, plan.n_slots), dtype=dt, device="cuda")
+        library_ms = cuda_ms(lambda: out.index_add_(1, seg, ent))
+        del ent, out
+        isz = kd[0].element_size()
+        nbytes = (sum(k.numel() for k in kd) * isz + P * 4
+                  + (plan.n_slots + 1) * 4 + 9 * plan.n_slots * isz)
+        bound_ms, bound_by = bound(nbytes, 9 * P, dt)
+        log(f"phase k1_ell_time: P={P} pairs, n_slots={plan.n_slots} "
+            f"(N={prof.n_node}, W={prof.W}) {str(dt)[6:]}: kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, index_add_ "
+            f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms "
+            f"({nbytes / 1e9:.3f} GB)")
+        nums = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms}
+        if dt == torch.float64:
+            row.update(nums)
+        else:
+            row["f32"] = nums
+        del kd
+    return row
+
+
+def phase_ssor_main_path(args, mods, amg_newton=None) -> dict:
+    """The NLSTATIC bench deck with !SOLVER, METHOD=CG, PRECOND=10 on a
+    shuffled box_tet4(s) through run_directory, f64 policy: the Newton
+    driver's CG preconditioned by multicolor block SSOR (one forward and
+    one backward sweep over the colors).  Held to: every solve's
+    index_add_ true relres <= 1e-8, K1 element launches = Newton
+    iterations, and the Newton count of the AMG: ``amg_newton`` (the
+    newton cell's, when the box is its), else an AMG run on the same
+    model.  The SSOR apply and the cluster product timed alone on the
+    first tangent."""
+    nl, sm, stmod = mods["nonlinear"], mods["segsum"], mods["static"]
+    s = args.ssor_n
+    wd = os.path.join(ROOT, "build", "smoke", f"ssor{s}")
+    t0 = time.perf_counter()
+    ndof = tet_deck_like_newton(mods, args, wd, s, NLCNT.format(
+        load=-1.0).replace("METHOD=CG,", "METHOD=CG, PRECOND=10,"))
+    log(f"phase ssor_workdir: box_tet4({s}) shuffled, NLSTATIC PRECOND=10, "
+        f"{ndof} dofs, written in {time.perf_counter() - t0:.2f} s")
+    solves = []
+    real = nl.make_constrained_solver
+    nl.make_constrained_solver = spy_solves(nl, solves)
+    sm.segsum.launches = 0
+    try:
+        t0 = time.perf_counter()
+        out = with_env({"FRONTISTR_TPU_PRECISION": "f64"},
+                       lambda: mods["run_directory"](wd, device="cuda"))
+        wall = time.perf_counter() - t0
+    finally:
+        nl.make_constrained_solver = real
+    launches = sm.segsum.launches
+    res, model = out["static"], out["model"]
+    nw = res.newton
+    maps = mods["ssor"].eligible_maps(mods["ell"].profile_from_model(model),
+                                      "ssor")
+    sizes = [len(r) for r in maps.colors("cpu")]
+    log(f"phase ssor_main_path: {wall:.2f} s; {maps.ncol} colors "
+        f"(nodes a color {min(sizes)}..{max(sizes)}), newton_iters="
+        f"{nw.total_iters}, K1 launches={launches}; " + " ".join(
+            f"{k}={res.timings.get(k, 0.0):.3f}" for k in
+            ("read", "reorder", "profile", "tangent", "assembly",
+             "amg_setup", "solve")))
+    for h, sv in zip(nw.history, solves):
+        log(f"  it {h['iter']}: cg_iters={sv['cg_iters']} solve "
+            f"{h['solve']:.3f} s ({1e3 * h['solve'] / max(sv['cg_iters'], 1):.3f}"
+            f" ms a CG iteration), relres={sv['relres']!r} true_relres="
+            f"{sv['true_relres']!r}")
+    if len(solves) != len(nw.history) or not solves:
+        raise AssertionError("ssor_main_path: solves and iterations do "
+                             "not pair up")
+    if launches != nw.total_iters:
+        raise AssertionError(f"K1 launches {launches} != Newton "
+                             f"iterations {nw.total_iters}")
+    if not all(sv["true_relres"] <= 1e-8 for sv in solves):
+        raise AssertionError("a linear solve's true relres is above 1e-8")
+    # the SSOR apply and the product alone, on the first tangent
+    kes = stmod.compute_element_stiffness(model)
+    setup = stmod.cluster_setup(model, {}, policy="ssor")
+    free = torch.as_tensor(mods["make_free_mask"](model.n_dof_total,
+                                                  model.fixed_dofs),
+                           device="cuda")
+    A, M = stmod.cluster_operator(setup, model, kes, free, torch.float64,
+                                  {})
+    r = torch.randn(model.n_dof_total, dtype=torch.float64, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(3))
+    sweep_ms = cuda_ms(lambda: M(r), reps=5)
+    mv_ms = cuda_ms(lambda: A(r), reps=5)
+    log(f"  SSOR apply (forward + backward sweep, {maps.ncol} colors) "
+        f"{sweep_ms:.3f} ms, cluster product {mv_ms:.3f} ms")
+    del kes, setup, A, M
+    # the AMG's Newton count on this box
+    cg_amg = None
+    if amg_newton is None:
+        model.cfg.solver.precond = 1
+        amg_res = with_env({"FRONTISTR_TPU_PRECISION": "f64",
+                            "FRONTISTR_TPU_PRECOND": "amg"},
+                           lambda: nl.run_nonlinear_static(model))
+        amg_newton = amg_res.newton.total_iters
+        cg_amg = [h["cg_iters"] for h in amg_res.newton.history]
+        log(f"  AMG on the same model: newton_iters={amg_newton}, cg "
+            f"{cg_amg}, solve {amg_res.timings.get('solve', 0.0):.3f} s")
+    if amg_newton != nw.total_iters:
+        raise AssertionError(f"ssor_main_path: {nw.total_iters} Newton "
+                             f"iterations, the AMG's {amg_newton}")
+    return dict(colors=maps.ncol, newton=nw.total_iters,
+                cg=[sv["cg_iters"] for sv in solves], cg_amg=cg_amg,
+                sweep_ms=sweep_ms, matvec_ms=mv_ms, wall=wall)
+
+
+class Committed:
+    """Keeps the states of the last ``nonlinear._commit_state`` calls
+    of a run (the committed gauss states of its last substep)."""
+
+    def __init__(self, nl):
+        self.nl, self.real, self.states = nl, nl._commit_state, []
+
+    def __enter__(self):
+        def keep(s):
+            out = self.real(s)
+            self.states.append(out)
+            return out
+        self.nl._commit_state = keep
+        return self
+
+    def __exit__(self, *exc):
+        self.nl._commit_state = self.real
+
+    def last(self, n_blocks):
+        return self.states[-n_blocks:]
+
+
+def phase_restart_main_path(args, mods, plastic) -> dict:
+    """!RESTART on the plastic cell's deck: the run interrupted after
+    substep 1 (the pressure and the step time halved, so its one substep
+    is the full run's first, bit for bit), FREQUENCY=1, then the full
+    deck resumed from its checkpoint with FREQUENCY=-1.  Held to: the
+    resumed u and every committed gauss state (strain, stress,
+    equivalent plastic strain, yield flags) bit-equal to
+    plastic_main_path's uninterrupted run.  Prints the checkpoint's bytes
+    and its write and read seconds."""
+    nl = mods["nonlinear"]
+    p = args.plastic
+    src = os.path.join(ROOT, "build", "smoke", f"plastic{p}")
+    wd = os.path.join(ROOT, "build", "smoke", f"restart{p}")
+    shutil.rmtree(wd, ignore_errors=True)
+    shutil.copytree(src, wd)
+    # no !WRITE, RESULT: the .res of the cell is plastic_main_path's
+    half = PLCNT.format(sol="NLSTATIC", loads="!DLOAD\n TOP, P2, "
+                        f"{PLASTIC_PRESSURE / 2!r}\n", plastic=MISES,
+                        extra="!RESTART, FREQUENCY=1\n",
+                        sub="2\n 0.5, 0.5").replace("!WRITE, RESULT\n", "")
+    full = PLCNT.format(sol="NLSTATIC", loads="!DLOAD\n TOP, P2, "
+                        f"{PLASTIC_PRESSURE!r}\n", plastic=MISES,
+                        extra="!RESTART, FREQUENCY=-1\n",
+                        sub=2).replace("!WRITE, RESULT\n", "")
+    ck = os.path.join(wd, "restart.npz")
+    outs = []
+    for cnt in (half, full):
+        with open(os.path.join(wd, "case.cnt"), "w") as fh:
+            fh.write(cnt)
+        t0 = time.perf_counter()
+        with Committed(nl) as kept:
+            o = mods["run_directory"](wd, device="cuda")
+        outs.append((o, time.perf_counter() - t0, kept,
+                     os.path.getsize(ck)))
+    (o1, w1, _, b1), (o2, w2, kept, b2) = outs
+    r1, r2 = o1["static"], o2["static"]
+    log(f"phase restart_main_path: interrupted run {w1:.2f} s "
+        f"({r1.newton.substeps} substep, {r1.iters} Newton iterations, "
+        f"checkpoint {b1} bytes written in "
+        f"{r1.timings['restart_save']:.3f} s); resumed run {w2:.2f} s "
+        f"(read in {r2.timings['restart_load']:.3f} s, {r2.newton.substeps}"
+        f" substep, {r2.iters} Newton iterations, its checkpoint {b2} "
+        f"bytes in {r2.timings['restart_save']:.3f} s)")
+    n_b = len(o2["model"].blocks)
+    same_u = np.array_equal(r2.u, plastic["u"])
+    st_got = kept.last(n_b)
+    same_st = all(
+        torch.equal(a[k], b[k]) for a, b in zip(st_got, plastic["states"])
+        for k in ("strain", "stress", "pstrain", "yielded"))
+    yielded = sum(int(s["yielded"].sum()) for s in st_got)
+    log(f"  resumed vs plastic_main_path: u bit-equal {same_u} (max rel "
+        f"diff {rel_diff(r2.u, plastic['u'])!r}), committed states "
+        f"(strain, stress, pstrain, yielded) bit-equal {same_st}, "
+        f"{yielded} yielded gauss points")
+    if r1.newton.substeps != 1 or r2.newton.substeps != 1:
+        raise AssertionError("restart_main_path: not one substep each")
+    if not (same_u and same_st and yielded > 0):
+        raise AssertionError("restart_main_path: the resumed run differs "
+                             "from the uninterrupted one")
+    return dict(bytes=b1, write_s=r1.timings["restart_save"],
+                read_s=r2.timings["restart_load"], interrupted_s=w1,
+                resumed_s=w2)
+
+
+DYN_CONTACT = (
+    "!VERSION\n 3\n!SOLUTION, TYPE=DYNAMIC\n!DYNAMIC\n 1, 1\n"
+    " 0.0, {t!r}, {n}, 0.01\n 0.75, 0.390625\n 1, 1, 0.5, 0.0\n 10\n"
+    "!BOUNDARY, GRPID=1\n BOT, 3, 3, 0.0\n ALL, 1, 2, 0.0\n"
+    "!CLOAD, GRPID=1\n TOP, 3, -2.0\n!CONTACT_ALGO, TYPE=ALAGRANGE\n"
+    "!CONTACT, GRPID=1\n CP1, 0.0\n!STEP, SUBSTEPS=1, CONVERG=1.0e-7\n"
+    " BOUNDARY, 1\n LOAD, 1\n CONTACT, 1\n!MATERIAL, NAME=M1\n!ELASTIC\n"
+    " 1000.0, 0.0\n!DENSITY\n 1.0\n!SOLVER, METHOD=CG, PRECOND=1, "
+    "ITERLOG=NO, TIMELOG=NO\n 10000, 1\n 1.0e-12, 1.0, 0.0\n{restart}"
+    "!END\n")
+
+
+def phase_solvers_small_reference(mods) -> None:
+    """Small decks of this slice on the card and on the CPU (which the
+    CPU tests hold to the JAX package), f64: linear STATIC by BiCGSTAB,
+    GMRES, GPBiCG and the ids 2-4 on a shuffled tet box (K1 once at the
+    ELL plan) and on a structured hex8 box (K2 launches counted),
+    BiCGSTAB with !EQUATION, CG with FRONTISTR_TPU_PRECOND=cheby, SSOR
+    (PRECOND=10) in NLSTATIC on tet4 and hex8; !RESTART of NLSTATIC in
+    both formats, of the implicit contact drop (ALAGRANGE, its
+    multipliers and released slots carried) and of transient heat, each
+    resumed run bit-equal to the uninterrupted one on its device; an
+    !ECHO deck's echo block.  Bars: u within 1e-8 of max|u| (T 1e-10),
+    Newton and fixed-point counts equal, Krylov counts as
+    ``krylov_close`` says (CG within 1)."""
+    run, sm, em = mods["run_directory"], mods["segsum"], mods["element_mv"]
+    base = os.path.join(ROOT, "build", "smoke", "solvers_small")
+    box_tet4, box_hex8 = mods["box_tet4"], mods["box_hex8"]
+    f64 = {"FRONTISTR_TPU_PRECISION": "f64"}
+
+    def both(label, make, env=None):
+        """``make(wd, dev)`` on the card and on the CPU; the outputs by
+        device, and under "k" the (K1, K2) launches of each run."""
+        outs = {"k": {}}
+        for dev in ("cuda", "cpu"):
+            wd = os.path.join(base, label.replace(" ", "_"), dev)
+            shutil.rmtree(wd, ignore_errors=True)
+            k1, k2 = sm.segsum.launches, em.element_matvec_soa.launches
+            outs[dev] = with_env(dict(f64, **(env or {})),
+                                 lambda: make(wd, dev))
+            outs["k"][dev] = (sm.segsum.launches - k1,
+                              em.element_matvec_soa.launches - k2)
+        return outs
+
+    def krylov_close(method, a, b):
+        """Krylov counts of one solve, card against CPU: within 1 for
+        CG, within 2 under the Chebyshev polynomial (ROADMAP queue 3's
+        caveat), one restart cycle for GMRES(30), 10% for BiCGSTAB and
+        GPBiCG (their residuals are not monotone: 84 against 80 on the
+        tet box, measured on one H100)."""
+        slack = {"CG": 1, "1": 1, "cheby": 2, "GMRES": 30, "3": 30}.get(
+            method, max(1, 0.1 * b))
+        return abs(a - b) <= slack
+
+    def judge(label, rel, cnt_g, cnt_c, ok, bar=1e-8, extra=""):
+        log(f"phase solvers_small_reference: {label}, cuda vs cpu max rel "
+            f"diff {rel!r}, counts {cnt_g} vs {cnt_c}{extra}")
+        if not (rel <= bar and ok):
+            raise AssertionError(f"solvers_small_reference: {label}")
+
+    # linear STATIC: the methods on the tet box (the ELL arm) and on the
+    # structured hex8 box (the stencil arm)
+    for method in ("BICGSTAB", "GMRES", "GPBICG", "2", "3", "4"):
+        o = both(f"tet {method}", lambda wd, dev: run(tet_workdir(
+            mods, wd, (6, 5, 4), KRYCNT.format(method=method)),
+            device=dev)["static"])
+        (g, c), k1 = (o["cuda"], o["cpu"]), o["k"]["cuda"][0]
+        judge(f"STATIC tet {method}", rel_diff(g.u, c.u), g.iters, c.iters,
+              krylov_close(method, g.iters, c.iters) and k1 == 1,
+              extra=f", K1 launches {k1}")
+    for method in ("BICGSTAB", "GMRES", "GPBICG"):
+        def hex_run(wd, dev):
+            model = hex_model(mods, (8, 6, 5), dev)
+            model.cfg.solver.method = method
+            return mods["static"].run_linear_static(model)
+        o = both(f"hex {method}", hex_run)
+        (g, c), k2 = (o["cuda"], o["cpu"]), o["k"]["cuda"][1]
+        judge(f"STATIC structured hex8 {method}", rel_diff(g.u, c.u),
+              g.iters, c.iters, krylov_close(method, g.iters, c.iters)
+              and k2 > 0,
+              extra=f", K2 launches {k2}")
+    # BiCGSTAB with !EQUATION (X1's u_z tied to its first node)
+    def eq_run(wd, dev):
+        mesh = box_hex8(3, 2, 2)
+        mast = tie_face(mods, mesh)
+        cnt = KRYCNT.format(method="BICGSTAB").replace(
+            " X1, 3, -1.0", f" {int(mesh.node_ids[mast])}, 3, -20.0")
+        return run(write_shuffled(wd, mods, mesh, cnt), device=dev)["static"]
+    o = both("equation BICGSTAB", eq_run)
+    g, c = o["cuda"], o["cpu"]
+    judge("STATIC BiCGSTAB with !EQUATION", rel_diff(g.u, c.u), g.iters,
+          c.iters, krylov_close("BICGSTAB", g.iters, c.iters))
+    # the Chebyshev preconditioner
+    o = both("cheby", lambda wd, dev: run(tet_workdir(
+        mods, wd, (6, 5, 4), KRYCNT.format(method="CG")),
+        device=dev)["static"], {"FRONTISTR_TPU_PRECOND": "cheby"})
+    g, c = o["cuda"], o["cpu"]
+    judge("STATIC CG with FRONTISTR_TPU_PRECOND=cheby", rel_diff(g.u, c.u),
+          g.iters, c.iters, krylov_close("cheby", g.iters, c.iters))
+    # SSOR in NLSTATIC
+    for kind in ("tet4", "hex8"):
+        mesh_fn = (lambda: box_tet4(6, 5, 4)) if kind == "tet4" else \
+            (lambda: box_hex8(6, 5, 4))
+        o = both(f"ssor {kind}", lambda wd, dev: run(write_shuffled(
+            wd, mods, mesh_fn(), NLCNT.format(load=-100.0).replace(
+                "METHOD=CG,", "METHOD=CG, PRECOND=10,")),
+            device=dev)["static"])
+        g, c = o["cuda"], o["cpu"]
+        cg = [[h["cg_iters"] for h in r.newton.history] for r in (g, c)]
+        judge(f"NLSTATIC SSOR (PRECOND=10) {kind}", rel_diff(g.u, c.u),
+              cg[0], cg[1], g.iters == c.iters >= 2 and cg_close(*cg)
+              and o["k"]["cuda"][0] == g.iters)
+    # !RESTART: NLSTATIC (both formats), the contact drop, transient heat
+    plastic = PLCNT.format(sol="NLSTATIC", loads="!DLOAD\n TOP, P2, 120.0\n",
+                           plastic=MISES, extra="{restart}", sub="{sub}")
+
+    def nl_deck(half, restart):
+        return plastic.replace("120.0", "60.0" if half else "120.0").format(
+            restart=restart, sub="2\n 0.5, 0.5" if half else "2")
+
+    def resumed(wd, dev, decks, write, key):
+        """The uninterrupted deck, then the interrupted one and the full
+        deck resumed in a second directory; returns (once, resumed)."""
+        once = run(write(wd + "_once", decks[0]), device=dev)[key]
+        d = write(wd, decks[1])
+        run(d, device=dev)
+        with open(os.path.join(d, "case.cnt"), "w") as fh:
+            fh.write(decks[2])
+        return once, run(d, device=dev)[key]
+
+    def plastic_write(wd, cnt):
+        write_plastic_workdir(wd, mods, box_hex8(4, 3, 3), cnt)
+        return wd
+    for fmt in ("npz", "hecmw"):
+        env = {"FRONTISTR_TPU_RESTART_FORMAT": fmt}
+        decks = (nl_deck(False, ""), nl_deck(True, "!RESTART, FREQUENCY=1\n"),
+                 nl_deck(False, "!RESTART, FREQUENCY=-1\n"))
+        o = both(f"restart nlstatic {fmt}", lambda wd, dev: resumed(
+            wd, dev, decks, plastic_write, "static"), env)
+        (go, gr), (co, cr) = o["cuda"], o["cpu"]
+        bit = np.array_equal(go.u, gr.u) and np.array_equal(co.u, cr.u)
+        judge(f"NLSTATIC !RESTART ({fmt}) resumed", rel_diff(gr.u, cr.u),
+              gr.iters, cr.iters, bit and gr.iters == cr.iters,
+              extra=f", resumed = uninterrupted bit for bit {bit}")
+    cp = mods["meshgen"].contact_pair
+
+    def drop_write(wd, cnt):
+        return write_contact_workdir(
+            wd, mods, cp((1, 1, 1), (1, 1, 1), (1.0, 1.0, 1.0),
+                         (1.0, 1.0, 1.0), gap=0.02), cnt, seed=5)
+    decks = tuple(DYN_CONTACT.format(t=n * 0.01, n=n, restart=r) for n, r in
+                  ((8, ""), (4, "!RESTART, FREQUENCY=4\n"),
+                   (8, "!RESTART, FREQUENCY=-4\n")))
+    o = both("restart drop", lambda wd, dev: resumed(wd, dev, decks,
+                                                     drop_write, "dynamic"))
+    (go, gr), (co, cr) = o["cuda"], o["cpu"]
+    bit = all(np.array_equal(getattr(a, f), getattr(b, f))
+              for a, b in ((go, gr), (co, cr)) for f in ("u", "vel", "acc"))
+    active = any(h["active"].any() for h in gr.history)
+    cnt = [[h["passes"] for h in r.history] for r in (gr, cr)]
+    judge("implicit dynamics contact drop !RESTART (ALAGRANGE) resumed",
+          max(rel_diff(getattr(gr, f), getattr(cr, f))
+              for f in ("u", "vel", "acc")), cnt[0], cnt[1],
+          bit and active and cnt[0] == cnt[1],
+          extra=f", resumed = uninterrupted bit for bit {bit}, "
+          f"contact active {active}")
+
+    def heat_write(wd, cnt):
+        small_heat_deck(mods, "hex8", True, wd)
+        with open(os.path.join(wd, "case.cnt"), "w") as fh:
+            fh.write(cnt)
+        return wd
+    hd = os.path.join(base, "heat_template")
+    small_heat_deck(mods, "hex8", True, hd)
+    with open(os.path.join(hd, "case.cnt")) as fh:
+        heat = fh.read()
+    half = heat.replace("1.0e-4, 3.0e-4,", "1.0e-4, 2.0e-4,")
+    decks = (heat, half.replace("!END", "!RESTART, FREQUENCY=2\n!END"),
+             heat.replace("!END", "!RESTART, FREQUENCY=-2\n!END"))
+    o = both("restart heat", lambda wd, dev: resumed(wd, dev, decks,
+                                                     heat_write, "heat"))
+    (go, gr), (co, cr) = o["cuda"], o["cpu"]
+    bit = np.array_equal(go.T, gr.T) and np.array_equal(co.T, cr.T)
+    cnt = [[h["fp"] for h in r.history] for r in (gr, cr)]
+    judge("transient HEAT !RESTART resumed", rel_diff(gr.T, cr.T), cnt[0],
+          cnt[1], bit and cnt[0] == cnt[1] and gr.steps == 3, bar=1e-10,
+          extra=f", resumed = uninterrupted bit for bit {bit}")
+    # !ECHO
+    o = both("echo", lambda wd, dev: run(tet_workdir(
+        mods, wd, (3, 2, 2), CNT.replace("!BOUNDARY", "!ECHO\n!BOUNDARY")),
+        device=dev))
+    texts = []
+    for dev in ("cuda", "cpu"):
+        with open(o[dev]["log_path"]) as fh:
+            texts.append(fh.read())
+    echo = mods["echo"].echo_text(o["cpu"]["mesh"], o["cpu"]["cfg"])
+    ok = all(t.startswith(echo) for t in texts)
+    judge("!ECHO", rel_diff(o["cuda"]["static"].u, o["cpu"]["static"].u),
+          len(echo), len(echo), ok,
+          extra=f", the echo block ({echo.count(chr(10))} lines) at the top "
+          f"of both logs {ok}")
+
+
 def load_mods() -> dict:
     """The port's modules the phases use, by name."""
     sys.path.insert(0, ROOT)
@@ -3464,7 +4054,8 @@ def load_mods() -> dict:
     from frontistr_tpu_torch.analysis import contact
     from frontistr_tpu_torch.analysis import static as stmod
     from frontistr_tpu_torch.contact import slag
-    from frontistr_tpu_torch.assembly import bell, extras, femop, structured
+    from frontistr_tpu_torch.assembly import bell, ell, extras, femop
+    from frontistr_tpu_torch.assembly import structured
     from frontistr_tpu_torch.assembly import segsum as sm
     from frontistr_tpu_torch.assembly.loads import FACE_TABLES
     from frontistr_tpu_torch.assembly.model import build_struct_model
@@ -3473,6 +4064,7 @@ def load_mods() -> dict:
     from frontistr_tpu_torch.io.meshio import ElemBlock, Equation
     from frontistr_tpu_torch.io.resfile import read_result
     from frontistr_tpu_torch.assembly.operators import make_free_mask
+    from frontistr_tpu_torch.io import echo
     from frontistr_tpu_torch.io.ctrlio import read_cnt
     from frontistr_tpu_torch.io.neu import write_static_workdir
     from frontistr_tpu_torch.meshgen import box_hex8, box_tet4
@@ -3482,8 +4074,9 @@ def load_mods() -> dict:
     from frontistr_tpu_torch.ops import gather as g
     from frontistr_tpu_torch.post import nodal
     from frontistr_tpu_torch.run import run_directory
-    from frontistr_tpu_torch.solver import amg, direct
-    return dict(extras=extras, direct=direct, Equation=Equation,
+    from frontistr_tpu_torch.solver import amg, direct, ssor
+    return dict(extras=extras, direct=direct, Equation=Equation, ell=ell,
+                ssor=ssor, echo=echo,
                 segsum=sm, element_mv=em, static=stmod, bell=bell,
                 structured=structured, ordering=ordering,
                 nonlinear=nonlinear, box_tet4=box_tet4, box_hex8=box_hex8,
@@ -3503,6 +4096,12 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=40,
                     help="box_tet4(n, n, n) for the linear static tet path "
                          "(default 40)")
+    ap.add_argument("--krylov-n", type=int, default=69,
+                    help="box_tet4(k, k, k) for the Krylov menu's path "
+                         "(default 69: 1,029,000 dofs)")
+    ap.add_argument("--ssor-n", type=int, default=SSOR_N,
+                    help=f"box_tet4(s, s, s) for the SSOR Newton path "
+                         f"(default {SSOR_N}; 69 is the newton cell's)")
     ap.add_argument("--hex", type=int, default=69,
                     help="box_hex8(h, h, h) for the hex path (default 69)")
     ap.add_argument("--newton-n", type=int, default=69,
@@ -3511,29 +4110,29 @@ def main(argv=None) -> int:
     ap.add_argument("--plastic", type=int, default=48,
                     help="box_hex8(p, p, p) for the elastoplastic path "
                          "(default 48)")
-    ap.add_argument("--dyn-n", type=int, default=69,
+    ap.add_argument("--dyn-n", type=int, default=55,
                     help="box_tet4(m, m, m) for the explicit dynamics path "
-                         "(default 69)")
+                         "(default 55)")
     ap.add_argument("--dyn-steps", type=int, default=500,
                     help="explicit time steps (default 500)")
-    ap.add_argument("--dyn-hex", type=int, default=69,
+    ap.add_argument("--dyn-hex", type=int, default=55,
                     help="box_hex8(h, h, h) for the implicit dynamics path "
-                         "(default 69)")
+                         "(default 55)")
     ap.add_argument("--dyn-hex-steps", type=int, default=10,
                     help="implicit time steps (default 10)")
     ap.add_argument("--heat-n", type=int, default=100,
                     help="box_hex8(h, h, h) for the heat path (default 100)")
     ap.add_argument("--heat-steps", type=int, default=20,
                     help="heat time steps (default 20)")
-    ap.add_argument("--eigen-n", type=int, default=48,
+    ap.add_argument("--eigen-n", type=int, default=40,
                     help="box_hex8(e, e, e) for the eigen and frequency "
-                         "response paths (default 48)")
-    ap.add_argument("--hex20-n", type=int, default=36,
-                    help="the hex20 box of the hex20_mpc path (default 36: "
-                         "595,515 dofs)")
-    ap.add_argument("--direct-n", type=int, default=20,
+                         "response paths (default 40)")
+    ap.add_argument("--hex20-n", type=int, default=32,
+                    help="the hex20 box of the hex20_mpc path (default 32: "
+                         "421,443 dofs)")
+    ap.add_argument("--direct-n", type=int, default=16,
                     help="box_hex8(d, d, d) for the METHOD=DIRECT path "
-                         "(default 20: 27,783 dofs)")
+                         "(default 16: 14,739 dofs)")
     ap.add_argument("--plane-n", type=int, default=408,
                     help="the quad8 box of the plane path (default 408: "
                          "1,002,050 dofs)")
@@ -3593,9 +4192,21 @@ def main(argv=None) -> int:
     del model
     torch.cuda.empty_cache()
 
-    # 5. the linear static tet path (K1)
+    # 5. the linear static tet path (K1); the Krylov menu on the newton
+    #    cell's mesh (K1 once at the scalar-ELL plan), then K1 at that
+    #    plan; the Newton path with PRECOND=10 (SSOR)
     model, _ = phase_tet_main_path(args, mods)
+    torch.cuda.empty_cache()
+    kry = phase_krylov_main_path(args, mods, model)
     del model
+    ell_row = phase_k1_ell_time(mods, kry.pop("model"), kry.pop("kes"),
+                                kry["launches"])
+    ell_row["krylov_main_path"] = kry["rows"]
+    del kry
+    torch.cuda.empty_cache()
+    k1_row["ssor_main_path"] = phase_ssor_main_path(
+        args, mods, k1_launches if args.ssor_n == args.newton_n else None)
+    torch.cuda.empty_cache()
 
     # 6. the hex path (K2), then K2 at its shapes (after the counts)
     model, res, k2_launches = phase_hex_main_path(args, mods)
@@ -3605,7 +4216,15 @@ def main(argv=None) -> int:
 
     # 7. the elastoplastic path (K1 once per Newton iteration), then K1
     #    at m = 30 (tet10)
-    k1_row["plastic_main_path"] = phase_plastic_main_path(args, mods)
+    plastic = {}
+    with Committed(mods["nonlinear"]) as kept:
+        k1_row["plastic_main_path"] = phase_plastic_main_path(args, mods,
+                                                              plastic)
+    plastic["states"] = kept.last(1)
+    del kept
+    k1_row["restart_main_path"] = phase_restart_main_path(args, mods,
+                                                          plastic)
+    del plastic
     torch.cuda.empty_cache()
     k1_row["m30"] = phase_k1_m30_time(mods, 24)
     torch.cuda.empty_cache()
@@ -3683,9 +4302,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_contact_small_reference(mods)
 
+    # 15. the small decks of the solver menu and !RESTART on the card and
+    #     the CPU
+    torch.cuda.empty_cache()
+    phase_solvers_small_reference(mods)
+
     log(f"phase total: {time.perf_counter() - t_start:.2f} s")
     log(smi)
-    log(json.dumps({"kernels": [k1_row, k1_m60_row] + nd2_rows
+    log(json.dumps({"kernels": [k1_row, ell_row, k1_m60_row] + nd2_rows
                     + [contact_row, k2_row] + gather_rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

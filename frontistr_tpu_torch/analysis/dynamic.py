@@ -39,10 +39,13 @@ matrix-free ``femop.FEOperator`` (tol = RESID, maxiter = NIER), with
 factors it on the host (``solver/direct.py``).  A contact deck takes
 the Newton loop with the static driver's SLAGRANGE or penalty arm on
 c1 K + c2 M (``nonlinear.ContactState``): every pass restarts the
-step's increment, the SLAGRANGE active set frozen for the pass.  What
-the JAX package also runs in dynamics and the port does not yet (the
-band factorisation, sharding, restart, the coupler, frequency
-response, shells and beams) raises ``NotImplementedError`` naming
+step's increment, the SLAGRANGE active set frozen for the pass.
+!RESTART checkpoints the implicit run every FREQUENCY steps (u, vel,
+acc, the gauss states and a contact deck's multipliers and released
+slots) and resumes from it; the explicit run ignores the card, as the
+JAX package's does.  What the JAX package also runs in dynamics and the
+port does not yet (the band factorisation, sharding, the coupler,
+frequency response, shells and beams) raises ``NotImplementedError`` naming
 itself, and so do the cards the JAX package's dynamics drop without
 effect: !EQUATION and !CONTACT in an explicit run, !SPRING (ROADMAP,
 queue 3, fault 2).
@@ -65,6 +68,8 @@ from frontistr_tpu_torch.analysis.nonlinear import (BlockPrograms,
                                                     _element_values,
                                                     _postprocess,
                                                     _qforce,
+                                                    device_states,
+                                                    host_states,
                                                     init_block_state)
 from frontistr_tpu_torch.analysis.static import StaticResult
 from frontistr_tpu_torch.assembly import extras, femop, loads
@@ -74,6 +79,7 @@ from frontistr_tpu_torch.device import Phase
 from frontistr_tpu_torch.elements.quadhi import mass_tables
 from frontistr_tpu_torch.fem.isoparam import det_inv_small
 from frontistr_tpu_torch.io import logio
+from frontistr_tpu_torch.io.restart import load_restart, save_restart
 from frontistr_tpu_torch.solver import direct
 from frontistr_tpu_torch.solver.cg import pcg
 
@@ -251,8 +257,6 @@ def _check_request(model: StructModel) -> None:
                         ("!AMPLITUDE in the .cnt", cfg.amplitudes)):
         if cards:
             raise NotImplementedError(f"{name} in dynamics")
-    if cfg.restart is not None:
-        raise NotImplementedError("!RESTART in dynamics")
     if model.ndof == 6 or any(b.kind != "solid" for b in model.blocks):
         raise NotImplementedError("shell and beam blocks (6 dof) in "
                                   "dynamics")
@@ -262,16 +266,22 @@ def _check_request(model: StructModel) -> None:
 
 
 def run_dynamic(model: StructModel, log_path: Optional[str] = None,
-                on_interval=None) -> DynamicResult:
+                on_interval=None, restart_path: Optional[str] = None,
+                restart_freq: int = 0) -> DynamicResult:
     """Time history on ``model.device``.  ``on_interval(step, t, u, vel,
     acc)`` (host arrays) fires after every committed time step -- the
     runner uses it for per-interval result files (fstr_solve_dynamic
     result cadence) -- and selects the eager arms, as in the JAX
-    package."""
+    package.  ``restart_path``/``restart_freq`` (the !RESTART card) are
+    the implicit run's: it resumes from the file when it exists and
+    ``restart_freq`` is set, and writes it every ``restart_freq`` steps;
+    the explicit run never reads them, as in the JAX package."""
     _check_request(model)
     if model.cfg.dynamic.idx_eqa == 11:
         return _run_explicit(model, log_path, on_interval=on_interval)
-    return _run_implicit(model, log_path, on_interval=on_interval)
+    return _run_implicit(model, log_path, on_interval=on_interval,
+                         restart_path=restart_path,
+                         restart_freq=restart_freq)
 
 
 class _Monitor:
@@ -435,7 +445,42 @@ def make_effective_solver(model, free, gather, mass, c1: float,
     return solve
 
 
-def _run_implicit(model: StructModel, log_path, on_interval=None):
+def _load_dyn_checkpoint(path, states, contact, device):
+    """The implicit run's checkpoint (fstr_dynamic_nlimplicit.f90's
+    restart block; ``frontistr_tpu/analysis/dynamic.py:534-552``): u,
+    vel, acc and the gauss states on ``device``, the contact manager's
+    multipliers, slip origin and released slots restored in place.
+    Returns (u, vel, acc, states, first step)."""
+    rz = load_restart(path)
+    u, vel, acc = (_tensor(device, rz[k]) for k in ("u", "vel", "acc"))
+    states = device_states(rz["states"], states, device)
+    if contact is not None and "cm" in rz:
+        cm, cs = contact.cm, rz["cm"]
+        cm.lam = np.asarray(cs["lam"])
+        cm.lam_t = np.asarray(cs["lam_t"])
+        if cs.get("rel_prev") is not None:
+            cm.rel_prev = np.asarray(cs["rel_prev"])
+        cm.slag_released = np.asarray(cs["slag_released"]).astype(bool)
+    return u, vel, acc, states, int(np.asarray(rz["i"])) + 1
+
+
+def _save_dyn_checkpoint(path, i, u, vel, acc, states, contact) -> None:
+    """The committed step ``i`` (``frontistr_tpu/analysis/dynamic.py:
+    862-879``): u, vel, acc, i, the gauss states and, on a contact deck,
+    the contact manager's lam, lam_t, rel_prev and slag_released."""
+    payload = dict(u=u.cpu().numpy(), vel=vel.cpu().numpy(),
+                   acc=acc.cpu().numpy(), i=np.asarray(i),
+                   states=host_states(states))
+    if contact is not None:
+        cm = contact.cm
+        payload["cm"] = dict(lam=cm.lam, lam_t=cm.lam_t,
+                             rel_prev=cm.rel_prev,
+                             slag_released=cm.slag_released.astype(np.int8))
+    save_restart(path, payload)
+
+
+def _run_implicit(model: StructModel, log_path, on_interval=None,
+                  restart_path=None, restart_freq=0):
     cfg = model.cfg
     d = cfg.dynamic
     step = cfg.steps[0]
@@ -531,8 +576,13 @@ def _run_implicit(model: StructModel, log_path, on_interval=None):
     # Newton loop instead.  For a linear model the Newton loop is one
     # solve a step (it = 2 only re-measures the residual), so the two
     # agree at CG tolerance.
+    start_i = 1
+    if restart_path and restart_freq and os.path.exists(restart_path):
+        with Phase(timings, "restart_load", dev):
+            u, vel, acc, states, start_i = _load_dyn_checkpoint(
+                restart_path, states, contact, dev)
     linear = (on_interval is None and contact is None
-              and _all_linear(programs)
+              and not restart_path and _all_linear(programs)
               and os.environ.get("FRONTISTR_TPU_IMPLICIT_SCAN", "1") != "0")
     t0 = time.perf_counter()
     if linear:
@@ -565,7 +615,7 @@ def _run_implicit(model: StructModel, log_path, on_interval=None):
             mon.record(i, t, u, vel, acc)
             clock.mark(i)
     else:
-        for i in range(1, d.n_step + 1):
+        for i in range(start_i, d.n_step + 1):
             t = dt * i
             vec1 = a1 * acc + a2 * vel
             vec2 = b1 * acc + b2 * vel
@@ -640,6 +690,10 @@ def _run_implicit(model: StructModel, log_path, on_interval=None):
             clock.mark(i)
             if on_interval is not None:
                 on_interval(i, t, *(v.cpu().numpy() for v in (u, vel, acc)))
+            if restart_path and restart_freq > 0 and i % restart_freq == 0:
+                with Phase(timings, "restart_save", dev):
+                    _save_dyn_checkpoint(restart_path, i, u, vel, acc,
+                                         states, contact)
     timings["block_ms"] = clock.block_ms()
     timings["steps"] = time.perf_counter() - t0
     return _finalize_dyn(model, states, u, vel, acc, d.n_step, log_path,

@@ -33,9 +33,10 @@ one dof a node (``assembly/extras.py``), their constants at factor 1
 (temperatures are totals).  METHOD=DIRECT assembles K + C/dt into CSR
 and factors it on the host at every fixed-point pass, as the
 conductances change with T (``solver/direct.py``); with !EQUATION it
-takes the eliminated CG, as in the JAX package.  What the JAX package
-also runs and the port does not yet (sharding, restart) raises
-``NotImplementedError`` naming itself.
+takes the eliminated CG, as in the JAX package.  !RESTART checkpoints a
+transient run (T, t and the step count) every FREQUENCY steps and
+resumes from it; a steady run ignores the card, as the JAX package's
+does.  Sharding raises ``NotImplementedError`` naming itself.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ from frontistr_tpu_torch.fem.isoparam import jacobians
 from frontistr_tpu_torch.fem.solid import table_tensor
 from frontistr_tpu_torch.io.ctrlio import AnalysisConfig, HeatConfig
 from frontistr_tpu_torch.io.meshio import Mesh
+from frontistr_tpu_torch.io.restart import load_restart, save_restart
 from frontistr_tpu_torch.solver import direct
 from frontistr_tpu_torch.solver.cg import pcg
 
@@ -546,8 +548,6 @@ def _check_request(model: HeatModel) -> None:
     cfg = model.cfg
     if os.environ.get("FRONTISTR_TPU_SHARDS", "") not in ("", "0"):
         raise NotImplementedError("sharded heat (FRONTISTR_TPU_SHARDS)")
-    if cfg.restart is not None:
-        raise NotImplementedError("!RESTART in heat analysis")
     if cfg.contacts:
         # the JAX package's heat analysis never reads the card
         raise NotImplementedError("!CONTACT in HEAT")
@@ -689,13 +689,21 @@ class _HeatSolver:
 
 def run_heat(mesh: Mesh, cfg: AnalysisConfig,
              log_path: Optional[str] = None, on_interval=None,
-             device="cuda", timings: Optional[dict] = None) -> HeatResult:
+             device="cuda", timings: Optional[dict] = None,
+             restart_path: Optional[str] = None,
+             restart_freq: int = 0) -> HeatResult:
     """Steady or transient heat of ``mesh`` under the deck ``cfg`` on
     ``device`` (default the card; without one, an error).
     ``on_interval(step, t, T)`` (T the device tensor) fires after every
     committed step; the runner writes the per-interval result files with
     it (heat_solve_TRAN.f90:268-270).  ``timings`` gathers the seconds of
-    the phases "model", "elements", "solve" and "log"."""
+    the phases "model", "elements", "solve", "log", "restart_load" and
+    "restart_save".
+    ``restart_path`` (the !RESTART card, transient runs only): when the
+    file exists the run resumes from its T, t and step count (backward
+    Euler has no other history); with ``restart_freq`` > 0 it is written
+    every ``restart_freq`` steps (heat_solve_TRAN.f90's restart
+    block)."""
     timings = {} if timings is None else timings
     dev = resolve(device)
     with Phase(timings, "model", dev):
@@ -756,6 +764,13 @@ def run_heat(mesh: Mesh, cfg: AnalysisConfig,
     else:
         dt, t_total = h.fixed_dt, h.total_time
         t, steps = 0.0, 0
+        if restart_path and os.path.exists(restart_path):
+            with Phase(timings, "restart_load", dev):
+                rd = load_restart(restart_path)
+                T = torch.as_tensor(np.asarray(rd["T"]), dtype=F64,
+                                    device=dev)
+                t, steps = float(rd["t"]), int(rd["steps"])
+            print(f"### heat restart: resuming at step {steps}, t={t:g}")
         while t < t_total - 1e-12:
             dt_cur = min(dt, t_total - t)
             f_weld = weld_flux(model, t + 0.5 * dt_cur)
@@ -765,6 +780,11 @@ def run_heat(mesh: Mesh, cfg: AnalysisConfig,
             t += dt_cur
             steps += 1
             times.append(t)
+            if restart_path and restart_freq > 0 and \
+                    steps % restart_freq == 0:
+                with Phase(timings, "restart_save", dev):
+                    save_restart(restart_path, {"T": T.cpu().numpy(),
+                                                "t": t, "steps": steps})
             log_step(steps, t, extrema(T))
             if on_interval is not None:
                 on_interval(steps, t, T)

@@ -40,9 +40,12 @@ iterative elimination, as in the JAX package); node-to-surface contact
 (``ContactState``: a search every Newton iteration, the SLAGRANGE,
 augmented-Lagrange with Coulomb friction, saddle-point and DIRECT arms
 of ``analysis/contact.py``, the outer loop of contact passes with the
-SLAGRANGE active-set scan or the AL update).  Anything else the JAX
-driver handles (restart, sharding) raises ``NotImplementedError``
-naming itself.  The JAX package's jit-argument
+SLAGRANGE active-set scan or the AL update); !RESTART checkpoints and
+resumes (``save_checkpoint``/``load_checkpoint``: the ``.npz`` or the
+reference's blob stream; refused with !CONTACT, ROADMAP queue 3, fault
+8); PRECOND=10-12, 20, 21 precondition the CG
+with multicolor block SSOR (``solver/ssor.py``).  Sharding raises
+``NotImplementedError`` naming itself.  The JAX package's jit-argument
 carry (a TPU remote-compile workaround) has no counterpart: PyTorch runs
 eagerly.
 """
@@ -79,6 +82,9 @@ from frontistr_tpu_torch.fem.plastic import (PlasticParams, plastic_tangent,
 from frontistr_tpu_torch.fem.visco import (creep_return, creep_tangent,
                                            trs_shift, visco_D, visco_update)
 from frontistr_tpu_torch.io import logio
+from frontistr_tpu_torch.io.hecmw_restart import (export_solid_state,
+                                                  import_solid_state)
+from frontistr_tpu_torch.io.restart import load_restart, save_restart
 from frontistr_tpu_torch.io.stafile import sta_final, sta_init, sta_status
 from frontistr_tpu_torch.post import nodal as postnodal
 from frontistr_tpu_torch.solver import direct as direct_mod
@@ -92,7 +98,7 @@ MATERIALS = (mat.ELASTIC, mat.EPLASTIC, mat.VISCOELASTIC, mat.CREEP,
              mat.USERMATERIAL) + HYPER
 
 
-def init_block_state(block, table, device="cpu") -> dict:
+def init_block_state(block, table, device) -> dict:
     """Zero gauss state of a solid block (the JAX package's keys: the
     strains and stresses, the plastic state, ``fstat`` of a user
     material, the Prony terms ``vq``/``vq_new`` and the committed
@@ -548,16 +554,15 @@ def _qf_totallag(table, S, gderiv, det, dudx, stress, thick=1.0):
 # ---------------- the linear solve of each Newton iteration ---------------
 
 def _precond_policy(sv) -> Optional[str]:
-    """The JAX package's preconditioner choice: FRONTISTR_TPU_PRECOND,
-    else the .cnt PRECOND id (3: block-Jacobi; 10-12, 20, 21: block-SSOR,
-    not in the port; others: AMG when the deck is large enough)."""
-    pol = os.environ.get("FRONTISTR_TPU_PRECOND") or \
+    """The JAX package's preconditioner choice
+    (``frontistr_tpu/analysis/nonlinear.py:1036-1043``):
+    FRONTISTR_TPU_PRECOND, else the .cnt PRECOND id (3: block-Jacobi;
+    10-12, 20, 21, the reference's BILU, SAINV and RIF: multicolor
+    block-SSOR, ``solver/ssor.py``; others, and ``cheby`` here: AMG when
+    the deck is large enough)."""
+    return os.environ.get("FRONTISTR_TPU_PRECOND") or \
         {3: "jacobi", 10: "ssor", 11: "ssor", 12: "ssor", 20: "ssor",
          21: "ssor"}.get(getattr(sv, "precond", 1))
-    if pol in ("ssor", "cheby"):
-        raise NotImplementedError(f"{pol} preconditioner in the Newton "
-                                  "driver")
-    return pol
 
 
 def make_constrained_solver(model: StructModel, free: torch.Tensor,
@@ -950,21 +955,84 @@ class NewtonStats:
     contact: List[dict] = dataclasses.field(default_factory=list)
 
 
-def _check_request(model: StructModel) -> None:
+def _check_request(model: StructModel, restart_path=None) -> None:
     if os.environ.get("FRONTISTR_TPU_SHARDS", "") not in ("", "0"):
         raise NotImplementedError("sharded Newton (FRONTISTR_TPU_SHARDS)")
-    cfg = model.cfg
-    if cfg.restart is not None:
-        raise NotImplementedError("!RESTART in the Newton driver")
+    if restart_path and model.mesh.contact_pairs and model.cfg.contacts:
+        # the JAX package's static checkpoint holds no contact state, so
+        # its resumed ALAGRANGE run leaves the uninterrupted one (ROADMAP,
+        # queue 3, fault 8)
+        raise NotImplementedError("!RESTART with !CONTACT in the Newton "
+                                  "driver")
+
+
+def host_states(states) -> List[dict]:
+    """The gauss states as dicts of host numpy arrays (a checkpoint's
+    payload)."""
+    return [{k: v.cpu().numpy() for k, v in s.items()} for s in states]
+
+
+def device_states(host, like, device) -> List[dict]:
+    """Host gauss states back on ``device``, each array in the dtype of
+    the same key of ``like`` (the zero states; a key ``like`` lacks keeps
+    its own dtype)."""
+    return [{k: torch.as_tensor(np.asarray(v), device=device,
+                                dtype=ref[k].dtype if k in ref else None)
+             for k, v in h.items()} for h, ref in zip(host, like)]
+
+
+def load_checkpoint(path: str, states, blocks, device):
+    """A checkpoint of the Newton driver: the ``.npz`` (a file starting
+    with ``PK``) or the reference's blob stream (``io/hecmw_restart.py``;
+    a file the reference binary wrote resumes here).  Returns (u as a
+    host array, t, step count, states on ``device``), as
+    ``frontistr_tpu/analysis/nonlinear.py:1756-1776`` reads it."""
+    with open(path, "rb") as fh:
+        magic = fh.read(2)
+    if magic == b"PK":
+        rz = load_restart(path)
+        u, t, sc, st = rz["u"], rz["t"], rz["step_count"], rz["states"]
+    else:
+        u, t, sc, st = import_solid_state(path, host_states(states), blocks)
+    return (np.asarray(u, np.float64), float(np.asarray(t)),
+            int(np.asarray(sc)), device_states(st, states, device))
+
+
+def save_checkpoint(path: str, u, t: float, dt: float, step_count: int,
+                    states, blocks, Q=None) -> None:
+    """The committed state every ``restart_freq`` substeps
+    (fstr_write_restart cadence, fstr_solve_NLGEOM.f90:204-207): u, t,
+    the step count and the gauss states in the ``.npz``, or with
+    FRONTISTR_TPU_RESTART_FORMAT=hecmw the reference's blob stream (u,
+    QFORCE, strain and stress by gauss point, the plastic strain and
+    yield flag as its status arrays)."""
+    hs = host_states(states)
+    un = u.cpu().numpy()
+    if os.environ.get("FRONTISTR_TPU_RESTART_FORMAT", "").lower() == "hecmw":
+        export_solid_state(path, un, np.zeros_like(un) if Q is None
+                           else Q.cpu().numpy(), hs, blocks,
+                           step_count=step_count, ctime=t, dtime=dt,
+                           steptime=t)
+    else:
+        save_restart(path, dict(u=un, t=np.asarray(t),
+                                step_count=np.asarray(step_count),
+                                states=hs))
 
 
 def run_nonlinear_static(model: StructModel, log_path: Optional[str] = None,
-                         timings: Optional[dict] = None) -> StaticResult:
+                         timings: Optional[dict] = None,
+                         restart_path: Optional[str] = None,
+                         restart_freq: int = 0) -> StaticResult:
     """Substep / Newton driver on ``model.device``.  Returns the final
     ``StaticResult``; ``result.newton`` holds the ``NewtonStats``,
     ``result.iters`` the total Newton iterations.  With ``log_path`` it
-    writes the 0.log block of every substep and FSTR.sta beside it."""
-    _check_request(model)
+    writes the 0.log block of every substep and FSTR.sta beside it.
+    ``restart_path`` (the !RESTART card): when the file exists the run
+    resumes from it (the first step's time and the step count restored);
+    with ``restart_freq`` > 0 a checkpoint is written there every
+    ``restart_freq`` committed substeps (phases ``restart_load`` and
+    ``restart_save``)."""
+    _check_request(model, restart_path)
     timings = {} if timings is None else timings
     cfg = model.cfg
     ndof = model.ndof
@@ -996,6 +1064,13 @@ def run_nonlinear_static(model: StructModel, log_path: Optional[str] = None,
     step_count = 0
     result = None
     Q_last = None
+    resume = None
+    if restart_path and os.path.exists(restart_path):
+        with Phase(timings, "restart_load", dev):
+            u0, t0, sc0, states = load_checkpoint(restart_path, states,
+                                                  model.blocks, dev)
+            u = tensor(u0)
+            resume = (t0, sc0)
 
     multi = len(cfg.steps) > 1
     f_held = None
@@ -1029,6 +1104,8 @@ def run_nonlinear_static(model: StructModel, log_path: Optional[str] = None,
         ainc_stat = 0
         tpoints = _time_points(cfg, step)
         t = 0.0
+        if resume is not None and cstep == 1:
+            t, step_count = resume
         sub = 0
         cb_count = 0
         while t < t_end - 1e-12:
@@ -1092,6 +1169,11 @@ def run_nonlinear_static(model: StructModel, log_path: Optional[str] = None,
             states = [_commit_state(s) for s in new_states]
             stats.substeps += 1
             step_count += 1
+            if restart_path and restart_freq > 0 and \
+                    step_count % restart_freq == 0:
+                with Phase(timings, "restart_save", dev):
+                    save_checkpoint(restart_path, u, t, dt, step_count,
+                                    states, model.blocks, Q_last)
             if log_path is not None:
                 with Phase(timings, "post", dev):
                     result = _postprocess(model, states, u, Q=Q_last)

@@ -3,30 +3,39 @@ arm of ``frontistr_tpu/analysis/static.py``).
 
 assemble -> apply BC -> Krylov solve -> stress recovery
 (fstr_static_analysis, fistr1/src/main/fistr_main.f90:288, one linear
-step).  Two solve arms, chosen as the JAX package chooses them:
+step).  The solve arms, chosen in the JAX package's order
+(``static.py:284-360`` there):
 
+- FRONTISTR_TPU_PRECOND=cheby (without !EQUATION): the deck's Krylov
+  method on the matrix-free operator with the Chebyshev polynomial of
+  the block-Jacobi-preconditioned operator (``solver/cheby.py``);
 - a structured hex8 box (``mesh.structured`` set, as ``meshgen.box_hex8``
   sets it; one solid 361 block) takes the stencil operator
   (``assembly/structured.py``, element products through kernel K2),
-  block-Jacobi preconditioned;
-- any other mesh takes the cluster-ELL path: the cluster operator
+  block-Jacobi preconditioned, whatever the method;
+- CG on any other mesh takes the cluster-ELL path: the cluster operator
   assembled through the K1 segment-sum kernel, AMG-preconditioned
-  (block-Jacobi below FRONTISTR_TPU_AMG_MIN dofs).
+  (block-Jacobi below FRONTISTR_TPU_AMG_MIN dofs);
+- BiCGSTAB, GMRES or GPBiCG (``!SOLVER, METHOD=`` or the ids 2-4) on
+  any other mesh take the scalar block-ELL operator (``ell.from_model``,
+  its blocks summed by K1 at the ELL profile's plan) with block-Jacobi.
 
-A deck with !EQUATION takes neither: the JAX package eliminates the
-dependent dofs on the matrix-free operator, T^T K T, and solves with a
-float64 block-Jacobi CG (``assembly/extras.py``).  METHOD=DIRECT (and
-DIRECTMKL, MUMPS, MKL) factors the assembled system on the host
-(``solver/direct.py``); DUMPTYPE writes the assembled matrix
-(``solver/dump.py``) and ESTCOND prints a Lanczos estimate of the
-block-Jacobi-preconditioned operator's condition number
+A deck with !EQUATION takes none of the operator arms: the JAX package
+eliminates the dependent dofs on the matrix-free operator, T^T K T, and
+solves with the deck's method and a float64 block-Jacobi preconditioner
+(``assembly/extras.py``; restricted to the reduced space, ROADMAP queue
+3, fault 5).  METHOD=DIRECT (and DIRECTMKL, MUMPS, MKL) factors the
+assembled system on the host (``solver/direct.py``); DUMPTYPE writes the
+assembled matrix (``solver/dump.py``) and ESTCOND prints a Lanczos
+estimate of the block-Jacobi-preconditioned operator's condition number
 (``solver/cond.py``).
 
-The iterative arms run in the "mixed" policy (f32 CG + f64 refinement on the f64
+CG runs in the "mixed" policy (f32 CG + f64 refinement on the f64
 operator, the default of linear STATIC on CUDA; the cluster arm's f64
 operator is the matrix-free ``FEOperator``) or the "f64" policy (a plain
-f64 CG, the default on the CPU and of NLSTATIC).  Under a !TEMPERATURE
-field the stress recovery subtracts the thermal strains.
+f64 CG, the default on the CPU and of NLSTATIC); every other method and
+the numeric id 1 run in float64.  Under a !TEMPERATURE field the stress
+recovery subtracts the thermal strains.
 """
 
 from __future__ import annotations
@@ -50,7 +59,10 @@ from frontistr_tpu_torch.fem import solid
 from frontistr_tpu_torch.post import nodal as postnodal
 from frontistr_tpu_torch.solver import amg as amgmod
 from frontistr_tpu_torch.solver import direct
-from frontistr_tpu_torch.solver.cg import pcg
+from frontistr_tpu_torch.solver import cg as krylov
+from frontistr_tpu_torch.solver import ssor
+from frontistr_tpu_torch.solver.cheby import (chebyshev_precond,
+                                              estimate_lmax)
 from frontistr_tpu_torch.solver.cond import estimate_condition
 from frontistr_tpu_torch.solver.dump import dump_operator
 from frontistr_tpu_torch.solver.mixed import refined_cg
@@ -136,11 +148,13 @@ def print_timelog(t_setup: float, t_solve: float) -> None:
 
 
 def check_solver(sv) -> str:
+    """The deck's method, upper case: a Krylov method of
+    ``cg.SOLVERS`` or a direct one.  Any other name the deck reader
+    passes (GMRESR, GMRESREN) raises by name: the JAX package's
+    ``solve`` has no such method."""
     method = sv.method.upper()
-    if method not in ("CG", "1") + direct.METHODS:
+    if method not in tuple(krylov.SOLVERS) + direct.METHODS:
         raise NotImplementedError(f"!SOLVER METHOD={sv.method}")
-    if os.environ.get("FRONTISTR_TPU_PRECOND", "") == "cheby":
-        raise NotImplementedError("FRONTISTR_TPU_PRECOND=cheby")
     return method
 
 
@@ -171,7 +185,8 @@ def _stencil_operators(model: StructModel, kes, free_mask, mixed: bool,
 class ClusterSetup:
     """The cluster-ELL arm's symbolic part, built once per analysis."""
     prof: ell.ELLProfile                # scalar ELL profile
-    amaps: Optional[amgmod.AMGMaps]     # None: block-Jacobi
+    amaps: object                       # AMGMaps, SSORMaps or None
+    #   (None: block-Jacobi)
     cprof: bell.ClusterProfile
     cols: torch.Tensor                  # (N, W) int64 scalar ELL columns
     coords: torch.Tensor                # (N, dim) float64
@@ -179,12 +194,16 @@ class ClusterSetup:
 
 def cluster_setup(model: StructModel, timings: dict,
                   policy: Optional[str] = None) -> ClusterSetup:
-    """Profiles and AMG maps of the model's mesh (``policy`` as in
-    ``amg.eligible_maps``)."""
+    """Profiles and preconditioner maps of the model's mesh: the SSOR
+    color maps when ``policy`` is ``ssor``, else the AMG maps as
+    ``amg.eligible_maps`` grants them (``policy`` None reads
+    FRONTISTR_TPU_PRECOND, where ``ssor`` means block-Jacobi, as in the
+    JAX package's linear STATIC)."""
     dev = model.device
     with Phase(timings, "profile", dev):
         prof = ell.profile_from_model(model)
-        amaps = amgmod.eligible_maps(prof, model.n_dof_total, policy=policy)
+        amaps = ssor.eligible_maps(prof, policy) or \
+            amgmod.eligible_maps(prof, model.n_dof_total, policy=policy)
         cprof = bell.cluster_profile_from_model(model, scalar=prof)
         cols = torch.as_tensor(prof.cols, dtype=torch.int64, device=dev)
         coords = torch.as_tensor(model.coords, device=dev)
@@ -194,8 +213,9 @@ def cluster_setup(model: StructModel, timings: dict,
 def cluster_operator(setup: ClusterSetup, model: StructModel, kes,
                      free_mask: torch.Tensor, dtype, timings: dict):
     """One numeric pass: the element matrices assembled in ``dtype``
-    through K1, then the preconditioner.  Returns (constrained cluster
-    operator, preconditioner)."""
+    through K1, then the preconditioner (block-Jacobi, multicolor SSOR
+    or the AMG V-cycle).  Returns (constrained cluster operator,
+    preconditioner)."""
     dev = model.device
     with Phase(timings, "assembly", dev):
         want = setup.amaps is not None
@@ -206,6 +226,9 @@ def cluster_operator(setup: ClusterSetup, model: StructModel, kes,
     with Phase(timings, "amg_setup", dev):
         if not want:
             M = cop.block_jacobi()
+        elif isinstance(setup.amaps, ssor.SSORMaps):
+            M = ssor.setup_ssor(setup.amaps, sb, setup.cols, cop.diag,
+                                cop.free_mask, model.ndof)
         else:
             M = amgmod.setup_amg(setup.amaps, sb, setup.cols,
                                  setup.coords.to(dtype), cop.free_mask,
@@ -247,17 +270,29 @@ def solve_linear(model: StructModel, kes,
         return LinearSolve(x, 1, 0.0, 0, "direct", op)
     hl = 2000 if sv.iterlog else 0
     policy = solve_policy(dev)
-    mixed = policy == "mixed" and method == "CG" and mpc is None
-    if mpc is not None:
+    cheby = os.environ.get("FRONTISTR_TPU_PRECOND", "") == "cheby" and \
+        mpc is None
+    mixed = policy == "mixed" and method == "CG" and mpc is None and \
+        not cheby
+    if cheby:
+        # the polynomial preconditioner on the matrix-free operator
+        A = A64 = op.apply_constrained
+        with Phase(timings, "precond_setup", dev):
+            Mj = op.block_jacobi()
+            M = chebyshev_precond(A, Mj, estimate_lmax(A, Mj, n, dev))
+    elif mpc is not None:
         A, A64, M = A_mpc, None, extras.mpc_precond(mpc, op.block_jacobi())
     elif is_structured(model):
         A64, A, M = _stencil_operators(model, kes, op.free_mask, mixed,
                                        timings)
-    else:
+    elif method in ("CG", "1"):
         A, M = cluster_operator(cluster_setup(model, timings), model, kes,
                                 op.free_mask,
                                 torch.float32 if mixed else torch.float64,
                                 timings)
+        A64 = op.apply_constrained
+    else:
+        A, M = ell_operator(model, kes, timings)
         A64 = op.apply_constrained
     t1 = time.perf_counter()
     with Phase(timings, "solve", dev):
@@ -266,8 +301,10 @@ def solve_linear(model: StructModel, kes,
                              maxiter=sv.nier, hist_len=hl)
             passes = res.passes
         else:
-            res = pcg(A, b_c, M=M, tol=sv.resid, maxiter=sv.nier,
-                      hist_len=hl)
+            # the JAX package keeps no ITERLOG history on the Chebyshev
+            # arm
+            res = krylov.solve(method, A, b_c, M=M, tol=sv.resid,
+                               maxiter=sv.nier, hist_len=0 if cheby else hl)
             passes = 0
         x = res.x if mpc is None else extras.mpc_recover(mpc, res.x, 1.0)
         x = x.cpu().numpy()
@@ -284,6 +321,20 @@ def solve_linear(model: StructModel, kes,
         print(f"### Condition number estimate (precond K): {cond:.4e}")
     return LinearSolve(x, int(res.iters), float(res.relres), passes,
                        "mixed" if mixed else "f64", op)
+
+
+def ell_operator(model: StructModel, kes, timings: dict):
+    """The scalar block-ELL arm of a non-CG method: the float64 blocks
+    summed by K1 at the ELL profile's plan (``ell.from_model``), then
+    block-Jacobi.  Returns (constrained ELL operator, preconditioner)."""
+    dev = model.device
+    with Phase(timings, "profile", dev):
+        prof = ell.profile_from_model(model)
+    with Phase(timings, "assembly", dev):
+        eop = ell.from_model(model, kes, dtype=torch.float64, profile=prof)
+    with Phase(timings, "amg_setup", dev):
+        M = eop.block_jacobi()
+    return eop.apply_constrained, M
 
 
 def dump_matrix(model: StructModel, kes, dumptype: str) -> str:

@@ -6,8 +6,11 @@ The profile is the symbolic assembly of the node graph (the role of
 hecmw_mat_con, hecmw1/src/solver/matrix/hecmw_mat_con.f90): padded ELL
 columns per node, and the permutation that sorts every element pair
 entry by its destination slot.  It is host numpy and bit-equal to the
-JAX package's.  On this slice it feeds the cluster profile's scalar-slot
-map and the AMG aggregation maps.
+JAX package's.  It feeds the cluster profile's scalar-slot map, the AMG
+aggregation maps and the SSOR coloring, and it is the plan of the
+scalar block-ELL operator ``ELLOperator`` (``from_model``), whose
+blocks K1 assembles: the operator of linear STATIC's BiCGSTAB, GMRES
+and GPBiCG on an unstructured mesh.
 """
 
 from __future__ import annotations
@@ -17,8 +20,11 @@ import hashlib
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
+from frontistr_tpu_torch.assembly import operators as old_ops
 from frontistr_tpu_torch.assembly import profsort
+from frontistr_tpu_torch.assembly.extras import extra_tensors
 from frontistr_tpu_torch.assembly import segsum as segmod
 
 
@@ -116,3 +122,97 @@ def profile_from_model(model, n_node: Optional[int] = None) -> ELLProfile:
         _PROFILE_CACHE.clear()
         _PROFILE_CACHE[key] = prof
     return prof
+
+
+@dataclasses.dataclass
+class ELLOperator:
+    """Constrained global stiffness operator over assembled scalar-ELL
+    blocks (the JAX package's ``ELLOperator``): ``matvec``,
+    ``apply_constrained``, ``constrained_rhs``, ``diag_blocks``,
+    ``block_jacobi`` and ``astype``.  The blocks are kept as rows,
+    ``rows[n, i, w*nd + j] = K[n, cols[n, w]][i, j]``, so a product is
+    one gather of x by ``cols`` and one batched (nd, W*nd) x (W*nd, 1)
+    product; ``blocks`` is the JAX package's (N, W, nd, nd) view."""
+    rows: torch.Tensor           # (N, nd, W*nd)
+    cols: torch.Tensor           # (N, W) int64
+    diag_slot: torch.Tensor      # (N,) int64
+    n_node: int
+    ndof: int
+    free_mask: torch.Tensor      # (N*nd,) 1.0 free / 0.0 fixed
+
+    @property
+    def n_dof(self) -> int:
+        return self.n_node * self.ndof
+
+    @property
+    def blocks(self) -> torch.Tensor:
+        N, nd = self.n_node, self.ndof
+        return self.rows.reshape(N, nd, -1, nd).permute(0, 2, 1, 3)
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        N, nd = self.n_node, self.ndof
+        xg = x.reshape(N, nd)[self.cols].reshape(N, -1, 1)
+        return torch.bmm(self.rows, xg).reshape(-1)
+
+    def apply_constrained(self, x: torch.Tensor) -> torch.Tensor:
+        xm = x * self.free_mask
+        y = self.matvec(xm)
+        return y * self.free_mask + x * (1.0 - self.free_mask)
+
+    def constrained_rhs(self, f: torch.Tensor, u_fix: torch.Tensor):
+        y = self.matvec(u_fix)
+        return (f - y) * self.free_mask + u_fix * (1.0 - self.free_mask)
+
+    def diag_blocks(self) -> torch.Tensor:
+        n = torch.arange(self.n_node, device=self.cols.device)
+        return self.blocks[n, self.diag_slot]         # (N, nd, nd)
+
+    def block_jacobi(self):
+        """DIAG preconditioner: the nodal diagonal blocks restricted to
+        the free dofs, a unit diagonal where an entry is 0 (fixed and
+        unused dofs), inverted in float64 (``torch.linalg.inv``; the JAX
+        package's closed forms are a TPU workaround).  Returns
+        ``apply(r)``."""
+        N, nd = self.n_node, self.ndof
+        fm = self.free_mask.reshape(N, nd)
+        D = self.diag_blocks() * (fm[:, :, None] * fm[:, None, :])
+        ar = torch.arange(nd, device=D.device)
+        dd = D[:, ar, ar]
+        D[:, ar, ar] = dd + (dd == 0.0).to(D.dtype)
+        Dinv = torch.linalg.inv(D.to(torch.float64)).to(D.dtype)
+
+        def apply(r):
+            return torch.bmm(Dinv, r.reshape(N, nd, 1)).reshape(-1)
+
+        return apply
+
+    def astype(self, dtype) -> "ELLOperator":
+        return dataclasses.replace(self, rows=self.rows.to(dtype),
+                                   free_mask=self.free_mask.to(dtype))
+
+
+def from_model(model, kes, dtype=None,
+               profile: Optional[ELLProfile] = None) -> ELLOperator:
+    """Assemble the ELL operator of a StructModel from its element
+    matrices (on their device), the model's spring blocks appended: K1
+    (``segsum.segsum``) at the profile's plan sums the nd*nd slot planes
+    of N*W slots, on the CPU its plain version."""
+    if profile is None:
+        profile = profile_from_model(model)
+    dev = kes[0].device
+    kes = list(kes) + extra_tensors(model, dev, kes[0].dtype)[0]
+    if dtype is not None:
+        kes = [k.to(dtype) for k in kes]
+    nns = [c.shape[1] for c in model_conns(model)]
+    nd, N, W = model.ndof, profile.n_node, profile.W
+    raw = segmod.segsum(profile.plan(dev), kes, nns, nd)
+    rows = raw.reshape(nd, nd, N, W).permute(2, 0, 3, 1).reshape(
+        N, nd, W * nd)
+    free = old_ops.make_free_mask(model.n_dof_total, model.fixed_dofs)
+    return ELLOperator(
+        rows=rows,
+        cols=torch.as_tensor(profile.cols, dtype=torch.int64, device=dev),
+        diag_slot=torch.as_tensor(profile.diag_slot, dtype=torch.int64,
+                                  device=dev),
+        n_node=model.n_node, ndof=nd,
+        free_mask=torch.as_tensor(free, dtype=raw.dtype, device=dev))

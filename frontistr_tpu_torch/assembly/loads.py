@@ -24,6 +24,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from frontistr_tpu_torch.assembly import segsum as segmod
 from frontistr_tpu_torch.elements.tables import get_table
 from frontistr_tpu_torch.fem.isoparam import (det_inv_small,
                                               strain_selector_2d,
@@ -279,8 +280,11 @@ class FollowerDload(torch.nn.Module):
     each body-force entry (BX/BY/BZ, GRAV, CENT) keeps its element type's
     tables.  A call is then one gather of the deformed face coordinates
     and one batched face integral (over gauss points and face nodes) per
-    face type, one gather and integral per body-force entry, and one
-    ``index_add_`` of every entry's nodal forces.  S/P0 rows without a
+    face type, one gather and integral per body-force entry, and one sum
+    of every entry's nodal forces per node in a fixed order
+    (``segsum.IndexAdd``, K1's planes entry on the card), so that a
+    relaunch, and a run resumed from a checkpoint, repeats the load bit
+    for bit (``index_add_``'s atomics on the card do not).  S/P0 rows without a
     surface group contribute nothing, as in ``collect_dload``.  The
     load's tangent is not added to the stiffness, as in the JAX
     package."""
@@ -292,6 +296,7 @@ class FollowerDload(torch.nn.Module):
             model.dim
         faces: Dict[int, list] = {}
         self.body = []
+        body_nodes = []
         for (bi, rows, face, ltype, params, _) in _dload_groups(
                 model.mesh, model, cards, grpid_filter):
             b = model.blocks[bi]
@@ -299,6 +304,7 @@ class FollowerDload(torch.nn.Module):
             if ltype >= 100:
                 continue
             if ltype < 10:
+                body_nodes.append(conn.reshape(-1))
                 self.body.append((_shape_tensors(b.etype, dev),
                                   torch.as_tensor(conn, dtype=torch.int64,
                                                   device=dev),
@@ -319,11 +325,19 @@ class FollowerDload(torch.nn.Module):
                 device=dev)))
         self.register_buffer("coords0", torch.as_tensor(
             np.asarray(model.coords, np.float64), device=dev))
+        # the nodes of every entry in the order ``forward`` lists them
+        nodes = [np.concatenate([c for c, _ in ents]).reshape(-1)
+                 for ents in faces.values()] + body_nodes
+        self.add = None
+        if nodes:
+            idx = (np.concatenate(nodes).astype(np.int64)[:, None]
+                   * self.ndof + np.arange(self.dim)).reshape(-1)
+            self.add = segmod.IndexAdd.build(idx, dev)
 
     def forward(self, u: torch.Tensor) -> torch.Tensor:
         dim = self.dim
         xd = self.coords0 + u.reshape(self.n_node, self.ndof)[:, :dim]
-        nodes, vals = [], []
+        vals = []
         for (dN, N, w), fnodes, pv in self.faces:
             fc = xd[fnodes]                              # (Ef, nsur, dim)
             g = torch.einsum("end,qnf->eqdf", fc, dN)    # (Ef, nq, dim, fd)
@@ -332,16 +346,14 @@ class FollowerDload(torch.nn.Module):
             else:                               # the edge's outer normal
                 normal = torch.stack([-g[..., 1, 0], g[..., 0, 0]], -1)
             out = torch.einsum("q,e,qn,eqd->end", w, pv, N, normal)
-            nodes.append(fnodes.reshape(-1))
-            vals.append(out.reshape(-1, dim))
+            vals.append(out.reshape(-1))
         for tabs, conn, ltype, params, rho, scale in self.body:
-            nodes.append(conn.reshape(-1))
             vals.append(_body_force_t(tabs, xd[conn], ltype, params,
-                                      rho, scale).reshape(-1, dim))
-        f = u.new_zeros((self.n_node, self.ndof))
-        if nodes:
-            f.index_add_(0, torch.cat(nodes), torch.cat(vals))
-        return f.reshape(-1)
+                                      rho, scale).reshape(-1))
+        f = u.new_zeros(self.n_node * self.ndof)
+        if self.add is None:
+            return f
+        return self.add(f, torch.cat(vals))
 
 
 def _shape_tensors(etype, device):

@@ -24,9 +24,15 @@ ACCELERATION and a heat run's TEMPERATURE every FREQUENCY steps (and at
 the last step); one file a mode for EIGEN.  FRONTISTR_TPU_USER_MODULE
 names a Python file that registers umat/uload hooks in
 ``frontistr_tpu_torch.user``; it is imported before the analysis.
-Everything else the JAX runner dispatches (u-p flow, visualization
-output, restart, sharding, profiling) raises ``NotImplementedError`` naming what was
-asked for.
+``!RESTART, FREQUENCY=n`` checkpoints the Newton driver (NLSTATIC and the
+STATIC decks it takes), implicit dynamics and transient heat every n
+substeps or steps into the ``hecmw_ctrl.dat`` !RESTART file (else
+``restart``) with ``.npz`` appended; n > 0 deletes an old checkpoint
+first, n < 0 resumes from it; the other analyses ignore the card, as the
+JAX runner does.  ``!ECHO`` prepends the mesh and deck dump to 0.log
+(``io/echo.py``).  Everything else the JAX runner dispatches (u-p flow,
+visualization output, sharding, profiling) raises
+``NotImplementedError`` naming what was asked for.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from frontistr_tpu_torch.assembly.model import build_struct_model
 from frontistr_tpu_torch.fem import material as mat
 from frontistr_tpu_torch.io import logio
 from frontistr_tpu_torch.io.ctrlio import read_cnt
+from frontistr_tpu_torch.io.echo import prepend_echo
 from frontistr_tpu_torch.io.hecmw_ctrl import read_hecmw_ctrl
 from frontistr_tpu_torch.io.meshio import read_mesh
 from frontistr_tpu_torch.io.resfile import (read_result_any, write_result,
@@ -70,11 +77,25 @@ def _check_request(ctrl, cfg) -> None:
     if sol not in ("STATIC", "NLSTATIC", "DYNAMIC", "HEAT", "EIGEN",
                    "STATICEIGEN"):
         raise NotImplementedError(f"solution type {sol}")
-    for flag, card in ((cfg.write_visual, "!WRITE, VISUAL"),
-                       (cfg.restart is not None, "!RESTART"),
-                       (cfg.echo, "!ECHO")):
-        if flag:
-            raise NotImplementedError(f"{card} card")
+    if cfg.write_visual:
+        raise NotImplementedError("!WRITE, VISUAL card")
+
+
+def _restart_kw(ctrl, cfg, workdir) -> dict:
+    """'!RESTART, FREQUENCY=n' (``frontistr_tpu/run.py:184-196``): the
+    checkpoint path, the ``hecmw_ctrl.dat`` !RESTART entry or
+    ``workdir/restart``, with ``.npz`` appended; n > 0 writes every n
+    (sub)steps from a fresh start (an old checkpoint is deleted), n < 0
+    resumes from the checkpoint and then writes every |n|."""
+    if cfg.restart is None:
+        return {}
+    freq = cfg.restart.iparam("FREQUENCY", 1)
+    rb = ctrl.restart()
+    path = (ctrl.path(rb) if rb is not None
+            else os.path.join(workdir, "restart")) + ".npz"
+    if freq > 0 and os.path.exists(path):
+        os.remove(path)
+    return dict(restart_path=path, restart_freq=abs(freq))
 
 
 def run_directory(workdir: str, log_name: str = "0.log",
@@ -88,7 +109,7 @@ def run_directory(workdir: str, log_name: str = "0.log",
     ``HeatResult``), "eigen" (an ``EigenResult``; STATICEIGEN has both
     "static" and "eigen") or "freq" (a ``FreqResult``); "_snapshots",
     the steps whose result file was written during a transient run;
-    "timings" (seconds by phase) and "total_time"."""
+    "timings" (seconds by phase), "log_path" and "total_time"."""
     dev = devmod.resolve(device)
     t_start = time.time()
     timings: dict = {}
@@ -112,10 +133,13 @@ def run_directory(workdir: str, log_name: str = "0.log",
         mesh = ordering.maybe_reorder(mesh)
     _read_temperature_result(ctrl, cfg, mesh)
     log_path = os.path.join(workdir, log_name)
-    out = {"mesh": mesh, "cfg": cfg, "ctrl": ctrl, "timings": timings}
+    out = {"mesh": mesh, "cfg": cfg, "ctrl": ctrl, "timings": timings,
+           "log_path": log_path}
+    rkw = _restart_kw(ctrl, cfg, workdir)
     if sol == "HEAT":
         return _finish(workdir, out, t_start, time.time(),
-                       **_run_heat(ctrl, cfg, mesh, log_path, dev, timings))
+                       **_run_heat(ctrl, cfg, mesh, log_path, dev, timings,
+                                   rkw))
     with devmod.Phase(timings, "model", dev):
         model = build_struct_model(mesh, cfg, device=dev)
     t_pre = time.time()
@@ -127,7 +151,7 @@ def run_directory(workdir: str, log_name: str = "0.log",
                                            log_path))
     if sol == "DYNAMIC":
         cb, written = _snapshot_cb(ctrl, cfg, _dynamic_result_writer, mesh)
-        dr = run_dynamic(model, log_path=log_path, on_interval=cb)
+        dr = run_dynamic(model, log_path=log_path, on_interval=cb, **rkw)
         dr.timings.update(timings)
         if cfg.write_result and ctrl.result() is not None and \
                 dr.steps not in written:
@@ -153,7 +177,7 @@ def run_directory(workdir: str, log_name: str = "0.log",
         # a contact deck takes the Newton driver's contact loop, its
         # material linear or not (the reference's fstr_Newton_contact*)
         res = run_nonlinear_static(model, log_path=log_path,
-                                   timings=timings)
+                                   timings=timings, **rkw)
     else:
         res = run_linear_static(model, timings)
         logio.write_static_log(
@@ -173,6 +197,10 @@ def run_directory(workdir: str, log_name: str = "0.log",
 
 
 def _finish(workdir, out, t_start, t_pre, **results) -> dict:
+    if out["cfg"].echo:
+        # !ECHO: the mesh and deck dump at the top of the log
+        # (static_echo.f90 / heat_echo.f90 write through ILOG at setup)
+        prepend_echo(out["log_path"], out["mesh"], out["cfg"])
     total = time.time() - t_start
     _write_msg(workdir, t_pre - t_start, total)
     out.update(results, total_time=total)
@@ -209,10 +237,10 @@ def _read_temperature_result(ctrl, cfg, mesh) -> None:
     cfg.temp_read_field = T
 
 
-def _run_heat(ctrl, cfg, mesh, log_path, dev, timings) -> dict:
+def _run_heat(ctrl, cfg, mesh, log_path, dev, timings, rkw) -> dict:
     cb, written = _snapshot_cb(ctrl, cfg, _heat_result_writer, mesh)
     hr = run_heat(mesh, cfg, log_path=log_path, on_interval=cb, device=dev,
-                  timings=timings)
+                  timings=timings, **rkw)
     if cfg.write_result and ctrl.result() is not None and \
             hr.steps not in written:
         # the final state, when the cadence did not write it

@@ -125,7 +125,9 @@ def test_contact_refusals_name_themselves(tmp_path, monkeypatch, case):
     """Contact where the port does not run it: explicit dynamics,
     EIGEN, STATICEIGEN's Lanczos and HEAT (the JAX package drops the
     card there: ROADMAP queue 3, fault 2), sharded contact and the
-    restart of a contact run (queue 1a)."""
+    restart of a static contact run (the JAX package's checkpoint drops
+    the contact state: queue 3, fault 8;
+    tests/test_torch_restart.py)."""
     from frontistr_tpu_torch.run import run_directory
     msg = "CONTACT"
     if case == "explicit":

@@ -90,6 +90,24 @@ def test_direct_nlstatic_with_equation_matches_jax(tmp_path, env):
     assert ot["static"].iters == int(oj["static"].iters) >= 2
 
 
+def test_direct_nlstatic_restart_matches_jax(tmp_path, env):
+    """METHOD=DIRECT under Newton with !RESTART, FREQUENCY=1 (formerly
+    refused): the answer and the Newton counts unchanged, a checkpoint a
+    substep, and each package's checkpoint read by the other."""
+    from frontistr_tpu.io.restart import load_restart as jload
+    from frontistr_tpu_torch.io.restart import load_restart
+    cnt = CNT.format(sol="NLSTATIC", load=-300.0, method="DIRECT").replace(
+        "!END\n", "!RESTART, FREQUENCY=1\n!END\n")
+    ot, oj, wd, wj = run_both(tmp_path, solid_box(342, 3, 2, 2), cnt)
+    _close(ot["static"].u, oj["static"].u)
+    assert ot["static"].iters == int(oj["static"].iters) >= 2
+    pt, pj = (os.path.join(d, "restart.npz") for d in (wd, wj))
+    a, b = load_restart(pj), jload(pt)
+    assert int(a["step_count"]) == int(b["step_count"]) == 2
+    _close(b["u"], a["u"])
+    assert sorted(a["states"][0]) == sorted(b["states"][0])
+
+
 def test_direct_static_with_equation_is_refused(tmp_path, env):
     """Linear STATIC with DIRECT and !EQUATION: the JAX package solves
     without the elimination and then overwrites the dependent dofs; its
@@ -238,7 +256,6 @@ def test_estcond_matches_jax(tmp_path, capsys):
 
 
 STILL_UNPORTED = {
-    "restart": ("!RESTART, FREQUENCY=1\n", "NLSTATIC", {}, "RESTART"),
     "embed": ("!EMBED, NAME=EM1\n X1, X0\n", "STATIC", {}, "EMBED"),
     "shell_731": ("", "STATIC", {}, "element type 731"),
     "band_dynamics": ("", "DYNAMIC", {"FRONTISTR_TPU_DIRECT": "band"},
@@ -251,7 +268,7 @@ STILL_UNPORTED = {
 @pytest.mark.parametrize("case", list(STILL_UNPORTED))
 def test_still_unported_raise_by_name(tmp_path, env, case):
     """What the port still lacks raises NotImplementedError naming it:
-    !RESTART, !EMBED (the JAX package warns and drops it), the shells
+    !EMBED (the JAX package warns and drops it), the shells
     (a 731 block), and the band factorisation of
     FRONTISTR_TPU_DIRECT=band."""
     extra, sol, envs, msg = STILL_UNPORTED[case]

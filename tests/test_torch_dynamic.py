@@ -300,6 +300,30 @@ def test_run_directory_matches_jax(tmp_path, env, case):
             assert _rel(a, b) <= float(bar)
 
 
+def test_implicit_restart_matches_jax(tmp_path, env):
+    """Implicit Newmark with !RESTART, FREQUENCY=2 (formerly refused):
+    both packages leave their step train for the Newton loop and write
+    a checkpoint every second step; the fields and the checkpoints
+    agree."""
+    from frontistr_tpu.io.restart import load_restart as jload
+    mesh = _mesh(361, perturb=False)
+    cnt = dyn_deck(eqa=1, n_step=4, dt=2e-6, loads="!CLOAD\n X1, 3, -1.0\n",
+                   resid="1.0e-10").replace(
+        "!END\n", "!RESTART, FREQUENCY=2\n!END\n")
+    wd = write_deck(tmp_path / "port", mesh, cnt)
+    wj = str(tmp_path / "jax")
+    shutil.copytree(wd, wj)
+    want = jrun.run_directory(wj)["dynamic"]
+    got = run_directory(wd, device="cpu")["dynamic"]
+    assert got.arm == "newton"
+    for a, b in ((got.u, want.u), (got.vel, want.vel),
+                 (got.acc, want.acc)):
+        assert _rel(a, np.asarray(b).reshape(a.shape)) <= 1e-8
+    ck = jload(os.path.join(wd, "restart.npz"))
+    assert int(ck["i"]) == 4
+    assert _rel(ck["u"], np.asarray(want.u).reshape(-1)) <= 1e-8
+
+
 # ---------------- physics (tests/test_rate_bc.py on the port) -----------
 
 def _run_port(tmp_path, cnt, mesh=None):
@@ -394,7 +418,6 @@ UNPORTED = {
                     "FRONTISTR_TPU_DIRECT=band"),
     "shards": ({}, "", {"FRONTISTR_TPU_SHARDS": "2"}, None,
                "FRONTISTR_TPU_SHARDS"),
-    "restart": ({}, "!RESTART, FREQUENCY=2\n", {}, None, "RESTART"),
     "coupler": ({}, "", {"FRONTISTR_TPU_COUPLE_DIR": "cpl"}, None,
                 "FRONTISTR_TPU_COUPLE_DIR"),
     "write_visual": ({}, "!WRITE, VISUAL\n", {}, None, "VISUAL"),

@@ -193,6 +193,33 @@ def test_run_heat_matches_jax(tmp_path, kind, transient, weld):
                                    atol=1e-8 * np.abs(va).max())
 
 
+def test_transient_restart_matches_jax(tmp_path):
+    """A transient deck with !RESTART, FREQUENCY=2 (formerly refused):
+    T, the counts and the 0.log as the JAX package's, and the last
+    checkpoint's T, t and step count."""
+    from frontistr_tpu.io.restart import load_restart as jload
+    mesh = heat_mesh("hex8")
+    cnt = heat_deck(mesh).replace("!END", "!RESTART, FREQUENCY=2\n!END")
+    wd = write_heat_deck(tmp_path / "port", mesh, cnt)
+    wj = str(tmp_path / "jax")
+    shutil.copytree(wd, wj)
+    oj = jrun.run_directory(wj)
+    ot = run_directory(wd, device="cpu")
+    hj, ht = oj["heat"], ot["heat"]
+    assert (ht.steps, ht.iters) == (hj.steps, hj.iters) and ht.steps >= 2
+    Tj = _by_id(oj, hj.T)
+    np.testing.assert_allclose(_by_id(ot, ht.T), Tj, rtol=0,
+                               atol=1e-8 * np.abs(Tj).max())
+    with open(os.path.join(wj, "0.log")) as fj, \
+            open(os.path.join(wd, "0.log")) as ft:
+        assert ft.read().splitlines() == fj.read().splitlines()
+    a, b = (jload(os.path.join(d, "restart.npz")) for d in (wd, wj))
+    assert int(a["steps"]) == int(b["steps"]) == ht.steps - ht.steps % 2
+    assert abs(float(a["t"]) - float(b["t"])) <= 1e-12 * float(b["t"])
+    np.testing.assert_allclose(np.sort(a["T"]), np.sort(b["T"]), rtol=0,
+                               atol=1e-8 * np.abs(b["T"]).max())
+
+
 STATIC_READ = ("!VERSION\n 3\n!SOLUTION, TYPE=STATIC\n!BOUNDARY\n"
                " X0, 1, 3, 0.0\n!TEMPERATURE, READRESULT=1, SSTEP=1\n"
                "!REFTEMP\n 20.0\n!MATERIAL, NAME=M1\n!ELASTIC\n"
@@ -232,8 +259,6 @@ UNPORTED = {
     # name: (deck edit, env, mesh edit, message)
     "shards": (None, {"FRONTISTR_TPU_SHARDS": "2"}, None,
                "FRONTISTR_TPU_SHARDS"),
-    "restart": (lambda c: c.replace("!END", "!RESTART, FREQUENCY=2\n!END"),
-                {}, None, "RESTART"),
     "write_visual": (lambda c: c.replace("!END", "!WRITE, VISUAL\n!END"),
                      {}, None, "VISUAL"),
 }

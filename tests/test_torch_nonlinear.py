@@ -16,7 +16,9 @@ dofs), on the CPU.
 - Two substeps, and a MAXITER that forces cutbacks.
 - A substep started from a state the JAX package committed, carried over
   by ``convert.states_from_numpy``.
-- The refusals of what the slice does not carry.
+- The requests the driver used to refuse, held to the JAX package
+  (METHOD=GMRES, SSOR, !RESTART among them), and the refusal of what
+  it does not carry (sharding).
 
 The node numbering is shuffled and FRONTISTR_TPU_REORDER=1 forces the
 RCM reorder, as on the bench deck.
@@ -164,7 +166,8 @@ def test_qforce_matches_jax(tmp_path):
     jp = [jnl.BlockPrograms(jm, b) for b in jm.blocks]
     pp = [nl.BlockPrograms(pm, b) for b in pm.blocks]
     jst = [jnl.init_block_state(b, p.table) for b, p in zip(jm.blocks, jp)]
-    pst = [nl.init_block_state(b, p.table) for b, p in zip(pm.blocks, pp)]
+    pst = [nl.init_block_state(b, p.table, "cpu")
+           for b, p in zip(pm.blocks, pp)]
     rng = np.random.default_rng(4)
     n = jm.n_dof_total
     u, du = 0.01 * rng.standard_normal(n), 0.005 * rng.standard_normal(n)
@@ -323,36 +326,41 @@ def test_states_from_numpy_types():
 
 # ---------------- refusals --------------------------------------------------
 
-@pytest.mark.parametrize("what", ["gmres", "ssor", "shards", "restart"])
+@pytest.mark.parametrize("what", ["shards"])
 def test_unported_requests_raise(tmp_path, env, what):
-    cnt = _cnt()
-    mesh = None
-    if what == "gmres":
-        cnt = cnt.replace("METHOD=CG", "METHOD=GMRES")
-    elif what == "ssor":
-        env.setenv("FRONTISTR_TPU_PRECOND", "ssor")
-    elif what == "shards":
-        env.setenv("FRONTISTR_TPU_SHARDS", "1")
-    else:
-        cnt = cnt.replace("!END\n", "!RESTART, FREQUENCY=1\n!END\n")
-    wd = _workdir(tmp_path / "wd", cnt, n=(2, 2, 2), mesh=mesh)
+    env.setenv("FRONTISTR_TPU_SHARDS", "1")
+    wd = _workdir(tmp_path / "wd", _cnt(), n=(2, 2, 2))
     with pytest.raises(NotImplementedError):
         run_directory(wd, device="cpu")
 
 
-@pytest.mark.parametrize("what", ["hex8", "dload"])
+@pytest.mark.parametrize("what", ["hex8", "dload", "gmres", "ssor",
+                                  "restart"])
 def test_formerly_unported_requests_match_jax(tmp_path, env, what):
-    """The two requests the Newton driver used to refuse: a hex8 mesh
-    (the NLSTATIC default formulation, B-bar) and a DLOAD card (a BX
-    body force, a follower load re-assembled at the deformed geometry)."""
+    """The requests the Newton driver used to refuse: a hex8 mesh (the
+    NLSTATIC default formulation, B-bar), a DLOAD card (a BX body force,
+    a follower load re-assembled at the deformed geometry), METHOD=GMRES
+    (the Newton driver reads the method only to choose DIRECT: CG, as in
+    the JAX package), FRONTISTR_TPU_PRECOND=ssor (multicolor block SSOR)
+    and !RESTART, FREQUENCY=1 (a checkpoint a substep, the answer
+    unchanged)."""
     cnt, mesh = _cnt(), None
     if what == "hex8":
         mesh = box_hex8(4, 3, 3)
-    else:
+    elif what == "dload":
         cnt = cnt.replace("!END\n", "!DLOAD\n ALL, BX, -2000.0\n!END\n")
+    elif what == "gmres":
+        cnt = cnt.replace("METHOD=CG", "METHOD=GMRES")
+    elif what == "ssor":
+        env.setenv("FRONTISTR_TPU_PRECOND", "ssor")
+    else:
+        cnt = _cnt(sub=2).replace("!END\n", "!RESTART, FREQUENCY=1\n!END\n")
     res, jres, wd, wj = _both(tmp_path, cnt, n=(4, 3, 3), mesh=mesh)
     assert res.iters >= 2
     _assert_match(res, jres, wd, wj)
+    if what == "restart":
+        for d in (wd, wj):
+            assert os.path.exists(os.path.join(d, "restart.npz"))
 
 
 def test_other_materials_raise(tmp_path):

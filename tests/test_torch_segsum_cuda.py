@@ -5,7 +5,9 @@ smoothing that sum through the planes entry, run twice; K1 at the
 hex20 (m = 60) and spring shapes and the !EQUATION reduction that sums
 through the planes entry, run twice; the element entry at nd = 2 (the
 2-D solids' four planes) on one-node and plane-box cluster profiles, and
-a quad8 deck's 2-D AMG setup run twice.  The file
+a quad8 deck's 2-D AMG setup run twice; the element entry at scalar-ELL
+plans (tet4 and hex8, the plan of ``ell.from_model``, the operator of
+linear STATIC's BiCGSTAB, GMRES and GPBiCG).  The file
 imports nothing of JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_segsum_cuda.py
@@ -25,11 +27,11 @@ import pytest
 import torch
 
 from frontistr_tpu_torch.analysis import static as stmod
-from frontistr_tpu_torch.assembly import bell, femop
+from frontistr_tpu_torch.assembly import bell, ell, femop
 from frontistr_tpu_torch.assembly import segsum as sm
 from frontistr_tpu_torch.assembly.model import build_struct_model
 from frontistr_tpu_torch.io.ctrlio import read_cnt
-from frontistr_tpu_torch.meshgen import box_plane, box_tet4
+from frontistr_tpu_torch.meshgen import box_hex8, box_plane, box_tet4
 from frontistr_tpu_torch.post import nodal
 from frontistr_tpu_torch.solver import amg
 
@@ -180,6 +182,49 @@ def test_kernel_hex20_spring_cluster_on_card(cuda_device, dtype):
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     _assert_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("etype", [341, 361])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_ell_plan_on_card(cuda_device, etype, dtype):
+    """K1 at a scalar-ELL plan (one slot row of W slots a node, no slot
+    shape: the (1, 1, 1, n_slots) tiling), tet4 m = 12 and hex8 m = 24,
+    run twice bit-equal; then ``ell.from_model`` on the card against the
+    CPU."""
+    mesh = (box_tet4 if etype == 341 else box_hex8)(9, 8, 7)
+    conn = mesh.blocks[0].conn
+    nn = conn.shape[1]
+    prof = ell.build_profile([conn], mesh.n_node, 3)
+    plan = prof.plan(cuda_device)
+    kes = [torch.as_tensor(np.random.default_rng(14).standard_normal(
+        (conn.shape[0], 3 * nn, 3 * nn)), dtype=dtype, device=cuda_device)]
+    before = sm.segsum.launches
+    got = sm.segsum(plan, kes, [nn], 3)
+    again = sm.segsum(plan, kes, [nn], 3)
+    want = sm.segsum_reference(plan, kes, [nn], 3)
+    torch.cuda.synchronize()
+    assert sm.segsum.launches == before + 2
+    assert got.shape == (9, prof.n_slots)
+    assert torch.equal(got, again)
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_ell_operator_on_card(cuda_device, tmp_path):
+    p = tmp_path / "case.cnt"
+    p.write_text(CNT)
+    mesh = box_tet4(6, 5, 4)
+    ops = []
+    for dev in (cuda_device, "cpu"):
+        model = build_struct_model(mesh, read_cnt(str(p)), device=dev)
+        kes = stmod.compute_element_stiffness(model)
+        ops.append(ell.from_model(model, kes))
+    x = torch.as_tensor(np.random.default_rng(15).standard_normal(
+        ops[1].n_dof))
+    _assert_close(ops[0].rows.cpu(), ops[1].rows, torch.float64)
+    _assert_close(ops[0].apply_constrained(x.to(cuda_device)).cpu(),
+                  ops[1].apply_constrained(x), torch.float64)
 
 
 @pytest.mark.cuda
