@@ -8,7 +8,7 @@ once, checks the answers and prints the result.
                           [--dyn-hex-steps T] [--heat-n H] [--heat-steps S]
                           [--eigen-n E] [--hex20-n H] [--direct-n D]
                           [--plane-n P] [--hyper-n H] [--hyper-substeps S]
-                          [--contact-n C]
+                          [--contact-n C] [--shell-n S]
 
 - The nonlinear static (Newton) tet path through
   ``frontistr_tpu_torch.run.run_directory`` (the function behind
@@ -19,7 +19,8 @@ once, checks the answers and prints the result.
 - The linear-static tet path through ``run_directory``: the STATIC deck
   on a shuffled ``box_tet4(n, n, n)`` (default n=40: 206,763 dofs).
 - The solver menu: the STATIC tet deck with METHOD=BICGSTAB (RESID
-  1e-9) on the newton cell's shuffled ``box_tet4(k)`` (default k=69)
+  1e-9) on a shuffled ``box_tet4(k)`` (default k=55; 69 is the newton
+  cell's box)
   through ``run_directory``, the scalar block-ELL operator whose blocks
   K1 sums once at the ELL profile's plan; GMRES(30) and GPBiCG through
   ``solve_linear`` on the same model; the CG/AMG answer beside them;
@@ -55,14 +56,14 @@ once, checks the answers and prints the result.
 - The heat, eigen and frequency-response paths (no kernel), then small
   decks of those families on the card and on the CPU.
 - The hex20_mpc path through ``run_directory``: NLSTATIC on a shuffled
-  hex20 box of h (default 32: 421,443 dofs, 32,768 elements of type
+  hex20 box of h (default 28: 285,099 dofs, 21,952 elements of type
   362), X1's u_z tied by
   !EQUATION to one master node, the load and a
   !SPRING on the master; K1 once per Newton iteration at m = 60 beside
   the spring block, its planes entry in the AMG setups, the nodal
   smoothing and every reduction of the elimination.  Then K1 at m = 60
   against its plain version and index_add_; METHOD=DIRECT on a shuffled
-  box_hex8(d) (default 16), STATIC and NLSTATIC, against the CG path;
+  box_hex8(d) (default 12), STATIC and NLSTATIC, against the CG path;
   the slice's small decks (prisms, hex20, !EQUATION, !SPRING,
   ROT_CENTER, DIRECT, ESTCOND, DUMPTYPE) on the card and on the CPU.
 - The plane path through ``run_directory``: NLSTATIC on a shuffled
@@ -74,9 +75,9 @@ once, checks the answers and prints the result.
   2-D solids and the hyperelastic, viscoelastic (!TRS), creep,
   orthotropic, E(T) and user materials on the card and on the CPU.
 - The contact path through ``run_directory``: the flat punch of n
-  (default 72: a 72 x 72 x 36 hex8 base over 1 x 1 x 0.5 under a 70 x 70
-  x 35 punch over 0.9 x 0.9 x 0.45, the meshes not matching; 1,135,947
-  dofs, 5,041 slave nodes), SLAGRANGE, frictionless, NLSTATIC in two
+  (default 64: a 64 x 64 x 32 hex8 base over 1 x 1 x 0.5 under a 62 x 62
+  x 31 punch over 0.9 x 0.9 x 0.45, the meshes not matching; 799,299
+  dofs, 3,969 slave nodes; 72 gives 1,135,947), SLAGRANGE, frictionless, NLSTATIC in two
   substeps; K1's planes entry in every reduction T^T of the elimination
   and the nodal smoothing.  Then the planes entry at its slot plan
   against its plain version and index_add_; small contact decks of
@@ -87,6 +88,14 @@ once, checks the answers and prints the result.
   stencil arms, !EQUATION, Chebyshev, SSOR), of !RESTART (NLSTATIC in
   both formats, the contact drop, transient heat) and of !ECHO on the
   card and on the CPU.
+- The shell path through ``run_directory``: linear STATIC of a shuffled
+  square MITC4 (741) plate of s x s (default 408: 167,281 nodes,
+  1,003,686 dofs), a = 1000 mm, thickness 50 mm (a/t = 20), clamped
+  on its four edges, a uniform pressure on every element, once in the
+  mixed and once in the f64 policy; K1's nd = 6 element entry once a
+  run, its planes entry once in the shells' nodal sums.  Then K1 at
+  nd = 6 against its plain version and index_add_ (f64 and f32); small
+  shell, solid-shell and beam decks on the card and on the CPU.
 
 The run needs a CUDA card and exits non-zero without one, or when any
 phase fails.  Work directories and the kernel build go under ``build/``
@@ -1751,7 +1760,7 @@ def phase_heat_main_path(args, mods) -> dict:
 
 def phase_eigen_main_path(args, mods) -> tuple:
     """EIGEN through run_directory on a shuffled box_hex8(e), a 100 mm
-    cube (default e=48: 352,947 dofs, 110,592 hex8 IC; on a 1 mm cube
+    cube (default e=32: 107,811 dofs, 32,768 hex8 IC; on a 1 mm cube
     the Lanczos breakdown test beta < 1e-14, absolute, as in the JAX
     package, stops at the first step), E 210000, nu 0.3, rho 7.85e-9,
     X0 clamped, !EIGEN 10, 1e-8, 60, NIER 20000 (the shift-invert CG is
@@ -2228,7 +2237,7 @@ MPCCNT = ("!VERSION\n 3\n!SOLUTION, TYPE=NLSTATIC\n!BOUNDARY\n X0, 1, 3, 0.0\n"
 def phase_hex20_mpc_main_path(args, mods) -> dict:
     """The hex20_mpc cell through run_directory: NLSTATIC (total
     Lagrange) in the f64 policy on a shuffled hex20 box of n (default
-    36: 198,505 nodes, 595,515 dofs, 46,656 elements of type 362), X0
+    28: 95,033 nodes, 285,099 dofs, 21,952 elements of type 362), X0
     fixed, every X1 node's u_z tied by !EQUATION to the node at X1's
     middle, a !CLOAD of -(X1's node count)/2 in z there and a !SPRING to
     the ground in z of 1e-3 E A / L.  (At the full -(X1's node count),
@@ -3073,7 +3082,7 @@ def contact_cnt(algo="SLAGRANGE", sol="NLSTATIC", bc=None, loads="",
 
 
 def punch_mesh(mods, n: int):
-    """The flat punch of ``n`` (default 72): the lower (master) box of n x
+    """The flat punch of ``n`` (default 64): the lower (master) box of n x
     n x n/2 hex8 over 1 x 1 x 0.5, the upper (slave) box of m x m x m/2,
     m = 70 n / 72, over 0.9 x 0.9 x 0.45 standing on it; the meshes do
     not match."""
@@ -4046,6 +4055,325 @@ def phase_solvers_small_reference(mods) -> None:
           f"of both logs {ok}")
 
 
+# ---- shells, solid-shells and beams (K1's nd = 6 entry) -------------------
+SHELL_A, SHELL_Q, SHELL_E, SHELL_NU = 1000.0, 0.01, 210e3, 0.3
+SHELL_T = 50.0      # a/t = 20: sized from the CG counts (PERF.md §6)
+SHELL_RESID = "1.0e-9"
+SHELL_SOLVER = ("!SOLVER, METHOD=CG, PRECOND=1, ITERLOG=NO, TIMELOG=NO\n"
+                " 20000, 1\n {resid}, 1.0, 0.0\n")
+
+
+def shell_cnt(sol="STATIC", bc=" EDGE, 1, 6, 0.0\n",
+              loads=f"!DLOAD\n ALL, P0, {SHELL_Q!r}\n", extra="",
+              resid="1.0e-8", write="!WRITE, RESULT\n"):
+    """A shell or beam deck: the !BOUNDARY rows, the loads, more cards,
+    CG with block-Jacobi at ``resid``."""
+    return ("!VERSION\n 3\n!SOLUTION, TYPE=" + sol + "\n!BOUNDARY\n" + bc
+            + loads + extra + SHELL_SOLVER.format(resid=resid) + write
+            + "!END\n")
+
+
+def phase_k1_nd6_check(sm, bell, meshgen) -> float:
+    """K1's nd = 6 element entry against its plain version on cluster
+    profiles of element width m = 12 (611 beam line), 18 (731), 24 (741)
+    and 54 (743 plate), random element matrices, float32 and float64,
+    each launched twice (bit-equal)."""
+    err = 0.0
+    for m, mesh in ((12, meshgen.beam_line(611, ne=3000)),
+                    (18, meshgen.plate_shell(60, etype=731)),
+                    (24, meshgen.plate_shell(80, etype=741)),
+                    (54, meshgen.plate_shell(40, etype=743))):
+        conn = mesh.blocks[0].conn
+        plan = bell.build_cluster_profile([conn], mesh.n_node, 6).plan(
+            "cuda")
+        ke = torch.randn((len(conn), m, m), dtype=torch.float64,
+                         device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(m))
+        for dt in (torch.float64, torch.float32):
+            e = check_k1(sm, plan, [ke], [conn.shape[1]], dt,
+                         f"nd = 6, m = {m} ({len(conn)} elements)", nd=6)
+            if dt == torch.float64:
+                err = max(err, e)
+    return err
+
+
+def plate_center(model) -> int:
+    """The node at the plate's centre."""
+    return int(np.argmin(np.linalg.norm(
+        model.coords[:, :2] - 0.5 * SHELL_A, axis=1)))
+
+
+def phase_shell_main_path(args, mods, t=SHELL_T,
+                          resid=SHELL_RESID) -> dict:
+    """The shell cell through run_directory: linear STATIC of a shuffled
+    square MITC4 (741) plate of n x n (default 408: 167,281 nodes,
+    1,003,686 dofs, 166,464 elements), a = 1000 mm, thickness t (default
+    50 mm), E 210 GPa, nu 0.3, clamped on all four edges (all six dofs),
+    a uniform pressure q = 0.01 MPa on every element (!DLOAD P0, the
+    shell_dload arm); CG with block-Jacobi at nd = 6 to RESID 1e-9 (room
+    under the 1e-8 gate for the f64 CG's recurrence residual, which
+    drifts from the true one over thousands of iterations), once in the
+    CUDA default policy (mixed: f32 cluster CG + f64 refinement; no
+    result file) and once in the f64 policy (with !WRITE, RESULT).  Per
+    run: CG count, refinement passes, solve s and
+    ms a CG iteration, the phase split, peak memory, an independent
+    index_add_ true relres (<= 1e-8), the support z reactions against
+    q a^2 (1e-8), the centre deflection against the clamped thin-plate
+    value 0.00126 q a^4 / D; K1 element launches (nd = 6) = 1, planes
+    launches = 1 (the shell's nodal sums).  Returns the cell with the
+    model and its element matrices."""
+    n = args.shell_n
+    wd = os.path.join(ROOT, "build", "smoke", f"shell{n}")
+    t0 = time.perf_counter()
+    mesh = mods["meshgen"].plate_shell(n, etype=741, a=SHELL_A, thick=t,
+                                       youngs=SHELL_E, poisson=SHELL_NU)
+    write_shuffled(wd, mods, mesh, shell_cnt(resid=resid),
+                   ngroups=("EDGE",))
+    log(f"phase shell_workdir: MITC4 plate of {n} x {n} shuffled, "
+        f"{mesh.n_node} nodes, {6 * mesh.n_node} dofs, "
+        f"{len(mesh.blocks[0].elem_ids)} elements of type 741, a = "
+        f"{SHELL_A} mm, t = {t} mm (a/t = {SHELL_A / t:g}), RESID "
+        f"{resid}, written in {time.perf_counter() - t0:.2f} s")
+    del mesh
+    D = SHELL_E * t ** 3 / (12.0 * (1.0 - SHELL_NU ** 2))
+    w_ref = 0.00126 * SHELL_Q * SHELL_A ** 4 / D
+    load = SHELL_Q * SHELL_A ** 2
+    cell = {"n": n, "t": t}
+    keys = ("read", "reorder", "model", "element_stiffness", "profile",
+            "assembly", "amg_setup", "solve", "stress", "result")
+    kes = None
+    for policy in ("mixed", "f64"):
+        with open(os.path.join(wd, "case.cnt"), "w") as fh:
+            fh.write(shell_cnt(resid=resid, write="" if policy == "mixed"
+                               else "!WRITE, RESULT\n"))
+        calls = {}
+        restore = counting(mods, calls)
+        reset_kernel_launches(mods)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            out = with_env({"FRONTISTR_TPU_PRECISION": policy},
+                           lambda: mods["run_directory"](wd, device="cuda"))
+            wall = time.perf_counter() - t0
+        finally:
+            restore()
+        launches = kernel_launch_counts(mods)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        res, model = out["static"], out["model"]
+        tm = res.timings
+        ms_cg = 1e3 * tm.get("solve", 0.0) / max(res.iters, 1)
+        if kes is None:
+            kes = mods["static"].compute_element_stiffness(model)
+        rr = true_relres(model, res.u, kes)
+        fz = [d for d in model.fixed_dofs if d % 6 == 2]
+        rz = float(res.reaction.reshape(-1)[fz].sum())
+        w_c = float(res.u[plate_center(model), 2])
+        log(f"phase shell_main_path ({policy}): {wall:.2f} s; policy="
+            f"{res.policy} cg_iters={res.iters} passes={res.passes} "
+            f"relres={res.relres!r} true_relres={rr!r} ({ms_cg:.3f} ms a "
+            f"CG iteration) K1 launches={launches['K1']} (element, "
+            f"nd = 6), K1 planes launches={launches['K1 planes']}, peak "
+            f"device memory {peak_gb:.3f} GB")
+        log("  phase seconds: " + " ".join(f"{k}={tm.get(k, 0.0):.3f}"
+                                           for k in keys))
+        log(f"  support z reactions {rz!r} against the load q a^2 = "
+            f"{load!r} (rel {abs(rz + load) / load!r}); centre deflection "
+            f"{w_c!r} mm, clamped thin plate 0.00126 q a^4/D = {w_ref!r} "
+            f"(gap {w_c / w_ref - 1.0:+.4%})")
+        if res.policy != policy:
+            raise AssertionError(f"shell_main_path: policy {res.policy}")
+        if not (res.u.shape == (model.n_node, 6) and
+                np.isfinite(res.u).all()):
+            raise AssertionError("shell_main_path: displacements not "
+                                 "finite or of the wrong shape")
+        if not (res.relres <= 1e-8 and rr <= 1e-8):
+            raise AssertionError(f"shell_main_path ({policy}): relres "
+                                 "above 1e-8")
+        if not abs(rz + load) <= 1e-8 * load:
+            raise AssertionError("shell_main_path: the support reactions "
+                                 "do not balance the load")
+        if SHELL_A / t >= 100 and not abs(w_c / w_ref - 1.0) <= 0.02:
+            raise AssertionError("shell_main_path: centre deflection off "
+                                 "the thin-plate value by more than 2%")
+        if launches["K1"] != 1 or launches["K1 planes"] != 1:
+            raise AssertionError(f"shell_main_path: kernel launches "
+                                 f"{launches}, expected K1 1 and K1 "
+                                 "planes 1")
+        cell[policy] = {"launches": launches["K1"],
+                        "planes_launches": launches["K1 planes"],
+                        "cg_iters": res.iters, "passes": res.passes,
+                        "ms_per_cg_iter": ms_cg, "wall_s": wall,
+                        "peak_gb": peak_gb, "true_relres": rr,
+                        "support_rz": rz, "w_center": w_c,
+                        "w_thin_plate": w_ref,
+                        "phase_s": {k: tm.get(k, 0.0) for k in keys}}
+        del out, res
+    cell.update(model=model, kes=kes)
+    return cell
+
+
+def phase_k1_nd6_time(mods, model, kes, cell) -> dict:
+    """K1's nd = 6 element entry on the shell cell's cluster profile
+    (m = 24) with its element matrices, float64 and float32: held to its
+    plain version, timed with it and with one index_add_ of the entries
+    in slot order, against its bytes bound (pairs x 36 values read once,
+    slots x 36 written once, the pair and slot indices read once).
+    Returns the kernels-line row."""
+    sm, bell = mods["segsum"], mods["bell"]
+    plan = bell.cluster_profile_from_model(model).plan("cuda")
+    nns = [b.conn.shape[1] for b in model.blocks]
+    P, S = plan.perm.numel(), plan.n_slots
+    row = {}
+    for dt in (torch.float64, torch.float32):
+        kd = [k.to(dt).contiguous() for k in kes]
+        err = check_k1(sm, plan, kd, nns, dt, "shell cell m = 24", nd=6)
+        ms = cuda_ms(lambda: sm.segsum(plan, kd, nns, 6))
+        plain_ms = cuda_ms(lambda: sm.segsum_reference(plan, kd, nns, 6))
+        ent = sm.entry_planes(kd, nns, 6)[:, plan.perm.long()]
+        out = torch.zeros((36, S), dtype=dt, device="cuda")
+        seg = plan.seg_sorted.long()
+        library_ms = cuda_ms(lambda: out.index_add_(1, seg, ent))
+        del ent, out, kd
+        isz = 8 if dt == torch.float64 else 4
+        nbytes = P * 36 * isz + S * 36 * isz + P * 4 + (S + 1) * 4
+        bound_ms, bound_by = bound(nbytes, 36 * P, dt)
+        log(f"phase k1_nd6_time: {kes[0].shape[0]} MITC4 elements, "
+            f"P={P} pairs, n_slots={S} {str(dt)[6:]}: kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms, "
+            f"bound {bound_ms:.3f} ms ({nbytes / 1e9:.3f} GB: {P} x 36 "
+            f"read + {S} x 36 written + indices)")
+        row[str(dt)[6:]] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                library_ms=library_ms, bound_ms=bound_ms,
+                                bound_by=bound_by, bytes=nbytes)
+    f64 = row["float64"]
+    return {"name": "segsum_nd6",
+            "entry": "element, nd = 6, m = 24 (MITC4 plate)",
+            "route": "cuda", "source": "frontistr_tpu_torch/csrc/segsum.cu",
+            "replaces": "frontistr_tpu/assembly/segsum_pallas.py:121",
+            "launches": cell["mixed"]["launches"],
+            "max_abs_err": f64["max_abs_err"], "ms": f64["ms"],
+            "plain_ms": f64["plain_ms"], "bound_ms": f64["bound_ms"],
+            "bound_by": f64["bound_by"], "library_ms": f64["library_ms"],
+            "float32": row["float32"],
+            "shell_main_path": {k: v for k, v in cell.items()
+                                if k not in ("model", "kes")}}
+
+
+def phase_shell_small_reference(mods) -> None:
+    """Small shell, solid-shell and beam decks on the card and on the CPU
+    (which the CPU tests hold to the JAX package), f64 policy: warped
+    731 and 741 plates in STATIC under pressure and a body force; a 743
+    plate's STATIC solve through the library (its stress recovery is
+    refused, as the JAX package's fails); the 761 and 781 cantilevers;
+    a 611 beam under a tip load, an axial force and a torque; a 641
+    cantilever's fiber stresses; the shell strip in NLSTATIC (2
+    substeps), EIGEN and implicit DYNAMIC.  Each: fields within 1e-10 of
+    the largest, counts equal (the solid-shells' CG within 2)."""
+    mg, run = mods["meshgen"], mods["run_directory"]
+    base = os.path.join(ROOT, "build", "smoke", "shell_small")
+    strip = mg.plate_shell(8, 1, etype=741, a=2.0, b=0.25, thick=0.1,
+                           youngs=1.0e6, poisson=0.0, density=1.0)
+    r, area = 0.05, np.pi * 0.05 ** 2
+    iy = np.pi * r ** 4 / 4.0
+    fiber = mg.beam_line(641, 4, 1.0, (0.0, 0.0, 1.0, area, iy, iy, 2 * iy),
+                         (210e9, 0.3, r, 0.0, 90.0, 180.0, 270.0, 45.0,
+                          135.0), density=7.8e3)
+    dyn = ("!DYNAMIC\n 1, 1\n 0.0, 0.01, 20, 5.0e-4\n 0.5, 0.25\n"
+           " 1, 1, 0.0, 0.0\n 10, 0, 1\n")
+    p_loads = f"!DLOAD\n ALL, P0, {SHELL_Q!r}\n ALL, BX, 0.001\n"
+    cases = [
+        ("plate731", mg.plate_shell(6, etype=731, a=SHELL_A, thick=50.0,
+                                    warp=0.15), ("EDGE",),
+         shell_cnt(loads=p_loads), "static", 0),
+        ("plate741", mg.plate_shell(6, etype=741, a=SHELL_A, thick=50.0,
+                                    warp=0.15), ("EDGE",),
+         shell_cnt(loads=p_loads), "static", 0),
+        ("ss761", mg.solid_shell_strip(761), ("FIX", "TIP"),
+         shell_cnt(bc=" FIX, 1, 3, 0.0\n", loads="!CLOAD\n TIP, 3, -0.5\n",
+                   resid="1.0e-10"), "static", 2),
+        ("ss781", mg.solid_shell_strip(781), ("FIX", "TIP"),
+         shell_cnt(bc=" FIX, 1, 3, 0.0\n", loads="!CLOAD\n TIP, 3, -0.5\n",
+                   resid="1.0e-10"), "static", 2),
+        ("beam611", mg.beam_line(611), ("FIX", "TIP"),
+         shell_cnt(bc=" FIX, 1, 6, 0.0\n", loads="!CLOAD\n TIP, 3, -1.0\n"
+                   " TIP, 1, 5.0\n TIP, 4, 2.0\n", resid="1.0e-12"),
+         "static", 0),
+        ("beam641", fiber, ("FIX", "TIP"),
+         shell_cnt(bc=" FIX, 1, 3, 0.0\n", loads="!CLOAD\n TIP, 2, "
+                   "-100.0\n", resid="1.0e-12"), "static", 0),
+        ("strip_nlstatic", strip, ("X0", "X1"),
+         shell_cnt("NLSTATIC", " X0, 1, 6, 0.0\n", "!CLOAD\n X1, 3, -0.05\n"
+                   " X1, 1, 0.2\n", "!STEP, SUBSTEPS=2\n",
+                   resid="1.0e-10"), "static", 0),
+        ("strip_eigen", strip, ("X0", "X1"),
+         shell_cnt("EIGEN", " X0, 1, 6, 0.0\n", "",
+                   "!EIGEN\n 3, 1.0e-8, 60\n", resid="1.0e-10"), "eigen", 0),
+        ("strip_dynamic", strip, ("X0", "X1"),
+         shell_cnt("DYNAMIC", " X0, 1, 6, 0.0\n", "!CLOAD\n X1, 3, -5.0\n",
+                   dyn, resid="1.0e-14"), "dynamic", 0),
+    ]
+    for name, mesh, groups, cnt, key, slack in cases:
+        wd = write_shuffled(os.path.join(base, name), mods, mesh, cnt,
+                            ngroups=groups)
+        n0 = mods["segsum"].segsum.launches
+        got = with_env({"FRONTISTR_TPU_PRECISION": "f64"},
+                       lambda: [run(wd, device=d)[key]
+                                for d in ("cuda", "cpu")])
+        k1 = mods["segsum"].segsum.launches - n0
+        a, b = got
+        if key == "eigen":
+            fields = {"eigenvalues": (a.eigenvalues, b.eigenvalues)}
+            counts = (a.iters, b.iters)
+        elif key == "dynamic":
+            fields = {k: (getattr(a, k), getattr(b, k))
+                      for k in ("u", "vel", "acc")}
+            counts = tuple(sum(sum(h["cg"]) for h in r.history)
+                           for r in (a, b))
+        else:
+            fields = {k: (getattr(a, k), getattr(b, k))
+                      for k in ("u", "nodal_stress", "elem_stress")}
+            counts = (a.iters, b.iters)
+        diffs = {k: rel_diff(x, y) for k, (x, y) in fields.items()}
+        log(f"phase shell_small_reference: {name} {key}, cuda vs cpu "
+            + " ".join(f"{k} {v!r}" for k, v in diffs.items())
+            + f", counts {counts[0]} vs {counts[1]}, K1 launches {k1}")
+        if not all(v <= 1e-10 for v in diffs.values()):
+            raise AssertionError(f"shell_small_reference: {name} fields "
+                                 "differ")
+        if abs(counts[0] - counts[1]) > slack:
+            raise AssertionError(f"shell_small_reference: {name} counts "
+                                 "differ")
+        if key == "static" and name != "strip_nlstatic" and k1 < 1:
+            raise AssertionError(f"shell_small_reference: {name} did not "
+                                 "launch K1")
+    # the MITC9 plate: run_directory refuses its stress recovery by name;
+    # its STATIC solve through the library on both devices
+    wd = write_shuffled(os.path.join(base, "plate743"), mods,
+                        mg.plate_shell(4, etype=743, a=SHELL_A, thick=50.0,
+                                       warp=0.15), shell_cnt(),
+                        ngroups=("EDGE",))
+    try:
+        run(wd, device="cuda")
+        raise AssertionError("shell_small_reference: the 743 STATIC run "
+                             "was not refused")
+    except NotImplementedError as e:
+        log(f"  plate743 run_directory refused: {e}")
+    sols = []
+    for dev in ("cuda", "cpu"):
+        mesh = mods["read_mesh"](os.path.join(wd, "mesh.msh"))
+        model = mods["build_struct_model"](
+            mesh, mods["read_cnt"](os.path.join(wd, "case.cnt")), device=dev)
+        kes = mods["static"].compute_element_stiffness(model)
+        sols.append(with_env({"FRONTISTR_TPU_PRECISION": "f64"},
+                             lambda: mods["static"].solve_linear(model, kes)))
+    d = rel_diff(sols[0].x, sols[1].x)
+    log(f"phase shell_small_reference: plate743 solve_linear, cuda vs cpu "
+        f"u {d!r}, cg {sols[0].iters} vs {sols[1].iters}")
+    if not (d <= 1e-10 and sols[0].iters == sols[1].iters):
+        raise AssertionError("shell_small_reference: plate743 differs")
+
+
 def load_mods() -> dict:
     """The port's modules the phases use, by name."""
     sys.path.insert(0, ROOT)
@@ -4062,6 +4390,7 @@ def load_mods() -> dict:
     from frontistr_tpu_torch.elements.tables import (HECMW2FSTR_ORDER,
                                                      get_table)
     from frontistr_tpu_torch.io.meshio import ElemBlock, Equation
+    from frontistr_tpu_torch.io.meshio import read_mesh
     from frontistr_tpu_torch.io.resfile import read_result
     from frontistr_tpu_torch.assembly.operators import make_free_mask
     from frontistr_tpu_torch.io import echo
@@ -4088,7 +4417,8 @@ def load_mods() -> dict:
                 read_result=read_result, dynamic=dynamic, gather=g,
                 heat=heat, femop=femop, get_table=get_table,
                 meshgen=meshgen, kernels=kernels, microbench_gather=mb,
-                microbench_segsum=mbs, contact=contact, slag=slag)
+                microbench_segsum=mbs, contact=contact, slag=slag,
+                read_mesh=read_mesh)
 
 
 def main(argv=None) -> int:
@@ -4096,9 +4426,10 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=40,
                     help="box_tet4(n, n, n) for the linear static tet path "
                          "(default 40)")
-    ap.add_argument("--krylov-n", type=int, default=69,
+    ap.add_argument("--krylov-n", type=int, default=55,
                     help="box_tet4(k, k, k) for the Krylov menu's path "
-                         "(default 69: 1,029,000 dofs)")
+                         "(default 55: 526,848 dofs; 69 is the newton "
+                         "cell's 1,029,000)")
     ap.add_argument("--ssor-n", type=int, default=SSOR_N,
                     help=f"box_tet4(s, s, s) for the SSOR Newton path "
                          f"(default {SSOR_N}; 69 is the newton cell's)")
@@ -4120,19 +4451,20 @@ def main(argv=None) -> int:
                          "(default 55)")
     ap.add_argument("--dyn-hex-steps", type=int, default=10,
                     help="implicit time steps (default 10)")
-    ap.add_argument("--heat-n", type=int, default=100,
-                    help="box_hex8(h, h, h) for the heat path (default 100)")
+    ap.add_argument("--heat-n", type=int, default=70,
+                    help="box_hex8(h, h, h) for the heat path (default 70: "
+                         "357,911 dofs; 100 gives 1,030,301)")
     ap.add_argument("--heat-steps", type=int, default=20,
                     help="heat time steps (default 20)")
-    ap.add_argument("--eigen-n", type=int, default=40,
+    ap.add_argument("--eigen-n", type=int, default=32,
                     help="box_hex8(e, e, e) for the eigen and frequency "
-                         "response paths (default 40)")
-    ap.add_argument("--hex20-n", type=int, default=32,
-                    help="the hex20 box of the hex20_mpc path (default 32: "
-                         "421,443 dofs)")
-    ap.add_argument("--direct-n", type=int, default=16,
+                         "response paths (default 32: 107,811 dofs)")
+    ap.add_argument("--hex20-n", type=int, default=28,
+                    help="the hex20 box of the hex20_mpc path (default 28: "
+                         "285,099 dofs; 36 gives 595,515)")
+    ap.add_argument("--direct-n", type=int, default=12,
                     help="box_hex8(d, d, d) for the METHOD=DIRECT path "
-                         "(default 16: 14,739 dofs)")
+                         "(default 12: 6,591 dofs)")
     ap.add_argument("--plane-n", type=int, default=408,
                     help="the quad8 box of the plane path (default 408: "
                          "1,002,050 dofs)")
@@ -4141,9 +4473,13 @@ def main(argv=None) -> int:
                          "(default 24: 181,875 dofs; 32 through PR 12)")
     ap.add_argument("--hyper-substeps", type=int, default=4,
                     help="substeps of the hyperelastic path (default 4)")
-    ap.add_argument("--contact-n", type=int, default=72,
+    ap.add_argument("--contact-n", type=int, default=64,
                     help="the lower box of the contact punch path, n x n x "
-                         "n/2 (default 72: 1,135,947 dofs)")
+                         "n/2 (default 64: 799,299 dofs; 72 gives "
+                         "1,135,947)")
+    ap.add_argument("--shell-n", type=int, default=408,
+                    help="the MITC4 plate of the shell path, n x n "
+                         "(default 408: 1,003,686 dofs)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -4177,6 +4513,8 @@ def main(argv=None) -> int:
     phase_k1_check(sm, bell, box_tet4, box_hex8,
                    lambda dims: tet10_mesh(mods, dims),
                    lambda dims: hex20_mesh(mods, dims))
+    log("phase k1_nd6_check:")
+    phase_k1_nd6_check(sm, bell, mods["meshgen"])
     log("phase k2_check:")
     phase_k2_check(em)
     log("phase gather_check:")
@@ -4307,10 +4645,22 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_solvers_small_reference(mods)
 
+    # 16. the shell plate (K1's nd = 6 element entry once per run, its
+    #     planes entry once in the shells' nodal sums), then K1 at nd = 6
+    #     at its shapes; small shell, solid-shell and beam decks on the
+    #     card and the CPU
+    torch.cuda.empty_cache()
+    cell = phase_shell_main_path(args, mods)
+    nd6_row = phase_k1_nd6_time(mods, cell.pop("model"), cell.pop("kes"),
+                                cell)
+    del cell
+    torch.cuda.empty_cache()
+    phase_shell_small_reference(mods)
+
     log(f"phase total: {time.perf_counter() - t_start:.2f} s")
     log(smi)
     log(json.dumps({"kernels": [k1_row, ell_row, k1_m60_row] + nd2_rows
-                    + [contact_row, k2_row] + gather_rows}))
+                    + [nd6_row, contact_row, k2_row] + gather_rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

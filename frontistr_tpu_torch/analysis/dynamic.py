@@ -17,7 +17,10 @@ fistr1/src/analysis/dynamic/transit/):
 Loads are scaled by !AMPLITUDE tables at t (clamped linear
 interpolation, table_dyn.f90).  The mass is the HRZ-lumped diagonal
 (``lumped_mass_vector``; a consistent-mass request gets it too, as in
-the JAX package).
+the JAX package); shells, solid-shells and beams take an equal split of
+their element mass, translations only, no rotary inertia, so a 6-dof
+model runs the implicit arm only (the explicit one refuses with the
+JAX package's message).
 
 The JAX package runs a linear implicit deck, and any explicit deck, as
 one ``lax.scan`` program (``FRONTISTR_TPU_IMPLICIT_SCAN`` /
@@ -45,7 +48,7 @@ acc, the gauss states and a contact deck's multipliers and released
 slots) and resumes from it; the explicit run ignores the card, as the
 JAX package's does.  What the JAX package also runs in dynamics and the
 port does not yet (the band factorisation, sharding, the coupler,
-frequency response, shells and beams) raises ``NotImplementedError`` naming
+frequency response) raises ``NotImplementedError`` naming
 itself, and so do the cards the JAX package's dynamics drop without
 effect: !EQUATION and !CONTACT in an explicit run, !SPRING (ROADMAP,
 queue 3, fault 2).
@@ -63,6 +66,7 @@ import torch
 
 from frontistr_tpu_torch.analysis.nonlinear import (BlockPrograms,
                                                     ContactState,
+                                                    check_log,
                                                     _all_linear,
                                                     _commit_state,
                                                     _element_values,
@@ -80,6 +84,7 @@ from frontistr_tpu_torch.elements.quadhi import mass_tables
 from frontistr_tpu_torch.fem.isoparam import det_inv_small
 from frontistr_tpu_torch.io import logio
 from frontistr_tpu_torch.io.restart import load_restart, save_restart
+from frontistr_tpu_torch.post.shellpost import check_recoverable
 from frontistr_tpu_torch.solver import direct
 from frontistr_tpu_torch.solver.cg import pcg
 
@@ -100,7 +105,9 @@ def lumped_mass_vector(model: StructModel, gather=None) -> torch.Tensor:
     rows = []
     for b in model.blocks:
         if b.kind != "solid":
-            raise NotImplementedError(f"lumped mass of {b.kind} blocks")
+            me = torch.as_tensor(_struct_elem_mass(model, b), device=dev)
+            rows.append(_node_rows(me, nd))
+            continue
         N, dN, w = (torch.as_tensor(a, dtype=F64, device=dev)
                     for a in mass_tables(b.etype))
         ce = coords[torch.as_tensor(b.conn, dtype=torch.int64, device=dev)]
@@ -114,8 +121,47 @@ def lumped_mass_vector(model: StructModel, gather=None) -> torch.Tensor:
         diag_sum = mii.sum(dim=1)
         me = mii * (total / torch.where(diag_sum == 0, 1.0,
                                         diag_sum))[:, None]
-        rows.append(me[:, :, None].expand(-1, -1, nd).reshape(len(me), -1))
+        rows.append(_node_rows(me, nd))
     return femop.gather_sum(rows, gather)
+
+
+def _node_rows(me: torch.Tensor, nd: int) -> torch.Tensor:
+    """Element-node masses (E, nn) as element rows (E, nn*nd): every
+    dof of a node, or, on a 6-dof model, the translations only -- no
+    rotary inertia (fstr_EIG_setMASS.f90:163-231; the rotary terms are
+    commented out in the reference too)."""
+    rep = me[:, :, None].expand(-1, -1, nd)
+    if nd == 6:
+        rep = rep * torch.as_tensor([1.0, 1, 1, 0, 0, 0], dtype=me.dtype,
+                                    device=me.device)
+    return rep.reshape(len(me), -1)
+
+
+def _tri_area(x0, x1, x2) -> np.ndarray:
+    return 0.5 * np.linalg.norm(np.cross(x1 - x0, x2 - x0), axis=1)
+
+
+def _struct_elem_mass(model: StructModel, b) -> np.ndarray:
+    """Equal-split element mass (E, nn) of a shell, solid-shell or beam
+    block (fstr_EIG_setMASS.f90:131-199; host numpy): a shell's
+    area * t * rho / nn on every node (a quad's area as the triangles
+    (1, 2, 3) and (1, 3, 4), also for MITC9), a solid-shell's on its
+    lower-face nodes (zero on the upper ones), a beam's L * area * rho / 2
+    on its two geometry nodes (zero on 641's rotation carriers)."""
+    x = model.coords[b.conn]
+    E, nn = b.conn.shape
+    rho = b.density
+    me = np.zeros((E, nn))
+    if b.kind in ("shell", "sshell"):
+        nm = nn // 2 if b.kind == "sshell" else nn
+        area = _tri_area(x[:, 0], x[:, 1], x[:, 2])
+        if nm != 3:
+            area = area + _tri_area(x[:, 0], x[:, 2], x[:, 3])
+        me[:, :nm] = (area * b.thick * rho / nm)[:, None]
+        return me
+    me[:, :2] = (0.5 * np.linalg.norm(x[:, 1] - x[:, 0], axis=1)
+                 * b.section[3] * rho)[:, None]
+    return me
 
 
 def _tensor(dev, a) -> torch.Tensor:
@@ -240,6 +286,7 @@ def _check_request(model: StructModel) -> None:
     d = cfg.dynamic
     if d is None:
         raise ValueError("!DYNAMIC card missing")
+    check_recoverable(model)
     if d.idx_resp == 2 or cfg.eigenread is not None:
         raise NotImplementedError("frequency response (!DYNAMIC idx_resp "
                                   "= 2, !EIGENREAD)")
@@ -257,9 +304,6 @@ def _check_request(model: StructModel) -> None:
                         ("!AMPLITUDE in the .cnt", cfg.amplitudes)):
         if cards:
             raise NotImplementedError(f"{name} in dynamics")
-    if model.ndof == 6 or any(b.kind != "solid" for b in model.blocks):
-        raise NotImplementedError("shell and beam blocks (6 dof) in "
-                                  "dynamics")
     if any(c.param("AMP") for c in cfg.boundaries):
         # the JAX package reads the amplitude and leaves it unused
         raise NotImplementedError("!BOUNDARY, AMP= in dynamics")
@@ -277,6 +321,8 @@ def run_dynamic(model: StructModel, log_path: Optional[str] = None,
     ``restart_freq`` is set, and writes it every ``restart_freq`` steps;
     the explicit run never reads them, as in the JAX package."""
     _check_request(model)
+    if log_path is not None:
+        check_log(model)
     if model.cfg.dynamic.idx_eqa == 11:
         return _run_explicit(model, log_path, on_interval=on_interval)
     return _run_implicit(model, log_path, on_interval=on_interval,
@@ -705,6 +751,17 @@ def _run_explicit(model: StructModel, log_path, on_interval=None):
     cfg = model.cfg
     d = cfg.dynamic
     ndof, n, dev = model.ndof, model.n_dof_total, model.device
+    if ndof == 6:
+        # frontistr_tpu/analysis/dynamic.py:905-908
+        raise NotImplementedError(
+            "explicit dynamics needs rotary inertia for 6-dof "
+            "shell/beam models; use implicit (idx_eqa=1)")
+    if any(b.kind in ("sshell", "beam341") for b in model.blocks):
+        # their rotation carriers have no mass: the JAX package's
+        # central-difference run diverges (ROADMAP, queue 3)
+        raise NotImplementedError(
+            "explicit dynamics of solid-shell and 641 blocks (rotation "
+            "carriers without mass)")
     if np.any(np.asarray(model.fixed_vals) != 0.0):
         # the central-difference update holds every fixed dof at zero
         # (the JAX package drops the value)

@@ -22,7 +22,7 @@ METHOD=DIRECT factors the constrained K once on the host (SuperLU,
 ``solver/direct.py``) and back-substitutes at every apply; with
 !EQUATION it takes the eliminated CG, as in the JAX package.  What the
 JAX package also runs and the port does not (the band factorisation,
-sharding, shells and beams) raises ``NotImplementedError`` naming
+sharding) raises ``NotImplementedError`` naming
 itself, and so does !SPRING, which the JAX package's eigen analysis
 leaves out of K without a word (ROADMAP, queue 3, fault 2).
 """
@@ -71,9 +71,6 @@ def _check_request(model: StructModel) -> None:
         raise NotImplementedError("sharded Lanczos (FRONTISTR_TPU_SHARDS)")
     if model.cfg.springs:
         raise NotImplementedError("!SPRING in eigen analysis")
-    if model.ndof == 6 or any(b.kind != "solid" for b in model.blocks):
-        raise NotImplementedError("shell and beam blocks (6 dof) in eigen "
-                                  "analysis")
 
 
 def run_eigen(model: StructModel, log_path: Optional[str] = None,

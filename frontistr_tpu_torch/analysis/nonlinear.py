@@ -44,7 +44,9 @@ SLAGRANGE active-set scan or the AL update); !RESTART checkpoints and
 resumes (``save_checkpoint``/``load_checkpoint``: the ``.npz`` or the
 reference's blob stream; refused with !CONTACT, ROADMAP queue 3, fault
 8); PRECOND=10-12, 20, 21 precondition the CG
-with multicolor block SSOR (``solver/ssor.py``).  Sharding raises
+with multicolor block SSOR (``solver/ssor.py``).  Shell, solid-shell and
+beam blocks take a constant tangent and qf = ke u, with no gauss state
+(an empty one in a checkpoint).  Sharding raises
 ``NotImplementedError`` naming itself.  The JAX package's jit-argument
 carry (a TPU remote-compile workaround) has no counterpart: PyTorch runs
 eagerly.
@@ -87,6 +89,8 @@ from frontistr_tpu_torch.io.hecmw_restart import (export_solid_state,
 from frontistr_tpu_torch.io.restart import load_restart, save_restart
 from frontistr_tpu_torch.io.stafile import sta_final, sta_init, sta_status
 from frontistr_tpu_torch.post import nodal as postnodal
+from frontistr_tpu_torch.post.shellpost import check_recoverable, \
+    shell_recover
 from frontistr_tpu_torch.solver import direct as direct_mod
 from frontistr_tpu_torch.solver.cg import pcg
 from frontistr_tpu_torch.solver.mixed import refined_cg
@@ -102,10 +106,10 @@ def init_block_state(block, table, device) -> dict:
     """Zero gauss state of a solid block (the JAX package's keys: the
     strains and stresses, the plastic state, ``fstat`` of a user
     material, the Prony terms ``vq``/``vq_new`` and the committed
-    deviatoric strain ``ven`` of a viscoelastic one)."""
+    deviatoric strain ``ven`` of a viscoelastic one); an empty one for a
+    shell, solid-shell or beam block, which carries no gauss history."""
     if block.kind != "solid" or table is None:
-        raise NotImplementedError(f"{block.kind} blocks in the Newton "
-                                  "driver")
+        return {}
     E, nq = len(block.elem_ids), table.nq
     ns = 6 if table.dim == 3 else 4
 
@@ -149,9 +153,20 @@ class BlockPrograms:
     def __init__(self, model: StructModel, block):
         self.block = block
         m = block.material
+        dev = model.device
+        self.conn = torch.as_tensor(block.conn, dtype=torch.int64,
+                                    device=dev)
+        self.ke = None
         if block.kind != "solid":
-            raise NotImplementedError(f"{block.kind} blocks in the Newton "
-                                      "driver")
+            # shells, solid-shells and beams: a constant tangent ke and
+            # qf = ke u (frontistr_tpu/analysis/nonlinear.py:91-107)
+            from frontistr_tpu_torch.analysis.static import \
+                compute_element_stiffness
+            self.ke = compute_element_stiffness(
+                dataclasses.replace(model, blocks=[block]))[0]
+            self.table, self.mtype, self.flag = None, mat.ELASTIC, \
+                mat.INFINITESIMAL
+            return
         if m.mtype not in MATERIALS:
             raise NotImplementedError(f"material {m.mtype} in the Newton "
                                       "driver")
@@ -171,9 +186,6 @@ class BlockPrograms:
         self.flag = m.nlgeom
         self.thick = float(block.thick)
         self.pl = _plastic_params(m) if m.mtype == mat.EPLASTIC else None
-        dev = model.device
-        self.conn = torch.as_tensor(block.conn, dtype=torch.int64,
-                                    device=dev)
         self.coords_e = torch.as_tensor(model.coords[block.conn],
                                         device=dev)
         # one material over the block: keep one (1, ...) matrix
@@ -282,6 +294,8 @@ class BlockPrograms:
 
     # ---------------- tangent (fstr_StiffMatrix / STF_C3) ----------------
     def tangent(self, u_e, ddu_e, state, time=0.0, dtime=0.0):
+        if self.ke is not None:
+            return self.ke
         table, flag, x0 = self.table, self.flag, self.coords_e
         total = u_e + ddu_e
         D = self._material_D(state, time, dtime)
@@ -310,6 +324,10 @@ class BlockPrograms:
 
     # ---------------- update (fstr_UpdateNewton / UPDATE_C3) -------------
     def update(self, u_e, ddu_e, state, time=0.0, dtime=0.0):
+        if self.ke is not None:
+            return state, torch.einsum(
+                "eij,ej->ei", self.ke, (u_e + ddu_e).reshape(len(self.ke),
+                                                             -1))
         table, flag, thick = self.table, self.flag, self.thick
         dt = self.coords_e.dtype
         total = u_e + ddu_e
@@ -955,7 +973,23 @@ class NewtonStats:
     contact: List[dict] = dataclasses.field(default_factory=list)
 
 
-def _check_request(model: StructModel, restart_path=None) -> None:
+def check_log(model: StructModel) -> None:
+    """Refuse to write the 0.log of a Newton or dynamic run of beams and
+    solid-shells only: no node carries a stress there, and the JAX
+    package's log writer fails on the empty node set (ROADMAP, queue
+    3)."""
+    if all(b.kind in ("beam", "beam341", "sshell") for b in model.blocks):
+        raise NotImplementedError(
+            "the 0.log of an NLSTATIC or DYNAMIC run of beams and "
+            "solid-shells only (the JAX package's log writer fails: no "
+            "node carries a stress)")
+
+
+def _check_request(model: StructModel, restart_path=None,
+                   log_path=None) -> None:
+    check_recoverable(model)
+    if log_path is not None:
+        check_log(model)
     if os.environ.get("FRONTISTR_TPU_SHARDS", "") not in ("", "0"):
         raise NotImplementedError("sharded Newton (FRONTISTR_TPU_SHARDS)")
     if restart_path and model.mesh.contact_pairs and model.cfg.contacts:
@@ -1032,7 +1066,7 @@ def run_nonlinear_static(model: StructModel, log_path: Optional[str] = None,
     with ``restart_freq`` > 0 a checkpoint is written there every
     ``restart_freq`` committed substeps (phases ``restart_load`` and
     ``restart_save``)."""
-    _check_request(model, restart_path)
+    _check_request(model, restart_path, log_path)
     timings = {} if timings is None else timings
     cfg = model.cfg
     ndof = model.ndof
@@ -1258,6 +1292,8 @@ def _ainc_params(cfg, step):
 
 
 def _commit_state(s):
+    if not s:
+        return s
     out = dict(s)
     out["strain_bak"] = s["strain"]
     out["stress_bak"] = s["stress"]
@@ -1397,7 +1433,8 @@ def _conv_norms(Bres, Q, dx, du, states):
     one host transfer."""
     v = torch.sqrt(torch.stack([torch.dot(Bres, Bres), torch.dot(Q, Q),
                                 torch.dot(dx, dx), torch.dot(du, du)]))
-    ny = sum(s["yielded"].sum() for s in states).to(v.dtype)
+    ny = sum((s["yielded"].sum() for s in states if s),
+             v.new_zeros(())).to(v.dtype)
     return [float(x) for x in torch.cat([v, ny[None]]).cpu()]
 
 
@@ -1432,10 +1469,16 @@ def _postprocess(model, states, u, Q=None) -> StaticResult:
     if Q is not None:
         reaction = Q.cpu().numpy().reshape(model.n_node, model.ndof) - \
             np.asarray(model.f_ext).reshape(model.n_node, model.ndof)
-    block_data = [dict(etype=b.etype, conn=b.conn,
-                       gauss_strain=s["strain"], gauss_stress=s["stress"])
-                  for b, s in zip(model.blocks, states)]
-    sm = postnodal.smooth(model.n_node, block_data, model.dim)
+    if any(b.kind == "shell" for b in model.blocks):
+        sm = shell_recover(model, un)
+    else:
+        # shell-less non-solid blocks have no continuum gauss state
+        block_data = [dict(etype=b.etype, conn=b.conn,
+                           gauss_strain=s["strain"],
+                           gauss_stress=s["stress"]) if s else
+                      postnodal.skip_block(b, model.dim, model.device)
+                      for b, s in zip(model.blocks, states)]
+        sm = postnodal.smooth(model.n_node, block_data, model.dim)
     return StaticResult(
         u=un, nodal_strain=sm["strain"], nodal_stress=sm["stress"],
         nodal_mises=sm["mises"], node_count=sm["count"],

@@ -1,5 +1,6 @@
 """Linear static analysis driver (torch port of the linear-elastic solid
-arm of ``frontistr_tpu/analysis/static.py``).
+arm of ``frontistr_tpu/analysis/static.py``, with its shell, solid-shell
+and beam arms).
 
 assemble -> apply BC -> Krylov solve -> stress recovery
 (fstr_static_analysis, fistr1/src/main/fistr_main.f90:288, one linear
@@ -35,7 +36,12 @@ operator, the default of linear STATIC on CUDA; the cluster arm's f64
 operator is the matrix-free ``FEOperator``) or the "f64" policy (a plain
 f64 CG, the default on the CPU and of NLSTATIC); every other method and
 the numeric id 1 run in float64.  Under a !TEMPERATURE field the stress
-recovery subtracts the thermal strains.
+recovery subtracts the thermal strains.  Shells (``fem/shell.py``) and
+611 beams make a 6-dof model whose cluster operator K1 assembles at
+nd = 6, block-Jacobi preconditioned (the AMG has no modes for nd = 6);
+a shell model's stresses come from ``post/shellpost.py``, a model of
+beams and solid-shells only reports the 641 fiber stresses
+(``beam_fibers``).
 """
 
 from __future__ import annotations
@@ -55,8 +61,10 @@ from frontistr_tpu_torch.assembly.structured import (StructuredHexOperator,
                                                      soa_from_blocks)
 from frontistr_tpu_torch.device import Phase
 from frontistr_tpu_torch.elements.tables import get_table
-from frontistr_tpu_torch.fem import solid
+from frontistr_tpu_torch.fem import beam, shell, solid
 from frontistr_tpu_torch.post import nodal as postnodal
+from frontistr_tpu_torch.post.shellpost import check_recoverable, \
+    shell_recover
 from frontistr_tpu_torch.solver import amg as amgmod
 from frontistr_tpu_torch.solver import direct
 from frontistr_tpu_torch.solver import cg as krylov
@@ -98,10 +106,28 @@ class LinearSolve(NamedTuple):
 
 
 def compute_element_stiffness(model: StructModel):
-    """Batched f64 element stiffness per block, on ``model.device``."""
+    """Batched f64 element stiffness per block, on ``model.device``: the
+    solids by their formulation, shells (``fem/shell.py``), solid-shells
+    on their lower face and beams (``fem/beam.py``, after the reference
+    vector's check)."""
     kes = []
     for b in model.blocks:
         coords_e = torch.as_tensor(model.coords[b.conn], device=model.device)
+        m = b.material
+        if b.kind == "shell":
+            kes.append(shell.stiffness_shell(coords_e, b.thick, m.youngs,
+                                             m.poisson, etype=b.etype))
+            continue
+        if b.kind == "sshell":
+            kes.append(shell.stiffness_solid_shell(
+                coords_e[:, :b.conn.shape[1] // 2], b.thick, m.youngs,
+                m.poisson, etype=b.etype))
+            continue
+        if b.kind in ("beam", "beam341"):
+            beam.check_reference(model.coords, b.conn, b.section)
+            kes.append(beam.stiffness_beam(coords_e, b.section, m.youngs,
+                                           m.poisson, etype=b.etype))
+            continue
         D = torch.as_tensor(b.D, device=model.device)
         table = get_table(b.etype)
         if b.etype == 361 and b.formulation == "IC":
@@ -352,12 +378,61 @@ def dump_matrix(model: StructModel, kes, dumptype: str) -> str:
                          dumptype)
 
 
+def beam_fibers(model: StructModel, u: np.ndarray) -> dict:
+    """The ``smooth`` dict of a model of beams and solid-shells only
+    (``frontistr_tpu/analysis/static.py:384-425``): a 641 block's fiber
+    strain and stress at the six section positions
+    (NodalStress_Beam_641, static_LIB_beam.f90:646-980), averaged over
+    the two end nodes; zeros for every other block."""
+    n, ns, dev = model.n_node, 6, model.device
+    nd_strain, nd_stress = np.zeros((n, ns)), np.zeros((n, ns))
+    count = np.zeros(n)
+    estrain, estress, emises = [], [], []
+    for b in model.blocks:
+        Eb = len(b.elem_ids)
+        if b.kind != "beam341":
+            estrain.append(np.zeros((Eb, ns)))
+            estress.append(np.zeros((Eb, ns)))
+            emises.append(np.zeros(Eb))
+            continue
+        radius, angles = b.fiber
+        nds, ndt, es, et = beam.nqm_beam_641(
+            torch.as_tensor(model.coords[b.conn], device=dev), b.section,
+            b.material.youngs, torch.as_tensor(u[b.conn], device=dev),
+            radius=radius, angles=angles)
+        estrain.append(es)
+        estress.append(et)
+        emises.append(np.abs(et).max(axis=1))
+        # the two end nodes' sums, host numpy in element order
+        for ln in range(2):
+            np.add.at(nd_strain, b.conn[:, ln], nds[:, ln])
+            np.add.at(nd_stress, b.conn[:, ln], ndt[:, ln])
+            np.add.at(count, b.conn[:, ln], 1.0)
+    nz = count > 0
+    nd_strain[nz] /= count[nz, None]
+    nd_stress[nz] /= count[nz, None]
+    return dict(strain=nd_strain, stress=nd_stress,
+                mises=np.abs(nd_stress).max(axis=1),
+                count=np.maximum(count, 1.0), estrain=estrain,
+                estress=estress, emises=emises)
+
+
 def recover_stress(model: StructModel, u_flat: np.ndarray):
-    """Gauss strain/stress + nodal smoothing + element means."""
+    """Gauss strain/stress + nodal smoothing + element means; a shell
+    model through ``shellpost.shell_recover``, a model of beams and
+    solid-shells through ``beam_fibers``, and a solid model's
+    solid-shell and 641 blocks as zero rows."""
     dev = model.device
     u = u_flat.reshape(model.n_node, model.ndof)
+    if any(b.kind == "shell" for b in model.blocks):
+        return u, shell_recover(model, u)
+    if all(b.kind != "solid" for b in model.blocks):
+        return u, beam_fibers(model, u)
     block_data = []
     for b in model.blocks:
+        if b.kind != "solid":
+            block_data.append(postnodal.skip_block(b, model.dim, dev))
+            continue
         coords_e = torch.as_tensor(model.coords[b.conn], device=dev)
         u_e = torch.as_tensor(u[b.conn], device=dev)
         D = torch.as_tensor(b.D, device=dev)
@@ -380,6 +455,7 @@ def recover_stress(model: StructModel, u_flat: np.ndarray):
 
 def run_linear_static(model: StructModel,
                       timings: Optional[dict] = None) -> StaticResult:
+    check_recoverable(model)
     timings = {} if timings is None else timings
     with Phase(timings, "element_stiffness", model.device):
         kes = compute_element_stiffness(model)

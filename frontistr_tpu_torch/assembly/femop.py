@@ -11,7 +11,8 @@ from this operator.  The JAX package's unrolled double-float arm
 (a TPU workaround for emulated f64) is not ported: the product runs in
 native float64, and the block-Jacobi inverse is a batched
 ``torch.linalg.inv`` where the JAX package keeps a closed-form 3 x 3
-inverse (a TPU workaround: no float64 LAPACK there).
+inverse (a TPU workaround: no float64 LAPACK there); the 6 x 6 blocks of
+shells and beams take the JAX package's Gauss-Jordan steps.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from frontistr_tpu_torch.assembly import ell
 from frontistr_tpu_torch.assembly import operators as old_ops
+from frontistr_tpu_torch.fem.isoparam import gauss_jordan_inv
 
 
 def build_incidence(conns: Sequence[np.ndarray], n_node: int):
@@ -108,7 +110,8 @@ class FEOperator:
         D = D * (fm[:, :, None] * fm[:, None, :])
         dd = D[:, ar, ar]
         D[:, ar, ar] = dd + (dd == 0.0).to(D.dtype)
-        Dinv = torch.linalg.inv(D)
+        # 6 x 6 blocks by Gauss-Jordan, as in the JAX package
+        Dinv = gauss_jordan_inv(D) if nd > 3 else torch.linalg.inv(D)
 
         def apply(r):
             return torch.einsum("nij,nj->ni", Dinv,

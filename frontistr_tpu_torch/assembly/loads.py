@@ -5,7 +5,7 @@ fistr1/src/lib/static_LIB_3d.f90).
 
 - The host part is numpy, as in the JAX package: body forces BX/BY/BZ,
   GRAV, CENT, face pressures P1..P6 and surface-group pressures (S/P0)
-  through ``collect_dload``; nodal temperatures (``collect_temperature``),
+  through ``collect_dload`` (a shell block's through ``shell_dload``); nodal temperatures (``collect_temperature``),
   gauss thermal strains and the thermal load ``int B^T D eps_th``.  They
   run once per step.
 - ``FollowerDload`` is the follower load of the Newton driver: the same
@@ -29,6 +29,7 @@ from frontistr_tpu_torch.elements.tables import get_table
 from frontistr_tpu_torch.fem.isoparam import (det_inv_small,
                                               strain_selector_2d,
                                               strain_selector_3d)
+from frontistr_tpu_torch.fem.shell import shell_dload
 from frontistr_tpu_torch.fem.solid import table_tensor
 
 # etype -> list of (face_etype, [0-based local node ids]) indexed by face-1
@@ -206,7 +207,17 @@ def collect_dload(mesh, model, cards, grpid_filter=None,
         b = model.blocks[bi]
         coords_e = coords[b.conn[sel]]
         rho = float(b.material.density)
-        if ltype < 10:
+        if b.kind == "shell":
+            # shell_dload: the body-force tokens, any pressure as P0
+            vect = shell_dload(
+                torch.as_tensor(np.asarray(coords_e, np.float64)), b.thick,
+                rho, token if token in ("BX", "BY", "BZ", "GRAV", "CENT")
+                else "P0", np.asarray(params), b.etype).numpy()
+        elif b.kind != "solid":
+            # the JAX package reads a solid's tables for them and fails
+            raise NotImplementedError(f"!DLOAD on {b.kind} blocks "
+                                      f"({b.etype})")
+        elif ltype < 10:
             vect = _body_force(b.etype, coords_e, model.dim, b.thick,
                                ltype, params, rho)
         elif ltype >= 100:
@@ -300,6 +311,10 @@ class FollowerDload(torch.nn.Module):
         for (bi, rows, face, ltype, params, _) in _dload_groups(
                 model.mesh, model, cards, grpid_filter):
             b = model.blocks[bi]
+            if b.kind != "solid":
+                # as collect_dload: a DLOAD lands on solid blocks only
+                raise NotImplementedError(f"!DLOAD on {b.kind} blocks "
+                                          f"({b.etype})")
             conn = b.conn[rows]
             if ltype >= 100:
                 continue

@@ -10,7 +10,10 @@ ROT_CENTER), DLOAD and TEMPERATURE loads, the temperatures given by node
 group or read from a heat run's result, ``!TEMPERATURE, READRESULT``;
 rotational !BOUNDARY rows about ROT_CENTER; !SPRING blocks in
 ``model.extras``, ``assembly/extras.py``; the mesh's !EQUATION cards are
-eliminated by each analysis; a registered uload adds its force).
+eliminated by each analysis; a registered uload adds its force); and
+the shells 731/741/743 and 611 beams as a 6-dof model, the solid-shells
+761/781 and 641 beams as 3-dof blocks, linear elastic, as the JAX
+package builds them.
 
 The model itself stays host numpy, as in the JAX package: the symbolic
 profiles are built from it on the host, and ``analysis/static.py`` moves
@@ -32,6 +35,7 @@ from frontistr_tpu_torch.assembly import extras, loads
 from frontistr_tpu_torch.device import resolve
 from frontistr_tpu_torch.elements.tables import get_table
 from frontistr_tpu_torch.fem import material as mat
+from frontistr_tpu_torch.fem.beam import DEFAULT_SECTION
 from frontistr_tpu_torch.io.ctrlio import AnalysisConfig, Card, CntMaterial
 from frontistr_tpu_torch.io.meshio import Mesh
 
@@ -50,7 +54,11 @@ class KBlock:
     material: mat.Material      # block-uniform material record
     sect_id: int = 0
     formulation: str = "FI"
-    kind: str = "solid"
+    kind: str = "solid"         # solid, shell, sshell, beam or beam341
+    # a beam block's seven !SECTION values (reference vector, area, Iyy,
+    # Izz, Jx) and a 641 block's fiber radius and six angles (degrees)
+    section: Optional[tuple] = None
+    fiber: tuple = (0.0, None)
 
 
 @dataclasses.dataclass
@@ -356,7 +364,13 @@ def _iset_from_section(sec) -> int:
 
 SOLID2D_ETYPES = (231, 232, 241, 242)           # plane solids, 2 dofs a node
 SOLID3D_ETYPES = (341, 342, 351, 352, 361, 362)
-SLICE_ETYPES = SOLID2D_ETYPES + SOLID3D_ETYPES  # the ported solid types
+SHELL_ETYPES = (731, 741, 743)  # MITC3/4/9 shells, 6 dofs a node
+SSHELL_ETYPES = (761, 781)      # solid-shell packing, 3 dofs a node
+BEAM6_ETYPES = (611,)           # 2-node beam, 6 dofs a node
+BEAM3_ETYPES = (641,)           # the beam packed as four 3-dof nodes
+SIX_ETYPES = SHELL_ETYPES + BEAM6_ETYPES
+SLICE_ETYPES = SOLID2D_ETYPES + SOLID3D_ETYPES + SIX_ETYPES + \
+    SSHELL_ETYPES + BEAM3_ETYPES                # the ported element types
 
 
 def contact_family(cfg: AnalysisConfig) -> Optional[str]:
@@ -382,7 +396,8 @@ def check_slice(mesh: Mesh, cfg: AnalysisConfig) -> None:
     """Raise on any card or element type of the deck outside the ported
     slice.  !EMBED raises too: the JAX package parses it, warns and
     drops it (``frontistr_tpu/run.py:180-181``); so does !CONTACT in a
-    family where the JAX package drops it (``contact_family``)."""
+    family where the JAX package drops it (``contact_family``), and so
+    do the cards its 6-dof model build leaves out (``check_six``)."""
     if cfg.embeds:
         raise NotImplementedError("!EMBED card")
     fam = contact_family(cfg)
@@ -392,10 +407,37 @@ def check_slice(mesh: Mesh, cfg: AnalysisConfig) -> None:
         if b.etype not in SLICE_ETYPES:
             raise NotImplementedError(
                 f"element type {b.etype} (the port runs the 2-D solids "
-                "231, 232, 241 and 242 and the 3-D solids 341, 342, 351, "
-                "352, 361 and 362 so far)")
+                "231, 232, 241 and 242, the 3-D solids 341, 342, 351, "
+                "352, 361 and 362, the shells 731, 741 and 743, the "
+                "solid-shells 761 and 781 and the beams 611 and 641 so "
+                "far)")
+    six = [b for b in mesh.blocks if b.etype in SIX_ETYPES]
+    if six and len(six) < len(mesh.blocks):
+        # frontistr_tpu/assembly/model.py:366-367
+        raise NotImplementedError("mixed shell/solid meshes")
+    if six:
+        check_six(mesh, cfg)
     if {b.etype in SOLID2D_ETYPES for b in mesh.blocks} == {True, False}:
         raise NotImplementedError("2-D and 3-D solids in one mesh")
+
+
+def check_six(mesh: Mesh, cfg: AnalysisConfig) -> None:
+    """The JAX package's 6-dof model build (``_build_shell_model``) reads
+    the !BOUNDARY, !CLOAD and !DLOAD cards and drops the rest without a
+    word: the port refuses what it would drop, and !EQUATION and
+    !CONTACT, which it does not run on 6-dof models."""
+    if user.has_uload():
+        raise NotImplementedError("a registered uload on a 6-dof model")
+    for name, cards in (("!SPRING", cfg.springs),
+                        ("!TEMPERATURE", cfg.temperatures),
+                        ("!CONTACT", cfg.contacts),
+                        ("!EQUATION", mesh.equations),
+                        ("ROT_CENTER", [c for c in cfg.boundaries +
+                                        cfg.cloads
+                                        if c.param("ROT_CENTER")])):
+        if cards:
+            raise NotImplementedError(f"{name} on a 6-dof (shell or "
+                                      "beam) model")
 
 
 def formulation_361(cfg: AnalysisConfig, section_id: int) -> str:
@@ -417,19 +459,75 @@ def formulation_361(cfg: AnalysisConfig, section_id: int) -> str:
     return form
 
 
+def beam_section(mesh: Mesh, sect_id: int) -> tuple:
+    """A beam block's seven !SECTION values, or ``beam.DEFAULT_SECTION``
+    when the section gives fewer (the JAX package's rule)."""
+    sec = mesh.sections[sect_id] if mesh.sections else None
+    return tuple(float(v) for v in sec.values[:7]) \
+        if sec and len(sec.values) >= 7 else DEFAULT_SECTION
+
+
+def fiber_params(mesh: Mesh, sect_id: int) -> tuple:
+    """A 641 block's fiber radius and six angles from the extended
+    !MATERIAL ELASTIC row (E, nu, radius, angle1..6;
+    fstr_get_prop.f90:91-99), else (0.0, None)."""
+    sec = mesh.sections[sect_id] if mesh.sections else None
+    md = mesh.materials.get(sec.material) if sec else None
+    rows = md.items.get(1) if md is not None else None
+    row = rows[0] if rows else []
+    if len(row) >= 9:
+        return float(row[2]), tuple(float(v) for v in row[3:9])
+    return 0.0, None
+
+
+def _struct_block(mesh: Mesh, cfg: AnalysisConfig, b, ndof: int) -> KBlock:
+    """A shell, solid-shell or beam block: linear elastic, infinitesimal
+    (``frontistr_tpu/assembly/model.py:385-411, 534-573``)."""
+    sec = mesh.sections[b.section_id] if mesh.sections else None
+    mname = sec.material if sec else next(iter(mesh.materials), "")
+    m = _resolve_material(mesh, cfg.materials, mname)
+    m.nlgeom = mat.INFINITESIMAL
+    E, nn = b.conn.shape
+    dofs = (b.conn[:, :, None] * ndof +
+            np.arange(ndof)[None, None, :]).reshape(E, nn * ndof)
+    D1 = mat.elastic_D(m.youngs, m.poisson, mat.D3)
+    kind = ("shell" if b.etype in SHELL_ETYPES else
+            "sshell" if b.etype in SSHELL_ETYPES else
+            "beam" if b.etype in BEAM6_ETYPES else "beam341")
+    thick = sec.values[0] if sec and sec.values and kind != "beam341" \
+        else 1.0
+    beam = kind in ("beam", "beam341")
+    return KBlock(b.etype, b.elem_ids, b.conn, dofs.astype(np.int32),
+                  np.broadcast_to(D1, (E,) + D1.shape).copy(), thick,
+                  mat.D3, np.full(E, m.density), m, b.section_id,
+                  kind=kind,
+                  section=beam_section(mesh, b.section_id) if beam
+                  else None,
+                  fiber=fiber_params(mesh, b.section_id)
+                  if kind == "beam341" else (0.0, None))
+
+
 def build_struct_model(mesh: Mesh, cfg: AnalysisConfig,
                        device="cuda") -> StructModel:
     """The model on ``device`` (default the card; without one, an
-    error)."""
+    error).  Shells and 611 beams make a 6-dof model, as in the JAX
+    package (``_build_shell_model``: the !BOUNDARY, !CLOAD and !DLOAD
+    cards, no follower load); solid-shells and 641 beams are 3-dof blocks
+    beside the solids."""
     dev = resolve(device)
     check_slice(mesh, cfg)
-    dim = ndof = 2 if mesh.blocks and \
-        mesh.blocks[0].etype in SOLID2D_ETYPES else 3
+    six = bool(mesh.blocks) and mesh.blocks[0].etype in SIX_ETYPES
+    dim = 2 if mesh.blocks and mesh.blocks[0].etype in SOLID2D_ETYPES \
+        else 3
+    ndof = 6 if six else dim
     n_node = mesh.n_node
     coords = mesh.coords[:, :dim].copy()
 
     blocks: List[KBlock] = []
     for b in mesh.blocks:
+        if b.etype not in SOLID2D_ETYPES + SOLID3D_ETYPES:
+            blocks.append(_struct_block(mesh, cfg, b, ndof))
+            continue
         table = get_table(b.etype)
         sec = mesh.sections[b.section_id] if mesh.sections else None
         mname = sec.material if sec else next(iter(mesh.materials), "")
@@ -486,9 +584,15 @@ def build_struct_model(mesh: Mesh, cfg: AnalysisConfig,
     f_ext = collect_cload(mesh, cfg.cloads, ndof, n_node, lgrp)
     model = StructModel(mesh, cfg, ndof, dim, n_node, coords, blocks,
                         fixed_dofs, fixed_vals, f_ext, device=dev,
-                        nlgeom=cfg.nlgeom, reftemp=cfg.reftemp)
+                        nlgeom=cfg.nlgeom and not six, reftemp=cfg.reftemp)
     model.rot_bcs = rot_bcs
     model.extras = extras.collect_extras(model, grpid)
+    if six:
+        # the 6-dof model: dead DLOAD only, no follower record
+        if cfg.dloads:
+            model.f_ext = model.f_ext + loads.collect_dload(
+                mesh, model, cfg.dloads, lgrp)
+        return model
     # dead DLOAD and thermal loads of the first step's load groups; the
     # Newton driver re-assembles DLOAD at u under nlgeom (follower)
     if cfg.dloads:

@@ -3,6 +3,8 @@
 ``model_from_numpy`` takes the numpy fields of a model of the JAX
 package (``frontistr_tpu.assembly.model.StructModel``: coords, block
 connectivity, dofs, elastic matrices, section type and thickness, the
+block's kind (solid, shell, sshell, beam, beam341) with a beam's seven
+section values and a 641 block's fiber radius and angles, the
 material's constants (plastic, hyperelastic, Prony rows and TRS, creep,
 the E(T) table, orthotropic, user), Dirichlet dofs and values, external
 force) and builds the port's ``StructModel`` on a device, plus
@@ -25,7 +27,8 @@ import numpy as np
 import torch
 
 from frontistr_tpu_torch.analysis import heat
-from frontistr_tpu_torch.assembly.model import KBlock, StructModel
+from frontistr_tpu_torch.assembly.model import (KBlock, StructModel,
+                                                beam_section, fiber_params)
 from frontistr_tpu_torch.device import resolve
 from frontistr_tpu_torch.fem import material as mat
 from frontistr_tpu_torch.fem.plastic import PlasticParams
@@ -43,6 +46,7 @@ def model_from_numpy(src, device="cuda",
     blocks = []
     for b in src.blocks:
         sm = b.material
+        beam = b.kind in ("beam", "beam341")
 
         def arr(name):
             v = getattr(sm, name, None)
@@ -66,7 +70,10 @@ def model_from_numpy(src, device="cuda",
             np.asarray(b.conn, np.int32), np.asarray(b.dofs, np.int32),
             np.asarray(b.D, np.float64), float(b.thick), int(b.iset),
             np.asarray(b.density, np.float64), m, int(b.sect_id),
-            formulation=b.formulation, kind=b.kind))
+            formulation=b.formulation, kind=b.kind,
+            section=beam_section(src.mesh, b.sect_id) if beam else None,
+            fiber=fiber_params(src.mesh, b.sect_id)
+            if b.kind == "beam341" else (0.0, None)))
     model = StructModel(
         mesh=src.mesh, cfg=src.cfg, ndof=int(src.ndof), dim=int(src.dim),
         n_node=int(src.n_node),

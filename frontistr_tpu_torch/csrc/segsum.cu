@@ -72,6 +72,13 @@
 // nd.  The sums still run in ascending k, so the 2-D AMG setup repeats
 // bit for bit as the 3-D one does.
 //
+// Shells and 611 beams (nd = 6) are the third instance: a row block is
+// 6 x m values (m = 12, 18, 24 or 54), an item's record 36 sums (288 or
+// 144 bytes), so a thread of pass 1 keeps 36 accumulators (72 registers
+// in float64) and a 48 KB stage holds 41 row blocks at m = 24 and 18 at
+// m = 54 (float64).  Pass 2 reads each record whole and writes it to the
+// 36 planes, as for the solids.
+//
 // The planes entry is a simple one-thread-per-(slot, plane) kernel: its
 // callers (the AMG's Galerkin sums, nodal smoothing) run it once or
 // twice per Newton iteration on a few million entries.
@@ -412,7 +419,8 @@ int launch_planes(const void* values, int V, long long R, const int* slot_ptr,
 // ascending, and their items) and nz_ptr, into out (nd*nd, n_slots).
 // Host arrays: ke_ptrs (nblk) to the element matrices, starts (nblk+1)
 // their flat offsets, ms (nblk) their widths m_b <= m_max.  nd is 2 (the
-// 2-D solids) or 3; is_double selects float64 over float32.
+// 2-D solids), 3 or 6 (shells and 611 beams); is_double selects float64
+// over float32.
 extern "C" int fstr_segsum(int nd, int is_double, int idx64, const void* loc,
                            const void* rb_src, const void* rb_ptr,
                            const void* item_k0, const void* item_k1,
@@ -424,7 +432,7 @@ extern "C" int fstr_segsum(int nd, int is_double, int idx64, const void* loc,
                            const long long* starts, const int* ms, int nblk,
                            void* sums, void* out, void* stream, int device) {
   if (nblk < 1 || nblk > kMaxBlocks) return -1;
-  if ((nd != 2 && nd != 3) || n_tiles < 0 || stage_rb < 0 || m_max < 1 || n_slots < 0 ||
+  if ((nd != 2 && nd != 3 && nd != 6) || n_tiles < 0 || stage_rb < 0 || m_max < 1 || n_slots < 0 ||
       n_slots >= 0x7fffffffLL)
     return -2;
   for (int b = 0; b < nblk; ++b)
@@ -445,6 +453,13 @@ extern "C" int fstr_segsum(int nd, int is_double, int idx64, const void* loc,
                                                     starts, ms, nblk, sums,
                                                     out, st, device)
                      : dispatch_elements<2, float>(idx64, sc, ke_ptrs, starts,
+                                                   ms, nblk, sums, out, st,
+                                                   device);
+  if (nd == 6)
+    return is_double ? dispatch_elements<6, double>(idx64, sc, ke_ptrs,
+                                                    starts, ms, nblk, sums,
+                                                    out, st, device)
+                     : dispatch_elements<6, float>(idx64, sc, ke_ptrs, starts,
                                                    ms, nblk, sums, out, st,
                                                    device);
   return is_double ? dispatch_elements<3, double>(idx64, sc, ke_ptrs, starts,

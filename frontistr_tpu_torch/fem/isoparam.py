@@ -103,3 +103,27 @@ def b_matrix(S: torch.Tensor, gderiv_q: torch.Tensor) -> torch.Tensor:
     ns, ndof, _ = S.shape
     B = torch.einsum("kdj,enj->eknd", S, gderiv_q)
     return B.reshape(E, ns, nn * ndof)
+
+
+def gauss_jordan_inv(A: torch.Tensor) -> torch.Tensor:
+    """Batched inverse of (..., n, n) by Gauss-Jordan elimination with
+    diagonal pivots, the JAX package's ``utils/linalg.gauss_jordan_inv``
+    step for step (its nodal 6 x 6 block-Jacobi inverse; the same
+    rounding keeps the CG counts of the two packages equal)."""
+    n = A.shape[-1]
+    M = A.clone()
+    inv = torch.eye(n, dtype=A.dtype, device=A.device).expand(
+        A.shape).clone()
+    keep = (torch.arange(n, device=A.device)[:, None] !=
+            torch.arange(n, device=A.device)).to(A.dtype)
+    for i in range(n):
+        piv = M[..., i:i + 1, i:i + 1]
+        row_m = M[..., i:i + 1, :] / piv
+        row_i = inv[..., i:i + 1, :] / piv
+        M[..., i, :] = row_m[..., 0, :]
+        inv[..., i, :] = row_i[..., 0, :]
+        fac = M[..., :, i:i + 1] * keep[i][:, None]
+        M = M - fac * row_m
+        inv = inv - fac * row_i
+    return inv
+

@@ -5,13 +5,16 @@ omit theirs, and benchmarking needs arbitrary-size meshes (BASELINE.md
 "1M DOF").  This generator produces ``Mesh`` objects directly (same dataclass
 the .msh reader yields) for box domains in hex8 and tet4, plane boxes
 of quad4 or tri3 (the 2-D heat decks), two hex8 cubes joined by 541
-gap elements (the heat interface decks) and two boxes in node-to-surface
-contact (``contact_pair``, the contact decks).
+gap elements (the heat interface decks), two boxes in node-to-surface
+contact (``contact_pair``, the contact decks), flat plates of MITC3,
+MITC4 or MITC9 shells (``plate_shell``), straight 611 and 641 beams
+(``beam_line``) and solid-shell strips (``solid_shell_strip``), the
+shell and beam decks.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -144,6 +147,151 @@ def box_plane(nx: int, ny: int, lx: float = 1.0, ly: float = 1.0,
         materials={"M1": MaterialDef("M1", {})}, node_groups=groups,
         elem_groups={"ALL": elem_ids}, surf_groups={}, amplitudes={},
         equations=[], contact_pairs=[], initial_conditions={})
+
+
+def plate_shell(nx: int, ny: Optional[int] = None, etype: int = 741,
+                a: float = 1.0, b: Optional[float] = None,
+                thick: float = 0.01, youngs: float = 210e3,
+                poisson: float = 0.3, density: float = 7.85e-9,
+                warp: float = 0.0, seed: int = 4) -> Mesh:
+    """Flat plate of shells in the z = 0 plane over [0, a] x [0, b]:
+    nx*ny MITC4 quads (741), 2*nx*ny MITC3 triangles (731, each quad
+    split along its 0-2 diagonal) or nx*ny MITC9 quads (743, on a
+    (2nx+1) x (2ny+1) node grid), all numbered counter-clockwise seen
+    from +z.  A SHELL section of thickness ``thick``, the material M1
+    (E, nu, rho), the node groups X0/X1/Y0/Y1, EDGE (the four edges) and
+    ALL, and the element group ALL.  ``warp`` > 0 moves every node by up
+    to ``warp`` times an element's width in each direction (numpy
+    ``default_rng(seed)``), the edge nodes along their edges only:
+    distorted, warped elements."""
+    assert etype in (731, 741, 743)
+    ny = nx if ny is None else ny
+    b = a if b is None else b
+    k = 2 if etype == 743 else 1       # grid points an element edge
+    mx, my = k * nx + 1, k * ny + 1
+    X, Y = np.meshgrid(np.linspace(0, a, mx), np.linspace(0, b, my),
+                       indexing="ij")
+    coords = np.stack([X.ravel(), Y.ravel(), np.zeros(X.size)], axis=1)
+    I, J = (v.ravel() * k for v in np.meshgrid(np.arange(nx), np.arange(ny),
+                                               indexing="ij"))
+
+    def nid(i, j):
+        return i * my + j
+    if etype == 743:
+        # corners, edge midpoints (0,-),(+,0),(0,+),(-,0), centre
+        conn = np.stack([nid(I, J), nid(I + 2, J), nid(I + 2, J + 2),
+                         nid(I, J + 2), nid(I + 1, J), nid(I + 2, J + 1),
+                         nid(I + 1, J + 2), nid(I, J + 1),
+                         nid(I + 1, J + 1)], axis=1)
+    else:
+        conn = np.stack([nid(I, J), nid(I + 1, J), nid(I + 1, J + 1),
+                         nid(I, J + 1)], axis=1)
+        if etype == 731:
+            conn = np.concatenate([conn[:, [0, 1, 2]], conn[:, [0, 2, 3]]])
+    conn = conn.astype(np.int32)
+    n_node = coords.shape[0]
+    elem_ids = np.arange(1, len(conn) + 1, dtype=np.int64)
+    node_ids = np.arange(1, n_node + 1, dtype=np.int64)
+    groups = {"ALL": np.arange(n_node, dtype=np.int64)}
+    for g, ax, x in (("X0", 0, 0.0), ("X1", 0, a), ("Y0", 1, 0.0),
+                     ("Y1", 1, b)):
+        groups[g] = np.flatnonzero(np.isclose(coords[:, ax], x)) \
+            .astype(np.int64)
+    groups["EDGE"] = np.unique(np.concatenate(
+        [groups[g] for g in ("X0", "X1", "Y0", "Y1")]))
+    if warp > 0.0:
+        h = min(a / nx, b / ny)
+        d = np.random.default_rng(seed).uniform(-warp * h, warp * h,
+                                                (n_node, 3))
+        for g, ax in (("X0", 0), ("X1", 0), ("Y0", 1), ("Y1", 1)):
+            d[groups[g], ax] = 0.0
+        coords = coords + d
+    return Mesh(
+        header="generated shell plate", coords=coords, node_ids=node_ids,
+        id2idx={int(g): int(g) - 1 for g in node_ids},
+        blocks=[ElemBlock(etype, elem_ids, conn, conn, 0)],
+        sections=[Section("SHELL", "ALL", "M1", [thick, 3.0])],
+        materials={"M1": MaterialDef("M1", {1: [[youngs, poisson]],
+                                            2: [[density]]})},
+        node_groups=groups, elem_groups={"ALL": elem_ids}, surf_groups={},
+        amplitudes={}, equations=[], contact_pairs=[],
+        initial_conditions={})
+
+
+def _single_block(coords, etype, conn, section: Section, items: dict,
+                  groups: dict, header: str) -> Mesh:
+    conn = np.asarray(conn, np.int32)
+    eids = np.arange(1, len(conn) + 1, dtype=np.int64)
+    nids = np.arange(1, len(coords) + 1, dtype=np.int64)
+    return Mesh(
+        header=header, coords=np.asarray(coords, np.float64), node_ids=nids,
+        id2idx={int(g): int(g) - 1 for g in nids},
+        blocks=[ElemBlock(etype, eids, conn, conn, 0)], sections=[section],
+        materials={"M1": MaterialDef("M1", items)},
+        node_groups={k: np.asarray(v, np.int64) for k, v in groups.items()},
+        elem_groups={"ALL": eids}, surf_groups={}, amplitudes={},
+        equations=[], contact_pairs=[], initial_conditions={})
+
+
+def beam_line(etype: int = 611, ne: int = 4, length: float = 10.0,
+              section=(0.0, 0.0, 1.0, 1.0, 2.0, 2.0, 1.0),
+              elastic=(1000.0, 0.3), density: float = 1.0) -> Mesh:
+    """A straight beam along x of ``ne`` elements: 611 (two 6-dof nodes
+    an element) or 641 (the ne + 1 line nodes, then their rotation
+    carriers at the same places; element i is (i, i+1, carrier i,
+    carrier i+1)).  The BEAM section's seven values (reference vector,
+    area, Iyy, Izz, Jx); ``elastic`` the material's ELASTIC row (E, nu,
+    and for 641 optionally the fiber radius and six angles).  Node
+    groups FIX (x = 0, its carrier too), TIP (the line node at x =
+    length) and ALL."""
+    assert etype in (611, 641)
+    xs = np.linspace(0.0, length, ne + 1)
+    line = np.stack([xs, 0 * xs, 0 * xs], 1)
+    if etype == 611:
+        coords, conn, fix = line, [[i, i + 1] for i in range(ne)], [0]
+    else:
+        coords = np.concatenate([line, line])
+        conn = [[i, i + 1, ne + 1 + i, ne + 2 + i] for i in range(ne)]
+        fix = [0, ne + 1]
+    return _single_block(coords, etype, conn,
+                         Section("BEAM", "ALL", "M1", list(section)),
+                         {1: [list(elastic)], 2: [[density]]},
+                         {"FIX": fix, "TIP": [ne],
+                          "ALL": np.arange(len(coords))},
+                         "generated beam")
+
+
+def solid_shell_strip(etype: int = 781, nx: int = 4, thick: float = 0.1,
+                      youngs: float = 1.0e6, poisson: float = 0.0,
+                      density: float = 1.0) -> Mesh:
+    """A cantilever strip of nx solid-shells (781: quads, 761: one
+    triangle a cell) over 2 x 0.25: each element's lower-face nodes,
+    then its upper-face twins at the same places (the rotation
+    carriers).  A SHELL section of thickness ``thick``; node groups FIX
+    (the x = 0 nodes, upper and lower; for 761 also the next row), TIP
+    (the free end's lower nodes) and ALL."""
+    assert etype in (761, 781)
+    nid, coords = {}, []
+    for up in (0, 1):
+        for i in range(nx + 1):
+            for j in range(2):
+                nid[(i, j, up)] = len(coords)
+                coords.append((i * 2.0 / nx, j * 0.25, 0.0))
+    conn = []
+    for i in range(nx):
+        ring = [(i, 0), (i + 1, 0), (i + 1, 1), (i, 1)][
+            :4 if etype == 781 else 3]
+        conn.append([nid[p + (0,)] for p in ring] +
+                    [nid[p + (1,)] for p in ring])
+    fix = [nid[(i, j, z)] for i in range(1 if etype == 781 else 2)
+           for j in range(2) for z in (0, 1)]
+    return _single_block(coords, etype, conn,
+                         Section("SHELL", "ALL", "M1", [thick, 3.0]),
+                         {1: [[youngs, poisson]], 2: [[density]]},
+                         {"FIX": fix,
+                          "TIP": [nid[(nx, 0, 0)], nid[(nx, 1, 0)]],
+                          "ALL": np.arange(len(coords))},
+                         "generated solid-shell strip")
 
 
 def hex8_pair_541(n: int, gap_section=(0.05, 2.0, 5.67e-11, 5.67e-11)

@@ -99,12 +99,23 @@ def node_plan(conn: np.ndarray, n_node: int, device) -> SegsumPlan:
     return make_plan(perm, seg, n_node, (conn.size,), device)
 
 
+def skip_block(block, dim: int, device) -> dict:
+    """The ``smooth`` entry of a block without continuum stress (a
+    solid-shell or beam beside solids): zero element rows, no nodal
+    contribution."""
+    z = torch.zeros((len(block.elem_ids), 1, 6 if dim == 3 else 3),
+                    dtype=torch.float64, device=device)
+    return dict(etype=block.etype, conn=block.conn[:, :0], gauss_strain=z,
+                gauss_stress=z, skip=True)
+
+
 def smooth(n_node: int, block_data: List[dict], dim: int):
     """Average per-element nodal values onto mesh nodes.
 
     Args:
       block_data: per block a dict with 'etype', 'conn' (E, nn) numpy,
-        'gauss_strain' / 'gauss_stress' (E, nq, ns) tensors.
+        'gauss_strain' / 'gauss_stress' (E, nq, ns) tensors, and 'skip'
+        for a block without continuum stress (``skip_block``).
       dim: 2 or 3.
 
     Returns a dict of numpy arrays: nodal 'strain', 'stress', 'mises',
@@ -121,6 +132,12 @@ def smooth(n_node: int, block_data: List[dict], dim: int):
         conn = np.asarray(bd["conn"], np.int64)
         geps = bd["gauss_strain"][..., :ns]
         gsig = bd["gauss_stress"][..., :ns]
+        if bd.get("skip"):
+            z = np.zeros((len(geps), ns))
+            est.append(z)
+            ess.append(z)
+            ems.append(np.zeros(len(geps)))
+            continue
         Ex = torch.as_tensor(extrapolation_matrix(bd["etype"]), dtype=dt,
                              device=dev)
         nd_eps = torch.einsum("nq,eqs->ens", Ex, geps)
@@ -136,7 +153,9 @@ def smooth(n_node: int, block_data: List[dict], dim: int):
     # strains, stresses and counts of every block's element nodes summed
     # per node in one K1 planes launch, in the entries' order
     acc = segsum_planes(torch.cat(planes, dim=1),
-                        node_plan(np.concatenate(conns), n_node, dev))
+                        node_plan(np.concatenate(conns), n_node, dev)) \
+        if planes else torch.zeros((2 * ns + 1, n_node), dtype=dt,
+                                   device=dev)
     acc_eps, acc_sig, count = acc[:ns].T, acc[ns:2 * ns].T, acc[2 * ns]
     cnt = torch.where(count == 0, torch.ones_like(count), count)
     nd_eps = acc_eps / cnt[:, None]

@@ -72,6 +72,11 @@ def uload_total(coords, ndof, t=0.0):
     return out
 
 
+def has_uload() -> bool:
+    """Whether a uload is registered."""
+    return bool(_ULOAD)
+
+
 def clear():
     _UMAT.clear()
     del _ULOAD[:]

@@ -10,10 +10,9 @@ Newton path and its BiCGSTAB counts can be held, on the CPU.
   pass of the sticking deck (10 -> 7 iterations), and the test below
   shows it.
 - BiCGSTAB's count of a single solve on the smoke's sticking punch deck
-  moves by tens of iterations in either package under a load changed
-  by 1e-13, at relres 1e-12 and at 1e-8; the run's total stays within
-  10%.  That is the bar the smoke holds the card to on these
-  decks (a card's reductions sum in another order).
+  moves under a load changed by 1e-13:
+  tests/test_torch_contact_friction_bicgstab.py (its own file, so that
+  ``--dist loadfile`` gives the long run a worker of its own).
 - BiCGSTAB stops at a breakdown and returns its last finite iterate
   (ROADMAP queue 3, fault 7); the JAX package's returns NaN.
 
@@ -22,7 +21,6 @@ Bars: displacements and element stresses within 1e-8 x their largest
 change).
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -79,49 +77,6 @@ def test_reference_newton_path_moves_under_a_load_change(tmp_path,
     (u0, p0), (u1, p1) = runs
     assert p0 == [(10, True), (2, True)] and p1 == [(7, True), (2, True)]
     close(u1, u0)
-
-
-def _jax_counts(monkeypatch, wd):
-    """The JAX package's run of ``wd`` and each BiCGSTAB solve's count."""
-    import frontistr_tpu.run as jrun
-    counts, real = [], jcg.bicgstab
-
-    def counted(*a, **kw):
-        res = real(*a, **kw)
-        jax.debug.callback(lambda k: counts.append(int(k)), res.iters)
-        return res
-    monkeypatch.setattr(jcg, "bicgstab", counted)
-    jrun.run_directory(wd)
-    monkeypatch.setattr(jcg, "bicgstab", real)
-    return counts
-
-
-def test_bicgstab_counts_move_under_a_load_change(tmp_path, monkeypatch):
-    """The smoke's sticking punch deck (225 dofs, tangential penalty
-    1e4), the push changed by 1e-13: the contact passes stay, a single
-    solve's count moves by more than 1 and the run's total by under
-    10%, in the JAX package at the deck's relres 1e-12 and in the port
-    at 1e-12 and at 1e-8, where most solves take fewer iterations than
-    there are unknowns."""
-    from frontistr_tpu_torch.run import run_directory
-    runs = {}
-    for who, resid in (("jax", "1.0e-12"), ("port", "1.0e-12"),
-                       ("port", "1.0e-8")):
-        for k, uz in enumerate(UZ):
-            cnt = static_cnt("ALAGRANGE", bc=SHEAR.format(uz=uz),
-                             mu="100.0, 1.0e+4", conv="1.0e-6", resid=resid)
-            wd = write_deck(tmp_path / f"{who}{resid}_{k}",
-                            pair_mesh("punch"), cnt, seed=5)
-            if who == "jax":
-                counts = _jax_counts(monkeypatch, wd)
-            else:
-                nw = run_directory(wd, device="cpu")["static"].newton
-                counts = [h["cg_iters"] for h in nw.history]
-            runs.setdefault((who, resid), []).append(counts)
-    for key, (a, b) in runs.items():
-        assert len(a) == len(b) == 13, key
-        assert max(abs(x - y) for x, y in zip(a, b)) > 1, key
-        assert abs(sum(a) - sum(b)) <= 0.1 * sum(a), key
 
 
 def test_bicgstab_stops_at_a_breakdown():

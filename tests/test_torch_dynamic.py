@@ -424,7 +424,8 @@ UNPORTED = {
     "eigenread": ({}, "!EIGENREAD\n eigen.log\n 1, 2\n", {}, None,
                   "EIGENREAD"),
     "flow_3414": ({}, "", {}, _etype(3414), "3414"),
-    "shell_731": ({}, "", {}, _etype(731), "731"),
+    # the id predates the shell port: the case is the truss 301
+    "shell_731": ({}, "", {}, _etype(301), "301"),
 }
 
 

@@ -111,8 +111,9 @@ def test_unported_element_type_raises(tmp_path):
     p = tmp_path / "case.cnt"
     p.write_text(CNT)
     mesh = box_hex8(2, 2, 2)
-    mesh.blocks = [dataclasses.replace(mesh.blocks[0], etype=731)]
-    with pytest.raises(NotImplementedError, match="element type 731"):
+    b = mesh.blocks[0]
+    mesh.blocks = [dataclasses.replace(b, etype=301, conn=b.conn[:, :2])]
+    with pytest.raises(NotImplementedError, match="element type 301"):
         build_struct_model(mesh, read_cnt(str(p)), device="cpu")
 
 
