@@ -8,7 +8,8 @@ once, checks the answers and prints the result.
                           [--dyn-hex-steps T] [--heat-n H] [--heat-steps S]
                           [--eigen-n E] [--hex20-n H] [--direct-n D]
                           [--plane-n P] [--hyper-n H] [--hyper-substeps S]
-                          [--contact-n C] [--shell-n S]
+                          [--contact-n C] [--shell-n S] [--flow-n F]
+                          [--flow-steps F]
 
 - The nonlinear static (Newton) tet path through
   ``frontistr_tpu_torch.run.run_directory`` (the function behind
@@ -19,8 +20,8 @@ once, checks the answers and prints the result.
 - The linear-static tet path through ``run_directory``: the STATIC deck
   on a shuffled ``box_tet4(n, n, n)`` (default n=40: 206,763 dofs).
 - The solver menu: the STATIC tet deck with METHOD=BICGSTAB (RESID
-  1e-9) on a shuffled ``box_tet4(k)`` (default k=55; 69 is the newton
-  cell's box)
+  1e-9) on a shuffled ``box_tet4(k)`` (default k=40;
+  69 is the newton cell's box)
   through ``run_directory``, the scalar block-ELL operator whose blocks
   K1 sums once at the ELL profile's plan; GMRES(30) and GPBiCG through
   ``solve_linear`` on the same model; the CG/AMG answer beside them;
@@ -45,18 +46,17 @@ once, checks the answers and prints the result.
   NLSTATIC tet deck, and the slice's hex8 B-bar and F-bar plastic,
   tet10 Drucker-Prager and STATIC DLOAD + TEMPERATURE decks.
 - The dynamics paths through ``run_directory``: explicit central
-  difference on a shuffled ``box_tet4(d, d, d)`` (default d=55), dt half
-  the smallest element's critical step, S steps (500; 1000 through PR
-  11), the equation of
+  difference on a shuffled ``box_tet4(d, d, d)`` (default d=48), dt half
+  the smallest element's critical step, S steps (300), the equation of
   motion checked at the last step; implicit Newmark on a shuffled
-  ``box_hex8(x, x, x)`` (55), IC, Rayleigh damping, T steps (10), every
+  ``box_hex8(x, x, x)`` (48), IC, Rayleigh damping, T steps (10), every
   solve's true relres checked; then small dynamics decks on the card
   and on the CPU.  These paths launch one kernel, K1's planes entry,
   once each, in the final nodal smoothing.
 - The heat, eigen and frequency-response paths (no kernel), then small
   decks of those families on the card and on the CPU.
 - The hex20_mpc path through ``run_directory``: NLSTATIC on a shuffled
-  hex20 box of h (default 28: 285,099 dofs, 21,952 elements of type
+  hex20 box of h (default 24: 181,875 dofs, 13,824 elements of type
   362), X1's u_z tied by
   !EQUATION to one master node, the load and a
   !SPRING on the master; K1 once per Newton iteration at m = 60 beside
@@ -67,17 +67,19 @@ once, checks the answers and prints the result.
   the slice's small decks (prisms, hex20, !EQUATION, !SPRING,
   ROT_CENTER, DIRECT, ESTCOND, DUMPTYPE) on the card and on the CPU.
 - The plane path through ``run_directory``: NLSTATIC on a shuffled
-  plane-strain quad8 (242) box of p x p (default 408: 1,002,050 dofs,
-  166,464 elements), the AMG at nd = 2; K1's nd = 2 element entry once
+  plane-strain quad8 (242) box of p x p (default 360: 780,482 dofs,
+  129,600 elements; 408 gives 1,002,050 dofs), the AMG at
+  nd = 2; K1's nd = 2 element entry once
   per Newton iteration.  Then K1 at nd = 2 against its plain version and
   index_add_; the hex20_mpc deck with a NEOHOOKE material at its full
   load on a box of h (default 24; 32 through PR 12); small decks of the
   2-D solids and the hyperelastic, viscoelastic (!TRS), creep,
   orthotropic, E(T) and user materials on the card and on the CPU.
 - The contact path through ``run_directory``: the flat punch of n
-  (default 64: a 64 x 64 x 32 hex8 base over 1 x 1 x 0.5 under a 62 x 62
-  x 31 punch over 0.9 x 0.9 x 0.45, the meshes not matching; 799,299
-  dofs, 3,969 slave nodes; 72 gives 1,135,947), SLAGRANGE, frictionless, NLSTATIC in two
+  (default 56: a 56 x 56 x 28 hex8 base over 1 x 1 x 0.5 under a 54 x 54
+  x 27 punch over 0.9 x 0.9 x 0.45, the meshes not matching; 536,763
+  dofs, 3,025 slave nodes; 72 gives 1,135,947),
+  SLAGRANGE, frictionless, NLSTATIC in two
   substeps; K1's planes entry in every reduction T^T of the elimination
   and the nodal smoothing.  Then the planes entry at its slot plan
   against its plain version and index_add_; small contact decks of
@@ -89,13 +91,25 @@ once, checks the answers and prints the result.
   both formats, the contact drop, transient heat) and of !ECHO on the
   card and on the CPU.
 - The shell path through ``run_directory``: linear STATIC of a shuffled
-  square MITC4 (741) plate of s x s (default 408: 167,281 nodes,
-  1,003,686 dofs), a = 1000 mm, thickness 50 mm (a/t = 20), clamped
+  square MITC4 (741) plate of s x s (default 360: 130,321 nodes,
+  781,926 dofs; 408 gives 1,003,686), a = 1000 mm,
+  thickness 50 mm (a/t = 20), clamped
   on its four edges, a uniform pressure on every element, once in the
   mixed and once in the f64 policy; K1's nd = 6 element entry once a
   run, its planes entry once in the shells' nodal sums.  Then K1 at
   nd = 6 against its plain version and index_add_ (f64 and f32); small
   shell, solid-shell and beam decks on the card and on the CPU.
+- The band Cholesky (FRONTISTR_TPU_DIRECT=band with METHOD=DIRECT):
+  EIGEN on the eigen path's cube against its CG answer, Newmark on a
+  box_hex8 of the same size against the CG arm, and the direct path's
+  box in EIGEN and DYNAMIC against host SuperLU.
+- The flow path through ``run_directory``: the lid-driven cavity at
+  Re = 100 on a shuffled ``box_tet4(f, f, f)`` unit cube made 3414
+  (default f = 62: 250,047 nodes, 1,000,188 dofs, 1,429,968 elements),
+  dt = 1/f, F steps (3) of the SUPG/PSPG stepper; K1's nd = 4 element
+  entry and its planes entry (the right-hand side) once a step.  Then
+  K1 at nd = 4 against its plain version and index_add_ (f64 and f32);
+  small flow, band and PRECHECK/NZPROF decks on the card and on the CPU.
 
 The run needs a CUDA card and exits non-zero without one, or when any
 phase fails.  Work directories and the kernel build go under ``build/``
@@ -289,6 +303,16 @@ def phase_k1_check(sm, bell, box_tet4, box_hex8, tet10, hex20):
     for dt in (torch.float32, torch.float64):
         check_k1(sm, plan, [ke], [1], dt, "random segments")
         check_planes(sm, plan, values, dt, "random segments")
+    # nd = 4 (the u-p flow element): random matrices with no symmetry on
+    # a tet cluster profile, so a swap of i and j or of a and b shows
+    mesh = box_tet4(16, 16, 16)
+    conn = mesh.blocks[0].conn
+    plan = bell.build_cluster_profile([conn], mesh.n_node, 4).plan(dev)
+    ke = torch.as_tensor(rng.standard_normal((conn.shape[0], 16, 16)),
+                         device=dev)
+    for dt in (torch.float32, torch.float64):
+        check_k1(sm, plan, [ke], [4], dt,
+                 "nd = 4, box_tet4(16) cluster, not symmetric", nd=4)
     for label, mesh, nn in (("box_tet4(20) cluster", box_tet4(20, 20, 20), 4),
                             ("box_hex8(20) cluster", box_hex8(20, 20, 20),
                              8),
@@ -1315,7 +1339,7 @@ def dyn_phases(dr) -> str:
 def phase_dynamic_explicit_main_path(args, mods) -> dict:
     """Explicit central difference through run_directory on a shuffled
     box_tet4(m) (default m=69: 1,029,000 dofs): dt half the critical
-    step of the smallest element, ``--dyn-steps`` steps (500), X1's
+    step of the smallest element, ``--dyn-steps`` steps (300), X1's
     load ramped over the first 10% of the run, a monitor at X1's corner
     every 10 steps.  Holds the last step to the equation of motion
     M a_n = f(t_n) - K u_n on the free dofs, K u_n by an index_add_ of
@@ -1664,7 +1688,8 @@ def heat_relres(last) -> float:
 
 def phase_heat_main_path(args, mods) -> dict:
     """Transient heat through run_directory on a shuffled box_hex8(h)
-    (default h=100: 1,030,301 temperature dofs, 1,000,000 hex8): rho
+    (default h=50: 132,651 temperature dofs, 125,000 hex8; 100 gives
+    1,030,301): rho
     7.8e-6, c 460 and a conductivity falling from 50 at 0 to 35 at 500;
     X0 fixed at 200 from an initial 20 on every node, !SFILM on X1 and
     !SRADIATE on the top face (!ZERO -273.15), a !DFLUX body flux;
@@ -2237,7 +2262,7 @@ MPCCNT = ("!VERSION\n 3\n!SOLUTION, TYPE=NLSTATIC\n!BOUNDARY\n X0, 1, 3, 0.0\n"
 def phase_hex20_mpc_main_path(args, mods) -> dict:
     """The hex20_mpc cell through run_directory: NLSTATIC (total
     Lagrange) in the f64 policy on a shuffled hex20 box of n (default
-    28: 95,033 nodes, 285,099 dofs, 21,952 elements of type 362), X0
+    24: 60,625 nodes, 181,875 dofs, 13,824 elements of type 362), X0
     fixed, every X1 node's u_z tied by !EQUATION to the node at X1's
     middle, a !CLOAD of -(X1's node count)/2 in z there and a !SPRING to
     the ground in z of 1e-3 E A / L.  (At the full -(X1's node count),
@@ -2669,7 +2694,8 @@ PLANECNT = ("!VERSION\n 3\n!SOLUTION, TYPE=NLSTATIC\n!BOUNDARY\n"
 def phase_plane_main_path(args, mods) -> dict:
     """The plane cell through run_directory: NLSTATIC (total Lagrange) in
     the f64 policy on a shuffled plane-strain quad8 (242) box of n x n
-    (default 408: 501,025 nodes, 1,002,050 dofs, 166,464 elements),
+    (default 360: 390,241 nodes, 780,482 dofs, 129,600 elements; 408
+    gives 1,002,050 dofs),
     section thickness 1, X0 fixed, X1 loaded -1 in y per node, the AMG
     at nd = 2 (three rigid modes).  Per Newton iteration rres/rxnrm, CG,
     an independent index_add_ true relres (<= 1e-8); the phase split, ms
@@ -3082,7 +3108,7 @@ def contact_cnt(algo="SLAGRANGE", sol="NLSTATIC", bc=None, loads="",
 
 
 def punch_mesh(mods, n: int):
-    """The flat punch of ``n`` (default 64): the lower (master) box of n x
+    """The flat punch of ``n`` (default 56): the lower (master) box of n x
     n x n/2 hex8 over 1 x 1 x 0.5, the upper (slave) box of m x m x m/2,
     m = 70 n / 72, over 0.9 x 0.9 x 0.45 standing on it; the meshes do
     not match."""
@@ -3200,8 +3226,8 @@ def spy_contact(mods, solves: list, first: dict, state: dict):
 
 def phase_contact_main_path(args, mods) -> dict:
     """The flat punch through run_directory on the card (``punch_mesh``,
-    default n = 72: 378,649 nodes, 1,135,947 dofs, 358,124 hex8, 5,041
-    slave nodes over 5,184 master faces; shuffled), SLAGRANGE,
+    default n = 56: 178,921 nodes, 536,763 dofs, 166,540 hex8, 3,025
+    slave nodes over 3,136 master faces; shuffled), SLAGRANGE,
     frictionless, NLSTATIC in two substeps.  Per solve: CG, seconds and
     an independent index_add_ true relres of the eliminated system (<=
     1e-8); per substep the Newton iterations of each contact pass and the
@@ -4106,8 +4132,9 @@ def plate_center(model) -> int:
 def phase_shell_main_path(args, mods, t=SHELL_T,
                           resid=SHELL_RESID) -> dict:
     """The shell cell through run_directory: linear STATIC of a shuffled
-    square MITC4 (741) plate of n x n (default 408: 167,281 nodes,
-    1,003,686 dofs, 166,464 elements), a = 1000 mm, thickness t (default
+    square MITC4 (741) plate of n x n (default 360: 130,321 nodes,
+    781,926 dofs, 129,600 elements; 408 gives 1,003,686), a = 1000 mm,
+    thickness t (default
     50 mm), E 210 GPa, nu 0.3, clamped on all four edges (all six dofs),
     a uniform pressure q = 0.01 MPa on every element (!DLOAD P0, the
     shell_dload arm); CG with block-Jacobi at nd = 6 to RESID 1e-9 (room
@@ -4374,11 +4401,441 @@ def phase_shell_small_reference(mods) -> None:
         raise AssertionError("shell_small_reference: plate743 differs")
 
 
+# ---- the u-p flow (3414, K1 at nd = 4), the band Cholesky, PRECHECK -------
+# the lid-driven cavity at Re = 100 (Ghia, Ghia & Shin 1982): every wall
+# no-slip, the lid Z1 sliding at v_x = 1 (its rows last), rho 1, mu 0.01
+FLOW_WALLS = ("X0", "X1", "Y0", "Y1", "Z0", "Z1")
+FLOWCNT = ("!VERSION\n 3\n!SOLUTION, TYPE=DYNAMIC\n!DYNAMIC, TYPE=NONLINEAR\n"
+           " 1, 1\n 0.0, {t_end!r}, {n_step}, {dt!r}\n 0.5, 0.25\n"
+           " 1, 1, 0.0, 0.0\n 1, 0, 1\n!BOUNDARY\n X0, 1, 3, 0.0\n"
+           " X1, 1, 3, 0.0\n Y0, 1, 3, 0.0\n Y1, 1, 3, 0.0\n Z0, 1, 3, 0.0\n"
+           " Z1, 1, 1, 1.0\n Z1, 2, 3, 0.0\n!MATERIAL, NAME=M1\n"
+           "!FLUID, TYPE=INCOMP_NEWTONIAN\n {mu!r}\n!DENSITY\n 1.0\n"
+           "!SOLVER, METHOD=BICGSTAB, PRECOND=1, ITERLOG=NO, TIMELOG=NO\n"
+           " 20000, 1\n {resid}, 1.0, 0.0\n{write}!END\n")
+FLOW_MU = 0.01
+FLOW_CONVERG = 1.0e-8    # !STEP's default CONVERG, which the deck keeps
+
+
+def flow_mesh(mods, n):
+    """``box_tet4(n, n, n)`` on the unit cube, its block made 3414."""
+    m = mods["box_tet4"](n, n, n)
+    m.blocks = [dataclasses.replace(m.blocks[0], etype=3414)]
+    return m
+
+
+def flow_cnt(n_step, dt, mu=FLOW_MU, resid="1.0e-8", write=True):
+    return FLOWCNT.format(t_end=n_step * dt, n_step=n_step, dt=dt, mu=mu,
+                          resid=resid,
+                          write="!WRITE, RESULT\n" if write else "")
+
+
+def flow_divergence(mesh, fr) -> tuple:
+    """(sum of div v . volume, sum of |div v| . volume) over the elements,
+    div v the trace of each element's strain rate (constant on a P1
+    tet), the volumes from the coordinates."""
+    conn = torch.as_tensor(np.asarray(mesh.blocks[0].conn, np.int64),
+                           device="cuda")
+    x = torch.as_tensor(mesh.coords, dtype=torch.float64, device="cuda")[conn]
+    vol = torch.linalg.det(x[:, 1:] - x[:, :1]).abs() / 6.0
+    div = torch.as_tensor(fr.strain[:, :3].sum(axis=1), device="cuda")
+    return float((div * vol).sum()), float((div.abs() * vol).sum())
+
+
+def phase_flow_main_path(args, mods) -> dict:
+    """The flow cell through run_directory: the lid-driven cavity at
+    Re = 100 on a shuffled box_tet4(n) unit cube made 3414 (default
+    n = 62: 250,047 nodes, 1,000,188 dofs, 1,429,968 elements), dt = h/U
+    = 1/n, ``--flow-steps`` steps (3) of !DYNAMIC, BiCGSTAB with
+    block-Jacobi to RESID 1e-8, !WRITE, RESULT.  Per step: the BiCGSTAB
+    count and ms an iteration of every solve, the final residual; the
+    phase split and peak memory.  Held to: the lid exact, every step's
+    final residual <= CONVERG (1e-8) and finite fields, global mass
+    conserved (sum div v . vol <= 1e-10 of sum |div v| . vol); K1's
+    element entry (nd = 4) once a step, its planes entry (the
+    right-hand side) once a step.  Returns the cell with the first
+    step's profile and element matrices."""
+    n, steps = args.flow_n, args.flow_steps
+    dt = 1.0 / n
+    wd = os.path.join(ROOT, "build", "smoke", f"flow{n}")
+    t0 = time.perf_counter()
+    mesh = flow_mesh(mods, n)
+    write_shuffled(wd, mods, mesh, flow_cnt(steps, dt), ngroups=FLOW_WALLS)
+    log(f"phase flow_workdir: box_tet4({n}) shuffled, {mesh.n_node} nodes, "
+        f"{4 * mesh.n_node} dofs, {len(mesh.blocks[0].elem_ids)} elements "
+        f"of type 3414, Re = {1.0 / FLOW_MU:g}, dt = {dt!r}, {steps} steps;"
+        f" written in {time.perf_counter() - t0:.2f} s")
+    del mesh
+    ell = mods["ell"]
+    first = {}
+    real = ell.from_blocks
+
+    def spied(profile, kes, nns, free):
+        if not first:
+            first.update(profile=profile, K=kes[0])
+        return real(profile, kes, nns, free)
+    ell.from_blocks = spied
+    reset_kernel_launches(mods)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        out = mods["run_directory"](wd, device="cuda")
+        wall = time.perf_counter() - t0
+    finally:
+        ell.from_blocks = real
+    launches = kernel_launch_counts(mods)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fr, rmesh = out["flow"], out["mesh"]
+    tm = out["timings"]
+    keys = ("read", "reorder", "profile", "element", "assembly", "rhs",
+            "solve", "stress", "result")
+    log(f"phase flow_main_path: {wall:.2f} s; {fr.steps} steps, {fr.iters} "
+        f"linear solves; K1 launches={launches['K1']} (element, nd = 4), "
+        f"K1 planes launches={launches['K1 planes']}; peak device memory "
+        f"{peak_gb:.3f} GB")
+    log("  phase seconds: " + " ".join(f"{k}={tm.get(k, 0.0):.3f}"
+                                       for k in keys))
+    rows = []
+    for h in fr.history:
+        ms = [1e3 * s / max(c, 1) for c, s in zip(h["bicgstab"],
+                                                  h["solve_s"])]
+        log(f"  step {h['step']}: bicgstab {h['bicgstab']} in "
+            f"{[round(s, 3) for s in h['solve_s']]} s ("
+            f"{[round(v, 3) for v in ms]} ms an iteration), final residual "
+            f"{h['resid']!r}")
+        rows.append({"bicgstab": h["bicgstab"], "solve_s": h["solve_s"],
+                     "ms_per_iter": ms, "resid": h["resid"]})
+    lid = rmesh.node_groups["Z1"]
+    lid_ok = bool(np.all(fr.v[lid, 0] == 1.0) and
+                  np.all(fr.v[lid, 1:3] == 0.0))
+    net, total = flow_divergence(rmesh, fr)
+    log(f"  lid exact: {lid_ok}; sum div v . vol = {net!r}, sum |div v| . "
+        f"vol = {total!r} (ratio {abs(net) / total!r}); max |v| "
+        f"{float(np.abs(fr.v[:, :3]).max())!r}, pressure range "
+        f"[{float(fr.v[:, 3].min())!r}, {float(fr.v[:, 3].max())!r}]")
+    for f in (fr.v, fr.strain, fr.stress):
+        if not np.isfinite(f).all():
+            raise AssertionError("flow_main_path: fields not finite")
+    if fr.v.shape != (rmesh.n_node, 4) or fr.steps != steps:
+        raise AssertionError("flow_main_path: wrong shape or step count")
+    if not lid_ok:
+        raise AssertionError("flow_main_path: the lid condition does not "
+                             "hold exactly")
+    if not all(h["resid"] <= FLOW_CONVERG for h in fr.history):
+        raise AssertionError("flow_main_path: a step ends above CONVERG")
+    if not abs(net) <= 1e-10 * total:
+        raise AssertionError("flow_main_path: global mass not conserved")
+    if launches["K1"] != steps or launches["K1 planes"] != steps:
+        raise AssertionError(f"flow_main_path: kernel launches {launches}, "
+                             f"expected K1 {steps} and K1 planes {steps}")
+    # the element routine alone: its peak above what the run left
+    # allocated, at the cell's shapes (a field at rest moves the same
+    # bytes)
+    fluid = mods["fluid"]
+    xyz = torch.as_tensor(rmesh.coords, dtype=torch.float64, device="cuda")
+    conn = torch.as_tensor(np.asarray(rmesh.blocks[0].conn, np.int64),
+                           device="cuda")
+    vn = xyz.new_zeros((rmesh.n_node, 4))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    K, b = fluid.element_system(mods["get_table"](3414), xyz, conn, vn,
+                                FLOW_MU, 1.0, dt)
+    torch.cuda.synchronize()
+    elem_s = time.perf_counter() - t0
+    elem_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    out_gb = (K.numel() + b.numel()) * 8 / 1e9
+    del K, b, xyz, conn, vn
+    log(f"  element routine alone: {elem_s:.3f} s, peak {elem_gb:.3f} GB "
+        f"above the run's leftovers, {out_gb:.3f} GB of it K and b "
+        f"(chunks of {fluid.CHUNK} elements)")
+    return {"n": n, "steps": steps, "wall_s": wall, "peak_gb": peak_gb,
+            "element_s": elem_s, "element_peak_gb": elem_gb,
+            "launches": launches["K1"],
+            "planes_launches": launches["K1 planes"], "step_rows": rows,
+            "phase_s": {k: tm.get(k, 0.0) for k in keys},
+            "mass_ratio": abs(net) / total, **first}
+
+
+def phase_k1_nd4_time(mods, cell) -> dict:
+    """K1's nd = 4 element entry at the flow cell's scalar-ELL plan with
+    its first step's element matrices (not symmetric), float64 and
+    float32: held to its plain version, a relaunch bit-equal, timed with
+    it and with one index_add_ of the entries in slot order, against its
+    bytes bound (the pairs' 16 values read once, the slots' 16 written
+    once, the pair and slot indices read once).  Returns the
+    kernels-line row."""
+    sm = mods["segsum"]
+    plan = cell["profile"].plan("cuda")
+    P, S = plan.perm.numel(), plan.n_slots
+    row = {}
+    for dt in (torch.float64, torch.float32):
+        kd = [cell["K"].to(dt).contiguous()]
+        err = check_k1(sm, plan, kd, [4], dt, "flow cell", nd=4)
+        ms = cuda_ms(lambda: sm.segsum(plan, kd, [4], 4))
+        plain_ms = cuda_ms(lambda: sm.segsum_reference(plan, kd, [4], 4))
+        ent = sm.entry_planes(kd, [4], 4)[:, plan.perm.long()]
+        out = torch.zeros((16, S), dtype=dt, device="cuda")
+        seg = plan.seg_sorted.long()
+        library_ms = cuda_ms(lambda: out.index_add_(1, seg, ent))
+        del ent, out, kd
+        isz = 8 if dt == torch.float64 else 4
+        nbytes = P * 16 * isz + S * 16 * isz + P * 4 + (S + 1) * 4
+        bound_ms, bound_by = bound(nbytes, 16 * P, dt)
+        log(f"phase k1_nd4_time: {cell['K'].shape[0]} 3414 elements, P={P} "
+            f"pairs, n_slots={S} {str(dt)[6:]}: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms, bound "
+            f"{bound_ms:.3f} ms ({nbytes / 1e9:.3f} GB: {P} x 16 read + "
+            f"{S} x 16 written + indices)")
+        row[str(dt)[6:]] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                library_ms=library_ms, bound_ms=bound_ms,
+                                bound_by=bound_by, bytes=nbytes)
+    f64 = row["float64"]
+    return {"name": "segsum_nd4",
+            "entry": "element, nd = 4, m = 16 (u-p flow 3414, scalar ELL)",
+            "route": "cuda", "source": "frontistr_tpu_torch/csrc/segsum.cu",
+            "replaces": "frontistr_tpu/assembly/segsum_pallas.py:121",
+            "launches": cell["launches"],
+            "max_abs_err": f64["max_abs_err"], "ms": f64["ms"],
+            "plain_ms": f64["plain_ms"], "bound_ms": f64["bound_ms"],
+            "bound_by": f64["bound_by"], "library_ms": f64["library_ms"],
+            "float32": row["float32"],
+            "flow_main_path": {k: v for k, v in cell.items()
+                               if k not in ("profile", "K")}}
+
+
+def spy_band(mods, made: list):
+    """Make the band factor of dynamics and eigen record, a dict per
+    factor in ``made``: its stats and the seconds of each solve.
+    Returns the undo."""
+    real = mods["band"].BandCholesky
+
+    class Recorded(real):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.rec = {"stats": self.stats(), "blocks": self.nblk,
+                        "solve_s": []}
+            made.append(self.rec)
+
+        def solve(self, b):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = super().solve(b)
+            torch.cuda.synchronize()
+            self.rec["solve_s"].append(time.perf_counter() - t0)
+            return x
+    for m in (mods["dynamic"], mods["eigen"]):
+        m.BandCholesky = Recorded
+
+    def undo():
+        for m in (mods["dynamic"], mods["eigen"]):
+            m.BandCholesky = real
+    return undo
+
+
+def band_run(mods, wd, device="cuda"):
+    """run_directory with FRONTISTR_TPU_DIRECT=band, the factors
+    recorded; (output, [factor records], wall s, peak GB)."""
+    made = []
+    undo = spy_band(mods, made)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        out = with_env({"FRONTISTR_TPU_DIRECT": "band"},
+                       lambda: mods["run_directory"](wd, device=device))
+        wall = time.perf_counter() - t0
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" \
+        else 0.0
+    return out, made, wall, peak
+
+
+def log_band(label, made, wall, peak, n_dof) -> dict:
+    st = made[0]["stats"]
+    solve = made[0]["solve_s"]
+    nblk = made[0]["blocks"]
+    reckoned = n_dof * (st["band"] // st["nb"] + 1) * st["nb"] * 8
+    log(f"  {label}: {wall:.2f} s; factor {st['factor_s']:.3f} s, "
+        f"{len(solve)} solves at {1e3 * float(np.mean(solve)):.3f} ms (two "
+        f"sweeps of {nblk} block steps), band {st['band']} dofs, nb = "
+        f"{st['nb']}, stored {st['bytes'] / 1e9:.3f} GB (N B nb 8 = "
+        f"{reckoned / 1e9:.3f} GB), peak device memory {peak:.3f} GB")
+    return {"wall_s": wall, "factor_s": st["factor_s"],
+            "solve_ms": 1e3 * float(np.mean(solve)), "solves": len(solve),
+            "band": st["band"], "nb": st["nb"], "bytes": st["bytes"],
+            "blocks": nblk, "peak_gb": peak, "factors": len(made)}
+
+
+def phase_band(args, mods, eigen_wd, er_cg) -> dict:
+    """FRONTISTR_TPU_DIRECT=band on the card: (1) EIGEN on the eigen
+    cell's work directory (the 100 mm box_hex8(e) cube) with
+    METHOD=DIRECT, its eigenvalues against the CG arm's (``er_cg``)
+    within 1e-8; (2) implicit Newmark on a shuffled box_hex8(e) (the
+    eigen cell's box), 3 steps of 20 x the critical step, METHOD=DIRECT
+    band against the CG arm at RESID 1e-12 within 1e-8; (3) the direct
+    cell's box_hex8(d) in EIGEN and DYNAMIC, band against host SuperLU
+    within 1e-8.  Each: factor s, solve ms, band width, bytes, peak
+    memory."""
+    rows = {}
+    with open(os.path.join(eigen_wd, "case.cnt"), "w") as fh:
+        fh.write(EIGCNT.format(sol="EIGEN", nget=10, loads="", step="",
+                               nier=20000).replace("METHOD=CG",
+                                                   "METHOD=DIRECT"))
+    out, made, wall, peak = band_run(mods, eigen_wd)
+    er = out["eigen"]
+    rel = float(np.abs(er.eigenvalues - er_cg.eigenvalues).max() /
+                np.abs(er_cg.eigenvalues).max())
+    log(f"phase band (eigen, box_hex8({args.eigen_n}), "
+        f"{out['model'].n_dof_total} dofs): lanczos_iters={er.iters} "
+        f"(CG arm {er_cg.iters}), eigenvalues against the CG arm's {rel!r}")
+    rows["eigen"] = log_band("eigen", made, wall, peak,
+                             out["model"].n_dof_total)
+    rows["eigen"]["rel_eigenvalues"] = rel
+    del out, er, made
+    torch.cuda.empty_cache()
+    if not rel <= 1e-8:
+        raise AssertionError("band: eigenvalues off the CG arm's")
+
+    h = args.eigen_n
+    mesh = mods["box_hex8"](h, h, h)
+    dt = 20.0 * critical_step(mesh)
+    wd = os.path.join(ROOT, "build", "smoke", f"band_dyn{h}")
+    write_dyn_workdir(wd, mods, mesh, 3 * dt, lambda m: dyn_cnt(
+        1, 3, dt, ray_m=1.0e3, ray_k=1.0e-9, resid="1.0e-12"))
+    n_dof = 3 * mesh.n_node
+    del mesh
+    t0 = time.perf_counter()
+    dc = mods["run_directory"](wd, device="cuda")["dynamic"]
+    wall_cg = time.perf_counter() - t0
+    cnt_path = os.path.join(wd, "case.cnt")
+    with open(cnt_path) as fh:
+        cnt = fh.read()
+    with open(cnt_path, "w") as fh:
+        fh.write(cnt.replace("METHOD=CG", "METHOD=DIRECT"))
+    out, made, wall, peak = band_run(mods, wd)
+    db = out["dynamic"]
+    rel = max(rel_diff(getattr(db, k), getattr(dc, k))
+              for k in ("u", "vel", "acc"))
+    log(f"phase band (implicit dynamics, box_hex8({h}), {n_dof} dofs, 3 "
+        f"steps): CG arm {wall_cg:.2f} s ({[sum(x['cg']) for x in dc.history]}"
+        f" CG a step); band arm against it {rel!r}")
+    rows["dynamic"] = log_band("dynamic", made, wall, peak, n_dof)
+    rows["dynamic"]["rel_cg"] = rel
+    del out, db, dc, made
+    torch.cuda.empty_cache()
+    if not rel <= 1e-8:
+        raise AssertionError("band: implicit dynamics off the CG arm")
+
+    d = args.direct_n
+    base = os.path.join(ROOT, "build", "smoke", f"band_direct{d}")
+    mesh = mods["box_hex8"](d, d, d, lx=100.0, ly=100.0, lz=100.0)
+    dt = 20.0 * critical_step(mesh)
+    decks = {"eigen": EIGCNT.format(sol="EIGEN", nget=5, loads="", step="",
+                                    nier=20000),
+             "dynamic": dyn_cnt(1, 3, dt, ray_m=1.0e3, ray_k=1.0e-9)}
+    for key, cnt in decks.items():
+        wd = os.path.join(base, key)
+        if key == "eigen":
+            write_shuffled(wd, mods, mesh, cnt.replace("METHOD=CG",
+                                                       "METHOD=DIRECT"))
+        else:
+            write_dyn_workdir(wd, mods, mesh, 3 * dt, lambda m: cnt.replace(
+                "METHOD=CG", "METHOD=DIRECT"))
+        a, made, wall, peak = band_run(mods, wd)
+        b = mods["run_directory"](wd, device="cuda")
+        if key == "eigen":
+            rel = rel_diff(a["eigen"].eigenvalues, b["eigen"].eigenvalues)
+        else:
+            rel = max(rel_diff(getattr(a["dynamic"], k),
+                               getattr(b["dynamic"], k))
+                      for k in ("u", "vel", "acc"))
+        log(f"phase band (direct cell box_hex8({d}), {key}): band against "
+            f"SuperLU {rel!r}")
+        rows[f"direct_{key}"] = log_band(key, made, wall, peak,
+                                         3 * mesh.n_node)
+        rows[f"direct_{key}"]["rel_superlu"] = rel
+        if not rel <= 1e-8:
+            raise AssertionError(f"band: {key} off SuperLU at the direct "
+                                 "cell")
+    return rows
+
+
+def phase_flow_band_small_reference(mods) -> None:
+    """Small decks on the card and on the CPU (which the CPU tests hold
+    to the JAX package): the cavity on box_tet4(4) made 3414 (2 steps,
+    mu 0.01), band EIGEN on a 400 x 100 x 70 hex8 beam and band Newmark
+    on box_hex8(3, 2, 2), PRECHECK and NZPROF on a tet box.  Fields
+    within 1e-8, counts equal (BiCGSTAB within 10% + 2), the PRECHECK
+    0.log and the NZPROF files equal."""
+    run = mods["run_directory"]
+    base = os.path.join(ROOT, "build", "smoke", "flow_band_small")
+    wd = write_shuffled(os.path.join(base, "cavity"), mods,
+                        flow_mesh(mods, 4), flow_cnt(2, 0.25),
+                        ngroups=FLOW_WALLS)
+    a, b = (run(wd, device=dev)["flow"] for dev in ("cuda", "cpu"))
+    d = max(rel_diff(x, y) for x, y in ((a.v, b.v), (a.strain, b.strain),
+                                        (a.stress, b.stress)))
+    ca = [c for h in a.history for c in h["bicgstab"]]
+    cb = [c for h in b.history for c in h["bicgstab"]]
+    log(f"phase flow_band_small_reference: cavity, cuda vs cpu {d!r}, "
+        f"bicgstab {ca} vs {cb}")
+    if not (d <= 1e-8 and len(ca) == len(cb) and
+            all(abs(p - q) <= 0.1 * q + 2 for p, q in zip(ca, cb))):
+        raise AssertionError("flow_band_small_reference: cavity differs")
+    beam = mods["box_hex8"](4, 2, 2, lx=400.0, ly=100.0, lz=70.0)
+    wd = write_shuffled(os.path.join(base, "eigen"), mods, beam,
+                        EIGCNT.format(sol="EIGEN", nget=3, loads="", step="",
+                                      nier=20000).replace("METHOD=CG",
+                                                          "METHOD=DIRECT"))
+    ea, eb = (band_run(mods, wd, dev)[0]["eigen"] for dev in ("cuda", "cpu"))
+    d = rel_diff(ea.eigenvalues, eb.eigenvalues)
+    log(f"phase flow_band_small_reference: band eigen, cuda vs cpu {d!r}, "
+        f"lanczos {ea.iters} vs {eb.iters}")
+    if not (d <= 1e-8 and ea.iters == eb.iters):
+        raise AssertionError("flow_band_small_reference: band eigen differs")
+    small = mods["box_hex8"](3, 2, 2)
+    dt = 20.0 * critical_step(small)
+    wd = os.path.join(base, "dynamic")
+    write_dyn_workdir(wd, mods, small, 4 * dt, lambda m: dyn_cnt(
+        1, 4, dt, ray_m=1.0e3, ray_k=1.0e-9).replace("METHOD=CG",
+                                                     "METHOD=DIRECT"))
+    da, db = (band_run(mods, wd, dev)[0]["dynamic"] for dev in ("cuda", "cpu"))
+    d = max(rel_diff(getattr(da, k), getattr(db, k))
+            for k in ("u", "vel", "acc"))
+    log(f"phase flow_band_small_reference: band dynamics, cuda vs cpu {d!r}")
+    if not d <= 1e-8:
+        raise AssertionError("flow_band_small_reference: band dynamics "
+                             "differs")
+    for sol in ("PRECHECK", "NZPROF"):
+        files = {}
+        for dev in ("cuda", "cpu"):
+            wd = write_shuffled(os.path.join(base, f"{sol}_{dev}"), mods,
+                                mods["box_tet4"](4, 3, 2),
+                                f"!VERSION\n 3\n!SOLUTION, TYPE={sol}\n!END\n")
+            run(wd, device=dev)
+            files[dev] = {}
+            for name in ("0.log", "nonzero.dat.000", "nonzero.plt.000"):
+                if os.path.exists(os.path.join(wd, name)):
+                    with open(os.path.join(wd, name), "rb") as fh:
+                        files[dev][name] = fh.read()
+        log(f"phase flow_band_small_reference: {sol}, files "
+            f"{sorted(files['cuda'])}, cuda = cpu: "
+            f"{files['cuda'] == files['cpu']}")
+        if files["cuda"] != files["cpu"] or "0.log" not in files["cuda"] or \
+                (sol == "NZPROF") != ("nonzero.dat.000" in files["cuda"]):
+            raise AssertionError(f"flow_band_small_reference: {sol} differs")
+
+
 def load_mods() -> dict:
     """The port's modules the phases use, by name."""
     sys.path.insert(0, ROOT)
     from frontistr_tpu_torch import kernels, meshgen, ordering
-    from frontistr_tpu_torch.analysis import dynamic, heat, nonlinear
+    from frontistr_tpu_torch.analysis import dynamic, eigen, heat, nonlinear
     from frontistr_tpu_torch.analysis import contact
     from frontistr_tpu_torch.analysis import static as stmod
     from frontistr_tpu_torch.contact import slag
@@ -4387,6 +4844,7 @@ def load_mods() -> dict:
     from frontistr_tpu_torch.assembly import segsum as sm
     from frontistr_tpu_torch.assembly.loads import FACE_TABLES
     from frontistr_tpu_torch.assembly.model import build_struct_model
+    from frontistr_tpu_torch.fem import fluid
     from frontistr_tpu_torch.elements.tables import (HECMW2FSTR_ORDER,
                                                      get_table)
     from frontistr_tpu_torch.io.meshio import ElemBlock, Equation
@@ -4403,8 +4861,9 @@ def load_mods() -> dict:
     from frontistr_tpu_torch.ops import gather as g
     from frontistr_tpu_torch.post import nodal
     from frontistr_tpu_torch.run import run_directory
-    from frontistr_tpu_torch.solver import amg, direct, ssor
+    from frontistr_tpu_torch.solver import amg, band, direct, ssor
     return dict(extras=extras, direct=direct, Equation=Equation, ell=ell,
+                band=band, eigen=eigen, fluid=fluid,
                 ssor=ssor, echo=echo,
                 segsum=sm, element_mv=em, static=stmod, bell=bell,
                 structured=structured, ordering=ordering,
@@ -4426,9 +4885,9 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=40,
                     help="box_tet4(n, n, n) for the linear static tet path "
                          "(default 40)")
-    ap.add_argument("--krylov-n", type=int, default=55,
+    ap.add_argument("--krylov-n", type=int, default=40,
                     help="box_tet4(k, k, k) for the Krylov menu's path "
-                         "(default 55: 526,848 dofs; 69 is the newton "
+                         "(default 40: 206,763 dofs; 69 is the newton "
                          "cell's 1,029,000)")
     ap.add_argument("--ssor-n", type=int, default=SSOR_N,
                     help=f"box_tet4(s, s, s) for the SSOR Newton path "
@@ -4441,45 +4900,51 @@ def main(argv=None) -> int:
     ap.add_argument("--plastic", type=int, default=48,
                     help="box_hex8(p, p, p) for the elastoplastic path "
                          "(default 48)")
-    ap.add_argument("--dyn-n", type=int, default=55,
+    ap.add_argument("--dyn-n", type=int, default=48,
                     help="box_tet4(m, m, m) for the explicit dynamics path "
-                         "(default 55)")
-    ap.add_argument("--dyn-steps", type=int, default=500,
-                    help="explicit time steps (default 500)")
-    ap.add_argument("--dyn-hex", type=int, default=55,
+                         "(default 48)")
+    ap.add_argument("--dyn-steps", type=int, default=300,
+                    help="explicit time steps (default 300)")
+    ap.add_argument("--dyn-hex", type=int, default=48,
                     help="box_hex8(h, h, h) for the implicit dynamics path "
-                         "(default 55)")
+                         "(default 48)")
     ap.add_argument("--dyn-hex-steps", type=int, default=10,
                     help="implicit time steps (default 10)")
-    ap.add_argument("--heat-n", type=int, default=70,
-                    help="box_hex8(h, h, h) for the heat path (default 70: "
-                         "357,911 dofs; 100 gives 1,030,301)")
+    ap.add_argument("--heat-n", type=int, default=50,
+                    help="box_hex8(h, h, h) for the heat path (default 50: "
+                         "132,651 dofs; 100 gives 1,030,301)")
     ap.add_argument("--heat-steps", type=int, default=20,
                     help="heat time steps (default 20)")
     ap.add_argument("--eigen-n", type=int, default=32,
                     help="box_hex8(e, e, e) for the eigen and frequency "
                          "response paths (default 32: 107,811 dofs)")
-    ap.add_argument("--hex20-n", type=int, default=28,
-                    help="the hex20 box of the hex20_mpc path (default 28: "
-                         "285,099 dofs; 36 gives 595,515)")
+    ap.add_argument("--hex20-n", type=int, default=24,
+                    help="the hex20 box of the hex20_mpc path (default 24: "
+                         "181,875 dofs; 36 gives 595,515)")
     ap.add_argument("--direct-n", type=int, default=12,
                     help="box_hex8(d, d, d) for the METHOD=DIRECT path "
                          "(default 12: 6,591 dofs)")
-    ap.add_argument("--plane-n", type=int, default=408,
-                    help="the quad8 box of the plane path (default 408: "
-                         "1,002,050 dofs)")
+    ap.add_argument("--plane-n", type=int, default=360,
+                    help="the quad8 box of the plane path (default 360: "
+                         "780,482 dofs; 408 gives 1,002,050)")
     ap.add_argument("--hyper-n", type=int, default=24,
                     help="the hex20 box of the hyperelastic path "
                          "(default 24: 181,875 dofs; 32 through PR 12)")
     ap.add_argument("--hyper-substeps", type=int, default=4,
                     help="substeps of the hyperelastic path (default 4)")
-    ap.add_argument("--contact-n", type=int, default=64,
+    ap.add_argument("--contact-n", type=int, default=56,
                     help="the lower box of the contact punch path, n x n x "
-                         "n/2 (default 64: 799,299 dofs; 72 gives "
+                         "n/2 (default 56: 536,763 dofs; 72 gives "
                          "1,135,947)")
-    ap.add_argument("--shell-n", type=int, default=408,
+    ap.add_argument("--flow-n", type=int, default=62,
+                    help="the box_tet4 cube of the flow path, made 3414 "
+                         "(default 62: 1,000,188 dofs)")
+    ap.add_argument("--flow-steps", type=int, default=3,
+                    help="time steps of the flow path (default 3)")
+    ap.add_argument("--shell-n", type=int, default=360,
                     help="the MITC4 plate of the shell path, n x n "
-                         "(default 408: 1,003,686 dofs)")
+                         "(default 360: 781,926 dofs; 408 gives "
+                         "1,003,686)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -4597,7 +5062,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     wd, mesh, er = phase_eigen_main_path(args, mods)
     phase_freq_main_path(mods, wd, mesh, er)
-    del mesh, er
+    del mesh
+    torch.cuda.empty_cache()
+    # the band Cholesky (FRONTISTR_TPU_DIRECT=band) on that cube, in
+    # Newmark on its box and at the direct cell
+    band_rows = phase_band(args, mods, wd, er)
+    del er
     torch.cuda.empty_cache()
     k1_row["staticeigen_small_reference"] = \
         phase_heat_eigen_small_reference(mods)
@@ -4657,10 +5127,22 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_shell_small_reference(mods)
 
+    # 17. the lid-driven cavity (K1's nd = 4 element entry and its planes
+    #     entry once a step), then K1 at nd = 4 at its shapes; small flow,
+    #     band and PRECHECK decks on the card and the CPU
+    torch.cuda.empty_cache()
+    cell = phase_flow_main_path(args, mods)
+    nd4_row = phase_k1_nd4_time(mods, cell)
+    nd4_row["band"] = band_rows
+    del cell
+    torch.cuda.empty_cache()
+    phase_flow_band_small_reference(mods)
+
     log(f"phase total: {time.perf_counter() - t_start:.2f} s")
     log(smi)
     log(json.dumps({"kernels": [k1_row, ell_row, k1_m60_row] + nd2_rows
-                    + [nd6_row, contact_row, k2_row] + gather_rows}))
+                    + [nd6_row, nd4_row, contact_row, k2_row]
+                    + gather_rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

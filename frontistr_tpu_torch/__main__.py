@@ -64,6 +64,14 @@ def _summary(out):
         er = out["eigen"]
         yield (f"### eigen: lanczos_iters={er.iters} "
                f"first_freq={er.freq[0]:.6e} Hz")
+    if "flow" in out:
+        fr = out["flow"]
+        yield (f"### flow: steps={fr.steps} solves={fr.iters} "
+               f"bicgstab_iters={sum(sum(h['bicgstab']) for h in fr.history)}"
+               f" resid={fr.resid:.3e}")
+    if "precheck" in out:
+        yield (f"### precheck: degenerate elements "
+               f"{out['precheck'].n_degenerate}")
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -39,19 +39,19 @@ scalar and the Newton residual norm.
 The effective system c1 K + c2 M is solved by a block-Jacobi PCG on the
 matrix-free ``femop.FEOperator`` (tol = RESID, maxiter = NIER), with
 !EQUATION eliminated around it (``assembly/extras.py``); METHOD=DIRECT
-factors it on the host (``solver/direct.py``).  A contact deck takes
-the Newton loop with the static driver's SLAGRANGE or penalty arm on
-c1 K + c2 M (``nonlinear.ContactState``): every pass restarts the
-step's increment, the SLAGRANGE active set frozen for the pass.
-!RESTART checkpoints the implicit run every FREQUENCY steps (u, vel,
-acc, the gauss states and a contact deck's multipliers and released
-slots) and resumes from it; the explicit run ignores the card, as the
-JAX package's does.  What the JAX package also runs in dynamics and the
-port does not yet (the band factorisation, sharding, the coupler,
-frequency response) raises ``NotImplementedError`` naming
-itself, and so do the cards the JAX package's dynamics drop without
-effect: !EQUATION and !CONTACT in an explicit run, !SPRING (ROADMAP,
-queue 3, fault 2).
+factors it on the host (``solver/direct.py``), or with
+FRONTISTR_TPU_DIRECT=band on the device (``solver/band.py``).  A contact
+deck takes the Newton loop with the static analysis's SLAGRANGE or penalty
+arm on c1 K + c2 M (``nonlinear.ContactState``): every pass restarts the
+step's increment, the SLAGRANGE active set frozen for the pass.  !RESTART
+checkpoints the implicit run every FREQUENCY steps (u, vel, acc, the
+gauss states and a contact deck's multipliers and released slots) and
+resumes from it; the explicit run ignores the card, as the JAX package's
+does.  What the JAX package also runs in dynamics and the port does not
+yet (sharding, the coupler, frequency response) raises
+``NotImplementedError`` naming itself, and so do the cards the JAX
+package's dynamics drop without effect: !EQUATION and !CONTACT in an
+explicit run, !SPRING (ROADMAP, queue 3, fault 2).
 """
 
 from __future__ import annotations
@@ -86,6 +86,7 @@ from frontistr_tpu_torch.io import logio
 from frontistr_tpu_torch.io.restart import load_restart, save_restart
 from frontistr_tpu_torch.post.shellpost import check_recoverable
 from frontistr_tpu_torch.solver import direct
+from frontistr_tpu_torch.solver.band import BandCholesky
 from frontistr_tpu_torch.solver.cg import pcg
 
 F64 = torch.float64
@@ -293,8 +294,6 @@ def _check_request(model: StructModel) -> None:
     for name in ("FRONTISTR_TPU_SHARDS", "FRONTISTR_TPU_COUPLE_DIR"):
         if os.environ.get(name, "") not in ("", "0"):
             raise NotImplementedError(f"{name} in dynamics")
-    if os.environ.get("FRONTISTR_TPU_DIRECT", "").lower() == "band":
-        raise NotImplementedError("FRONTISTR_TPU_DIRECT=band in dynamics")
     # the JAX package's explicit run prints a warning and drops the
     # !EQUATION constraints; its dynamics leave !SPRING out of K
     explicit_eq = model.mesh.equations if d.idx_eqa == 11 else []
@@ -437,7 +436,9 @@ def make_effective_solver(model, free, gather, mass, c1: float,
     METHOD=DIRECT without !EQUATION factors the constrained A on the host
     instead (SuperLU), once per ``prepare`` and back-substituted at every
     call with it: once a run on the linear arm, every iteration on the
-    Newton arm.  ``solve.prepare(kes)`` builds the operator and the
+    Newton arm; with FRONTISTR_TPU_DIRECT=band the factor is the band
+    Cholesky on the model's device (``solver/band.py``).
+    ``solve.prepare(kes)`` builds the operator and the
     preconditioner or factor once for a tangent that stays (the linear
     arm), ``solve.operator(kes)`` the stiffness operator alone;
     ``solve.last_iters`` / ``last_relres`` describe the last call."""
@@ -448,12 +449,19 @@ def make_effective_solver(model, free, gather, mass, c1: float,
     nn, nd = model.n_node, model.ndof
     mpc = extras.mpc_arrays(model.mesh, nd, nn * nd, dev)
     use_direct = sv.method.upper() in direct.METHODS and mpc is None
+    use_band = use_direct and \
+        os.environ.get("FRONTISTR_TPU_DIRECT", "").lower() == "band"
 
     def operator(kes):
         return femop.FEOperator(list(kes), dofs, gather, nn, nd, free)
 
     def prepare(kes):
         op = operator(kes)
+        if use_band:
+            # K_eff = c1 K + c2 M factored on the device
+            return op, BandCholesky(op.kes, dofs, nn * nd, direct.host(free),
+                                    [b.conn for b in model.blocks], nn,
+                                    scale=c1, diag_add=c2 * mass, device=dev)
         if use_direct:
             import scipy.sparse as sp
             A = (c1 * direct.assemble_csr(op.kes, dofs, nn * nd)
@@ -463,6 +471,11 @@ def make_effective_solver(model, free, gather, mass, c1: float,
 
     def solve(kes, B, dirichlet_inc, prepared=None):
         op, M = prepared if prepared is not None else prepare(kes)
+        if use_band:
+            solve.last_iters, solve.last_relres = 0, 0.0
+            A_d = c1 * op.matvec(dirichlet_inc) + c2 * mass * dirichlet_inc
+            return M.solve((B - A_d) * free +
+                           dirichlet_inc * (1.0 - free))
         if use_direct:
             solve.last_iters, solve.last_relres = 0, 0.0
             return torch.as_tensor(M(B, dirichlet_inc), device=dev)

@@ -19,12 +19,13 @@ element touches are pinned, and Lanczos runs in the M-seminorm over the
 dofs that carry mass.  !EQUATION is eliminated inside each apply (the
 reduced pencil T^T K T, T^T M T, every vector kept in range(T)).
 METHOD=DIRECT factors the constrained K once on the host (SuperLU,
-``solver/direct.py``) and back-substitutes at every apply; with
-!EQUATION it takes the eliminated CG, as in the JAX package.  What the
-JAX package also runs and the port does not (the band factorisation,
-sharding) raises ``NotImplementedError`` naming
-itself, and so does !SPRING, which the JAX package's eigen analysis
-leaves out of K without a word (ROADMAP, queue 3, fault 2).
+``solver/direct.py``), or with FRONTISTR_TPU_DIRECT=band on the device
+(the band Cholesky of ``solver/band.py``), and back-substitutes at every
+apply; with !EQUATION it takes the eliminated CG, as in the JAX package.
+What the JAX package also runs and the port does not (sharding) raises
+``NotImplementedError`` naming itself, and so does !SPRING, which the
+JAX package's eigen analysis leaves out of K without a word (ROADMAP,
+queue 3, fault 2).
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from frontistr_tpu_torch.assembly import operators as old_ops
 from frontistr_tpu_torch.assembly.model import StructModel
 from frontistr_tpu_torch.device import synchronize
 from frontistr_tpu_torch.solver import direct
+from frontistr_tpu_torch.solver.band import BandCholesky
 from frontistr_tpu_torch.solver.cg import pcg
 
 F64 = torch.float64
@@ -61,12 +63,11 @@ class EigenResult:
     iters: int
     # one dict per shift-invert apply: "cg" iterations, "s" seconds
     history: List[dict] = dataclasses.field(default_factory=list)
+    # the band factor's "factor_s", "band" (dofs), "nb" and "bytes"
+    factor: dict = dataclasses.field(default_factory=dict)
 
 
 def _check_request(model: StructModel) -> None:
-    if os.environ.get("FRONTISTR_TPU_DIRECT", "").lower() == "band":
-        raise NotImplementedError("FRONTISTR_TPU_DIRECT=band in eigen "
-                                  "analysis")
     if os.environ.get("FRONTISTR_TPU_SHARDS", "") not in ("", "0"):
         raise NotImplementedError("sharded Lanczos (FRONTISTR_TPU_SHARDS)")
     if model.cfg.springs:
@@ -117,17 +118,28 @@ def run_eigen(model: StructModel, log_path: Optional[str] = None,
     A = op.apply_constrained if mpc is None else \
         extras.mpc_wrap(mpc, op.apply_constrained)
     direct_solve = None
+    band = None
     if cfg.solver.method.upper() in direct.METHODS and mpc is None:
-        # METHOD=DIRECT: one host factor of the constrained K, back-
-        # substituted at every apply (set_arrays_DirectSolver)
-        direct_solve = direct.factor_constrained(
-            direct.assemble_csr(op.kes, op.dofs, n), k_active)
+        if os.environ.get("FRONTISTR_TPU_DIRECT", "").lower() == "band":
+            # the band Cholesky of the constrained K on the device
+            band = BandCholesky(op.kes, op.dofs, n,
+                                k_active.astype(np.float64),
+                                [b.conn for b in model.blocks],
+                                model.n_node, device=dev)
+        else:
+            # METHOD=DIRECT: one host factor of the constrained K, back-
+            # substituted at every apply (set_arrays_DirectSolver)
+            direct_solve = direct.factor_constrained(
+                direct.assemble_csr(op.kes, op.dofs, n), k_active)
 
     def shift_invert(q):
         """w = K^{-1} (M q) on the Dirichlet-constrained system."""
         t0 = time.perf_counter()
         b = (mass * q) * k_act
-        if direct_solve is not None:
+        if band is not None:
+            x = band.solve(b)
+            iters = 0
+        elif direct_solve is not None:
             x = torch.as_tensor(direct_solve(b), device=dev)
             iters = 0
         else:
@@ -211,7 +223,7 @@ def run_eigen(model: StructModel, log_path: Optional[str] = None,
         eigenvalues=lam, ang_freq=np.sqrt(np.abs(lam)),
         freq=np.sqrt(np.abs(lam)) / (2 * np.pi), eigenvectors=phi,
         partfactor=pf, effmass=em, total_mass=total_mass, iters=it_used,
-        history=history)
+        history=history, factor={} if band is None else band.stats())
     if log_path:
         write_eigen_log(log_path, res, ndof, append=log_append)
     return res

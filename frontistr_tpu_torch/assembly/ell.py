@@ -204,15 +204,27 @@ def from_model(model, kes, dtype=None,
     if dtype is not None:
         kes = [k.to(dtype) for k in kes]
     nns = [c.shape[1] for c in model_conns(model)]
-    nd, N, W = model.ndof, profile.n_node, profile.W
-    raw = segmod.segsum(profile.plan(dev), kes, nns, nd)
+    free = old_ops.make_free_mask(model.n_dof_total, model.fixed_dofs)
+    return from_blocks(profile, kes, nns, free)
+
+
+def from_blocks(profile: ELLProfile, kes, nns, free) -> ELLOperator:
+    """The ELL operator of element matrices ``kes`` (on their device;
+    block b of ``nn = nns[b]`` nodes, in the order of the conns the
+    profile was built from) and the free mask ``free`` (host, N*nd), with
+    no StructModel: K1's element entry at the profile's plan, on the CPU
+    its plain version.  Any nd K1 takes (2, 3, 4 or 6); the element
+    matrices need not be symmetric."""
+    dev = kes[0].device
+    nd, N, W = profile.ndof, profile.n_node, profile.W
+    raw = segmod.segsum(profile.plan(dev), list(kes), list(nns), nd)
     rows = raw.reshape(nd, nd, N, W).permute(2, 0, 3, 1).reshape(
         N, nd, W * nd)
-    free = old_ops.make_free_mask(model.n_dof_total, model.fixed_dofs)
     return ELLOperator(
         rows=rows,
         cols=torch.as_tensor(profile.cols, dtype=torch.int64, device=dev),
         diag_slot=torch.as_tensor(profile.diag_slot, dtype=torch.int64,
                                   device=dev),
-        n_node=model.n_node, ndof=nd,
-        free_mask=torch.as_tensor(free, dtype=raw.dtype, device=dev))
+        n_node=N, ndof=nd,
+        free_mask=torch.as_tensor(np.asarray(free), dtype=raw.dtype,
+                                  device=dev))

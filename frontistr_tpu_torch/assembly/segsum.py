@@ -477,9 +477,9 @@ def _plan_elements(*args):
     dtype = kes[0].dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"segsum: dtype {dtype} (float32/float64 only)")
-    if nd not in (2, 3, 6):
-        raise ValueError(f"segsum: nd={nd} (2 or 3 for the solids, 6 for "
-                         "shells and beams)")
+    if nd not in (2, 3, 4, 6):
+        raise ValueError(f"segsum: nd={nd} (2 or 3 for the solids, 4 for "
+                         "the u-p flow element, 6 for shells and beams)")
     if not 1 <= len(kes) <= _MAX_BLOCKS or len(kes) != len(nns):
         raise ValueError(f"segsum: {len(kes)} element blocks "
                          f"(1..{_MAX_BLOCKS} supported)")

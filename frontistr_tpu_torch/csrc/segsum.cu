@@ -79,6 +79,13 @@
 // m = 54 (float64).  Pass 2 reads each record whole and writes it to the
 // 36 planes, as for the solids.
 //
+// The u-p flow tet 3414 (nd = 4: v_x, v_y, v_z, p at each node) is the
+// fourth instance: a row block is 4 x 16 values, an item's record 16 sums
+// (128 or 64 bytes).  Its element matrices are not symmetric (advection,
+// SUPG and the velocity-pressure coupling), so the (i, j) order of a
+// sub-block and the (a, b) order of a pair matter: entry (a, b) is row
+// block a, column sub-block b, value (i, j) at row i, column j.
+//
 // The planes entry is a simple one-thread-per-(slot, plane) kernel: its
 // callers (the AMG's Galerkin sums, nodal smoothing) run it once or
 // twice per Newton iteration on a few million entries.
@@ -419,8 +426,8 @@ int launch_planes(const void* values, int V, long long R, const int* slot_ptr,
 // ascending, and their items) and nz_ptr, into out (nd*nd, n_slots).
 // Host arrays: ke_ptrs (nblk) to the element matrices, starts (nblk+1)
 // their flat offsets, ms (nblk) their widths m_b <= m_max.  nd is 2 (the
-// 2-D solids), 3 or 6 (shells and 611 beams); is_double selects float64
-// over float32.
+// 2-D solids), 3, 4 (the u-p flow element 3414) or 6 (shells and 611
+// beams); is_double selects float64 over float32.
 extern "C" int fstr_segsum(int nd, int is_double, int idx64, const void* loc,
                            const void* rb_src, const void* rb_ptr,
                            const void* item_k0, const void* item_k1,
@@ -432,8 +439,8 @@ extern "C" int fstr_segsum(int nd, int is_double, int idx64, const void* loc,
                            const long long* starts, const int* ms, int nblk,
                            void* sums, void* out, void* stream, int device) {
   if (nblk < 1 || nblk > kMaxBlocks) return -1;
-  if ((nd != 2 && nd != 3 && nd != 6) || n_tiles < 0 || stage_rb < 0 || m_max < 1 || n_slots < 0 ||
-      n_slots >= 0x7fffffffLL)
+  if ((nd != 2 && nd != 3 && nd != 4 && nd != 6) || n_tiles < 0 ||
+      stage_rb < 0 || m_max < 1 || n_slots < 0 || n_slots >= 0x7fffffffLL)
     return -2;
   for (int b = 0; b < nblk; ++b)
     if (ms[b] < 1 || ms[b] > m_max) return -2;
@@ -460,6 +467,13 @@ extern "C" int fstr_segsum(int nd, int is_double, int idx64, const void* loc,
                                                     starts, ms, nblk, sums,
                                                     out, st, device)
                      : dispatch_elements<6, float>(idx64, sc, ke_ptrs, starts,
+                                                   ms, nblk, sums, out, st,
+                                                   device);
+  if (nd == 4)
+    return is_double ? dispatch_elements<4, double>(idx64, sc, ke_ptrs,
+                                                    starts, ms, nblk, sums,
+                                                    out, st, device)
+                     : dispatch_elements<4, float>(idx64, sc, ke_ptrs, starts,
                                                    ms, nblk, sums, out, st,
                                                    device);
   return is_double ? dispatch_elements<3, double>(idx64, sc, ke_ptrs, starts,

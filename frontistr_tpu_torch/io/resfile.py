@@ -32,14 +32,28 @@ def _write_wrapped_ints(f, vals: Sequence[int]):
         f.write("\n")
 
 
-def _write_vals(f, row: np.ndarray):
-    n = 0
-    for v in row:
-        f.write(f"{v:.16E}")
-        n += 1
-        f.write("\n" if n % COL_DOUBLE == 0 else " ")
-    if n % COL_DOUBLE:
-        f.write("\n")
+ROWS_A_WRITE = 8192        # rows formatted by one % of a row template
+
+
+def _write_rows(f, ids, comps, id_fmt: str):
+    """Each item's id line (``id_fmt``), then its components' values,
+    ``%.16E`` each, COL_DOUBLE a line, a space after every value that
+    does not end a line and a newline after the last (the JAX writer's
+    bytes); a chunk of rows at a time through one row template."""
+    vals = np.concatenate([np.asarray(a, np.float64).reshape(len(ids), -1)
+                           for _, a in comps], axis=1)
+    k = vals.shape[1]
+    row = id_fmt + "".join(
+        "%.16E" + ("\n" if (j + 1) % COL_DOUBLE == 0 else " ")
+        for j in range(k)) + ("\n" if k % COL_DOUBLE else "")
+    ids = np.asarray(ids).astype(np.int64)
+    for r0 in range(0, len(ids), ROWS_A_WRITE):
+        flat = []
+        for i, v in zip(ids[r0:r0 + ROWS_A_WRITE].tolist(),
+                        vals[r0:r0 + ROWS_A_WRITE].tolist()):
+            flat.append(i)
+            flat.extend(v)
+        f.write((row * (len(flat) // (k + 1))) % tuple(flat))
 
 
 def write_result(path: str, header: str,
@@ -61,18 +75,12 @@ def write_result(path: str, header: str,
             _write_wrapped_ints(f, [a.shape[1] for _, a in node_comps])
             for label, _ in node_comps:
                 f.write(label + "\n")
-            for i in range(n_node):
-                f.write(f"{int(node_ids[i])} \n")
-                row = np.concatenate([a[i] for _, a in node_comps])
-                _write_vals(f, row)
+            _write_rows(f, node_ids, node_comps, "%d \n")
         if elem_comps:
             _write_wrapped_ints(f, [a.shape[1] for _, a in elem_comps])
             for label, _ in elem_comps:
                 f.write(label + "\n")
-            for i in range(n_elem):
-                f.write(f"{int(elem_ids[i])}\n")
-                row = np.concatenate([a[i] for _, a in elem_comps])
-                _write_vals(f, row)
+            _write_rows(f, elem_ids, elem_comps, "%d\n")
 
 
 def write_static_result(path: str, mesh, model, res, step: int = 1,

@@ -30,9 +30,14 @@ substeps or steps into the ``hecmw_ctrl.dat`` !RESTART file (else
 ``restart``) with ``.npz`` appended; n > 0 deletes an old checkpoint
 first, n < 0 resumes from it; the other analyses ignore the card, as the
 JAX runner does.  ``!ECHO`` prepends the mesh and deck dump to 0.log
-(``io/echo.py``).  Everything else the JAX runner dispatches (u-p flow,
-visualization output, sharding, profiling) raises
-``NotImplementedError`` naming what was asked for.
+(``io/echo.py``).  DYNAMIC on a mesh with a u-p flow block (3414) runs
+the SUPG/PSPG stepper of ``analysis/flow.py`` (no StructModel), its
+``.res`` always text with VELOCITY, PRESSURE, STRAIN_RATE and STRESS.
+ELEMCHECK and PRECHECK write the element quality summary to 0.log
+(``precheck.py``); NZPROF also writes ``nonzero.dat.000`` and its
+gnuplot script ``nonzero.plt.000`` in the work directory.  Everything
+else the JAX runner dispatches (visualization output, sharding,
+profiling) raises ``NotImplementedError`` naming what was asked for.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from frontistr_tpu_torch import device as devmod
 from frontistr_tpu_torch import ordering, user
 from frontistr_tpu_torch.analysis.dynamic import run_dynamic
 from frontistr_tpu_torch.analysis.eigen import run_eigen
+from frontistr_tpu_torch.analysis.flow import run_flow, write_flow_result
 from frontistr_tpu_torch.analysis.freq import (load_eigenread,
                                                run_frequency,
                                                run_static_eigen)
@@ -63,7 +69,10 @@ from frontistr_tpu_torch.io.meshio import read_mesh
 from frontistr_tpu_torch.io.resfile import (read_result_any, write_result,
                                             write_result_bin,
                                             write_static_result)
+from frontistr_tpu_torch.precheck import nzprof, precheck
 
+# the mesh checks of fstr_main kstPRECHECK / kstNZPROF
+PRECHECK_TYPES = ("ELEMCHECK", "PRECHECK", "NZPROF")
 # JAX-package switches whose feature this slice does not carry
 _UNPORTED_ENV = ("FRONTISTR_TPU_SHARDS", "FRONTISTR_TPU_PROFILE",
                  "FRONTISTR_TPU_COORDINATOR")
@@ -75,7 +84,7 @@ def _check_request(ctrl, cfg) -> None:
             raise NotImplementedError(f"{name} (not in the torch port yet)")
     sol = cfg.solution_type.upper()
     if sol not in ("STATIC", "NLSTATIC", "DYNAMIC", "HEAT", "EIGEN",
-                   "STATICEIGEN"):
+                   "STATICEIGEN") + PRECHECK_TYPES:
         raise NotImplementedError(f"solution type {sol}")
     if cfg.write_visual:
         raise NotImplementedError("!WRITE, VISUAL card")
@@ -107,7 +116,9 @@ def run_directory(workdir: str, log_name: str = "0.log",
     ``timings`` hold every phase's seconds, its ``newton`` the Newton
     driver's stats), "dynamic" (a ``DynamicResult``), "heat" (a
     ``HeatResult``), "eigen" (an ``EigenResult``; STATICEIGEN has both
-    "static" and "eigen") or "freq" (a ``FreqResult``); "_snapshots",
+    "static" and "eigen"), "freq" (a ``FreqResult``), "flow" (a
+    ``FlowResult``; no "model"), "precheck" (a ``PrecheckReport``) and
+    "nzprof" (the NZPROF dump's counts and paths); "_snapshots",
     the steps whose result file was written during a transient run;
     "timings" (seconds by phase), "log_path" and "total_time"."""
     dev = devmod.resolve(device)
@@ -127,14 +138,28 @@ def run_directory(workdir: str, log_name: str = "0.log",
     sol = cfg.solution_type.upper()
     with devmod.Phase(timings, "read", dev):
         mesh = read_mesh(ctrl.path(mb))
-    if sol == "DYNAMIC" and any(b.etype == 3414 for b in mesh.blocks):
-        raise NotImplementedError("u-p flow meshes (3414) in DYNAMIC")
     with devmod.Phase(timings, "reorder", dev):
         mesh = ordering.maybe_reorder(mesh)
     _read_temperature_result(ctrl, cfg, mesh)
     log_path = os.path.join(workdir, log_name)
     out = {"mesh": mesh, "cfg": cfg, "ctrl": ctrl, "timings": timings,
            "log_path": log_path}
+    d = cfg.dynamic
+    if sol in PRECHECK_TYPES:
+        return _finish(workdir, out, t_start, time.time(),
+                       **_run_precheck(sol, mesh, workdir, log_path))
+    if sol == "DYNAMIC" and not (d is not None and d.idx_resp == 2) and \
+            any(b.etype == 3414 for b in mesh.blocks):
+        # u-p flow meshes take the SUPG/PSPG stepper (fstr_dynamic_
+        # nlimplicit + the 3414 arm of dynamic_mat_ass_load)
+        t_pre = time.time()
+        fr = run_flow(mesh, cfg, log_path=log_path, device=dev,
+                      timings=timings)
+        if cfg.write_result and ctrl.result() is not None:
+            with devmod.Phase(timings, "result", dev):
+                write_flow_result(ctrl.path(ctrl.result()) +
+                                  f".0.{fr.steps}", mesh, fr, step=fr.steps)
+        return _finish(workdir, out, t_start, t_pre, flow=fr)
     rkw = _restart_kw(ctrl, cfg, workdir)
     if sol == "HEAT":
         return _finish(workdir, out, t_start, time.time(),
@@ -144,7 +169,6 @@ def run_directory(workdir: str, log_name: str = "0.log",
         model = build_struct_model(mesh, cfg, device=dev)
     t_pre = time.time()
     out["model"] = model
-    d = cfg.dynamic
     if sol == "DYNAMIC" and d is not None and d.idx_resp == 2:
         return _finish(workdir, out, t_start, t_pre,
                        freq=_run_frequency(ctrl, cfg, model, workdir,
@@ -247,6 +271,28 @@ def _run_heat(ctrl, cfg, mesh, log_path, dev, timings, rkw) -> dict:
         with devmod.Phase(timings, "result", dev):
             _heat_result_writer(ctrl, mesh)(hr.steps, None, hr.T)
     return dict(heat=hr, _snapshots=written)
+
+
+def _run_precheck(sol, mesh, workdir, log_path) -> dict:
+    """fstr_main kstPRECHECK / kstNZPROF (fistr_main.f90:86,
+    fstr_precheck.f90): the element quality summary, printed and written
+    to 0.log; NZPROF also dumps the node graph's nonzero profile and its
+    gnuplot script into the work directory."""
+    rep = precheck(mesh)
+    print(" ****   STAGE PreCheck  **")
+    print(rep.summary())
+    with open(log_path, "w") as fh:
+        fh.write(" ****   STAGE PreCheck  **\n")
+        fh.write(rep.summary() + "\n")
+    got = {"precheck": rep}
+    if sol == "NZPROF":
+        prof = nzprof(mesh, workdir)
+        got["nzprof"] = prof
+        print(f" ### nonzero profile: N={prof['n']} "
+              f"NNZ={prof['nnz']} density={prof['density_pct']:.3e}%")
+        print(" ### Command recommendation")
+        print(f' gnuplot -persist "{os.path.basename(prof["plt"])}"')
+    return got
 
 
 def _run_frequency(ctrl, cfg, model, workdir, log_path):

@@ -260,28 +260,18 @@ STILL_UNPORTED = {
     # the id predates the shell port: the case is the truss 301, an
     # element type the port does not run
     "shell_731": ("", "STATIC", {}, "element type 301"),
-    "band_dynamics": ("", "DYNAMIC", {"FRONTISTR_TPU_DIRECT": "band"},
-                      "FRONTISTR_TPU_DIRECT=band"),
-    "band_eigen": ("", "EIGEN", {"FRONTISTR_TPU_DIRECT": "band"},
-                   "FRONTISTR_TPU_DIRECT=band"),
 }
 
 
 @pytest.mark.parametrize("case", list(STILL_UNPORTED))
 def test_still_unported_raise_by_name(tmp_path, env, case):
     """What the port still lacks raises NotImplementedError naming it:
-    !EMBED (the JAX package warns and drops it), an element type
-    outside the port (a truss 301 block), and the band factorisation of
-    FRONTISTR_TPU_DIRECT=band."""
+    !EMBED (the JAX package warns and drops it) and an element type
+    outside the port (a truss 301 block)."""
     extra, sol, envs, msg = STILL_UNPORTED[case]
     for k, v in envs.items():
         env.setenv(k, v)
-    if sol == "DYNAMIC":
-        cnt = dyn_deck(eqa=1, n_step=2).replace("METHOD=CG", "METHOD=DIRECT")
-    elif sol == "EIGEN":
-        cnt = EIGEN.format(sol="EIGEN", dyn="", loads="", step="")
-    else:
-        cnt = CNT.format(sol=sol, load=-1.0, method="CG")
+    cnt = CNT.format(sol=sol, load=-1.0, method="CG")
     cnt = cnt.replace("!MATERIAL", extra + "!MATERIAL")
     mesh = solid_box(361, 2, 2, 2)
     if case == "shell_731":

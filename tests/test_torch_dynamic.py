@@ -414,8 +414,6 @@ UNPORTED = {
     # the JAX package drops both without effect (ROADMAP fault 2)
     "equation": ({}, "", {}, _equation, "EQUATION in explicit dynamics"),
     "spring": ({"eqa": 1}, "!SPRING\n 1, 3, 10.0\n", {}, None, "SPRING"),
-    "direct_band": ({"eqa": 1}, "", {"FRONTISTR_TPU_DIRECT": "band"}, None,
-                    "FRONTISTR_TPU_DIRECT=band"),
     "shards": ({}, "", {"FRONTISTR_TPU_SHARDS": "2"}, None,
                "FRONTISTR_TPU_SHARDS"),
     "coupler": ({}, "", {"FRONTISTR_TPU_COUPLE_DIR": "cpl"}, None,
@@ -423,7 +421,6 @@ UNPORTED = {
     "write_visual": ({}, "!WRITE, VISUAL\n", {}, None, "VISUAL"),
     "eigenread": ({}, "!EIGENREAD\n eigen.log\n 1, 2\n", {}, None,
                   "EIGENREAD"),
-    "flow_3414": ({}, "", {}, _etype(3414), "3414"),
     # the id predates the shell port: the case is the truss 301
     "shell_731": ({}, "", {}, _etype(301), "301"),
 }

@@ -212,8 +212,6 @@ def test_run_frequency_matches_jax(tmp_path):
 
 UNPORTED = {
     # name: (solution type, deck edit, env, mesh edit, message)
-    "direct_band": ("EIGEN", None, {"FRONTISTR_TPU_DIRECT": "band"}, None,
-                    "FRONTISTR_TPU_DIRECT=band"),
     # the JAX package's Lanczos leaves !SPRING out of K (ROADMAP fault 2)
     "spring": ("EIGEN", lambda c: c.replace("!MATERIAL", "!SPRING\n 1, 3, "
                                             "10.0\n!MATERIAL"),

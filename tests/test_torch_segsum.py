@@ -93,9 +93,9 @@ def test_wrapper_rejects_bad_input():
     plan, ke, _ = _nodal_case(*_seg_cases()["random"], 1, torch.float64)
     with pytest.raises(TypeError):
         sm.segsum(plan, [ke.to(torch.float16)], [1], 3)
-    with pytest.raises(ValueError):       # nd = 2 or 3 only
-        sm.segsum(plan, [torch.zeros((ke.shape[0], 4, 4),
-                                     dtype=ke.dtype)], [1], 4)
+    with pytest.raises(ValueError):       # nd = 2, 3, 4 or 6 only
+        sm.segsum(plan, [torch.zeros((ke.shape[0], 5, 5),
+                                     dtype=ke.dtype)], [1], 5)
     with pytest.raises(ValueError):
         sm.segsum(plan, [ke.transpose(1, 2)], [1], 3)
 
