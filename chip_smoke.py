@@ -20,14 +20,14 @@ once, checks the answers and prints the result.
 - The linear-static tet path through ``run_directory``: the STATIC deck
   on a shuffled ``box_tet4(n, n, n)`` (default n=40: 206,763 dofs).
 - The solver menu: the STATIC tet deck with METHOD=BICGSTAB (RESID
-  1e-9) on a shuffled ``box_tet4(k)`` (default k=40;
+  1e-9) on a shuffled ``box_tet4(k)`` (default k=32;
   69 is the newton cell's box)
   through ``run_directory``, the scalar block-ELL operator whose blocks
   K1 sums once at the ELL profile's plan; GMRES(30) and GPBiCG through
   ``solve_linear`` on the same model; the CG/AMG answer beside them;
   GMRES held at ``box_tet4(n)`` when it stops at NIER at k.  Then K1 at
   that plan.  The Newton deck with PRECOND=10 (multicolor block SSOR)
-  on a shuffled ``box_tet4(s)`` (default s=40; 69 for timing).
+  on a shuffled ``box_tet4(s)`` (default s=32; 69 for timing).
 - The structured hex8 path through the library entry points
   ``build_struct_model`` + ``run_linear_static``: ``box_hex8(h, h, h)``
   (default h=69: 1,029,000 dofs, 328,509 elements), stencil operator
@@ -46,10 +46,10 @@ once, checks the answers and prints the result.
   NLSTATIC tet deck, and the slice's hex8 B-bar and F-bar plastic,
   tet10 Drucker-Prager and STATIC DLOAD + TEMPERATURE decks.
 - The dynamics paths through ``run_directory``: explicit central
-  difference on a shuffled ``box_tet4(d, d, d)`` (default d=48), dt half
+  difference on a shuffled ``box_tet4(d, d, d)`` (default d=40), dt half
   the smallest element's critical step, S steps (300), the equation of
   motion checked at the last step; implicit Newmark on a shuffled
-  ``box_hex8(x, x, x)`` (48), IC, Rayleigh damping, T steps (10), every
+  ``box_hex8(x, x, x)`` (40), IC, Rayleigh damping, T steps (10), every
   solve's true relres checked; then small dynamics decks on the card
   and on the CPU.  These paths launch one kernel, K1's planes entry,
   once each, in the final nodal smoothing.
@@ -67,18 +67,18 @@ once, checks the answers and prints the result.
   the slice's small decks (prisms, hex20, !EQUATION, !SPRING,
   ROT_CENTER, DIRECT, ESTCOND, DUMPTYPE) on the card and on the CPU.
 - The plane path through ``run_directory``: NLSTATIC on a shuffled
-  plane-strain quad8 (242) box of p x p (default 360: 780,482 dofs,
-  129,600 elements; 408 gives 1,002,050 dofs), the AMG at
+  plane-strain quad8 (242) box of p x p (default 300: 542,402 dofs,
+  90,000 elements; 408 gives 1,002,050 dofs), the AMG at
   nd = 2; K1's nd = 2 element entry once
   per Newton iteration.  Then K1 at nd = 2 against its plain version and
   index_add_; the hex20_mpc deck with a NEOHOOKE material at its full
-  load on a box of h (default 24; 32 through PR 12); small decks of the
+  load on a box of h (default 20); small decks of the
   2-D solids and the hyperelastic, viscoelastic (!TRS), creep,
   orthotropic, E(T) and user materials on the card and on the CPU.
 - The contact path through ``run_directory``: the flat punch of n
-  (default 56: a 56 x 56 x 28 hex8 base over 1 x 1 x 0.5 under a 54 x 54
-  x 27 punch over 0.9 x 0.9 x 0.45, the meshes not matching; 536,763
-  dofs, 3,025 slave nodes; 72 gives 1,135,947),
+  (default 48: a 48 x 48 x 24 hex8 base over 1 x 1 x 0.5 under a 46 x 46
+  x 23 punch over 0.9 x 0.9 x 0.45, the meshes not matching; 339,123
+  dofs, 2,209 slave nodes; 72 gives 1,135,947),
   SLAGRANGE, frictionless, NLSTATIC in two
   substeps; K1's planes entry in every reduction T^T of the elimination
   and the nodal smoothing.  Then the planes entry at its slot plan
@@ -91,8 +91,8 @@ once, checks the answers and prints the result.
   both formats, the contact drop, transient heat) and of !ECHO on the
   card and on the CPU.
 - The shell path through ``run_directory``: linear STATIC of a shuffled
-  square MITC4 (741) plate of s x s (default 360: 130,321 nodes,
-  781,926 dofs; 408 gives 1,003,686), a = 1000 mm,
+  square MITC4 (741) plate of s x s (default 300: 90,601 nodes,
+  543,606 dofs; 408 gives 1,003,686), a = 1000 mm,
   thickness 50 mm (a/t = 20), clamped
   on its four edges, a uniform pressure on every element, once in the
   mixed and once in the f64 policy; K1's nd = 6 element entry once a
@@ -106,10 +106,21 @@ once, checks the answers and prints the result.
 - The flow path through ``run_directory``: the lid-driven cavity at
   Re = 100 on a shuffled ``box_tet4(f, f, f)`` unit cube made 3414
   (default f = 62: 250,047 nodes, 1,000,188 dofs, 1,429,968 elements),
-  dt = 1/f, F steps (3) of the SUPG/PSPG stepper; K1's nd = 4 element
+  dt = 1/f, F steps (2) of the SUPG/PSPG stepper; K1's nd = 4 element
   entry and its planes entry (the right-hand side) once a step.  Then
   K1 at nd = 4 against its plain version and index_add_ (f64 and f32);
   small flow, band and PRECHECK/NZPROF decks on the card and on the CPU.
+- The visual path through ``run_directory``: a shuffled ``box_tet4(v, v,
+  v)`` (default v = 34: 235,824 tets) written as an ABAQUS ``.inp`` and
+  refined once on load (``!MESH, TYPE=ABAQUS, REFINE=1``: 328,509 nodes,
+  985,527 dofs, 1,886,592 tets), linear STATIC with the tet cell's
+  CG/AMG card (K1's element entry once, its planes entry in the AMG
+  setup and the nodal smoothing), ``!WRITE, VISUAL`` with the PVR volume
+  rendered on the card, then the PSR surface of the same result on the
+  host; small decks of the ABAQUS, NASTRAN, GEOFEM and HECMW-DIST
+  readers, REFINE, per-interval pictures of heat and dynamics, the AVS
+  output, FSTR.dbg.0 and FRONTISTR_TPU_PROFILE on the card and on the
+  CPU.
 
 The run needs a CUDA card and exits non-zero without one, or when any
 phase fails.  Work directories and the kernel build go under ``build/``
@@ -161,7 +172,7 @@ F32_TOL, F64_TOL = 1e-4, 1e-12      # x max|plain|
 PLANES_PER_AMG_SETUP = 2
 # the SSOR Newton path's default box: its run at the newton cell's 69
 # (PERF.md) would push the smoke past its time (--ssor-n 69 restores it)
-SSOR_N = 40
+SSOR_N = 32
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s; non-tensor-core flop/s
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
@@ -1688,7 +1699,7 @@ def heat_relres(last) -> float:
 
 def phase_heat_main_path(args, mods) -> dict:
     """Transient heat through run_directory on a shuffled box_hex8(h)
-    (default h=50: 132,651 temperature dofs, 125,000 hex8; 100 gives
+    (default h=32: 35,937 temperature dofs, 32,768 hex8; 100 gives
     1,030,301): rho
     7.8e-6, c 460 and a conductivity falling from 50 at 0 to 35 at 500;
     X0 fixed at 200 from an initial 20 on every node, !SFILM on X1 and
@@ -1785,7 +1796,7 @@ def phase_heat_main_path(args, mods) -> dict:
 
 def phase_eigen_main_path(args, mods) -> tuple:
     """EIGEN through run_directory on a shuffled box_hex8(e), a 100 mm
-    cube (default e=32: 107,811 dofs, 32,768 hex8 IC; on a 1 mm cube
+    cube (default e=24: 46,875 dofs, 13,824 hex8 IC; on a 1 mm cube
     the Lanczos breakdown test beta < 1e-14, absolute, as in the JAX
     package, stops at the first step), E 210000, nu 0.3, rho 7.85e-9,
     X0 clamped, !EIGEN 10, 1e-8, 60, NIER 20000 (the shift-invert CG is
@@ -2694,7 +2705,7 @@ PLANECNT = ("!VERSION\n 3\n!SOLUTION, TYPE=NLSTATIC\n!BOUNDARY\n"
 def phase_plane_main_path(args, mods) -> dict:
     """The plane cell through run_directory: NLSTATIC (total Lagrange) in
     the f64 policy on a shuffled plane-strain quad8 (242) box of n x n
-    (default 360: 390,241 nodes, 780,482 dofs, 129,600 elements; 408
+    (default 300: 271,201 nodes, 542,402 dofs, 90,000 elements; 408
     gives 1,002,050 dofs),
     section thickness 1, X0 fixed, X1 loaded -1 in y per node, the AMG
     at nd = 2 (three rigid modes).  Per Newton iteration rres/rxnrm, CG,
@@ -2862,7 +2873,7 @@ HYPER_LAW = "!HYPERELASTIC, TYPE=NEOHOOKE\n 1.0, 1.0\n"
 
 def phase_hyper_main_path(args, mods) -> dict:
     """The hex20_mpc deck (``phase_hex20_mpc_main_path``) on a shuffled
-    hex20 box of n (default 24: 60,625 nodes, 181,875 dofs) at its
+    hex20 box of n (default 20: 35,721 nodes, 107,163 dofs) at its
     specified total load, -(X1's node count on the box of 44) = -5,985
     at the master, with !HYPERELASTIC, TYPE=NEOHOOKE (the (E, nu) law
     of ``fem/hyper.py``, S and D by torch.func per gauss point) in
@@ -3226,8 +3237,8 @@ def spy_contact(mods, solves: list, first: dict, state: dict):
 
 def phase_contact_main_path(args, mods) -> dict:
     """The flat punch through run_directory on the card (``punch_mesh``,
-    default n = 56: 178,921 nodes, 536,763 dofs, 166,540 hex8, 3,025
-    slave nodes over 3,136 master faces; shuffled), SLAGRANGE,
+    default n = 48: 113,041 nodes, 339,123 dofs, 103,964 hex8, 2,209
+    slave nodes over 2,304 master faces; shuffled), SLAGRANGE,
     frictionless, NLSTATIC in two substeps.  Per solve: CG, seconds and
     an independent index_add_ true relres of the eliminated system (<=
     1e-8); per substep the Newton iterations of each contact pass and the
@@ -4132,8 +4143,8 @@ def plate_center(model) -> int:
 def phase_shell_main_path(args, mods, t=SHELL_T,
                           resid=SHELL_RESID) -> dict:
     """The shell cell through run_directory: linear STATIC of a shuffled
-    square MITC4 (741) plate of n x n (default 360: 130,321 nodes,
-    781,926 dofs, 129,600 elements; 408 gives 1,003,686), a = 1000 mm,
+    square MITC4 (741) plate of n x n (default 300: 90,601 nodes,
+    543,606 dofs, 90,000 elements; 408 gives 1,003,686), a = 1000 mm,
     thickness t (default
     50 mm), E 210 GPa, nu 0.3, clamped on all four edges (all six dofs),
     a uniform pressure q = 0.01 MPa on every element (!DLOAD P0, the
@@ -4446,7 +4457,7 @@ def phase_flow_main_path(args, mods) -> dict:
     """The flow cell through run_directory: the lid-driven cavity at
     Re = 100 on a shuffled box_tet4(n) unit cube made 3414 (default
     n = 62: 250,047 nodes, 1,000,188 dofs, 1,429,968 elements), dt = h/U
-    = 1/n, ``--flow-steps`` steps (3) of !DYNAMIC, BiCGSTAB with
+    = 1/n, ``--flow-steps`` steps (2) of !DYNAMIC, BiCGSTAB with
     block-Jacobi to RESID 1e-8, !WRITE, RESULT.  Per step: the BiCGSTAB
     count and ms an iteration of every solve, the final residual; the
     phase split and peak memory.  Held to: the lid exact, every step's
@@ -4831,6 +4842,441 @@ def phase_flow_band_small_reference(mods) -> None:
             raise AssertionError(f"flow_band_small_reference: {sol} differs")
 
 
+# ---- PR: input formats, refinement, HECMW-DIST and pictures ----------------
+# the visual cell's deck: the tet cell's STATIC deck and solver card, the
+# PVR volume of the result on the card (500 x 500, res 96, 160 slices)
+VISCNT = CNT.replace("!END\n", "!WRITE, VISUAL\n!VISUAL, METHOD=PVR\n!END\n")
+VISUAL_N = 34
+# the NASTRAN bulk data of tests/test_nastran.py (a unit cube, CHEXA with a
+# continuation line, MAT1 with a NASTRAN exponent)
+NASTRAN_BULK = ("$ cube under uniaxial load\nBEGIN BULK\nGRID,1,,0.0,0.0,0.0\n"
+                "GRID,2,,1.0,0.0,0.0\nGRID,3,,1.0,1.0,0.0\n"
+                "GRID,4,,0.0,1.0,0.0\n"
+                "GRID    5               0.0     0.0     1.0\n"
+                "GRID    6               1.0     0.0     1.0\n"
+                "GRID    7               1.0     1.0     1.0\n"
+                "GRID    8               0.0     1.0     1.0\n"
+                "CHEXA,1,10,1,2,3,4,5,6,\n+,7,8\nPSOLID,10,100\n"
+                "MAT1,100,210000.,,0.3,7.85-9\nENDDATA\n")
+NASTRAN_CNT = ("!VERSION\n 3\n!SOLUTION, TYPE=STATIC\n!BOUNDARY\n"
+               " 1, 1, 3, 0.0\n 2, 2, 3, 0.0\n 3, 3, 3, 0.0\n 4, 3, 3, 0.0\n"
+               "!CLOAD\n"
+               " 5, 3, 25.0\n 6, 3, 25.0\n 7, 3, 25.0\n 8, 3, 25.0\n"
+               "!SOLVER,METHOD=CG,PRECOND=1\n 10000, 1\n 1.0e-12, 1.0, 0.0\n"
+               "!END\n")
+
+
+def write_abaqus(path, mesh, name):
+    """``mesh`` (one solid block) as an ABAQUS ``.inp``: *NODE, *ELEMENT
+    of type ``name`` (rows in the HEC-MW node order, which ABAQUS shares
+    for C3D4, C3D8 and C3D10), *NSET X0 and X1, *SOLID SECTION,
+    *MATERIAL with *ELASTIC 210000, 0.3."""
+    b = mesh.blocks[0]
+    conn = b.conn_hecmw if b.conn_hecmw is not None else b.conn
+    ids = np.asarray(mesh.node_ids)
+    rows = np.concatenate([np.asarray(b.elem_ids, np.int64)[:, None],
+                           ids[np.asarray(conn, np.int64)]], axis=1)
+    with open(path, "w") as f:
+        f.write("*HEADING\n generated box\n*NODE\n")
+        f.writelines(f"{int(g)}, {x!r}, {y!r}, {z!r}\n" for g, (x, y, z)
+                     in zip(ids, mesh.coords.tolist()))
+        f.write(f"*ELEMENT, TYPE={name}, ELSET=EALL\n")
+        f.writelines(", ".join(map(str, r)) + "\n" for r in rows.tolist())
+        for g in ("X0", "X1"):
+            f.write(f"*NSET, NSET={g}\n")
+            sel = ids[np.sort(mesh.node_groups[g])]
+            for k in range(0, len(sel), 16):
+                f.write(", ".join(str(int(v)) for v in sel[k:k + 16]) + "\n")
+        f.write("*SOLID SECTION, ELSET=EALL, MATERIAL=M1\n"
+                "*MATERIAL, NAME=M1\n*ELASTIC\n 210000., 0.3\n")
+
+
+def write_geofem(path, mesh):
+    """A single-PE GEOFEM grid of a ``box_tet4`` mesh (tet4 as 311) with
+    its X0 and X1 node groups (the writer of tests/test_geofem.py)."""
+    with open(path, "w") as f:
+        f.write(f"0 0\n\n{mesh.n_node} {mesh.n_node}\n")
+        for g, (x, y, z) in zip(mesh.node_ids, mesh.coords.tolist()):
+            f.write(f"{int(g)} {x!r} {y!r} {z!r}\n")
+        conn = mesh.blocks[0].conn
+        f.write(f"{len(conn)}\n" + " ".join(["311"] * len(conn)) + "\n")
+        for e, row in enumerate(conn):
+            f.write(f"{e + 1} " + " ".join(str(int(mesh.node_ids[n]))
+                                           for n in row) + "\n")
+        f.write("\n\n2\n")
+        n0, n1 = (len(mesh.node_groups[g]) for g in ("X0", "X1"))
+        f.write(f"{n0} {n0 + n1}\n")
+        for g in ("X0", "X1"):
+            f.write(g + "\n" + " ".join(str(int(mesh.node_ids[n])) for n
+                                        in mesh.node_groups[g]) + "\n")
+        f.write("0\n0\n")
+
+
+def set_mesh_entry(wd, mesh_file, mtype, refine=0):
+    """Point ``wd/hecmw_ctrl.dat``'s !MESH at ``mesh_file`` of TYPE
+    ``mtype``, refined ``refine`` times."""
+    path = os.path.join(wd, "hecmw_ctrl.dat")
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    head = f"!MESH, NAME=fstrMSH, TYPE={mtype}" + \
+        (f", REFINE={refine}" if refine else "")
+    lines[0:2] = [head, f" {mesh_file}"]
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
+def abaqus_workdir(path, mods, mesh, cnt, refine=0):
+    """``cnt`` in ``path`` with ``mesh`` as an ABAQUS ``mesh.inp``, the
+    nodes and the element rows shuffled (seed 3), REFINE=``refine``."""
+    rng = np.random.default_rng(3)
+    m = mods["ordering"].permute_mesh(mesh, rng.permutation(mesh.n_node))
+    b = m.blocks[0]
+    eo = rng.permutation(len(b.elem_ids))
+    m.blocks = [dataclasses.replace(
+        b, elem_ids=b.elem_ids[eo], conn=b.conn[eo],
+        conn_hecmw=None if b.conn_hecmw is None else b.conn_hecmw[eo])]
+    mods["write_static_workdir"](path, m, cnt)
+    os.remove(os.path.join(path, "mesh.msh"))
+    name = {341: "C3D4", 342: "C3D10", 361: "C3D8"}[b.etype]
+    write_abaqus(os.path.join(path, "mesh.inp"), m, name)
+    set_mesh_entry(path, "mesh.inp", "ABAQUS", refine)
+    return str(path)
+
+
+def check_picture(label, path, size=None, min_drawn=0.2) -> dict:
+    """A BMP decodes (at ``size``), more than ``min_drawn`` of its pixels
+    are not white (20%: tests/test_visualizer.py's bar) and it has more
+    than 10 colours."""
+    from frontistr_tpu_torch.vis import psf
+    st = psf.bmp_stats(path)
+    h, w = st["shape"]
+    log(f"  {label}: {os.path.basename(path)} {w} x {h}, {st['drawn']:.3f} "
+        f"of the pixels drawn, {st['colours']} colours")
+    if (size is not None and st["shape"] != size) or not \
+            (st["drawn"] > min_drawn and st["colours"] > 10):
+        raise AssertionError(f"{label}: {path} is not the picture expected")
+    return {"drawn": st["drawn"], "colours": st["colours"]}
+
+
+def pictures_close(label, a, b) -> None:
+    """The same picture from two runs: every byte within one level
+    (quantised float images 1e-12 apart) and at most 0.1% of the pixels
+    further apart (PSR: z-buffer ties broken the other way)."""
+    from frontistr_tpu_torch.vis import psf
+    d = psf.bmp_diff(a, b)
+    log(f"  {label}: {os.path.basename(a)} cuda vs cpu: {d['differ']} "
+        f"pixels differ, {d['far']} by more than one level")
+    if d["far"] > 1e-3 * d["pixels"]:
+        raise AssertionError(f"{label}: the pictures differ")
+
+
+def phase_visual_main_path(mods, n=VISUAL_N) -> dict:
+    """The visual cell through run_directory: the port's box_tet4(n)
+    (VISUAL_N = 34: 42,875 nodes, 235,824 tets), nodes and elements
+    shuffled, as an ABAQUS .inp, refined once on load (``REFINE=1``:
+    328,509 nodes, 985,527 dofs, 1,886,592 tets, the lattice of
+    box_tet4(2n)), linear STATIC with the tet cell's CG/AMG card, then
+    !WRITE, VISUAL with !VISUAL, METHOD=PVR on the card.  Then the PSR
+    surface of the same result on the host.  Held to: the refined
+    counts; the true f64 relres <= 1e-8 (``check_result``); both BMPs
+    decode at 500 x 500, more than 20% drawn, more than 10 colours; the
+    PVR float image recomputed on the card (its BMP the run's byte for
+    byte) within 1e-12 of the composite of the same voxel grid on the
+    CPU; the picture not skipped.  K1's element entry once,
+    its planes entry in the AMG setup and the nodal smoothing.  Returns
+    the cell for the kernels line."""
+    import copy
+    psf, pvr = mods["psf"], mods["pvr"]
+    wd = os.path.join(ROOT, "build", "smoke", f"visual{n}")
+    t0 = time.perf_counter()
+    mesh = mods["box_tet4"](n, n, n)
+    n_elem = len(mesh.blocks[0].elem_ids)
+    abaqus_workdir(wd, mods, mesh, VISCNT, refine=1)
+    log(f"phase visual_workdir: box_tet4({n}) shuffled, {mesh.n_node} "
+        f"nodes, {n_elem} tets as ABAQUS C3D4, REFINE=1; written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    del mesh
+    want = ((2 * n + 1) ** 3, 8 * n_elem)
+    reset_kernel_launches(mods)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = mods["run_directory"](wd, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = kernel_launch_counts(mods)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res, model, rmesh, cfg = out["static"], out["model"], out["mesh"], \
+        out["cfg"]
+    tm = out["timings"]
+    log(f"phase visual_main_path: {wall:.2f} s; {rmesh.n_node} nodes, "
+        f"{3 * rmesh.n_node} dofs, {rmesh.n_elem} tets; policy={res.policy} "
+        f"cg_iters={res.iters} refine_passes={res.passes} relres="
+        f"{res.relres!r}; K1 launches={launches['K1']} (element), K1 planes "
+        f"launches={launches['K1 planes']}; peak device memory "
+        f"{peak_gb:.3f} GB")
+    log("  phase seconds: " + " ".join(f"{k}={v:.3f}" for k, v in tm.items()))
+    if (rmesh.n_node, rmesh.n_elem) != want:
+        raise AssertionError(f"visual_main_path: refined mesh "
+                             f"{rmesh.n_node}, {rmesh.n_elem}, expected "
+                             f"{want}")
+    if out["visual"] is None:
+        raise AssertionError("visual_main_path: the picture was skipped")
+    if launches["K1"] != 1 or launches["K1 planes"] < 1:
+        raise AssertionError(f"visual_main_path: kernel launches {launches}")
+    rr = check_result(res, model,
+                      mods["static"].compute_element_stiffness(model))
+    pvr_pic = check_picture("pvr", out["visual"], (500, 500))
+    # the PVR image again on the card (render_image's stages), and on the
+    # CPU from the same voxel grid
+    coords, vals = psf.visual_field(rmesh, res, cfg.visual, "DISPLACEMENT", 1)
+    grid, mask, _, _ = pvr.voxelize(coords, vals, device="cuda")
+    starts, step = pvr.camera(grid.shape[0], 500, 500, (1.0, -2.0, 1.0), 160)
+    starts, step = torch.as_tensor(starts), torch.as_tensor(step)
+    vmin, vmax = float(vals.min()), float(vals.max())
+    img = pvr.composite(grid, mask, starts.cuda(), step.cuda(), 160, vmin,
+                        vmax, 0.08)
+    again = os.path.join(wd, "again.bmp")
+    psf.write_bmp(again, img.cpu().numpy())
+    with open(again, "rb") as fa, open(out["visual"], "rb") as fb:
+        same_bmp = fa.read() == fb.read()
+    t0 = time.perf_counter()
+    cpu = pvr.composite(grid.cpu(), mask.cpu(), starts, step, 160, vmin,
+                        vmax, 0.08)
+    cpu_s = time.perf_counter() - t0
+    err = float((img.cpu() - cpu).abs().max())
+    log(f"  pvr: card vs CPU composite from the same grid max abs diff "
+        f"{err!r} (the CPU's {cpu_s:.2f} s); the BMP again on the card "
+        f"byte-equal: {same_bmp}")
+    if not (err <= 1e-12 and same_bmp):
+        raise AssertionError("visual_main_path: the PVR image differs")
+    # the PSR surface of the same result (host)
+    cfg_psr = copy.copy(cfg)
+    cfg_psr.visual = dict(cfg.visual, method="PSR")
+    t_psr = {}
+    t0 = time.perf_counter()
+    psr = psf.visualize(rmesh, model, res, wd, cfg_psr, basename="result_psr",
+                        device="cuda", timings=t_psr)
+    psr_s = time.perf_counter() - t0
+    psr_pic = check_picture("psr", psr, (500, 500))
+    keys = ("read", "refine", "reorder", "model", "element_stiffness",
+            "profile", "assembly", "amg_setup", "solve", "stress",
+            "pvr_splat", "pvr_sweeps", "pvr_composite")
+    phase_s = {k: tm.get(k, 0.0) for k in keys}
+    phase_s.update(t_psr)
+    log(f"  psr: {psr_s:.2f} s (extract_surface {t_psr['psr_extract']:.3f} s,"
+        f" render {t_psr['psr_render']:.3f} s)")
+    return {"n": n, "nodes": rmesh.n_node, "dofs": 3 * rmesh.n_node,
+            "tets": rmesh.n_elem, "wall_s": wall, "peak_gb": peak_gb,
+            "cg_iters": res.iters, "passes": res.passes, "true_relres": rr,
+            "launches": launches["K1"],
+            "planes_launches": launches["K1 planes"], "phase_s": phase_s,
+            "psr_s": psr_s, "pvr_cpu_composite_s": cpu_s,
+            "pvr_card_vs_cpu": err, "pvr": pvr_pic, "psr": psr_pic}
+
+
+def phase_visual_small_reference(mods) -> None:
+    """Small decks on the card and on the CPU (which the CPU tests hold to
+    the JAX package): ABAQUS C3D8 and C3D10, NASTRAN and GEOFEM decks in
+    STATIC; REFINE=1 and 2 of hex8, tet4 and a 741 plate; a 4-rank
+    HECMW-DIST deck written by the port's partitioner (RCB and KMETIS),
+    its u within 1e-8 of the ENTIRE deck's and its per-rank .res files
+    card = CPU (ids and components equal, values within 1e-8 of each
+    component's largest); transient heat and implicit dynamics with
+    !WRITE, VISUAL, FREQUENCY=2 in PSR and PVR (the same files, the
+    pictures within one level a byte, 0.1% of the pixels further); the
+    AVS UCD output; FSTR.dbg.0; FRONTISTR_TPU_PROFILE on the card, its
+    trace naming K1's kernel.  Displacements within 1e-8 of the largest,
+    temperatures within 1e-10."""
+    import glob
+    run, mg = mods["run_directory"], mods["meshgen"]
+    base = os.path.join(ROOT, "build", "smoke", "visual_small")
+    shutil.rmtree(base, ignore_errors=True)
+
+    def both(label, wd, key="static", field="u", bar=1e-8):
+        wc = wd + "_cpu"
+        shutil.copytree(wd, wc)
+        a, b = run(wd, device="cuda"), run(wc, device="cpu")
+        d = rel_diff(getattr(a[key], field), getattr(b[key], field))
+        log(f"phase visual_small_reference: {label}, cuda vs cpu {d!r}")
+        if not d <= bar:
+            raise AssertionError(f"visual_small_reference: {label} differs")
+        return a, b, wd, wc
+
+    cnt = CNT.replace("1.0e-8, 1.0", "1.0e-10, 1.0")
+    both("ABAQUS C3D8", abaqus_workdir(os.path.join(base, "c3d8"), mods,
+                                       mg.box_hex8(4, 3, 2), cnt))
+    both("ABAQUS C3D10", abaqus_workdir(os.path.join(base, "c3d10"), mods,
+                                        tet10_mesh(mods, (3, 2, 2)), cnt))
+    wd = os.path.join(base, "nastran")
+    os.makedirs(wd)
+    with open(os.path.join(wd, "mesh.nas"), "w") as fh:
+        fh.write(NASTRAN_BULK)
+    with open(os.path.join(wd, "case.cnt"), "w") as fh:
+        fh.write(NASTRAN_CNT)
+    with open(os.path.join(wd, "hecmw_ctrl.dat"), "w") as fh:
+        fh.write("!MESH, NAME=fstrMSH, TYPE=NASTRAN\n mesh.nas\n"
+                 "!CONTROL, NAME=fstrCNT\n case.cnt\n")
+    both("NASTRAN", wd)
+    wd = write_shuffled(os.path.join(base, "geofem"), mods,
+                        mg.box_tet4(3, 3, 3), cnt)
+    write_geofem(os.path.join(wd, "mesh.grd"), mg.box_tet4(3, 3, 3))
+    set_mesh_entry(wd, "mesh.grd", "GEOFEM")
+    both("GEOFEM", wd)
+    # refinement at load time
+    plate = mg.plate_shell(4, 3, etype=741, a=SHELL_A, thick=50.0)
+    for kind, mesh, groups, deck in (
+            ("hex8", mg.box_hex8(3, 2, 2), ("X0", "X1"), cnt),
+            ("tet4", mg.box_tet4(3, 2, 2), ("X0", "X1"), cnt),
+            ("plate741", plate, ("EDGE",),
+             shell_cnt(loads=f"!DLOAD\n ALL, P0, {SHELL_Q!r}\n",
+                       resid="1.0e-10"))):
+        for level in (1, 2):
+            wd = write_shuffled(os.path.join(base, f"{kind}_refine{level}"),
+                                mods, mesh, deck, ngroups=groups)
+            set_mesh_entry(wd, "mesh.msh", "HECMW-ENTIRE", level)
+            a, _, _, _ = both(f"{kind} REFINE={level}", wd)
+            if a["mesh"].n_elem != mesh.n_elem * (4 if kind == "plate741"
+                                                  else 8) ** level:
+                raise AssertionError("visual_small_reference: refined "
+                                     f"{kind} has {a['mesh'].n_elem} "
+                                     "elements")
+    # HECMW-DIST: 4 ranks from the port's partitioner
+    box = mg.box_tet4(4, 3, 2)
+    whole = write_shuffled(os.path.join(base, "entire"), mods, box, cnt)
+    u_whole = run(whole, device="cuda")
+    for method in ("RCB", "KMETIS"):
+        wd = write_shuffled(os.path.join(base, f"dist_{method}"), mods, box,
+                            cnt.replace("!END", "!WRITE, RESULT\n!END"))
+        os.remove(os.path.join(wd, "mesh.msh"))
+        mods["partition"].partition_to_files(
+            box, 4, os.path.join(wd, "mesh.dist"), method)
+        set_mesh_entry(wd, "mesh.dist", "HECMW-DIST")
+        a, b, wa, wb = both(f"HECMW-DIST {method} 4 ranks", wd)
+        d = rel_diff(by_id(a), by_id(u_whole))
+        files = sorted(os.path.basename(p) for p in
+                       glob.glob(os.path.join(wa, "mesh.res.*")))
+        log(f"  ranks {a['partition']['n_ranks']}, u against the ENTIRE "
+            f"deck {d!r}, result files {files}")
+        if not (d <= 1e-8 and files == [f"mesh.res.{r}.1" for r in
+                                        range(4)]):
+            raise AssertionError(f"visual_small_reference: {method} deck")
+        res_close(f"HECMW-DIST {method}", [os.path.join(wa, f) for f in files],
+                  [os.path.join(wb, f) for f in files], mods["read_result"])
+    # per-interval pictures of heat and implicit dynamics, PSR and PVR
+    for method in ("PSR", "PVR"):
+        vis = (f"!WRITE, VISUAL, FREQUENCY=2\n!VISUAL, METHOD={method}\n"
+               "!x_resolution = 160\n!y_resolution = 120\n")
+        wd = small_heat_deck(mods, "hex8", True,
+                             os.path.join(base, f"heat_{method}"))
+        add_cards(wd, vis)
+        a, b, wa, wb = both(f"heat {method}", wd, "heat", "T", 1e-10)
+        same_pictures(f"heat {method}", wa, wb, ["result.2.bmp"])
+        small = mg.box_hex8(3, 2, 2)
+        dt = 20.0 * critical_step(small)
+        wd = os.path.join(base, f"dynamic_{method}")
+        write_dyn_workdir(wd, mods, small, 4 * dt, lambda m: dyn_cnt(
+            1, 4, dt, ray_m=1.0e3, ray_k=1.0e-9, write=vis))
+        a, b, wa, wb = both(f"implicit dynamics {method}", wd, "dynamic")
+        same_pictures(f"dynamics {method}", wa, wb,
+                      ["result.2.bmp", "result.4.bmp"])
+    # AVS UCD output and FSTR.dbg.0
+    wd = write_shuffled(os.path.join(base, "avs"), mods, mg.box_hex8(4, 3, 2),
+                        cnt.replace("!END", "!WRITE, VISUAL\n!VISUAL, "
+                                    "METHOD=PSR\n!output_type = COMPLETE_AVS"
+                                    "\n!END"))
+    a, b, wa, wb = both("AVS UCD", wd)
+    ucd_close(os.path.join(wa, "result.inp"), os.path.join(wb, "result.inp"))
+    with open(os.path.join(wa, "FSTR.dbg.0")) as fh:
+        dbg = [ln[10:] for ln in fh.read().splitlines()]
+    log(f"  FSTR.dbg.0: {dbg}")
+    if not (len(dbg) == 4 and dbg[0] == "FSTR debug log opened" and
+            dbg[1].startswith("mesh read: 60 nodes, 24 elements") and
+            dbg[3].startswith("analysis completed")):
+        raise AssertionError("visual_small_reference: FSTR.dbg.0")
+    # the profiler on the card: the trace names K1's kernel
+    prof = os.path.join(base, "profile")
+    wd = write_shuffled(os.path.join(base, "profiled"), mods,
+                        mg.box_tet4(6, 5, 4), CNT)
+    with_env({"FRONTISTR_TPU_PROFILE": prof},
+             lambda: run(wd, device="cuda"))
+    with open(os.path.join(prof, "trace.json")) as fh:
+        trace = json.load(fh)
+    names = {e.get("name", "") for e in trace["traceEvents"]
+             if e.get("cat") == "kernel"}
+    k1 = sorted(n for n in names if "sums_kernel" in n)
+    log(f"  FRONTISTR_TPU_PROFILE: {len(trace['traceEvents'])} events, "
+        f"{len(names)} kernel names, K1's: {k1[:2]}")
+    if not k1:
+        raise AssertionError("visual_small_reference: the profiler's trace "
+                             "names no K1 kernel")
+
+
+def by_id(out):
+    """A static run's displacements sorted by node id."""
+    return out["static"].u[np.argsort(out["mesh"].node_ids)]
+
+
+def add_cards(wd, cards):
+    """Put ``cards`` before the !END of ``wd/case.cnt``."""
+    path = os.path.join(wd, "case.cnt")
+    with open(path) as fh:
+        text = fh.read()
+    with open(path, "w") as fh:
+        fh.write(text.replace("!END", cards + "!END"))
+
+
+def same_pictures(label, wa, wb, names) -> None:
+    """Both runs wrote the pictures ``names`` and no other, each pair
+    within ``pictures_close``'s bar."""
+    got = [sorted(f for f in os.listdir(w) if f.endswith(".bmp"))
+           for w in (wa, wb)]
+    if not got[0] == got[1] == sorted(names):
+        raise AssertionError(f"{label}: pictures {got}, expected {names}")
+    for f in names:
+        pictures_close(label, os.path.join(wa, f), os.path.join(wb, f))
+        check_picture(label, os.path.join(wa, f), min_drawn=0.05)
+
+
+def res_close(label, paths_a, paths_b, read_result) -> None:
+    """The .res files of two runs (one a rank): the same ids and
+    components, values within 1e-8 of each component's largest over
+    every file (a rank without supports holds reactions of rounding
+    size)."""
+    xs = [read_result(p) for p in paths_a]
+    ys = [read_result(p) for p in paths_b]
+    for x, y in zip(xs, ys):
+        for k in ("node_ids", "elem_ids"):
+            if not np.array_equal(x[k], y[k]):
+                raise AssertionError(f"{label}: {k} differ")
+        for k in ("node_comps", "elem_comps"):
+            if [c for c, _ in x[k]] != [c for c, _ in y[k]]:
+                raise AssertionError(f"{label}: components differ")
+    for k in ("node_comps", "elem_comps"):
+        for i, (c, _) in enumerate(ys[0][k]):
+            big = max(np.abs(y[k][i][1]).max() for y in ys)
+            d = max(np.abs(np.asarray(x[k][i][1]) - y[k][i][1]).max()
+                    for x, y in zip(xs, ys))
+            if not d <= 1e-8 * max(big, 1e-300):
+                raise AssertionError(f"{label}: {c} differs")
+
+
+def ucd_close(a, b) -> None:
+    """Two UCD files of one deck: the header, nodes, cells and labels
+    equal, the data rows within 1e-8 of each column's largest."""
+    with open(a) as fa, open(b) as fb:
+        la, lb = fa.read().splitlines(), fb.read().splitlines()
+    n_node, n_elem = (int(v) for v in la[5].split())
+    head = 6 + n_node + n_elem + 4
+    x = np.asarray([[float(v) for v in r.split()] for r in la[head:]])
+    y = np.asarray([[float(v) for v in r.split()] for r in lb[head:]])
+    ok = len(la) == len(lb) and la[:head] == lb[:head] and \
+        (np.abs(x - y) <= 1e-8 * np.abs(y).max(axis=0)).all()
+    log(f"  AVS UCD: {len(la)} lines, {n_node} nodes, {n_elem} cells; "
+        f"cuda vs cpu equal within 1e-8: {ok}")
+    if not ok:
+        raise AssertionError("visual_small_reference: the UCD files differ")
+
+
 def load_mods() -> dict:
     """The port's modules the phases use, by name."""
     sys.path.insert(0, ROOT)
@@ -4862,7 +5308,10 @@ def load_mods() -> dict:
     from frontistr_tpu_torch.post import nodal
     from frontistr_tpu_torch.run import run_directory
     from frontistr_tpu_torch.solver import amg, band, direct, ssor
-    return dict(extras=extras, direct=direct, Equation=Equation, ell=ell,
+    from frontistr_tpu_torch.parallel import partition
+    from frontistr_tpu_torch.vis import psf, pvr
+    return dict(psf=psf, pvr=pvr, partition=partition,
+                extras=extras, direct=direct, Equation=Equation, ell=ell,
                 band=band, eigen=eigen, fluid=fluid,
                 ssor=ssor, echo=echo,
                 segsum=sm, element_mv=em, static=stmod, bell=bell,
@@ -4885,9 +5334,9 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=40,
                     help="box_tet4(n, n, n) for the linear static tet path "
                          "(default 40)")
-    ap.add_argument("--krylov-n", type=int, default=40,
+    ap.add_argument("--krylov-n", type=int, default=32,
                     help="box_tet4(k, k, k) for the Krylov menu's path "
-                         "(default 40: 206,763 dofs; 69 is the newton "
+                         "(default 32: 107,811 dofs; 69 is the newton "
                          "cell's 1,029,000)")
     ap.add_argument("--ssor-n", type=int, default=SSOR_N,
                     help=f"box_tet4(s, s, s) for the SSOR Newton path "
@@ -4900,14 +5349,14 @@ def main(argv=None) -> int:
     ap.add_argument("--plastic", type=int, default=48,
                     help="box_hex8(p, p, p) for the elastoplastic path "
                          "(default 48)")
-    ap.add_argument("--dyn-n", type=int, default=48,
+    ap.add_argument("--dyn-n", type=int, default=40,
                     help="box_tet4(m, m, m) for the explicit dynamics path "
-                         "(default 48)")
+                         "(default 40)")
     ap.add_argument("--dyn-steps", type=int, default=300,
                     help="explicit time steps (default 300)")
-    ap.add_argument("--dyn-hex", type=int, default=48,
+    ap.add_argument("--dyn-hex", type=int, default=40,
                     help="box_hex8(h, h, h) for the implicit dynamics path "
-                         "(default 48)")
+                         "(default 40)")
     ap.add_argument("--dyn-hex-steps", type=int, default=10,
                     help="implicit time steps (default 10)")
     ap.add_argument("--heat-n", type=int, default=50,
@@ -4924,26 +5373,26 @@ def main(argv=None) -> int:
     ap.add_argument("--direct-n", type=int, default=12,
                     help="box_hex8(d, d, d) for the METHOD=DIRECT path "
                          "(default 12: 6,591 dofs)")
-    ap.add_argument("--plane-n", type=int, default=360,
-                    help="the quad8 box of the plane path (default 360: "
-                         "780,482 dofs; 408 gives 1,002,050)")
-    ap.add_argument("--hyper-n", type=int, default=24,
+    ap.add_argument("--plane-n", type=int, default=300,
+                    help="the quad8 box of the plane path (default 300: "
+                         "542,402 dofs; 408 gives 1,002,050)")
+    ap.add_argument("--hyper-n", type=int, default=20,
                     help="the hex20 box of the hyperelastic path "
-                         "(default 24: 181,875 dofs; 32 through PR 12)")
+                         "(default 20: 107,163 dofs)")
     ap.add_argument("--hyper-substeps", type=int, default=4,
                     help="substeps of the hyperelastic path (default 4)")
-    ap.add_argument("--contact-n", type=int, default=56,
+    ap.add_argument("--contact-n", type=int, default=48,
                     help="the lower box of the contact punch path, n x n x "
-                         "n/2 (default 56: 536,763 dofs; 72 gives "
+                         "n/2 (default 48: 339,123 dofs; 72 gives "
                          "1,135,947)")
     ap.add_argument("--flow-n", type=int, default=62,
                     help="the box_tet4 cube of the flow path, made 3414 "
                          "(default 62: 1,000,188 dofs)")
-    ap.add_argument("--flow-steps", type=int, default=3,
-                    help="time steps of the flow path (default 3)")
-    ap.add_argument("--shell-n", type=int, default=360,
+    ap.add_argument("--flow-steps", type=int, default=2,
+                    help="time steps of the flow path (default 2)")
+    ap.add_argument("--shell-n", type=int, default=300,
                     help="the MITC4 plate of the shell path, n x n "
-                         "(default 360: 781,926 dofs; 408 gives "
+                         "(default 300: 543,606 dofs; 408 gives "
                          "1,003,686)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
@@ -5137,6 +5586,16 @@ def main(argv=None) -> int:
     del cell
     torch.cuda.empty_cache()
     phase_flow_band_small_reference(mods)
+
+    # 18. the visual cell: an ABAQUS box refined on load, STATIC (K1's
+    #     element entry once, its planes entry in the AMG setup and the
+    #     nodal smoothing), the PVR volume on the card and the PSR surface
+    #     on the host; small decks of the readers, REFINE, HECMW-DIST and
+    #     the pictures on the card and the CPU
+    torch.cuda.empty_cache()
+    k1_row["visual_main_path"] = phase_visual_main_path(mods)
+    torch.cuda.empty_cache()
+    phase_visual_small_reference(mods)
 
     log(f"phase total: {time.perf_counter() - t_start:.2f} s")
     log(smi)

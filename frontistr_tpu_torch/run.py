@@ -35,15 +35,37 @@ the SUPG/PSPG stepper of ``analysis/flow.py`` (no StructModel), its
 ``.res`` always text with VELOCITY, PRESSURE, STRAIN_RATE and STRESS.
 ELEMCHECK and PRECHECK write the element quality summary to 0.log
 (``precheck.py``); NZPROF also writes ``nonzero.dat.000`` and its
-gnuplot script ``nonzero.plt.000`` in the work directory.  Everything
-else the JAX runner dispatches (visualization output, sharding,
-profiling) raises ``NotImplementedError`` naming what was asked for.
+gnuplot script ``nonzero.plt.000`` in the work directory.
+
+The mesh front end reads ``!MESH, TYPE=`` HECMW-ENTIRE (the default),
+ABAQUS (``io/abaqusio.py``), NASTRAN (``io/nastranio.py``), GEOFEM
+(``io/geofemio.py``) or HECMW-DIST (``io/distio.py``: the file ``<p>``,
+or every rank file ``<p>.0``, ``<p>.1``, ... reassembled into one
+model), refines it ``REFINE=n`` times (``io/refine.py``) and reorders
+it, in the JAX runner's order; an unknown type raises
+``NotImplementedError``.  A static run on a partitioned work directory
+writes ``<!RESULT name>.<rank>.1`` for every rank, its owned nodes and
+elements.  ``!WRITE, VISUAL`` renders after a static run (STATIC,
+NLSTATIC, STATICEIGEN) and every ``!WRITE, VISUAL, FREQUENCY`` steps of
+heat and dynamics (``result.<step>.bmp``): the ``!VISUAL`` PSR surface
+on the host (``vis/psf.py``), the PVR volume on the run's device
+(``vis/pvr.py``), or an AVS UCD ``.inp`` (``io/ucd.py``).  A deck the
+host code cannot draw prints ``### visualizer skipped: ...``, as the JAX
+runner does; an error of the device render propagates.  ``FSTR.dbg.0``
+in the work directory keeps the JAX runner's breadcrumbs
+(``io/dbgfile.py``).  ``FRONTISTR_TPU_PROFILE=<dir>`` runs the analysis
+under ``torch.profiler`` (CUDA activity on the card) and writes its
+Chrome trace ``<dir>/trace.json``.  ``FRONTISTR_TPU_SHARDS`` and
+``FRONTISTR_TPU_COORDINATOR`` (several devices) raise
+``NotImplementedError`` naming themselves.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
+import types
 
 import numpy as np
 import torch
@@ -62,20 +84,37 @@ from frontistr_tpu_torch.analysis.static import run_linear_static
 from frontistr_tpu_torch.assembly.model import build_struct_model
 from frontistr_tpu_torch.fem import material as mat
 from frontistr_tpu_torch.io import logio
+from frontistr_tpu_torch.io.abaqusio import read_abaqus
 from frontistr_tpu_torch.io.ctrlio import read_cnt
+from frontistr_tpu_torch.io.dbgfile import dbg, dbg_close, dbg_open
+from frontistr_tpu_torch.io.distio import mesh_from_dist_ranks, read_dist
 from frontistr_tpu_torch.io.echo import prepend_echo
+from frontistr_tpu_torch.io.geofemio import read_geofem
 from frontistr_tpu_torch.io.hecmw_ctrl import read_hecmw_ctrl
 from frontistr_tpu_torch.io.meshio import read_mesh
+from frontistr_tpu_torch.io.nastranio import read_nastran
+from frontistr_tpu_torch.io.refine import refine_mesh
 from frontistr_tpu_torch.io.resfile import (read_result_any, write_result,
                                             write_result_bin,
                                             write_static_result)
 from frontistr_tpu_torch.precheck import nzprof, precheck
+from frontistr_tpu_torch.vis import psf
 
 # the mesh checks of fstr_main kstPRECHECK / kstNZPROF
 PRECHECK_TYPES = ("ELEMCHECK", "PRECHECK", "NZPROF")
-# JAX-package switches whose feature this slice does not carry
-_UNPORTED_ENV = ("FRONTISTR_TPU_SHARDS", "FRONTISTR_TPU_PROFILE",
-                 "FRONTISTR_TPU_COORDINATOR")
+# JAX-package switches of several devices, not in the port yet
+_UNPORTED_ENV = ("FRONTISTR_TPU_SHARDS", "FRONTISTR_TPU_COORDINATOR")
+# the mesh readers of '!MESH, TYPE=' (hecmw_ctrl.dat)
+_READERS = {"HECMW-ENTIRE": read_mesh, "": read_mesh, "ABAQUS": read_abaqus,
+            "NASTRAN": read_nastran, "GEOFEM": read_geofem}
+# the host errors of a deck the visualizer cannot draw (a !VISUAL
+# parameter it cannot read, a component the result lacks); they are
+# printed and skipped, as the JAX runner skips every error of its
+# visualizer.
+# A device error of the PVR render (pvr.DeviceRenderError, a torch
+# RuntimeError) is none of these and propagates.
+_VISUAL_SKIPPED = (AttributeError, KeyError, IndexError, TypeError,
+                   ValueError, ArithmeticError)
 
 
 def _check_request(ctrl, cfg) -> None:
@@ -86,8 +125,88 @@ def _check_request(ctrl, cfg) -> None:
     if sol not in ("STATIC", "NLSTATIC", "DYNAMIC", "HEAT", "EIGEN",
                    "STATICEIGEN") + PRECHECK_TYPES:
         raise NotImplementedError(f"solution type {sol}")
-    if cfg.write_visual:
-        raise NotImplementedError("!WRITE, VISUAL card")
+
+
+def read_run_mesh(ctrl, timings: dict, dev):
+    """The mesh front end (``frontistr_tpu/run.py:65-115``): read the
+    !MESH entry by its TYPE, refine it REFINE times, reorder it.
+    Returns (mesh, partinfo); partinfo is None unless a HECMW-DIST work
+    directory holds several ranks (then the ranks' ownership, as
+    ``distio.mesh_from_dist_ranks`` returns it).  ``timings`` gains
+    ``read``, ``refine`` and ``reorder``."""
+    mb = ctrl.mesh()
+    mtype = mb.params.get("TYPE", "HECMW-ENTIRE").upper()
+    if mtype not in _READERS and mtype != "HECMW-DIST":
+        raise NotImplementedError(f"!MESH TYPE={mtype}")
+    partinfo = None
+    with devmod.Phase(timings, "read", dev):
+        if mtype == "HECMW-DIST":
+            mesh, partinfo, n_files = _read_dist_ranks(ctrl.path(mb))
+        else:
+            mesh = _READERS[mtype](ctrl.path(mb))
+    if partinfo:
+        print(f"### HECMW-DIST: reassembled {n_files} ranks -> "
+              f"{mesh.n_node} nodes, {mesh.n_elem} elements")
+    refine = int(mb.params.get("REFINE", "0") or 0)
+    if refine > 0:
+        with devmod.Phase(timings, "refine", dev):
+            mesh = refine_mesh(mesh, refine)
+        print(f"### mesh refined x{refine}: {mesh.n_node} nodes, "
+              f"{mesh.n_elem} elements")
+    with devmod.Phase(timings, "reorder", dev):
+        mesh = ordering.maybe_reorder(mesh)
+    dbg(f"mesh read: {mesh.n_node} nodes, {mesh.n_elem} elements, "
+        f"type={mtype or 'HECMW-ENTIRE'}")
+    return mesh, partinfo
+
+
+def _read_dist_ranks(path: str):
+    """A partitioned work directory: the file ``path``, else every rank
+    file ``path.0``, ``path.1``, ... (the reference runs one process a
+    file; here the ranks are reassembled into one model and the
+    partition drives the per-rank result files).  Returns (mesh,
+    partinfo, number of files)."""
+    if os.path.exists(path):
+        paths = [path]
+    else:
+        paths = []
+        while os.path.exists(f"{path}.{len(paths)}"):
+            paths.append(f"{path}.{len(paths)}")
+        if not paths:
+            raise FileNotFoundError(path)
+    mesh, partinfo = mesh_from_dist_ranks([read_dist(q) for q in paths])
+    return mesh, partinfo, len(paths)
+
+
+@contextlib.contextmanager
+def _profiled(dev):
+    """``FRONTISTR_TPU_PROFILE=<dir>``: the counterpart of the JAX
+    runner's ``jax.profiler.trace(dir)`` (``frontistr_tpu/run.py:201-206,
+    410-411``), ``torch.profiler`` over the analysis, with CUDA activity
+    when the run's device is the card; writes the Chrome trace
+    ``<dir>/trace.json``."""
+    prof_dir = os.environ.get("FRONTISTR_TPU_PROFILE")
+    if not prof_dir:
+        yield
+        return
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+    os.makedirs(prof_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(prof_dir, "trace.json"))
+    print(f"### torch profiler trace written to {prof_dir}")
+
+
+def _visual(label: str, fn, *args, **kw):
+    """One !WRITE, VISUAL output; a deck the host code cannot draw prints
+    ``### visualizer skipped<label>: ...`` and returns None."""
+    try:
+        return fn(*args, **kw)
+    except _VISUAL_SKIPPED as e:
+        print(f"### visualizer skipped{label}: {e}")
+        return None
 
 
 def _restart_kw(ctrl, cfg, workdir) -> dict:
@@ -118,36 +237,54 @@ def run_directory(workdir: str, log_name: str = "0.log",
     ``HeatResult``), "eigen" (an ``EigenResult``; STATICEIGEN has both
     "static" and "eigen"), "freq" (a ``FreqResult``), "flow" (a
     ``FlowResult``; no "model"), "precheck" (a ``PrecheckReport``) and
-    "nzprof" (the NZPROF dump's counts and paths); "_snapshots",
-    the steps whose result file was written during a transient run;
-    "timings" (seconds by phase), "log_path" and "total_time"."""
+    "nzprof" (the NZPROF dump's counts and paths); "partition" (the
+    ranks' ownership of a partitioned HECMW-DIST work directory, else
+    None); "visual" (the path a static run's !WRITE, VISUAL wrote);
+    "_snapshots", the steps whose result file was written during a
+    transient run; "timings" (seconds by phase), "log_path" and
+    "total_time"."""
     dev = devmod.resolve(device)
     t_start = time.time()
     timings: dict = {}
-    ctrl = read_hecmw_ctrl(os.path.join(workdir, "hecmw_ctrl.dat"))
-    mb = ctrl.mesh()
-    mtype = mb.params.get("TYPE", "HECMW-ENTIRE").upper()
-    if mtype not in ("HECMW-ENTIRE", ""):
-        raise NotImplementedError(f"!MESH TYPE={mtype}")
-    if int(mb.params.get("REFINE", "0") or 0) > 0:
-        raise NotImplementedError("!MESH REFINE")
-    cfg = read_cnt(ctrl.path(ctrl.control()))
-    _check_request(ctrl, cfg)
-    # the user plug-in module (umat / uload), FRONTISTR_TPU_USER_MODULE
-    user.load_user_module()
+    dbg_open(workdir)                # FSTR.dbg.<rank> (fistr_main.f90:193)
+    try:
+        ctrl = read_hecmw_ctrl(os.path.join(workdir, "hecmw_ctrl.dat"))
+        cfg = read_cnt(ctrl.path(ctrl.control()))
+        _check_request(ctrl, cfg)
+        # the user plug-in module (umat / uload), FRONTISTR_TPU_USER_MODULE
+        user.load_user_module()
+        mesh, partinfo = read_run_mesh(ctrl, timings, dev)
+        _read_temperature_result(ctrl, cfg, mesh)
+        log_path = os.path.join(workdir, log_name)
+        out = {"mesh": mesh, "cfg": cfg, "ctrl": ctrl, "timings": timings,
+               "log_path": log_path, "partition": partinfo}
+        dbg(f"setup done ({time.time() - t_start:.2f} s); solution type "
+            f"{cfg.solution_type.upper()}")
+        with _profiled(dev):
+            t_pre, results = _analyse(workdir, out, dev)
+            if cfg.echo:
+                # !ECHO: the mesh and deck dump at the top of the log
+                # (static_echo.f90 / heat_echo.f90 write through ILOG)
+                prepend_echo(log_path, mesh, cfg)
+        total = time.time() - t_start
+        _write_msg(workdir, t_pre - t_start, total)
+        out.update(results, total_time=total)
+        dbg(f"analysis completed ({total:.2f} s)")
+        return out
+    finally:
+        dbg_close()
+
+
+def _analyse(workdir, out, dev):
+    """The analysis of the deck ``out["cfg"]`` on ``out["mesh"]``, its
+    result files and pictures.  Returns (the clock at the end of the
+    set-up, the results to add to ``out``)."""
+    ctrl, cfg, mesh = out["ctrl"], out["cfg"], out["mesh"]
+    timings, log_path = out["timings"], out["log_path"]
     sol = cfg.solution_type.upper()
-    with devmod.Phase(timings, "read", dev):
-        mesh = read_mesh(ctrl.path(mb))
-    with devmod.Phase(timings, "reorder", dev):
-        mesh = ordering.maybe_reorder(mesh)
-    _read_temperature_result(ctrl, cfg, mesh)
-    log_path = os.path.join(workdir, log_name)
-    out = {"mesh": mesh, "cfg": cfg, "ctrl": ctrl, "timings": timings,
-           "log_path": log_path}
     d = cfg.dynamic
     if sol in PRECHECK_TYPES:
-        return _finish(workdir, out, t_start, time.time(),
-                       **_run_precheck(sol, mesh, workdir, log_path))
+        return time.time(), _run_precheck(sol, mesh, workdir, log_path)
     if sol == "DYNAMIC" and not (d is not None and d.idx_resp == 2) and \
             any(b.etype == 3414 for b in mesh.blocks):
         # u-p flow meshes take the SUPG/PSPG stepper (fstr_dynamic_
@@ -159,22 +296,22 @@ def run_directory(workdir: str, log_name: str = "0.log",
             with devmod.Phase(timings, "result", dev):
                 write_flow_result(ctrl.path(ctrl.result()) +
                                   f".0.{fr.steps}", mesh, fr, step=fr.steps)
-        return _finish(workdir, out, t_start, t_pre, flow=fr)
+        return t_pre, dict(flow=fr)
     rkw = _restart_kw(ctrl, cfg, workdir)
     if sol == "HEAT":
-        return _finish(workdir, out, t_start, time.time(),
-                       **_run_heat(ctrl, cfg, mesh, log_path, dev, timings,
-                                   rkw))
+        return time.time(), _run_heat(ctrl, cfg, mesh, workdir, log_path,
+                                      dev, timings, rkw)
     with devmod.Phase(timings, "model", dev):
         model = build_struct_model(mesh, cfg, device=dev)
     t_pre = time.time()
     out["model"] = model
     if sol == "DYNAMIC" and d is not None and d.idx_resp == 2:
-        return _finish(workdir, out, t_start, t_pre,
-                       freq=_run_frequency(ctrl, cfg, model, workdir,
-                                           log_path))
+        return t_pre, dict(freq=_run_frequency(ctrl, cfg, model, workdir,
+                                               log_path))
     if sol == "DYNAMIC":
-        cb, written = _snapshot_cb(ctrl, cfg, _dynamic_result_writer, mesh)
+        cb, written = _snapshot_cb(ctrl, cfg, _dynamic_result_writer, mesh,
+                                   _dynamic_picture(mesh, workdir, cfg, dev,
+                                                    timings))
         dr = run_dynamic(model, log_path=log_path, on_interval=cb, **rkw)
         dr.timings.update(timings)
         if cfg.write_result and ctrl.result() is not None and \
@@ -182,20 +319,19 @@ def run_directory(workdir: str, log_name: str = "0.log",
             with devmod.Phase(timings, "result", dev):
                 _dynamic_result_writer(ctrl, mesh)(dr.steps, None, dr.u,
                                                    dr.vel, dr.acc)
-        return _finish(workdir, out, t_start, t_pre, dynamic=dr,
-                       _snapshots=written)
+        return t_pre, dict(dynamic=dr, _snapshots=written)
     if sol == "EIGEN":
         er = run_eigen(model, log_path=log_path)
         if cfg.write_result and ctrl.result() is not None:
             with devmod.Phase(timings, "result", dev):
                 _write_modes(ctrl, mesh, model, er)
-        return _finish(workdir, out, t_start, t_pre, eigen=er)
+        return t_pre, dict(eigen=er)
+    got = {}
     if sol == "STATICEIGEN":
         # fstr_main kstSTATICEIGEN (fistr_main.f90:84-85): the EGLIST
         # block is appended to the Newton driver's 0.log
-        res, er = run_static_eigen(model, log_path=log_path,
-                                   timings=timings)
-        out["eigen"] = er
+        res, got["eigen"] = run_static_eigen(model, log_path=log_path,
+                                             timings=timings)
     elif sol == "NLSTATIC" or cfg.nlgeom or _needs_newton(model) or \
             (cfg.contacts and mesh.contact_pairs):
         # a contact deck takes the Newton driver's contact loop, its
@@ -209,26 +345,38 @@ def run_directory(workdir: str, log_name: str = "0.log",
             res.nodal_stress, res.nodal_mises, res.elem_strain,
             res.elem_stress, res.elem_mises, mesh.node_ids, res.elem_ids,
             node_count=res.node_count)
+    if cfg.write_visual:
+        # in-situ picture (!WRITE, VISUAL + !VISUAL; static_output.f90)
+        got["visual"] = _visual("", psf.visualize, mesh, model, res,
+                                workdir, cfg, device=dev, timings=timings)
     if cfg.write_result and ctrl.result() is not None:
-        rb = ctrl.result()
-        # '!RESULT, ..., TYPE=BINARY' selects the binary format
-        # (hecmw_control.c:1235-1275; text is the default)
         with devmod.Phase(timings, "result", dev):
-            write_static_result(
-                ctrl.path(rb) + ".0.1", mesh, model, res, step=1,
-                binary=rb.params.get("TYPE", "TEXT").upper() == "BINARY")
-    return _finish(workdir, out, t_start, t_pre, static=res)
+            _write_static_results(ctrl, mesh, model, res, out["partition"])
+    got["static"] = res
+    return t_pre, got
 
 
-def _finish(workdir, out, t_start, t_pre, **results) -> dict:
-    if out["cfg"].echo:
-        # !ECHO: the mesh and deck dump at the top of the log
-        # (static_echo.f90 / heat_echo.f90 write through ILOG at setup)
-        prepend_echo(out["log_path"], out["mesh"], out["cfg"])
-    total = time.time() - t_start
-    _write_msg(workdir, t_pre - t_start, total)
-    out.update(results, total_time=total)
-    return out
+def _write_static_results(ctrl, mesh, model, res, partinfo) -> None:
+    """``<!RESULT name>.0.1``, text or (``TYPE=BINARY``) binary
+    (hecmw_control.c:1235-1275); a partitioned work directory instead
+    writes ``<name>.<rank>.1`` for every rank with that rank's owned
+    nodes and elements (the reference's per-process output, which
+    fstr_rmerge reassembles; ``frontistr_tpu/run.py:350-363``)."""
+    rb = ctrl.result()
+    base = ctrl.path(rb)
+    binary = rb.params.get("TYPE", "TEXT").upper() == "BINARY"
+    if not partinfo:
+        write_static_result(base + ".0.1", mesh, model, res, step=1,
+                            binary=binary)
+        return
+    nrank = np.asarray([partinfo["node_rank"][int(g)]
+                        for g in mesh.node_ids])
+    erank = np.asarray([partinfo["elem_rank"].get(int(e), 0)
+                        for e in np.asarray(res.elem_ids)])
+    for r in range(partinfo["n_ranks"]):
+        write_static_result(base + f".{r}.1", mesh, model, res, step=1,
+                            binary=binary, node_sel=nrank == r,
+                            elem_sel=erank == r)
 
 
 def _read_temperature_result(ctrl, cfg, mesh) -> None:
@@ -261,8 +409,11 @@ def _read_temperature_result(ctrl, cfg, mesh) -> None:
     cfg.temp_read_field = T
 
 
-def _run_heat(ctrl, cfg, mesh, log_path, dev, timings, rkw) -> dict:
-    cb, written = _snapshot_cb(ctrl, cfg, _heat_result_writer, mesh)
+def _run_heat(ctrl, cfg, mesh, workdir, log_path, dev, timings,
+              rkw) -> dict:
+    cb, written = _snapshot_cb(ctrl, cfg, _heat_result_writer, mesh,
+                               _heat_picture(mesh, workdir, cfg, dev,
+                                             timings))
     hr = run_heat(mesh, cfg, log_path=log_path, on_interval=cb, device=dev,
                   timings=timings, **rkw)
     if cfg.write_result and ctrl.result() is not None and \
@@ -343,25 +494,55 @@ def _result_sink(ctrl):
         "TYPE", "TEXT").upper() == "BINARY" else write_result)
 
 
-def _snapshot_cb(ctrl, cfg, writer, mesh):
-    """The result half of the JAX runner's per-interval output
-    (``_snapshot_cb``; heat_solve_TRAN.f90:268-270 and
-    fstr_solve_dynamic's result cadence): ``cb(step, t, *fields)``
-    writes the step's result file through ``writer(ctrl, mesh)`` every
-    !WRITE, RESULT FREQUENCY steps.  Returns (cb, written steps); cb is
-    None without !WRITE, RESULT."""
+def _snapshot_cb(ctrl, cfg, writer, mesh, picture):
+    """The JAX runner's per-interval output (``_snapshot_cb``,
+    ``frontistr_tpu/run.py:418-469``; heat_solve_TRAN.f90:268-270 and
+    fstr_solve_dynamic's cadence): ``cb(step, t, *fields)`` writes the
+    step's result file through ``writer(ctrl, mesh)`` every !WRITE,
+    RESULT FREQUENCY steps and draws ``picture(step, *fields)`` every
+    !WRITE, VISUAL FREQUENCY steps.  Returns (cb, the steps whose result
+    file was written); cb is None without either card."""
     rfreq = cfg.result_frequency if (cfg.write_result and
                                      ctrl.result() is not None) else 0
+    vfreq = cfg.visual_frequency if cfg.write_visual else 0
     written: set = set()
-    if not rfreq:
+    if not rfreq and not vfreq:
         return None, written
-    write = writer(ctrl, mesh)
+    write = writer(ctrl, mesh) if rfreq else None
 
     def cb(step, t, *fields):
-        if step % rfreq == 0:
+        if rfreq and step % rfreq == 0:
             write(step, t, *fields)
             written.add(step)
+        if vfreq and step % vfreq == 0:
+            _visual(f" at step {step}", picture, step, *fields)
     return cb, written
+
+
+def _heat_picture(mesh, workdir, cfg, dev, timings):
+    """``picture(step, T)``: the temperature on the undeformed surface
+    (or the PVR volume), ``result.<step>.bmp``."""
+    def picture(step, T):
+        if isinstance(T, torch.Tensor):
+            T = T.cpu().numpy()
+        return psf.visualize_scalar(mesh, T, workdir, cfg,
+                                    basename=f"result.{step}", device=dev,
+                                    timings=timings)
+    return picture
+
+
+def _dynamic_picture(mesh, workdir, cfg, dev, timings):
+    """``picture(step, u, vel, acc)``: the deformed surface (or the PVR
+    volume) of the step's displacement, ``result.<step>.bmp``; the
+    result holds only ``u``, as the JAX runner's shim does, so a
+    !VISUAL component other than the displacement is skipped."""
+    def picture(step, u, *_):
+        shim = types.SimpleNamespace(
+            u=np.asarray(u).reshape(mesh.n_node, -1))
+        return psf.visualize(mesh, None, shim, workdir, cfg,
+                             basename=f"result.{step}", device=dev,
+                             timings=timings)
+    return picture
 
 
 def _dynamic_result_writer(ctrl, mesh):

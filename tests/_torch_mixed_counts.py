@@ -8,7 +8,7 @@ The deck of ``bench.py:83-88`` (X0 fixed, X1 loaded -1 in z, total
 Lagrange) on ``box_tet4(N, N, N)``, nodes shuffled with seed 3, RCM
 reordered, the AMG forced (``FRONTISTR_TPU_PRECOND=amg``).  The JAX
 package runs with the port's floored level-1 block inverse swapped in,
-as ``test_torch_static.py::test_mixed_amg_singular_block_matches_jax``
+as ``test_torch_static_amg.py::test_mixed_amg_singular_block_matches_jax``
 does.  Prints (CG iterations, refinement passes, seconds) of the first
 two Newton solves, then stops the run.
 """

@@ -4,8 +4,9 @@ and block-Jacobi preconditioner of ``femop``, the amplitude factor, the
 rate-BC split (a deck with a dof listed twice), explicit central
 difference decks, ``run_directory`` end to end for one explicit and one
 implicit deck (0.log, dyna_*.out, ``.res`` snapshots), the physics
-checks of ``tests/test_rate_bc.py`` on the port, and the refusal of
-everything the slice leaves out.  The implicit Newmark decks are in
+checks of ``tests/test_rate_bc.py`` on the port, ``!WRITE, VISUAL``
+every FREQUENCY steps, and the refusal of everything the slice leaves
+out.  The implicit Newmark decks are in
 ``test_torch_dynamic_implicit.py``.
 
 Meshes: ``box_tet4(3, 2, 2)``, its tet10 raise and ``box_hex8(3, 2,
@@ -42,6 +43,7 @@ from frontistr_tpu_torch.meshgen import box_hex8, box_tet4
 from frontistr_tpu_torch.run import run_directory
 
 from _torch_decks import dyn_deck, tet10_box, top_faces, write_deck
+from _torch_vis_decks import VISUAL, assert_pictures_close, run_pair
 
 RAMP = [(0.0, 0.0), (4.0e-8, 1.0), (1.0e-7, 1.0)]
 
@@ -407,6 +409,27 @@ def _etype(etype):
     return make
 
 
+def test_write_visual_matches_jax(tmp_path, env, capsys):
+    """``!WRITE, VISUAL, FREQUENCY=2`` on an explicit deck (formerly
+    refused): the JAX runner's file set, ``result.<step>.bmp`` every
+    second step, each PSR picture within ``_torch_vis_decks``' bar (one
+    level a byte, 0.1% of the pixels further apart)."""
+    mesh = _mesh(341, perturb=False)
+    cnt = dyn_deck(11, n_step=4, loads="!CLOAD, AMP=RAMP\n X1, 3, -1.0\n"
+                   "!VELOCITY\n Z1, 1, 1, 0.25\n",
+                   write=VISUAL.format(freq=", FREQUENCY=2", method="PSR",
+                                       more=""))
+    wd = write_deck(tmp_path / "port", mesh, cnt, amplitudes={"RAMP": RAMP})
+    got, want, wj = run_pair(wd)
+    assert "visualizer skipped" not in capsys.readouterr().out
+    assert got["dynamic"].steps == want["dynamic"].steps == 4
+    files = sorted(f for f in os.listdir(wj) if f.endswith(".bmp"))
+    assert files == ["result.2.bmp", "result.4.bmp"]
+    assert files == sorted(f for f in os.listdir(wd) if f.endswith(".bmp"))
+    for f in files:
+        assert_pictures_close(os.path.join(wd, f), os.path.join(wj, f))
+
+
 UNPORTED = {
     # name: (deck keyword arguments, extra cards, env, mesh edit, message)
     "contact": ({}, "!CONTACT, GRPID=1\n CP1, 1, 0.0\n", {}, None,
@@ -418,7 +441,6 @@ UNPORTED = {
                "FRONTISTR_TPU_SHARDS"),
     "coupler": ({}, "", {"FRONTISTR_TPU_COUPLE_DIR": "cpl"}, None,
                 "FRONTISTR_TPU_COUPLE_DIR"),
-    "write_visual": ({}, "!WRITE, VISUAL\n", {}, None, "VISUAL"),
     "eigenread": ({}, "!EIGENREAD\n eigen.log\n 1, 2\n", {}, None,
                   "EIGENREAD"),
     # the id predates the shell port: the case is the truss 301

@@ -8,7 +8,9 @@ that ``--dist loadfile`` spreads the runs over two workers).
   1e-8 relative of the JAX runner's on the JAX-written files.
 - STATICEIGEN on the beam deck (``run_static_eigen``; and through
   ``run_directory``): the static displacements within 1e-8 of the
-  largest, eigenvalues within 1e-8, the same Lanczos iterations.
+  largest, eigenvalues within 1e-8, the same Lanczos iterations; the
+  run's ``!WRITE, VISUAL`` PVR picture within the bar of
+  ``_torch_vis_decks.assert_pictures_close``.
 """
 
 import os
@@ -22,6 +24,7 @@ from frontistr_tpu_torch.analysis import freq
 from frontistr_tpu_torch.meshgen import box_hex8
 from frontistr_tpu_torch.run import run_directory
 
+from _torch_vis_decks import VISUAL, assert_pictures_close
 from test_torch_eigen import (FLOAD, _by_id, _eglist, _env,  # noqa: F401
                               _hold_eigen, _mesh, _models, _pair,
                               eigen_deck)
@@ -93,7 +96,9 @@ def test_static_eigen_matches_jax(tmp_path):
 
 def test_static_eigen_run_directory_matches_jax(tmp_path):
     cnt = eigen_deck(**BEAM).replace("210000.0, 0.3", "1000.0, 0.3") \
-        .replace("7.85e-9", "1.0")
+        .replace("7.85e-9", "1.0").replace("!END", VISUAL.format(
+            freq="", method="PVR", more="!color_comp_name = MISES\n")
+            + "!END")
     wj, wd = _pair(tmp_path, _beam(), cnt)
     oj = jrun.run_directory(wj)
     ot = run_directory(wd, device="cpu")
@@ -106,3 +111,6 @@ def test_static_eigen_run_directory_matches_jax(tmp_path):
     gt = _eglist(os.path.join(wd, "0.log"))
     np.testing.assert_allclose(gt[:, :3], gj[:, :3], rtol=1e-4)
     assert os.path.exists(os.path.join(wd, "mesh.res.0.1"))
+    # !WRITE, VISUAL after STATICEIGEN: the PVR volume of the Mises stress
+    assert_pictures_close(os.path.join(wd, "result.bmp"),
+                          os.path.join(wj, "result.bmp"))

@@ -21,6 +21,7 @@ package's ``analysis/heat.py`` on the CPU.
   equal in ids and within 1e-8.
 - A heat result read by a STATIC deck's ``!TEMPERATURE, READRESULT``:
   displacements within 1e-8 of the largest.
+- ``!WRITE, VISUAL, FREQUENCY=2`` (PSR): the JAX runner's pictures.
 - Each excluded feature raises ``NotImplementedError`` naming itself.
 """
 
@@ -44,6 +45,7 @@ from frontistr_tpu_torch.io.resfile import read_result_any
 from frontistr_tpu_torch.run import run_directory
 
 from _torch_decks import heat_deck, heat_mesh, shi_faces, write_heat_deck
+from _torch_vis_decks import VISUAL, assert_pictures_close, run_pair
 
 KINDS = ("hex8", "tet4", "tet10", "quad", "tri", "iface")
 
@@ -255,12 +257,30 @@ def test_heat_readresult_static_matches_jax(tmp_path, monkeypatch):
         atol=1e-8 * np.abs(uj).max())
 
 
+def test_write_visual_matches_jax(tmp_path, capsys):
+    """``!WRITE, VISUAL, FREQUENCY=2`` on a transient deck of 3 steps
+    (formerly refused), the PSR surface: the JAX runner's file set,
+    ``result.2.bmp`` alone, the picture within ``_torch_vis_decks``' bar
+    (one level a byte, 0.1% of the pixels further apart)."""
+    mesh = heat_mesh("hex8")
+    cnt = heat_deck(mesh, write=VISUAL.format(freq=", FREQUENCY=2",
+                                              method="PSR", more=""))
+    wd = write_heat_deck(tmp_path / "port", mesh, cnt)
+    got, want, wj = run_pair(wd)
+    assert "visualizer skipped" not in capsys.readouterr().out
+    assert got["heat"].steps == want["heat"].steps == 3
+    files = sorted(f for f in os.listdir(wj) if f.endswith(".bmp"))
+    assert files == ["result.2.bmp"]
+    assert files == sorted(f for f in os.listdir(wd) if f.endswith(".bmp"))
+    for f in files:
+        assert_pictures_close(os.path.join(wd, f), os.path.join(wj, f))
+    assert {"psr_extract", "psr_render"} <= set(got["timings"])
+
+
 UNPORTED = {
     # name: (deck edit, env, mesh edit, message)
     "shards": (None, {"FRONTISTR_TPU_SHARDS": "2"}, None,
                "FRONTISTR_TPU_SHARDS"),
-    "write_visual": (lambda c: c.replace("!END", "!WRITE, VISUAL\n!END"),
-                     {}, None, "VISUAL"),
 }
 
 

@@ -232,7 +232,7 @@ def test_hex8_file_deck_matches_jax(tmp_path, monkeypatch, fresh_jax_traces,
     AMG block inverse stalls its CG at 10,000 iterations even in float64
     (the deviation of ROADMAP queue 3), so the AMG case puts the port's
     floored inverse into the JAX package, as
-    ``test_torch_static.test_mixed_amg_singular_block_matches_jax``
+    ``test_torch_static_amg.test_mixed_amg_singular_block_matches_jax``
     does."""
     from frontistr_tpu.solver import amg as jamg
     monkeypatch.setenv("FRONTISTR_TPU_PRECISION", policy)

@@ -8,9 +8,10 @@ size.  The AMG power iterations of the port are fed the JAX package's
 start vectors (torch cannot draw jax.random's bits).  Bars:
 displacements within 1e-8 of max|u|; the 0.log Global Summary equal at
 print precision; float64-policy iteration counts equal; mixed-policy
-counts within 2 (the float32 inner CG sums in another order).  A second
-deck holds a singular level-1 AMG block, where the port's block inverse
-departs from the JAX package's on purpose.
+counts within 2 (the float32 inner CG sums in another order).  The deck
+with a singular level-1 AMG block, where the port's block inverse
+departs from the JAX package's on purpose, is in
+``test_torch_static_amg.py``.
 """
 
 import os
@@ -32,6 +33,8 @@ from frontistr_tpu_torch.io.neu import write_static_workdir
 from frontistr_tpu_torch.meshgen import box_tet4
 from frontistr_tpu_torch.run import run_directory
 from frontistr_tpu_torch.solver import amg
+
+from _torch_vis_decks import VISUAL, assert_pictures_close, run_pair
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CNT = ("!VERSION\n 3\n!SOLUTION, TYPE=STATIC\n!BOUNDARY\n X0, 1, 3, 0.0\n"
@@ -83,75 +86,6 @@ def test_static_slice_matches_jax(tmp_path, monkeypatch, capsys, policy):
     assert got and got == want
 
 
-def _floored_block_inv(D, nd):
-    """The port's level-1 block inverse (``amg._block_inv``: zero diagonal
-    set to 1, float64 eigendecomposition, eigenvalues floored at 100
-    eps(dtype) of the block's largest), written for the JAX package."""
-    D64 = D.astype(jnp.float64)
-    idx = jnp.arange(D.shape[-1])
-    dd = D64[:, idx, idx]
-    D64 = D64.at[:, idx, idx].add(jnp.where(dd == 0.0, 1.0, 0.0))
-    lam, V = jnp.linalg.eigh(0.5 * (D64 + jnp.swapaxes(D64, 1, 2)))
-    top = lam[:, -1:]
-    floor = jnp.where(top > 0, top * (100.0 * jnp.finfo(D.dtype).eps), 1.0)
-    lam = jnp.maximum(lam, floor)
-    return jnp.einsum("aij,aj,akj->aik", V, 1.0 / lam, V).astype(D.dtype)
-
-
-@pytest.fixture
-def fresh_jax_traces():
-    """The JAX package keeps its jitted solves traced: drop the traces
-    around a test that swaps one of the functions they call."""
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
-
-
-@pytest.mark.parametrize("jax_inverse", ["own", "floored"])
-def test_mixed_amg_singular_block_matches_jax(tmp_path, monkeypatch,
-                                              fresh_jax_traces, jax_inverse):
-    """box_tet4(30, 30, 2), shuffled then RCM-ordered: one level-1 AMG
-    block is singular up to rounding (the test checks that its smallest
-    eigenvalue is below the floor).  The JAX package's mixed policy
-    inverts that block as it stands in float32 and stalls (4 passes of
-    300 iterations end above 1e-8).  With the port's floored inverse put
-    in its place it converges, and the port matches it: iterations within
-    2, displacements within 1e-8 of max|u|, the Global Summary equal at
-    print precision."""
-    from frontistr_tpu.solver import amg as jamg
-    monkeypatch.setenv("FRONTISTR_TPU_PRECISION", "mixed")
-    monkeypatch.setenv("FRONTISTR_TPU_AMG_MIN", "100")
-    monkeypatch.setenv("FRONTISTR_TPU_REORDER", "1")
-    monkeypatch.setenv("FRONTISTR_TPU_COMPILE_CACHE", "0")
-    monkeypatch.setattr(amg, "start_vectors", _jax_start_vectors)
-    wj = _workdir(tmp_path / "jax", n=(30, 30, 2),
-                  cnt=CNT.replace(" 10000, 1\n", " 300, 1\n"))
-    if jax_inverse == "own":
-        jres = jrun.run_directory(wj)["static"]
-        assert not float(jres.relres) <= 1e-8
-        return
-    monkeypatch.setattr(jamg, "_block_inv", _floored_block_inv)
-    jres = jrun.run_directory(wj)["static"]
-    blocks = []
-    block_inv = amg._block_inv
-    monkeypatch.setattr(amg, "_block_inv",
-                        lambda D: blocks.append(D) or block_inv(D))
-    wd = str(tmp_path / "port")
-    shutil.copytree(wj, wd)
-    os.remove(os.path.join(wd, "0.log"))
-    res = run_directory(wd, device="cpu")["static"]
-    lam = torch.linalg.eigvalsh(blocks[0].double())
-    assert (lam[:, 0] <= 100 * torch.finfo(torch.float32).eps
-            * lam[:, -1]).any()
-    uj = np.asarray(jres.u)
-    assert float(jres.relres) <= 1e-8 and res.relres <= 1e-8
-    assert abs(res.iters - int(jres.iters)) <= 2
-    assert np.abs(res.u - uj).max() <= 1e-8 * np.abs(uj).max()
-    got = jlogio.parse_log_summaries(os.path.join(wd, "0.log"))
-    want = jlogio.parse_log_summaries(os.path.join(wj, "0.log"))
-    assert got and got == want
-
-
 def test_port_cli_leaves_jax_unloaded(tmp_path):
     wd = _workdir(tmp_path / "wd", n=(3, 2, 2))
     code = ("import sys\n"
@@ -180,19 +114,36 @@ def test_cli_cuda_without_card_is_an_error(tmp_path):
 
 @pytest.mark.parametrize("card", ["!SOLUTION, TYPE=NLSTATIC",
                                   "!SOLUTION, TYPE=EIGEN"])
-def test_unported_requests_raise(tmp_path, card):
+def test_unported_requests_raise(tmp_path, monkeypatch, card):
     cnt = CNT.replace("!SOLUTION, TYPE=STATIC", card) if "SOLUTION" in card \
         else CNT.replace("!END\n", card + "\n!END\n")
     if "NLSTATIC" in card:
         # the Newton driver runs NLSTATIC and every Krylov method (as CG,
-        # tests/test_torch_nonlinear.py); a card it lacks still raises
-        cnt = cnt.replace("!END\n", "!WRITE, VISUAL\n!END\n")
+        # tests/test_torch_nonlinear.py) and !WRITE, VISUAL
+        # (test_write_visual_nlstatic_matches_jax); several devices
+        # still raise
+        monkeypatch.setenv("FRONTISTR_TPU_COORDINATOR", "localhost:1234")
     elif "EIGEN" in card:
         # Lanczos runs EIGEN; a card it lacks still raises
         cnt = cnt.replace("!END\n", "!SPRING\n 1, 3, 10.0\n!END\n")
     wd = _workdir(tmp_path / "wd", n=(2, 2, 2), cnt=cnt)
     with pytest.raises(NotImplementedError):
         run_directory(wd, device="cpu")
+
+
+def test_write_visual_nlstatic_matches_jax(tmp_path, monkeypatch, capsys):
+    """``!WRITE, VISUAL`` after NLSTATIC, which the runner used to refuse:
+    the PSR picture of the JAX runner (``_torch_vis_decks``' bar: one
+    level a byte, 0.1% of the pixels further apart)."""
+    monkeypatch.setenv("FRONTISTR_TPU_COMPILE_CACHE", "0")
+    cnt = CNT.replace("TYPE=STATIC", "TYPE=NLSTATIC").replace(
+        "!END\n", VISUAL.format(freq="", method="PSR", more="") + "!END\n")
+    wd = _workdir(tmp_path / "wd", n=(3, 2, 2), cnt=cnt)
+    ot, oj, wj = run_pair(wd)
+    assert "visualizer skipped" not in capsys.readouterr().out
+    assert ot["static"].newton is not None
+    assert_pictures_close(os.path.join(wd, "result.bmp"),
+                          os.path.join(wj, "result.bmp"))
 
 
 @pytest.mark.parametrize("binary", [False, True])
