@@ -16,7 +16,11 @@ once, checks the answers and prints the result.
   ``python -m frontistr_tpu_torch``): the deck of ``bench.py:83-88``
   (NLSTATIC, total Lagrange) on a shuffled ``box_tet4(m, m, m)``,
   3*(m+1)^3 dofs and 6*m^3 tets (default m=69: 1,029,000 dofs, 1,971,054
-  tets), one K1 assembly per Newton iteration.
+  tets), one K1 assembly per Newton iteration.  Then the profile cache
+  (``assembly/profcache.py``) at that mesh: the ELL and cluster profiles
+  built and saved cold into a fresh directory under ``build/``, then
+  loaded warm, bit-equal; every other phase runs with
+  FRONTISTR_TPU_CACHE_DIR=0.
 - The linear-static tet path through ``run_directory``: the STATIC deck
   on a shuffled ``box_tet4(n, n, n)`` (default n=40: 206,763 dofs).
 - The solver menu: the STATIC tet deck with METHOD=BICGSTAB (RESID
@@ -31,7 +35,13 @@ once, checks the answers and prints the result.
 - The structured hex8 path through the library entry points
   ``build_struct_model`` + ``run_linear_static``: ``box_hex8(h, h, h)``
   (default h=69: 1,029,000 dofs, 328,509 elements), stencil operator
-  with its element products through K2, in float32 and float64.
+  with its element products through K2, in float32 and float64.  Then
+  the box arm of ``bench.py`` (``microbench/box_twogrid.py``) on
+  ``box_hex8(69)`` (``BOX_N``, never cut): f32 two-grid PCG on the
+  dof-major stencil operator (K2 on every fine product, E = 328,509,
+  and every coarse one, E = 12,167), refined in f64 to a true relres of
+  1e-8 by the one-element ``ConstD`` operator and checked again by the
+  node-major f64 operator; K2 at the coarse shape.
 - The elastoplastic path through ``run_directory``: NLSTATIC on a
   shuffled ``box_hex8(p, p, p)`` (default p=48: 352,947 dofs, 110,592
   B-bar elements), !PLASTIC Mises, a follower pressure of 56 on the
@@ -121,6 +131,12 @@ once, checks the answers and prints the result.
   readers, REFINE, per-interval pictures of heat and dynamics, the AVS
   output, FSTR.dbg.0 and FRONTISTR_TPU_PROFILE on the card and on the
   CPU.
+- Small decks of the tools on the card and on the CPU: ``part`` of a
+  box into 4 HECMW-DIST ranks, its run through ``run_directory``,
+  ``rmerge``, ``rconv`` and VTK; ``rebalance`` with adaptive refinement
+  and its run; ``!COUPLE`` in implicit and explicit dynamics with a peer
+  process (the port's ``FileCoupler``); the staggered heat -> stress
+  transfer; the box solve at n = 9.
 
 The run needs a CUDA card and exits non-zero without one, or when any
 phase fails.  Work directories and the kernel build go under ``build/``
@@ -5277,6 +5293,391 @@ def ucd_close(a, b) -> None:
         raise AssertionError("visual_small_reference: the UCD files differ")
 
 
+# ---- PR: the box arm (two-grid), the profile cache, coupling, adapt, tools --
+BOX_N = 69
+
+
+def phase_box_main_path(mods, n=BOX_N) -> dict:
+    """The box arm's solve (``microbench/box_twogrid.py``, the solve of
+    ``bench.py:195-404``) on box_hex8(n): f32 two-grid PCG on the
+    dof-major stencil operator, every fine and coarse product through
+    K2, refined in f64 to a true relres <= 1e-8 by the one-element
+    ``ConstD`` operator and again by the node-major f64
+    ``StructuredHexOperator`` (every element, K2).  K2's launches are
+    counted by element count and held to the PCG's arithmetic: 3 fine
+    and 20 coarse a preconditioned residual, 15 coarse in the power
+    iteration.  Then ``box_twogrid.split``: host wall, device time and
+    launches of a CG iteration and of its parts, and K2's share; then K2
+    at the coarse shape against its bound."""
+    em, bt = mods["element_mv"], mods["box_twogrid"]
+    fine = bt.make_box(n)
+    reset_kernel_launches(mods)
+    em.element_matvec_soa.launches_by_e.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = bt.solve(n, "cuda", fine=fine)
+    wall = time.perf_counter() - t0
+    counts = kernel_launch_counts(mods)
+    by_e = dict(em.element_matvec_soa.launches_by_e)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    rr_node = bt.node_major_relres(fine, res.x)
+    t_node = time.perf_counter() - t0
+    E, Ec = res.n_elem, res.n_elem_coarse
+    calls = sum(res.chunks_per_pass) + res.cg_iters
+    cg_s = sum(v for k, v in res.timings.items() if k.startswith("cg_pass"))
+    ms_cg = 1e3 * cg_s / max(res.cg_iters, 1)
+    log(f"phase box_main_path: box_hex8({n}) {res.n_dof} dofs, {E} "
+        f"elements, coarse box_hex8({n // 3}) {Ec} elements: {wall:.2f} s; "
+        + " ".join(f"{k}={v:.3f}" for k, v in res.timings.items()))
+    log(f"  cg_iters={res.cg_iters} per pass {res.cg_per_pass} (PCG calls "
+        f"{res.chunks_per_pass}), {ms_cg:.3f} ms a CG iteration, "
+        f"lmax_c={res.lmax_c!r}; relres ConstD={res.relres!r}, node-major "
+        f"K2 f64={rr_node!r} ({t_node:.2f} s); peak {peak:.3f} GB; K2 "
+        f"launches fine={by_e.get(E, 0)} coarse={by_e.get(Ec, 0)}; "
+        f"all launches {counts}")
+    if not (by_e.get(E, 0) == 3 * calls and
+            by_e.get(Ec, 0) == 20 * calls + 15 and set(by_e) == {E, Ec}
+            and counts["K2"] == by_e[E] + by_e[Ec]):
+        raise AssertionError(f"box_main_path: K2 launches {by_e}, expected "
+                             f"{3 * calls} fine and {20 * calls + 15} coarse")
+    if any(v for k, v in counts.items() if k != "K2"):
+        raise AssertionError(f"box_main_path: other kernels ran {counts}")
+    if not (res.relres <= 1e-8 and rr_node <= 1e-8 and
+            bool(torch.isfinite(res.x).all())):
+        raise AssertionError("box_main_path: relres above 1e-8")
+    # where a CG iteration goes (host wall, device, K2; torch.profiler)
+    split = bt.split(res)
+    for k, v in split.items():
+        log(f"  split {k}: " + (f"{v:.4f} ms" if isinstance(v, float) else
+                                " ".join(f"{a}={b:.4f}"
+                                         for a, b in v.items())))
+    # K2 at the coarse shape (float32, the Chebyshev coarse solve's type)
+    keT = bt.assemble_soa(bt.make_box(n // 3), torch.float32, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    xeT = torch.randn((24, Ec), generator=gen, device="cuda")
+    err = check_k2(em, keT, xeT, f"coarse E={Ec}")
+    ms = cuda_ms(lambda: em.element_matvec_soa(keT, xeT), reps=50)
+    plain_ms = cuda_ms(lambda: em.element_matvec_soa_reference(keT, xeT),
+                       reps=50)
+    keB, xeB = keT.permute(2, 0, 1), xeT.t()[:, :, None]
+    library_ms = cuda_ms(lambda: torch.bmm(keB, xeB), reps=50)
+    nbytes = (24 * 24 + 2 * 24) * Ec * 4
+    bound_ms, bound_by = bound(nbytes, 2 * 24 * 24 * Ec, torch.float32)
+    log(f"phase k2_coarse_time: E={Ec} float32: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bmm {library_ms:.4f} ms, bound "
+        f"{bound_ms:.5f} ms ({nbytes} B)")
+    return {"n": n, "dofs": res.n_dof, "wall_s": wall, "peak_gb": peak,
+            "cg_iters": res.cg_iters, "cg_per_pass": res.cg_per_pass,
+            "pcg_calls": res.chunks_per_pass, "ms_per_cg": ms_cg,
+            "relres": res.relres, "relres_node_major": rr_node,
+            "phase_s": res.timings, "split": split,
+            "launches_fine": by_e[E],
+            "launches_coarse": by_e[Ec],
+            "coarse": {"elements": Ec, "max_abs_err": err, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": library_ms}}
+
+
+def phase_cache(mods, model) -> dict:
+    """The profile cache (``assembly/profcache.py``) at the newton cell's
+    mesh: the ELL and cluster profiles built and saved into a fresh
+    directory under ``build/`` (cold), then loaded with the memory cache
+    cleared (warm); both bit-equal to the profiles the newton run built,
+    every field and dtype."""
+    ell, bell, pc = mods["ell"], mods["bell"], mods["profcache"]
+    built = (ell.profile_from_model(model),
+             bell.cluster_profile_from_model(model))
+    d = os.path.join(ROOT, "build", "smoke", "profcache")
+    shutil.rmtree(d, ignore_errors=True)
+    times = {}
+
+    def both(tag):
+        ell._PROFILE_CACHE.clear()
+        bell._CPROFILE_CACHE.clear()
+        t0 = time.perf_counter()
+        p = ell.profile_from_model(model)
+        times[f"{tag}_ell"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c = bell.cluster_profile_from_model(model, scalar=p)
+        times[f"{tag}_bell"] = time.perf_counter() - t0
+        return p, c
+
+    # cold: each profile built and saved by its own call; warm: loaded
+    cold, warm = with_env({"FRONTISTR_TPU_CACHE_DIR": d},
+                          lambda: (both("cold"), both("warm")))
+    files = sorted(os.listdir(d))
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for f in files)
+    fields = {0: ("n_node", "ndof", "W", "cols", "diag_slot", "perm",
+                  "seg_sorted", "pair_counts"),
+              1: ("n_node", "ndof", "G", "C", "Wc", "ccols", "diag_wc",
+                  "perm", "seg_sorted", "scal_src", "pair_counts")}
+    same = all(
+        all((np.array_equal(getattr(a, f), getattr(b, f)) and
+             getattr(a, f).dtype == getattr(b, f).dtype)
+            if isinstance(getattr(b, f), np.ndarray)
+            else getattr(a, f) == getattr(b, f) for f in fields[i])
+        for i in (0, 1) for a in (cold[i], warm[i]) for b in (built[i],))
+    log(f"phase cache: {model.n_node * model.ndof} dofs, {len(files)} "
+        f"entries, {nbytes} bytes; " + " ".join(
+            f"{k}={v:.3f}" for k, v in times.items())
+        + f" s; cold and warm bit-equal to the run's profiles: {same}")
+    shutil.rmtree(d, ignore_errors=True)
+    ell._PROFILE_CACHE.clear()
+    bell._CPROFILE_CACHE.clear()
+    if not (same and len(files) == 2 and warm[0] is not cold[0]):
+        raise AssertionError("cache: a loaded profile differs")
+    return {"bytes": nbytes, **{k + "_s": v for k, v in times.items()}}
+
+
+COUPLE_PEER = """
+import sys
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+from frontistr_tpu_torch.couple.rcap import FileCoupler
+d, n_step, px = sys.argv[2], int(sys.argv[3]), float(sys.argv[4])
+ep = FileCoupler(d, role="fluid", peer="solid", timeout=300.0)
+ids = ep.peer_interface()["node_ids"]
+got = {}
+for i in range(1, n_step + 1):
+    tr = np.zeros((len(ids), 3))
+    tr[:, 0] = px * i / n_step
+    ep.send(i, node_ids=ids, trac=tr)
+    for k, v in ep.get(i).items():
+        got[f"{k}.{i}"] = v
+np.savez(d + "/peer_log.npz", **got)
+"""
+COUPLECNT = ("!VERSION\n 3\n!SOLUTION, TYPE=DYNAMIC\n!DYNAMIC\n {eqa}, 1\n"
+             " 0.0, {t_end!r}, {n_step}, {dt!r}\n 0.5, 0.25\n"
+             " 1, 1, 0.0, 0.0\n 10\n!BOUNDARY\n X0, 1, 3, 0.0\n"
+             "!COUPLE, TYPE=1\n WET\n!STEP, SUBSTEPS=1, CONVERG=1.0e-8\n"
+             "!MATERIAL, NAME=M1\n!ELASTIC\n 1000.0, 0.0\n!DENSITY\n 1.0\n"
+             "!SOLVER, METHOD=CG, PRECOND=1, ITERLOG=NO, TIMELOG=NO\n"
+             " 10000, 1\n 1.0e-12, 1.0, 0.0\n!END\n")
+
+
+def coupled_run(mods, wd, device, n_step):
+    """``wd`` through run_directory on ``device`` coupled to a peer
+    process (``COUPLE_PEER``: the port's FileCoupler as the fluid code,
+    a +x traction growing each step); returns (the run, the states the
+    peer read).  The peer is stopped whatever happens."""
+    d = os.path.join(wd, "couple")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    peer = subprocess.Popen([sys.executable, "-c", COUPLE_PEER, ROOT, d,
+                             str(n_step), "3.0"])
+    try:
+        out = with_env({"FRONTISTR_TPU_COUPLE_DIR": d,
+                        "FRONTISTR_TPU_COUPLE_TIMEOUT": "300"},
+                       lambda: mods["run_directory"](wd, device=device))
+        rc = peer.wait(timeout=300)
+    finally:
+        if peer.poll() is None:
+            peer.kill()
+            peer.wait()
+    if rc != 0:
+        raise AssertionError(f"couple: the peer process exited {rc}")
+    with np.load(os.path.join(d, "peer_log.npz")) as z:
+        return out, {k: z[k] for k in z.files}
+
+
+def phase_couple_small_reference(mods) -> None:
+    """!COUPLE through FRONTISTR_TPU_COUPLE_DIR with a peer process, in
+    implicit (Newmark) and explicit dynamics, on the card and on the
+    CPU: every state the peer read within 1e-10 of the largest, u too;
+    then the staggered heat -> stress transfer (``couple/mapping.py``)
+    and its thermal STATIC run in the f64 policy, card vs CPU within
+    1e-8."""
+    mg = mods["meshgen"]
+    base = os.path.join(ROOT, "build", "smoke", "couple_small")
+    shutil.rmtree(base, ignore_errors=True)
+    mesh = mg.box_hex8(4, 2, 2)
+    ftab = mods["face_tables"][361]
+    blk = mesh.blocks[0]
+    rows = [(int(blk.elem_ids[e]), f)
+            for e in range(len(blk.elem_ids))
+            for f, (_, ln) in enumerate(ftab, 1)
+            if np.allclose(mesh.coords[blk.conn[e][np.asarray(ln)], 0], 1.0)]
+    n_step = 4
+    for eqa, dt, label in ((1, 0.01, "implicit"), (11, 0.002, "explicit")):
+        wd = os.path.join(base, label)
+        mods["write_static_workdir"](
+            wd, mesh, COUPLECNT.format(eqa=eqa, t_end=n_step * dt,
+                                       n_step=n_step, dt=dt),
+            ngroups=("X0",), sgroups={"WET": rows})
+        wc = wd + "_cpu"
+        shutil.copytree(wd, wc)
+        t0 = time.perf_counter()
+        a, pa = coupled_run(mods, wd, "cuda", n_step)
+        b, pb = coupled_run(mods, wc, "cpu", n_step)
+        wall = time.perf_counter() - t0
+        keys = sorted(pb)
+        d = max(rel_diff(pa[k], pb[k]) for k in keys if
+                not k.startswith("node_ids"))
+        du = rel_diff(a["dynamic"].u, b["dynamic"].u)
+        ux = float(np.asarray(a["dynamic"].u)[:, 0].max())
+        log(f"phase couple_small_reference: {label} dynamics box_hex8(4,2,2)"
+            f", {len(rows)} WET faces, {n_step} steps, a peer process: "
+            f"{len(keys)} arrays read by the peer, cuda vs cpu {d!r}, u "
+            f"{du!r}, max u_x {ux!r} ({wall:.2f} s both)")
+        if not (sorted(pa) == keys and len(keys) == 4 * n_step and
+                d <= 1e-10 and du <= 1e-10 and ux > 0):
+            raise AssertionError(f"couple_small_reference: {label}")
+    # the staggered heat -> stress transfer and its thermal STATIC run
+    path = os.path.join(base, "thermal.cnt")
+    with open(path, "w") as fh:
+        fh.write(CNT.replace("!CLOAD\n X1, 3, -1.0\n", "").replace(
+            "!BOUNDARY\n X0, 1, 3, 0.0\n", "!BOUNDARY\n X0, 1, 1, 0.0\n"
+            " Y0, 2, 2, 0.0\n Z0, 3, 3, 0.0\n").replace(
+            "!SOLVER", "!EXPANSION_COEFF\n 1.0e-5\n!SOLVER").replace(
+            "1.0e-8, 1.0", "1.0e-10, 1.0"))
+    cfg = mods["read_cnt"](path)
+    src, dst = mg.box_hex8(4, 4, 4), mg.box_hex8(6, 6, 6)
+    T = mods["mapping"].StaggeredCoupling(src, dst).transfer(
+        100.0 * src.coords[:, 0])
+    us = []
+    for dev in ("cuda", "cpu"):
+        model = mods["build_struct_model"](dst, cfg, device=dev)
+        model.temperature = T
+        model.f_ext = model.f_ext + mods["thermal_load"](model, T)
+        us.append(with_env({"FRONTISTR_TPU_PRECISION": "f64"}, lambda: mods[
+            "static"].run_linear_static(model).u))
+    dT = float(np.abs(T - 100.0 * dst.coords[:, 0]).max())
+    d = rel_diff(us[0], us[1])
+    log(f"phase couple_small_reference: staggered heat -> stress, "
+        f"box_hex8(4) -> box_hex8(6): T error {dT!r}, cuda vs cpu u {d!r}")
+    if not (dT <= 1e-10 and d <= 1e-8 and np.abs(us[1]).max() > 1e-5):
+        raise AssertionError("couple_small_reference: staggered run")
+
+
+def vtk_close(label, a, b) -> None:
+    """Two legacy VTK files of one deck: the same words, the numbers
+    within 1e-8 of the file's largest."""
+    with open(a) as fa, open(b) as fb:
+        wa, wb = fa.read().split(), fb.read().split()
+
+    def num(w):
+        try:
+            return float(w)
+        except ValueError:
+            return None
+    xa, xb = [num(w) for w in wa], [num(w) for w in wb]
+    same_words = len(wa) == len(wb) and all(
+        (x is None) == (y is None) and (x is not None or p == q)
+        for x, y, p, q in zip(xa, xb, wa, wb))
+    na = np.asarray([x for x in xa if x is not None])
+    nb = np.asarray([y for y in xb if y is not None])
+    ok = same_words and len(na) == len(nb) and \
+        np.abs(na - nb).max() <= 1e-8 * np.abs(nb).max()
+    log(f"  {label}: {len(wa)} words, cuda vs cpu within 1e-8: {ok}")
+    if not ok:
+        raise AssertionError(f"{label}: the VTK files differ")
+
+
+def phase_tools_small_reference(mods) -> None:
+    """The tools on the card and the CPU: ``fistr-torch-part`` (RCB, with
+    --check-mesh) of a shuffled box_tet4(8, 6, 5) into 4 HECMW-DIST
+    ranks, that work directory through run_directory (the per-rank
+    .res), ``rmerge`` of the ranks, ``rconv`` to binary, back to text
+    (byte-equal to the merged file) and to npz, and ``write_static_vtk``;
+    then ``fistr-torch-rebalance --refine`` (adaptive refinement of a
+    corner, then a fresh 4-rank RCB split) of a 4-rank box_tet4(6) and
+    its run.  Card vs CPU: the merged results within 1e-8 of each
+    component's largest, the VTK numbers within 1e-8, u within 1e-8."""
+    import glob
+    cli, mg = mods["cli"], mods["meshgen"]
+    run = mods["run_directory"]
+    base = os.path.join(ROOT, "build", "smoke", "tools_small")
+    shutil.rmtree(base, ignore_errors=True)
+    cnt = CNT.replace("1.0e-8, 1.0", "1.0e-10, 1.0").replace(
+        "!END", "!WRITE, RESULT\n!END")
+    wd = write_shuffled(os.path.join(base, "part"), mods,
+                        mg.box_tet4(8, 6, 5), cnt)
+    msh = os.path.join(wd, "mesh.msh")
+    if cli.part_main([msh, "-n", "4", "-o", os.path.join(wd, "mesh.dist"),
+                      "--check-mesh"]) != 0:
+        raise AssertionError("tools_small_reference: part")
+    os.remove(msh)
+    set_mesh_entry(wd, "mesh.dist", "HECMW-DIST")
+    wc = wd + "_cpu"
+    shutil.copytree(wd, wc)
+    merged = []
+    for w, dev in ((wd, "cuda"), (wc, "cpu")):
+        out = run(w, device=dev)
+        ranks = sorted(glob.glob(os.path.join(w, "mesh.res.*.1")))
+        m = os.path.join(w, "merged.res")
+        if not (len(ranks) == 4 and cli.rmerge_main(ranks + ["-o", m]) == 0
+                and cli.rconv_main([m, m + ".bin", "-t", "binary"]) == 0
+                and cli.rconv_main([m + ".bin", m + ".txt", "-t",
+                                    "text"]) == 0
+                and cli.rconv_main([m, m + ".npz", "-t", "npz"]) == 0):
+            raise AssertionError("tools_small_reference: rmerge / rconv")
+        with open(m, "rb") as fa, open(m + ".txt", "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError("tools_small_reference: text -> binary "
+                                     "-> text is not byte-equal")
+        mods["vtk"].write_static_vtk(os.path.join(w, "result.vtk"),
+                                     out["mesh"], out["static"])
+        merged.append((out, m))
+    res_close("tools_small_reference merged", [merged[0][1]],
+              [merged[1][1]], mods["read_result"])
+    mres = mods["read_result"](merged[0][1])
+    if sorted(mres["node_ids"]) != sorted(merged[0][0]["mesh"].node_ids):
+        raise AssertionError("tools_small_reference: the merged file "
+                             "misses nodes")
+    log(f"phase tools_small_reference: part (RCB, 4 ranks, check mesh "
+        f"{os.path.getsize(os.path.join(wd, 'mesh.dist.check.inp'))} B) -> "
+        f"run_directory -> rmerge ({len(mres['node_ids'])} nodes) -> rconv "
+        f"-> VTK; cuda vs cpu u {rel_diff(by_id(merged[0][0]), by_id(merged[1][0]))!r}")
+    vtk_close("VTK", os.path.join(wd, "result.vtk"),
+              os.path.join(wc, "result.vtk"))
+    # rebalance with adaptive refinement of a corner
+    mesh = mg.box_tet4(6, 6, 6)
+    rb = os.path.join(base, "rebalance")
+    os.makedirs(rb)
+    mods["partition"].partition_to_files(mesh, 4,
+                                         os.path.join(rb, "box.dist"))
+    with open(os.path.join(rb, "box.cnt"), "w") as fh:
+        fh.write(cnt)
+    with open(os.path.join(rb, "hecmw_ctrl.dat"), "w") as fh:
+        fh.write("!MESH, NAME=fstrMSH, TYPE=HECMW-DIST\n box.dist\n"
+                 "!CONTROL, NAME=fstrCNT\n box.cnt\n"
+                 "!RESULT, NAME=fstrRES, IO=OUT\n box.res\n")
+    b = mesh.blocks[0]
+    hit = (mesh.coords[b.conn].mean(axis=1) < 1.0 / 3.0).all(axis=1)
+    marks = ",".join(str(int(e)) for e in b.elem_ids[hit])
+    if cli.rebalance_main([os.path.join(rb, "box.dist"), "--refine",
+                           marks]) != 0:
+        raise AssertionError("tools_small_reference: rebalance")
+    rc = rb + "_cpu"
+    shutil.copytree(rb, rc)
+    a, c = run(rb, device="cuda"), run(rc, device="cpu")
+    d = rel_diff(by_id(a), by_id(c))
+    log(f"phase tools_small_reference: rebalance --refine ({hit.sum()} "
+        f"marked of {mesh.n_elem}) -> {a['mesh'].n_elem} elements on "
+        f"{a['partition']['n_ranks']} ranks; cuda vs cpu u {d!r}")
+    if not (d <= 1e-8 and a["mesh"].n_elem > mesh.n_elem and
+            a["partition"]["n_ranks"] == 4 and
+            a["static"].relres <= 1e-8):
+        raise AssertionError("tools_small_reference: the rebalanced run")
+
+
+def phase_box_small_reference(mods) -> None:
+    """The box solve at n = 9 on the card and on the CPU with one start
+    vector: CG within 2 + 10%, x within 1e-6 of the largest."""
+    bt = mods["box_twogrid"]
+    v0 = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        3 * 4 ** 3), dtype=torch.float32)
+    g, c = bt.solve(9, "cuda", v0=v0), bt.solve(9, "cpu", v0=v0)
+    d = rel_diff(g.x.cpu().numpy(), c.x.numpy())
+    log(f"phase box_small_reference: box_hex8(9) two-grid, cg {g.cg_iters} "
+        f"{g.cg_per_pass} vs {c.cg_iters} {c.cg_per_pass}, relres "
+        f"{g.relres!r} vs {c.relres!r}, x cuda vs cpu {d!r}")
+    if not (g.relres <= 1e-8 and c.relres <= 1e-8 and d <= 1e-6 and
+            abs(g.cg_iters - c.cg_iters) <= 2 + 0.1 * c.cg_iters):
+        raise AssertionError("box_small_reference: card and CPU differ")
+
+
 def load_mods() -> dict:
     """The port's modules the phases use, by name."""
     sys.path.insert(0, ROOT)
@@ -5310,7 +5711,15 @@ def load_mods() -> dict:
     from frontistr_tpu_torch.solver import amg, band, direct, ssor
     from frontistr_tpu_torch.parallel import partition
     from frontistr_tpu_torch.vis import psf, pvr
+    from frontistr_tpu_torch.assembly import profcache
+    from frontistr_tpu_torch.assembly.loads import thermal_load
+    from frontistr_tpu_torch.couple import mapping
+    from frontistr_tpu_torch.io import vtk
+    from frontistr_tpu_torch.microbench import box_twogrid
+    from frontistr_tpu_torch.tools import cli
     return dict(psf=psf, pvr=pvr, partition=partition,
+                profcache=profcache, thermal_load=thermal_load,
+                mapping=mapping, vtk=vtk, box_twogrid=box_twogrid, cli=cli,
                 extras=extras, direct=direct, Equation=Equation, ell=ell,
                 band=band, eigen=eigen, fluid=fluid,
                 ssor=ssor, echo=echo,
@@ -5403,6 +5812,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     mods = load_mods()
+    # the profile cache is on by default; only the cache phase writes one
+    os.environ["FRONTISTR_TPU_CACHE_DIR"] = "0"
     sm, em, g = mods["segsum"], mods["element_mv"], mods["gather"]
     bell, stmod = mods["bell"], mods["static"]
     box_tet4, box_hex8 = mods["box_tet4"], mods["box_hex8"]
@@ -5441,6 +5852,8 @@ def main(argv=None) -> int:
     planes = phase_amg_repeat(mods, model, planes_launches)
     k1_row = phase_k1_time(sm, mbs, bell, stmod, model, k1_launches)
     k1_row["planes"] = planes
+    # the profile cache at that mesh: cold build and save, then load
+    k1_row["cache"] = phase_cache(mods, model)
     del model
     torch.cuda.empty_cache()
 
@@ -5464,6 +5877,10 @@ def main(argv=None) -> int:
     model, res, k2_launches = phase_hex_main_path(args, mods)
     k2_row = phase_k2_time(mods, model, res, k2_launches)
     del model, res
+    torch.cuda.empty_cache()
+    # 6b. the box arm's two-grid solve (K2 on every fine and coarse
+    #     product), then K2 at the coarse shape
+    k2_row["twogrid_main_path"] = phase_box_main_path(mods)
     torch.cuda.empty_cache()
 
     # 7. the elastoplastic path (K1 once per Newton iteration), then K1
@@ -5596,6 +6013,14 @@ def main(argv=None) -> int:
     k1_row["visual_main_path"] = phase_visual_main_path(mods)
     torch.cuda.empty_cache()
     phase_visual_small_reference(mods)
+
+    # 19. small decks of the tools (part, rmerge, rconv, VTK, rebalance
+    #     with adaptive refinement), of coupling (a peer process, the
+    #     staggered transfer) and of the box solve on the card and the CPU
+    torch.cuda.empty_cache()
+    phase_tools_small_reference(mods)
+    phase_couple_small_reference(mods)
+    phase_box_small_reference(mods)
 
     log(f"phase total: {time.perf_counter() - t_start:.2f} s")
     log(smi)

@@ -47,8 +47,11 @@ step's increment, the SLAGRANGE active set frozen for the pass.  !RESTART
 checkpoints the implicit run every FREQUENCY steps (u, vel, acc, the
 gauss states and a contact deck's multipliers and released slots) and
 resumes from it; the explicit run ignores the card, as the JAX package's
-does.  What the JAX package also runs in dynamics and the port does not
-yet (sharding, the coupler, frequency response) raises
+does.  !COUPLE with FRONTISTR_TPU_COUPLE_DIR couples the run to a peer
+code through ``couple/rcap.py`` (the peer's traction before each step,
+the interface motion after it; such a run takes the Newton loop, not the
+linear step train).  What the JAX package also runs in dynamics and the
+port does not yet (sharding, frequency response) raises
 ``NotImplementedError`` naming itself, and so do the cards the JAX
 package's dynamics drop without effect: !EQUATION and !CONTACT in an
 explicit run, !SPRING (ROADMAP, queue 3, fault 2).
@@ -79,6 +82,7 @@ from frontistr_tpu_torch.analysis.static import StaticResult
 from frontistr_tpu_torch.assembly import extras, femop, loads
 from frontistr_tpu_torch.assembly import operators as old_ops
 from frontistr_tpu_torch.assembly.model import StructModel, collect_cload
+from frontistr_tpu_torch.couple.rcap import driver_from_env
 from frontistr_tpu_torch.device import Phase
 from frontistr_tpu_torch.elements.quadhi import mass_tables
 from frontistr_tpu_torch.fem.isoparam import det_inv_small
@@ -291,9 +295,8 @@ def _check_request(model: StructModel) -> None:
     if d.idx_resp == 2 or cfg.eigenread is not None:
         raise NotImplementedError("frequency response (!DYNAMIC idx_resp "
                                   "= 2, !EIGENREAD)")
-    for name in ("FRONTISTR_TPU_SHARDS", "FRONTISTR_TPU_COUPLE_DIR"):
-        if os.environ.get(name, "") not in ("", "0"):
-            raise NotImplementedError(f"{name} in dynamics")
+    if os.environ.get("FRONTISTR_TPU_SHARDS", "") not in ("", "0"):
+        raise NotImplementedError("FRONTISTR_TPU_SHARDS in dynamics")
     # the JAX package's explicit run prints a warning and drops the
     # !EQUATION constraints; its dynamics leave !SPRING out of K
     explicit_eq = model.mesh.equations if d.idx_eqa == 11 else []
@@ -310,7 +313,7 @@ def _check_request(model: StructModel) -> None:
 
 def run_dynamic(model: StructModel, log_path: Optional[str] = None,
                 on_interval=None, restart_path: Optional[str] = None,
-                restart_freq: int = 0) -> DynamicResult:
+                restart_freq: int = 0, coupler=None) -> DynamicResult:
     """Time history on ``model.device``.  ``on_interval(step, t, u, vel,
     acc)`` (host arrays) fires after every committed time step -- the
     runner uses it for per-interval result files (fstr_solve_dynamic
@@ -318,15 +321,22 @@ def run_dynamic(model: StructModel, log_path: Optional[str] = None,
     package.  ``restart_path``/``restart_freq`` (the !RESTART card) are
     the implicit run's: it resumes from the file when it exists and
     ``restart_freq`` is set, and writes it every ``restart_freq`` steps;
-    the explicit run never reads them, as in the JAX package."""
+    the explicit run never reads them, as in the JAX package.
+    ``coupler`` (``couple.rcap.CoupleDriver``; by default one from
+    FRONTISTR_TPU_COUPLE_DIR when the deck has !COUPLE) adds the peer's
+    interface traction to each step's external force and publishes the
+    interface displacement, velocity and acceleration after it."""
     _check_request(model)
     if log_path is not None:
         check_log(model)
+    if coupler is None:
+        coupler = driver_from_env(model, model.mesh, model.cfg)
     if model.cfg.dynamic.idx_eqa == 11:
-        return _run_explicit(model, log_path, on_interval=on_interval)
+        return _run_explicit(model, log_path, on_interval=on_interval,
+                             coupler=coupler)
     return _run_implicit(model, log_path, on_interval=on_interval,
                          restart_path=restart_path,
-                         restart_freq=restart_freq)
+                         restart_freq=restart_freq, coupler=coupler)
 
 
 class _Monitor:
@@ -538,8 +548,24 @@ def _save_dyn_checkpoint(path, i, u, vel, acc, states, contact) -> None:
     save_restart(path, payload)
 
 
+def _couple_force(coupler, i: int, f_ext: torch.Tensor) -> torch.Tensor:
+    """f_ext plus the peer's interface traction of step i
+    (fstr_rcap_get + dynamic_mat_ass_couple)."""
+    if coupler is None:
+        return f_ext
+    return f_ext + torch.as_tensor(coupler.traction_force(i),
+                                   dtype=f_ext.dtype, device=f_ext.device)
+
+
+def _couple_publish(coupler, i: int, u, vel, acc) -> None:
+    """Interface motion of the committed step i to the peer
+    (fstr_rcap_send)."""
+    if coupler is not None:
+        coupler.publish_state(i, *(v.cpu().numpy() for v in (u, vel, acc)))
+
+
 def _run_implicit(model: StructModel, log_path, on_interval=None,
-                  restart_path=None, restart_freq=0):
+                  restart_path=None, restart_freq=0, coupler=None):
     cfg = model.cfg
     d = cfg.dynamic
     step = cfg.steps[0]
@@ -640,7 +666,7 @@ def _run_implicit(model: StructModel, log_path, on_interval=None,
         with Phase(timings, "restart_load", dev):
             u, vel, acc, states, start_i = _load_dyn_checkpoint(
                 restart_path, states, contact, dev)
-    linear = (on_interval is None and contact is None
+    linear = (on_interval is None and contact is None and coupler is None
               and not restart_path and _all_linear(programs)
               and os.environ.get("FRONTISTR_TPU_IMPLICIT_SCAN", "1") != "0")
     t0 = time.perf_counter()
@@ -678,7 +704,8 @@ def _run_implicit(model: StructModel, log_path, on_interval=None,
             t = dt * i
             vec1 = a1 * acc + a2 * vel
             vec2 = b1 * acc + b2 * vel
-            f_ext = _external_force(f_groups, t, zero)
+            f_ext = _couple_force(coupler, i,
+                                  _external_force(f_groups, t, zero))
             cgs, ts, passes = [], {}, []
             for cont_it in range(max(step.max_contiter, 1)
                                  if contact is not None else 1):
@@ -749,6 +776,7 @@ def _run_implicit(model: StructModel, log_path, on_interval=None,
             clock.mark(i)
             if on_interval is not None:
                 on_interval(i, t, *(v.cpu().numpy() for v in (u, vel, acc)))
+            _couple_publish(coupler, i, u, vel, acc)
             if restart_path and restart_freq > 0 and i % restart_freq == 0:
                 with Phase(timings, "restart_save", dev):
                     _save_dyn_checkpoint(restart_path, i, u, vel, acc,
@@ -760,7 +788,8 @@ def _run_implicit(model: StructModel, log_path, on_interval=None,
                          "linear" if linear else "newton")
 
 
-def _run_explicit(model: StructModel, log_path, on_interval=None):
+def _run_explicit(model: StructModel, log_path, on_interval=None,
+                  coupler=None):
     cfg = model.cfg
     d = cfg.dynamic
     ndof, n, dev = model.ndof, model.n_dof_total, model.device
@@ -830,7 +859,8 @@ def _run_explicit(model: StructModel, log_path, on_interval=None):
     t0 = time.perf_counter()
     for i in range(1, d.n_step + 1):
         t = dt * i
-        B = _external_force(f_groups, t, zero) - Q + m2 * disp1 + m3 * disp3
+        B = _couple_force(coupler, i, _external_force(f_groups, t, zero)) \
+            - Q + m2 * disp1 + m3 * disp3
         X = torch.where(free_b, B / vec1, 0.0)
         # prescribed-rate Dirichlet (dynamic_mat_ass_bc_vl/_ac explicit
         # branches): u_{n+1} = u_{n-1} + 2 dt v / 2 u_n - u_{n-1} + dt^2 a
@@ -850,6 +880,7 @@ def _run_explicit(model: StructModel, log_path, on_interval=None):
         clock.mark(i)
         if on_interval is not None:
             on_interval(i, t, *(v.cpu().numpy() for v in (X, vel, acc)))
+        _couple_publish(coupler, i, X, vel, acc)
     timings["block_ms"] = clock.block_ms()
     timings["steps"] = time.perf_counter() - t0
     return _finalize_dyn(model, states, disp1, vel, acc, d.n_step, log_path,

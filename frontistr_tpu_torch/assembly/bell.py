@@ -20,7 +20,7 @@ import torch
 
 from frontistr_tpu_torch.assembly import ell as ellmod
 from frontistr_tpu_torch.assembly import operators as old_ops
-from frontistr_tpu_torch.assembly import profsort
+from frontistr_tpu_torch.assembly import profcache, profsort
 from frontistr_tpu_torch.assembly import segsum as segmod
 from frontistr_tpu_torch.fem.isoparam import det_inv_small, gauss_jordan_inv
 
@@ -241,17 +241,45 @@ _CPROFILE_CACHE: dict = {}
 def cluster_profile_from_model(model,
                                scalar: Optional[ellmod.ELLProfile] = None
                                ) -> ClusterProfile:
-    """Build (and cache: one profile) the cluster profile of a model, its
-    spring blocks included."""
+    """Build (and cache: one profile in memory, every profile on disk
+    through ``profcache``) the cluster profile of a model, its spring
+    blocks included."""
     conns = ellmod.model_conns(model)
     key = ellmod.profile_key(conns, model.n_node, model.ndof) + "-bell"
     prof = _CPROFILE_CACHE.get(key)
     if prof is None:
-        prof = build_cluster_profile(conns, model.n_node, model.ndof,
-                                     scalar=scalar)
+        prof = _disk_load(conns, model.n_node, model.ndof)
+        if prof is None:
+            prof = build_cluster_profile(conns, model.n_node, model.ndof,
+                                         scalar=scalar)
+            _disk_save(conns, model.n_node, model.ndof, prof)
         _CPROFILE_CACHE.clear()
         _CPROFILE_CACHE[key] = prof
     return prof
+
+
+def _disk_load(conns, nn, ndof) -> Optional[ClusterProfile]:
+    """The cluster profile from the persistent cache (``profcache``)."""
+    z = profcache.load(profcache.conn_key(conns, nn, ndof,
+                                          tag="torch-bell"))
+    if z is None:
+        return None
+    return ClusterProfile(
+        n_node=nn, ndof=ndof, G=int(z["G"]), C=int(z["C"]),
+        Wc=int(z["Wc"]), ccols=z["ccols"], diag_wc=z["diag_wc"],
+        perm=z["perm"], seg_sorted=z["seg_sorted"],
+        scal_src=z["scal_src"],
+        pair_counts=tuple(int(v) for v in z["pair_counts"]))
+
+
+def _disk_save(conns, nn, ndof, prof: ClusterProfile) -> None:
+    profcache.save(
+        profcache.conn_key(conns, nn, ndof, tag="torch-bell"),
+        dict(G=np.int64(prof.G), C=np.int64(prof.C),
+             Wc=np.int64(prof.Wc), ccols=prof.ccols,
+             diag_wc=prof.diag_wc, perm=prof.perm,
+             seg_sorted=prof.seg_sorted, scal_src=prof.scal_src,
+             pair_counts=np.asarray(prof.pair_counts, np.int64)))
 
 
 def from_model(model, kes, dtype=None,

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from frontistr_tpu_torch.assembly import operators as old_ops
-from frontistr_tpu_torch.assembly import profsort
+from frontistr_tpu_torch.assembly import profcache, profsort
 from frontistr_tpu_torch.assembly.extras import extra_tensors
 from frontistr_tpu_torch.assembly import segsum as segmod
 
@@ -111,17 +111,41 @@ def model_conns(model) -> list:
 
 
 def profile_from_model(model, n_node: Optional[int] = None) -> ELLProfile:
-    """Build (and cache: one profile, they are large) the ELL profile of
-    a StructModel, its spring blocks included."""
+    """Build (and cache: one profile in memory, they are large; every
+    profile on disk through ``profcache``) the ELL profile of a
+    StructModel, its spring blocks included."""
     conns = model_conns(model)
     nn = model.n_node if n_node is None else n_node
     key = profile_key(conns, nn, model.ndof)
     prof = _PROFILE_CACHE.get(key)
     if prof is None:
-        prof = build_profile(conns, nn, model.ndof)
+        prof = _disk_load(conns, nn, model.ndof)
+        if prof is None:
+            prof = build_profile(conns, nn, model.ndof)
+            _disk_save(conns, nn, model.ndof, prof)
         _PROFILE_CACHE.clear()
         _PROFILE_CACHE[key] = prof
     return prof
+
+
+def _disk_load(conns, nn, ndof) -> Optional[ELLProfile]:
+    """The profile from the persistent cache (``profcache``), if there."""
+    z = profcache.load(profcache.conn_key(conns, nn, ndof, tag="torch-ell"))
+    if z is None:
+        return None
+    return ELLProfile(n_node=nn, ndof=ndof, W=int(z["W"]),
+                      cols=z["cols"], diag_slot=z["diag_slot"],
+                      perm=z["perm"], seg_sorted=z["seg_sorted"],
+                      pair_counts=tuple(int(v) for v in z["pair_counts"]))
+
+
+def _disk_save(conns, nn, ndof, prof: ELLProfile) -> None:
+    profcache.save(
+        profcache.conn_key(conns, nn, ndof, tag="torch-ell"),
+        dict(W=np.int64(prof.W), cols=prof.cols,
+             diag_slot=prof.diag_slot, perm=prof.perm,
+             seg_sorted=prof.seg_sorted,
+             pair_counts=np.asarray(prof.pair_counts, np.int64)))
 
 
 @dataclasses.dataclass

@@ -50,6 +50,7 @@ def element_matvec_soa(keT: torch.Tensor, xeT: torch.Tensor) -> torch.Tensor:
 
 
 element_matvec_soa.launches = 0     # K2 launches (plain calls excluded)
+element_matvec_soa.launches_by_e = {}   # the same launches by element count
 
 
 def _check(keT: torch.Tensor, xeT: torch.Tensor) -> None:
@@ -88,4 +89,6 @@ def _launch(keT: torch.Tensor, xeT: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"element_mv kernel launch failed (code {rc})")
     element_matvec_soa.launches += 1
+    element_matvec_soa.launches_by_e[E] = \
+        element_matvec_soa.launches_by_e.get(E, 0) + 1
     return fe

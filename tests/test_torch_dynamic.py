@@ -431,7 +431,8 @@ def test_write_visual_matches_jax(tmp_path, env, capsys):
 
 
 UNPORTED = {
-    # name: (deck keyword arguments, extra cards, env, mesh edit, message)
+    # name: (deck keyword arguments, extra cards, env ({tmp}: the test's
+    # directory), mesh edit, message[, exception: NotImplementedError])
     "contact": ({}, "!CONTACT, GRPID=1\n CP1, 1, 0.0\n", {}, None,
                 "CONTACT"),
     # the JAX package drops both without effect (ROADMAP fault 2)
@@ -439,8 +440,11 @@ UNPORTED = {
     "spring": ({"eqa": 1}, "!SPRING\n 1, 3, 10.0\n", {}, None, "SPRING"),
     "shards": ({}, "", {"FRONTISTR_TPU_SHARDS": "2"}, None,
                "FRONTISTR_TPU_SHARDS"),
-    "coupler": ({}, "", {"FRONTISTR_TPU_COUPLE_DIR": "cpl"}, None,
-                "FRONTISTR_TPU_COUPLE_DIR"),
+    # coupling is ported: without a peer the run waits out the timeout
+    "coupler": ({}, "!COUPLE, TYPE=1\n WET\n",
+                {"FRONTISTR_TPU_COUPLE_DIR": "{tmp}/cpl",
+                 "FRONTISTR_TPU_COUPLE_TIMEOUT": "0.1"}, None,
+                "coupling peer file not found", TimeoutError),
     "eigenread": ({}, "!EIGENREAD\n eigen.log\n 1, 2\n", {}, None,
                   "EIGENREAD"),
     # the id predates the shell port: the case is the truss 301
@@ -451,15 +455,16 @@ UNPORTED = {
 @pytest.mark.parametrize("case", list(UNPORTED))
 def test_unported_dynamic_requests_raise(tmp_path, env, case):
     """Each feature of the JAX package's dynamics outside the slice
-    raises NotImplementedError naming itself through ``run_directory``."""
-    kw, extra, envs, edit, msg = UNPORTED[case]
+    raises NotImplementedError naming itself through ``run_directory``;
+    a coupled deck whose peer never answers raises TimeoutError."""
+    kw, extra, envs, edit, msg, *exc = UNPORTED[case]
     for k, v in envs.items():
-        env.setenv(k, v)
+        env.setenv(k, v.format(tmp=tmp_path))
     cnt = dyn_deck(kw.get("eqa", 11), n_step=2, loads=extra)
     mesh = box_tet4(2, 2, 1)
     if edit is not None:
         mesh = edit(mesh)
     wd = str(tmp_path / "wd")
     write_static_workdir(wd, mesh, cnt, ngroups=("X0", "X1", "Z1"))
-    with pytest.raises(NotImplementedError, match=msg):
+    with pytest.raises(exc[0] if exc else NotImplementedError, match=msg):
         run_directory(wd, device="cpu")
