@@ -137,6 +137,18 @@ once, checks the answers and prints the result.
   and its run; ``!COUPLE`` in implicit and explicit dynamics with a peer
   process (the port's ``FileCoupler``); the staggered heat -> stress
   transfer; the box solve at n = 9.
+- Several devices (``parallel/dist.py``, ``parallel/shard.py``): the
+  shard ranks (the card count on NCCL with two or more cards, else two
+  ranks sharing the card over gloo, then one rank on NCCL, one group
+  after the other) run a copy of the Newton path's work directory
+  through ``run_rank``, the rank entry of ``FRONTISTR_TPU_SHARDS``, cut
+  in depth to CONVERG ``SHARD_CONVERG``: u within 1e-8 of the
+  one-device run's u after as many Newton iterations, Newton iterations
+  equal, CG within 2 a solve, K1 launched on every rank once a Newton
+  iteration, 0.log, FSTR.sta and the result written once and
+  FSTR.dbg.<rank> by every rank; then small decks of every sharded
+  family (linear STATIC f64 and mixed, NLSTATIC AMG, implicit dynamics,
+  EIGEN, heat, SLAGRANGE contact) against one card.
 
 The run needs a CUDA card and exits non-zero without one, or when any
 phase fails.  Work directories and the kernel build go under ``build/``
@@ -189,6 +201,13 @@ PLANES_PER_AMG_SETUP = 2
 # the SSOR Newton path's default box: its run at the newton cell's 69
 # (PERF.md) would push the smoke past its time (--ssor-n 69 restores it)
 SSOR_N = 32
+# the depth of shard_main_path: the newton deck's !STEP CONVERG there,
+# held to newton_main_path's u after as many Newton iterations.  At m = 69
+# rres is 0.59 after the first: one iteration, which keeps the phase near
+# the 150 s it may take (PERF.md: a second, on the stressed tangent, took
+# 85 s more on 2 gloo ranks, and its CG count moves by up to 44 with the
+# rounding of equal operators)
+SHARD_CONVERG = 0.7
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s; non-tensor-core flop/s
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
@@ -486,12 +505,16 @@ def phase_tet_main_path(args, mods):
     return model, launches
 
 
-def phase_newton_main_path(args, mods):
+def phase_newton_main_path(args, mods, ref=None):
     """The NLSTATIC bench deck through run_directory in the float64
     policy (FRONTISTR_TPU_PRECISION=f64): at m=69 the mixed policy's
     float32 CG stalls on the stressed tangents of Newton iterations 2 and
     later (PERF.md, ``microbench/newton_trace.py``).  Every linear
-    solve's answer is held to an independent index_add_ residual.
+    solve's answer is held to an independent index_add_ residual.  Into
+    ``ref`` go the work directory, its input files and the run's, and
+    what shard_main_path holds to: the Newton iterations a CONVERG of
+    ``SHARD_CONVERG`` takes and u after them (the solves' answers summed
+    as the Newton loop sums them).
     Returns (model, K1 element launches, K1 planes launches)."""
     nl, sm = mods["nonlinear"], mods["segsum"]
     m = args.newton_n
@@ -500,11 +523,13 @@ def phase_newton_main_path(args, mods):
     ndof = write_workdir(wd, (m,) * 3, mods["ordering"], mods["box_tet4"],
                          mods["write_static_workdir"],
                          NLCNT.format(load=-1.0))
+    inputs = sorted(os.listdir(wd))
     log(f"phase newton_workdir: box_tet4({m}) shuffled, NLSTATIC, {ndof} "
         f"dofs, written in {time.perf_counter() - t0:.2f} s")
     solves, calls = [], {}
+    answers = [] if ref is not None else None
     real = nl.make_constrained_solver
-    nl.make_constrained_solver = spy_solves(nl, solves)
+    nl.make_constrained_solver = spy_solves(nl, solves, answers)
     restore = counting(mods, calls)
     sm.segsum.launches = 0
     sm.segsum_planes.launches = 0
@@ -569,7 +594,40 @@ def phase_newton_main_path(args, mods):
     with open(os.path.join(wd, "FSTR.sta")) as fh:
         if "HAS COMPLETED SUCCESSFULLY" not in fh.read():
             raise AssertionError("FSTR.sta does not report success")
+    if ref is not None:
+        ref.update(newton_depth(nw.history, answers, res.u),
+                   wd=wd, inputs=inputs,
+                   outputs=sorted(set(os.listdir(wd)) - set(inputs)),
+                   node_ids=np.asarray(out["mesh"].node_ids),
+                   cg=[sv["cg_iters"] for sv in solves])
     return model, launches, planes
+
+
+def newton_depth(history, answers, u) -> dict:
+    """The iterations a CONVERG of SHARD_CONVERG takes (the Newton
+    loop's test on this run's rres and rxnrm) and u after them: the
+    first substep's solve answers summed in the loop's order (du = 0 +
+    dx_1 + dx_2 ...).  All of them summed must give the run's u."""
+    if len({(h["step"], h["substep"]) for h in history}) != 1:
+        raise AssertionError("newton_depth: one substep expected")
+    k = next((h["iter"] for h in history if h["rres"] < SHARD_CONVERG
+              or h["rxnrm"] < SHARD_CONVERG), None)
+    if k is None or len(answers) != len(history):
+        raise AssertionError("newton_depth: no iteration meets "
+                             f"CONVERG {SHARD_CONVERG!r}")
+    sums = [torch.zeros_like(answers[0])]
+    for x in answers:
+        sums.append(sums[-1] + x)
+    u = np.asarray(u).reshape(-1)
+    off = float(np.abs(sums[-1].numpy() - u).max() / np.abs(u).max())
+    log(f"  shard depth: CONVERG {SHARD_CONVERG!r} stops after iteration "
+        f"{k} (rres {history[k - 1]['rres']!r}, rxnrm "
+        f"{history[k - 1]['rxnrm']!r}); the answers summed against u "
+        f"{off!r}")
+    if not off <= 1e-12:
+        raise AssertionError("newton_depth: the solves' answers do not sum "
+                             "to u")
+    return dict(iters=k, u=sums[k].numpy())
 
 
 def phase_k1_time(sm, mbs, bell, stmod, model, launches) -> dict:
@@ -966,18 +1024,21 @@ def phase_k1_m30_time(mods, n: int) -> dict:
             "library_ms": library_ms}
 
 
-def spy_solves(nl, solves: list):
+def spy_solves(nl, solves: list, answers: list = None):
     """A ``make_constrained_solver`` whose every solve also appends its
-    counts and an independent index_add_ true relres to ``solves``."""
+    counts and an independent index_add_ true relres to ``solves`` (and
+    a host copy of its answer to ``answers``)."""
     real = nl.make_constrained_solver
 
-    def checked_solver(model, free, gather, mixed, timings=None):
-        solve = real(model, free, gather, mixed, timings)
+    def checked_solver(model, free, gather, mixed, timings=None, **kw):
+        solve = real(model, free, gather, mixed, timings, **kw)
 
         def checked(kes, B, dirichlet_inc, gfac=0.0):
             x = solve(kes, B, dirichlet_inc, gfac)
             for k in ("last_iters", "last_passes", "last_relres"):
                 setattr(checked, k, getattr(solve, k))
+            if answers is not None:
+                answers.append(x.detach().to("cpu", torch.float64))
             solves.append(dict(
                 cg_iters=solve.last_iters, passes=solve.last_passes,
                 relres=solve.last_relres,
@@ -1016,8 +1077,8 @@ def keep_first_solver(nl, solves: list, first: dict):
     and answer in ``first`` (to repeat it) and logs every solve."""
     spy = spy_solves(nl, solves)
 
-    def make(model, free, gather, mixed, timings=None):
-        solve = spy(model, free, gather, mixed, timings)
+    def make(model, free, gather, mixed, timings=None, **kw):
+        solve = spy(model, free, gather, mixed, timings, **kw)
 
         def call(kes, B, dirichlet_inc, gfac=0.0):
             if not first:
@@ -5678,6 +5739,248 @@ def phase_box_small_reference(mods) -> None:
         raise AssertionError("box_small_reference: card and CPU differ")
 
 
+# ---- PR: several devices (torch.distributed ranks, row-sharded solves) ----
+# the small decks of shard_small_reference: (label, deck, mesh dims, env)
+SHARD_DYN = ("!VERSION\n 3\n!SOLUTION, TYPE=DYNAMIC\n!DYNAMIC\n 1, 1\n"
+             " 0.0, 0.03, 3, 0.01\n 0.5, 0.25\n 1, 1, 0.5, 0.0\n 10\n"
+             "!BOUNDARY, GRPID=1\n X0, 1, 3, 0.0\n!CLOAD, GRPID=1\n"
+             " X1, 3, -1.5\n!STEP, SUBSTEPS=1, CONVERG=1.0e-8\n"
+             " BOUNDARY, 1\n LOAD, 1\n!MATERIAL, NAME=M1\n!ELASTIC\n"
+             " 500.0, 0.3\n!DENSITY\n 2.0\n!SOLVER,METHOD=CG,PRECOND=1,"
+             "ITERLOG=NO,TIMELOG=NO\n 10000, 1\n 1.0e-12, 1.0, 0.0\n!END\n")
+SHARD_EIG = ("!VERSION\n 3\n!SOLUTION, TYPE=EIGEN\n!EIGEN\n 4, 1.0e-10, 60\n"
+             "!BOUNDARY\n X0, 1, 3, 0.0\n!MATERIAL, NAME=M1\n!ELASTIC\n"
+             " 1000.0, 0.3\n!DENSITY\n 1.0\n!SOLVER,METHOD=CG,ITERLOG=NO,"
+             "TIMELOG=NO\n 10000, 1\n 1.0e-10, 1.0, 0.0\n!END\n")
+
+
+def shard_sizes() -> list:
+    """The group sizes of the shard phases: the card count on NCCL where
+    there are two or more cards, else 2 ranks sharing the card (gloo)
+    and 1 rank (NCCL)."""
+    n = torch.cuda.device_count()
+    return [n] if n >= 2 else [2, 1]
+
+
+def start_shard_pools(mods) -> dict:
+    """The ranks of the shard phases, started now (they come up while
+    the other phases run) and closed at the end."""
+    dist = mods["dist"]
+    store = os.path.join(ROOT, "build", "smoke")
+    os.makedirs(store, exist_ok=True)
+    return {n: dist.RankPool(n, "cuda", store) for n in shard_sizes()}
+
+
+def shard_rank_run(wd: str, env: dict) -> dict:
+    """One rank's run of a work directory in its group (the task of the
+    spawned ranks): its backend, device, rows, the K1 launches of this
+    run (the counts set to 0 just before it), peak memory, the Newton
+    and CG counts with the seconds of each solve, and the answer."""
+    sys.path.insert(0, ROOT)
+    from frontistr_tpu_torch.assembly import segsum as sm
+    from frontistr_tpu_torch.parallel import dist
+    from frontistr_tpu_torch.parallel.shard import row_split
+    from frontistr_tpu_torch.run import run_rank
+    comm = dist.current()
+    torch.cuda.reset_peak_memory_stats(comm.device)
+    sm.segsum.launches = 0
+    sm.segsum_planes.launches = 0
+    t0 = time.perf_counter()
+    out = with_env(env, lambda: run_rank(wd))
+    wall = time.perf_counter() - t0
+    got = dict(rank=comm.rank, size=comm.size, backend=comm.backend,
+               device=str(comm.device), wall=wall,
+               k1=sm.segsum.launches, planes=sm.segsum_planes.launches,
+               peak_gb=torch.cuda.max_memory_allocated(comm.device) / 1e9,
+               node_ids=np.asarray(out["mesh"].node_ids),
+               timings=dict(out["timings"]))
+    got.update(shard_summary(out))
+    sp = row_split(comm, out["mesh"].n_node, 3)
+    got["rows"] = (sp.n0, sp.n1, sp.n_pad)
+    if comm.rank:
+        got.pop("u", None)
+    return got
+
+
+def shard_summary(out) -> dict:
+    """The numbers the shard phases hold of a run_directory output."""
+    got = {}
+    res = out.get("static")
+    if res is not None:
+        got.update(u=np.asarray(res.u).reshape(-1), iters=int(res.iters))
+        if res.newton is not None:
+            got["cg"] = [h["cg_iters"] for h in res.newton.history]
+            got["solve_s"] = [h["solve"] for h in res.newton.history]
+    for key, field in (("dynamic", "u"), ("heat", "T")):
+        r = out.get(key)
+        if r is not None:
+            v = getattr(r, field)
+            v = v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+            got["u"] = np.asarray(v).reshape(-1)
+            got["cg"] = sum((list(h["cg"]) for h in r.history), [])
+    er = out.get("eigen")
+    if er is not None:
+        got.update(u=np.asarray(er.eigenvalues),
+                   cg=[h["cg"] for h in er.history])
+    return got
+
+
+def copy_inputs(src: str, names, dst: str, converg=None) -> str:
+    """A fresh work directory ``dst`` holding the input files ``names``
+    of ``src``; with ``converg``, the .cnt's !STEP given that CONVERG."""
+    shutil.rmtree(dst, ignore_errors=True)
+    os.makedirs(dst)
+    for f in names:
+        shutil.copy(os.path.join(src, f), dst)
+        if converg is not None and f.endswith(".cnt"):
+            path = os.path.join(dst, f)
+            with open(path) as fh:
+                text = fh.read()
+            if text.count("!STEP, SUBSTEPS=1\n") != 1:
+                raise AssertionError(f"{path}: no single !STEP to cut")
+            with open(path, "w") as fh:
+                fh.write(text.replace("!STEP, SUBSTEPS=1\n",
+                                      f"!STEP, SUBSTEPS=1, "
+                                      f"CONVERG={converg!r}\n"))
+    return dst
+
+
+def check_rank_files(wd: str, inputs, outputs, n: int, label: str) -> None:
+    """The files a group of ``n`` ranks wrote into ``wd``: the one-device
+    run's ``outputs`` (0.log and, as the analysis writes them, FSTR.sta,
+    FSTR.msg and results: rank 0 alone) and FSTR.dbg.<rank> for each
+    rank, nothing else."""
+    made = set(os.listdir(wd)) - set(inputs)
+    dbg = {f for f in made if f.startswith("FSTR.dbg")}
+    want = {f for f in outputs if not f.startswith("FSTR.dbg")}
+    if dbg != {f"FSTR.dbg.{r}" for r in range(n)} or made - dbg != want \
+            or "0.log" not in want:
+        raise AssertionError(f"{label}: {n} ranks wrote {sorted(made)}, "
+                             f"expected {sorted(want)} and FSTR.dbg.0-"
+                             f"{n - 1}")
+
+
+def by_node_id(u, ids, nd=3):
+    return np.asarray(u).reshape(len(ids), -1)[np.argsort(ids)]
+
+
+def phase_shard_main_path(args, mods, pools, ref, smi) -> dict:
+    """The newton cell's deck (shuffled box_tet4(69), 1,029,000 dofs,
+    NLSTATIC, f64, AMG) under FRONTISTR_TPU_SHARDS' ranks, one group
+    after the other, each in a copy of newton_main_path's work directory
+    cut to CONVERG ``SHARD_CONVERG``: u within 1e-8 of newton_main_path's
+    u after as many iterations, Newton iterations equal, CG within 2 a
+    solve, K1 launched on every rank (element = Newton iterations), the
+    run's files written once and FSTR.dbg.<rank> by every rank."""
+    want = by_node_id(ref["u"], ref["node_ids"])
+    row = {}
+    for n in shard_sizes():
+        wd = copy_inputs(ref["wd"], ref["inputs"], os.path.join(
+            ROOT, "build", "smoke", f"shard_newton_r{n}"), SHARD_CONVERG)
+        t0 = time.perf_counter()
+        ranks = pools[n].run(shard_rank_run, wd,
+                             {"FRONTISTR_TPU_PRECISION": "f64"})
+        wall = time.perf_counter() - t0
+        r0 = ranks[0]
+        rel = float(np.abs(by_node_id(r0["u"], r0["node_ids"]) - want)
+                    .max() / np.abs(want).max())
+        cg_ref = ref["cg"][:ref["iters"]]
+        log(f"phase shard_main_path: {n} rank(s), backend {r0['backend']}, "
+            f"max rel diff to the one-device run {rel!r}; newton "
+            f"{r0['iters']} vs {ref['iters']}, cg {r0['cg']} vs {cg_ref}; "
+            f"the group's task {wall:.2f} s; {smi}")
+        for g in ranks:
+            tm = g["timings"]
+            host = " ".join(f"{k}={tm.get(k, 0.0):.2f}" for k in
+                            ("read", "reorder", "model", "profile"))
+            ms = 1e3 * sum(g["solve_s"]) / max(sum(g["cg"]), 1)
+            log(f"  rank {g['rank']}/{g['size']} {g['backend']} "
+                f"{g['device']}: rows {g['rows'][0]}-{g['rows'][1]} of "
+                f"{g['rows'][2]} nodes, K1 element {g['k1']} planes "
+                f"{g['planes']}, peak {g['peak_gb']:.3f} GB, cg {g['cg']}, "
+                f"solve s {[round(x, 3) for x in g['solve_s']]}, ms a CG "
+                f"iteration {ms:.2f}, wall {g['wall']:.2f} s ({host}); "
+                f"{smi}")
+            if g["k1"] != r0["iters"] or g["k1"] < 1:
+                raise AssertionError(f"shard_main_path: rank {g['rank']} of "
+                                     f"{n} launched K1 {g['k1']} times for "
+                                     f"{r0['iters']} Newton iterations")
+        if not rel <= 1e-8:
+            raise AssertionError(f"shard_main_path: {n} ranks: u off the "
+                                 f"one-device run by {rel!r}")
+        if r0["iters"] != ref["iters"] or len(r0["cg"]) != len(cg_ref) \
+                or any(abs(a - b) > 2 for a, b in zip(r0["cg"], cg_ref)):
+            raise AssertionError(f"shard_main_path: {n} ranks: Newton or CG "
+                                 "counts off the one-device run")
+        check_rank_files(wd, ref["inputs"], ref["outputs"], n,
+                         "shard_main_path")
+        row[f"ranks{n}"] = dict(
+            backend=r0["backend"], rel=rel, cg=r0["cg"],
+            k1=[g["k1"] for g in ranks],
+            peak_gb=[g["peak_gb"] for g in ranks],
+            solve_s=[sum(g["solve_s"]) for g in ranks],
+            wall_s=[g["wall"] for g in ranks], task_s=wall)
+    return row
+
+
+def phase_shard_small_reference(mods, pools) -> None:
+    """Small decks of every sharded family on one card, then under each
+    group of shard ranks in a copy of the deck's work directory: linear
+    STATIC in f64 and mixed, NLSTATIC through the AMG, implicit
+    dynamics, EIGEN, transient HEAT and SLAGRANGE contact (the punch of
+    6); answers within 1e-8 of the one-card run (eigenvalues and
+    temperatures too), CG within 2 a solve (mixed: 2 + 10 %), the run's
+    files written once and FSTR.dbg.<rank> by every rank."""
+    base = os.path.join(ROOT, "build", "smoke", "shard")
+    f64 = {"FRONTISTR_TPU_PRECISION": "f64"}
+
+    def tet(cnt, dims):
+        return lambda wd: write_workdir(wd, dims, mods["ordering"],
+                                        mods["box_tet4"],
+                                        mods["write_static_workdir"], cnt)
+    decks = [("static f64", tet(CNT, (8, 6, 5)), f64),
+             ("static mixed", tet(CNT, (8, 6, 5)),
+              {"FRONTISTR_TPU_PRECISION": "mixed"}),
+             ("nlstatic amg", tet(NLCNT.format(load=-100.0), (10, 8, 6)),
+              dict(f64, FRONTISTR_TPU_PRECOND="amg")),
+             ("dynamic implicit", tet(SHARD_DYN, (6, 5, 4)), f64),
+             ("eigen", tet(SHARD_EIG, (6, 5, 4)), {}),
+             ("heat", lambda wd: small_heat_deck(mods, "hex8", True, wd),
+              {}),
+             ("contact slagrange", lambda wd: write_contact_workdir(
+                 wd, mods, punch_mesh(mods, 6), contact_cnt()), f64)]
+    for i, (label, write, env) in enumerate(decks):
+        wd = os.path.join(base, f"d{i}")
+        shutil.rmtree(wd, ignore_errors=True)
+        write(wd)
+        inputs = sorted(os.listdir(wd))
+        one = shard_summary(with_env(env, lambda: mods["run_directory"](
+            wd, device="cuda")))
+        outputs = sorted(set(os.listdir(wd)) - set(inputs))
+        slack = (lambda k: 2 + 0.1 * k) if "mixed" in label else \
+            (lambda k: 2)
+        for n in shard_sizes():
+            wdn = copy_inputs(wd, inputs, f"{wd}_r{n}")
+            ranks = pools[n].run(shard_rank_run, wdn, env)
+            r0 = ranks[0]
+            rel = float(np.abs(r0["u"] - one["u"]).max()
+                        / np.abs(one["u"]).max())
+            cg, cg1 = (np.ravel(r0.get("cg", [r0.get("iters", 0)])),
+                       np.ravel(one.get("cg", [one.get("iters", 0)])))
+            log(f"phase shard_small_reference: {label}, {n} rank(s) "
+                f"{r0['backend']}: max rel diff {rel!r}, cg {cg.tolist()} "
+                f"vs {cg1.tolist()}, K1 element {[g['k1'] for g in ranks]}")
+            if not rel <= 1e-8:
+                raise AssertionError(f"shard_small_reference: {label}, {n} "
+                                     f"ranks off the one-card run")
+            if cg.shape != cg1.shape or np.any(
+                    np.abs(cg - cg1) > slack(cg1.max())):
+                raise AssertionError(f"shard_small_reference: {label}, {n} "
+                                     "ranks: CG counts off")
+            check_rank_files(wdn, inputs, outputs, n,
+                             f"shard_small_reference: {label}")
+
+
 def load_mods() -> dict:
     """The port's modules the phases use, by name."""
     sys.path.insert(0, ROOT)
@@ -5709,7 +6012,7 @@ def load_mods() -> dict:
     from frontistr_tpu_torch.post import nodal
     from frontistr_tpu_torch.run import run_directory
     from frontistr_tpu_torch.solver import amg, band, direct, ssor
-    from frontistr_tpu_torch.parallel import partition
+    from frontistr_tpu_torch.parallel import dist, partition
     from frontistr_tpu_torch.vis import psf, pvr
     from frontistr_tpu_torch.assembly import profcache
     from frontistr_tpu_torch.assembly.loads import thermal_load
@@ -5717,7 +6020,7 @@ def load_mods() -> dict:
     from frontistr_tpu_torch.io import vtk
     from frontistr_tpu_torch.microbench import box_twogrid
     from frontistr_tpu_torch.tools import cli
-    return dict(psf=psf, pvr=pvr, partition=partition,
+    return dict(psf=psf, pvr=pvr, partition=partition, dist=dist,
                 profcache=profcache, thermal_load=thermal_load,
                 mapping=mapping, vtk=vtk, box_twogrid=box_twogrid, cli=cli,
                 extras=extras, direct=direct, Equation=Equation, ell=ell,
@@ -5833,6 +6136,9 @@ def main(argv=None) -> int:
     log(f"phase build: {', '.join(os.path.relpath(p, ROOT) for p in libs.values())} "
         f"in {time.perf_counter() - t0:.2f} s")
 
+    # the shard phases' ranks come up while the other phases run
+    shard_pools = start_shard_pools(mods)
+
     # 3. each kernel against its plain version
     log("phase k1_check:")
     phase_k1_check(sm, bell, box_tet4, box_hex8,
@@ -5848,7 +6154,9 @@ def main(argv=None) -> int:
     # 4. the Newton tet path (K1 once per Newton iteration, its planes
     #    entry twice per AMG setup and once per nodal smoothing), then the
     #    AMG setup twice and K1 at the path's shapes (after the counts)
-    model, k1_launches, planes_launches = phase_newton_main_path(args, mods)
+    newton_ref = {}
+    model, k1_launches, planes_launches = phase_newton_main_path(
+        args, mods, newton_ref)
     planes = phase_amg_repeat(mods, model, planes_launches)
     k1_row = phase_k1_time(sm, mbs, bell, stmod, model, k1_launches)
     k1_row["planes"] = planes
@@ -5856,6 +6164,17 @@ def main(argv=None) -> int:
     k1_row["cache"] = phase_cache(mods, model)
     del model
     torch.cuda.empty_cache()
+    # 4b. the same deck on the shard ranks (K1 on every rank), cut to
+    #     CONVERG SHARD_CONVERG, held to newton_main_path at that depth
+    k1_row["shard_main_path"] = phase_shard_main_path(args, mods, shard_pools,
+                                                      newton_ref, smi)
+    del newton_ref
+    torch.cuda.empty_cache()
+    # the ranks' cached device memory (15-25 GB each) back to the card:
+    # fresh ranks for the small decks come up while the other phases run
+    for pool in shard_pools.values():
+        pool.close()
+    shard_pools = start_shard_pools(mods)
 
     # 5. the linear static tet path (K1); the Krylov menu on the newton
     #    cell's mesh (K1 once at the scalar-ELL plan), then K1 at that
@@ -6021,6 +6340,13 @@ def main(argv=None) -> int:
     phase_tools_small_reference(mods)
     phase_couple_small_reference(mods)
     phase_box_small_reference(mods)
+
+    # 20. small decks of every sharded family on the shard ranks and on
+    #     one card; the ranks are stopped
+    torch.cuda.empty_cache()
+    phase_shard_small_reference(mods, shard_pools)
+    for pool in shard_pools.values():
+        pool.close()
 
     log(f"phase total: {time.perf_counter() - t_start:.2f} s")
     log(smi)

@@ -5,9 +5,10 @@
 solve_LINEQ_contact.f90, solve_LINEQ_iter_contact.f90).
 
 Every arm solves on the matrix-free ``femop.FEOperator`` (the model's
-spring blocks appended) preconditioned by its block Jacobi, as the JAX
-package does; ``eff=(c1, c2)`` with the lumped ``mass`` takes the
-Newmark effective matrix c1 K + c2 M instead of K.
+spring blocks appended; in a sharded run each rank's element rows, all-
+gathered, ``shard.RowFEOperator``) preconditioned by its block Jacobi,
+as the JAX package does; ``eff=(c1, c2)`` with the lumped ``mass`` takes
+the Newmark effective matrix c1 K + c2 M instead of K.
 
 - ``make_contact_solver``: the augmented-Lagrange / penalty arm, K plus
   the contact block of the search (added through ``IndexAdd``, in a
@@ -42,6 +43,7 @@ from frontistr_tpu_torch.assembly import extras, femop
 from frontistr_tpu_torch.assembly.segsum import IndexAdd
 from frontistr_tpu_torch.contact.slag import ContactEliminator
 from frontistr_tpu_torch.device import Phase
+from frontistr_tpu_torch.parallel import shard as shardmod
 from frontistr_tpu_torch.solver.cg import bicgstab, pcg
 from frontistr_tpu_torch.solver.minres import minres
 
@@ -49,16 +51,21 @@ from frontistr_tpu_torch.solver.minres import minres
 def _operator_parts(model, gather, mass, eff):
     """(operator(kes), mv(op, x)) of the model: the FE operator of the
     element tangents and the spring blocks, and its matvec, c1 K x +
-    c2 m x under ``eff``."""
+    c2 m x under ``eff``.  In a sharded run the operator is the rank's
+    ``shard.RowFEOperator``: its elements' rows, the rest all-gathered."""
     dev = model.device
-    ex_kes, ex_dofs = extras.extra_tensors(model, dev)
-    dofs = [torch.as_tensor(b.dofs, dtype=torch.int64, device=dev)
-            for b in model.blocks] + ex_dofs
     c1, c2 = eff if eff is not None else (1.0, 0.0)
+    split = shardmod.current_split(model.n_node, model.ndof)
+    if split is not None:
+        operator = shardmod.row_operator(model, split)
+    else:
+        ex_kes, ex_dofs = extras.extra_tensors(model, dev)
+        dofs = [torch.as_tensor(b.dofs, dtype=torch.int64, device=dev)
+                for b in model.blocks] + ex_dofs
 
-    def operator(kes, free):
-        return femop.FEOperator(list(kes) + ex_kes, dofs, gather,
-                                model.n_node, model.ndof, free)
+        def operator(kes, free):
+            return femop.FEOperator(list(kes) + ex_kes, dofs, gather,
+                                    model.n_node, model.ndof, free)
 
     def mv(op, x):
         y = op.matvec(x)

@@ -50,8 +50,13 @@ resumes from it; the explicit run ignores the card, as the JAX package's
 does.  !COUPLE with FRONTISTR_TPU_COUPLE_DIR couples the run to a peer
 code through ``couple/rcap.py`` (the peer's traction before each step,
 the interface motion after it; such a run takes the Newton loop, not the
-linear step train).  What the JAX package also runs in dynamics and the
-port does not yet (sharding, frequency response) raises
+linear step train). In a sharded run (``parallel/dist.py``) the implicit
+effective solve is row-sharded (``shard.RowSolver``: the rank's rows of
+c1 K + c2 M assembled by K1 from its elements, block-Jacobi, the dots
+all-reduced; a contact deck's arms over ``shard.RowFEOperator``); the
+explicit run, !RESTART and a direct method there raise
+``NotImplementedError`` naming themselves. What the JAX package also
+runs in dynamics and the port does not yet (frequency response) raises
 ``NotImplementedError`` naming itself, and so do the cards the JAX
 package's dynamics drop without effect: !EQUATION and !CONTACT in an
 explicit run, !SPRING (ROADMAP, queue 3, fault 2).
@@ -88,6 +93,8 @@ from frontistr_tpu_torch.elements.quadhi import mass_tables
 from frontistr_tpu_torch.fem.isoparam import det_inv_small
 from frontistr_tpu_torch.io import logio
 from frontistr_tpu_torch.io.restart import load_restart, save_restart
+from frontistr_tpu_torch.parallel import dist
+from frontistr_tpu_torch.parallel import shard as shardmod
 from frontistr_tpu_torch.post.shellpost import check_recoverable
 from frontistr_tpu_torch.solver import direct
 from frontistr_tpu_torch.solver.band import BandCholesky
@@ -295,8 +302,16 @@ def _check_request(model: StructModel) -> None:
     if d.idx_resp == 2 or cfg.eigenread is not None:
         raise NotImplementedError("frequency response (!DYNAMIC idx_resp "
                                   "= 2, !EIGENREAD)")
-    if os.environ.get("FRONTISTR_TPU_SHARDS", "") not in ("", "0"):
-        raise NotImplementedError("FRONTISTR_TPU_SHARDS in dynamics")
+    if dist.current() is not None:
+        # the sharded arm is the implicit effective solve
+        if d.idx_eqa == 11:
+            raise NotImplementedError("explicit dynamics under "
+                                      "FRONTISTR_TPU_SHARDS")
+        if cfg.restart is not None:
+            raise NotImplementedError("!RESTART under FRONTISTR_TPU_SHARDS")
+        if cfg.solver.method.upper() not in ("CG", "1"):
+            raise NotImplementedError(f"!SOLVER METHOD={cfg.solver.method}"
+                                      " under FRONTISTR_TPU_SHARDS")
     # the JAX package's explicit run prints a warning and drops the
     # !EQUATION constraints; its dynamics leave !SPRING out of K
     explicit_eq = model.mesh.equations if d.idx_eqa == 11 else []
@@ -465,7 +480,20 @@ def make_effective_solver(model, free, gather, mass, c1: float,
     def operator(kes):
         return femop.FEOperator(list(kes), dofs, gather, nn, nd, free)
 
+    split = shardmod.current_split(nn, nd)
+    if split is not None:
+        # a sharded run: the rank's rows of c1 K + c2 M assembled by K1
+        # from its elements, block-Jacobi (the JAX package's
+        # dynamic.py:382-393 takes its sharded constrained solver)
+        row = shardmod.RowSolver(model, shardmod.local_model(model, split),
+                                 split, free, False, {}, select=True,
+                                 eff=(c1, c2), mass=mass)
+
     def prepare(kes):
+        if split is not None:
+            # the whole operator for the Rayleigh term; the solve is
+            # the rank's
+            return operator(kes), None
         op = operator(kes)
         if use_band:
             # K_eff = c1 K + c2 M factored on the device
@@ -480,6 +508,11 @@ def make_effective_solver(model, free, gather, mass, c1: float,
         return op, op.block_jacobi(scale=c1, diag_add=c2 * mass)
 
     def solve(kes, B, dirichlet_inc, prepared=None):
+        if split is not None:
+            x = row(kes, B, dirichlet_inc, 0.0)
+            solve.last_iters, solve.last_relres = row.last_iters, \
+                row.last_relres
+            return x
         op, M = prepared if prepared is not None else prepare(kes)
         if use_band:
             solve.last_iters, solve.last_relres = 0, 0.0

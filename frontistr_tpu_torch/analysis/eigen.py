@@ -22,10 +22,13 @@ METHOD=DIRECT factors the constrained K once on the host (SuperLU,
 ``solver/direct.py``), or with FRONTISTR_TPU_DIRECT=band on the device
 (the band Cholesky of ``solver/band.py``), and back-substitutes at every
 apply; with !EQUATION it takes the eliminated CG, as in the JAX package.
-What the JAX package also runs and the port does not (sharding) raises
-``NotImplementedError`` naming itself, and so does !SPRING, which the
-JAX package's eigen analysis leaves out of K without a word (ROADMAP,
-queue 3, fault 2).
+In a sharded run (``parallel/dist.py``) each shift-invert apply is the
+row-sharded CG of ``shard.RowSolver`` (the rank's rows of K assembled by
+K1 from its elements, block-Jacobi, full float64); the Lanczos vectors
+stay whole on every rank; a direct method there raises
+``NotImplementedError`` naming itself. So does !SPRING, which the JAX
+package's eigen analysis leaves out of K without a word (ROADMAP, queue
+3, fault 2).
 """
 
 from __future__ import annotations
@@ -44,6 +47,8 @@ from frontistr_tpu_torch.assembly import extras, femop
 from frontistr_tpu_torch.assembly import operators as old_ops
 from frontistr_tpu_torch.assembly.model import StructModel
 from frontistr_tpu_torch.device import synchronize
+from frontistr_tpu_torch.parallel import dist
+from frontistr_tpu_torch.parallel import shard as shardmod
 from frontistr_tpu_torch.solver import direct
 from frontistr_tpu_torch.solver.band import BandCholesky
 from frontistr_tpu_torch.solver.cg import pcg
@@ -68,8 +73,10 @@ class EigenResult:
 
 
 def _check_request(model: StructModel) -> None:
-    if os.environ.get("FRONTISTR_TPU_SHARDS", "") not in ("", "0"):
-        raise NotImplementedError("sharded Lanczos (FRONTISTR_TPU_SHARDS)")
+    if dist.current() is not None and \
+            model.cfg.solver.method.upper() in direct.METHODS:
+        raise NotImplementedError("!SOLVER METHOD=DIRECT in EIGEN under "
+                                  "FRONTISTR_TPU_SHARDS")
     if model.cfg.springs:
         raise NotImplementedError("!SPRING in eigen analysis")
 
@@ -119,6 +126,15 @@ def run_eigen(model: StructModel, log_path: Optional[str] = None,
         extras.mpc_wrap(mpc, op.apply_constrained)
     direct_solve = None
     band = None
+    split = shardmod.current_split(model.n_node, model.ndof)
+    if split is not None:
+        # a sharded run: each K^{-1} (M q) by the rank's rows of K
+        # assembled by K1 from its elements, block-Jacobi, full f64 (the
+        # JAX package's eigen.py:103-118)
+        row = shardmod.RowSolver(model, shardmod.local_model(model, split),
+                                 split, k_act, False, {},
+                                 policy="jacobi", select=True, tol=1e-10)
+        zero = torch.zeros(n, dtype=torch.float64, device=dev)
     if cfg.solver.method.upper() in direct.METHODS and mpc is None:
         if os.environ.get("FRONTISTR_TPU_DIRECT", "").lower() == "band":
             # the band Cholesky of the constrained K on the device
@@ -142,6 +158,8 @@ def run_eigen(model: StructModel, log_path: Optional[str] = None,
         elif direct_solve is not None:
             x = torch.as_tensor(direct_solve(b), device=dev)
             iters = 0
+        elif split is not None:
+            x, iters = row(kes, b, zero, 0.0), row.last_iters
         else:
             if mpc is not None:
                 b = extras.mpc_Tt(mpc, b)

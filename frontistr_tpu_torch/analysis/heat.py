@@ -36,7 +36,11 @@ conductances change with T (``solver/direct.py``); with !EQUATION it
 takes the eliminated CG, as in the JAX package.  !RESTART checkpoints a
 transient run (T, t and the step count) every FREQUENCY steps and
 resumes from it; a steady run ignores the card, as the JAX package's
-does.  Sharding raises ``NotImplementedError`` naming itself.
+does.  In a sharded run (``parallel/dist.py``; the JAX package's
+``_HeatSolver`` nshard arm) each solve is the row-sharded CG of
+``shard.row_pcg`` over the rank's elements' rows, the temperatures whole
+on every rank; !RESTART and METHOD=DIRECT there raise
+``NotImplementedError`` naming themselves.
 """
 
 from __future__ import annotations
@@ -57,6 +61,8 @@ from frontistr_tpu_torch.fem.solid import table_tensor
 from frontistr_tpu_torch.io.ctrlio import AnalysisConfig, HeatConfig
 from frontistr_tpu_torch.io.meshio import Mesh
 from frontistr_tpu_torch.io.restart import load_restart, save_restart
+from frontistr_tpu_torch.parallel import dist
+from frontistr_tpu_torch.parallel import shard as shardmod
 from frontistr_tpu_torch.solver import direct
 from frontistr_tpu_torch.solver.cg import pcg
 
@@ -546,8 +552,12 @@ class HeatResult:
 
 def _check_request(model: HeatModel) -> None:
     cfg = model.cfg
-    if os.environ.get("FRONTISTR_TPU_SHARDS", "") not in ("", "0"):
-        raise NotImplementedError("sharded heat (FRONTISTR_TPU_SHARDS)")
+    if dist.current() is not None:
+        if cfg.restart is not None:
+            raise NotImplementedError("!RESTART under FRONTISTR_TPU_SHARDS")
+        if cfg.solver.method.upper() in direct.METHODS:
+            raise NotImplementedError("!SOLVER METHOD=DIRECT under "
+                                      "FRONTISTR_TPU_SHARDS")
     if cfg.contacts:
         # the JAX package's heat analysis never reads the card
         raise NotImplementedError("!CONTACT in HEAT")
@@ -606,6 +616,17 @@ class _HeatSolver:
         self.direct = (sv.method.upper() in direct.METHODS
                        and self.mpc is None)
         self.last = None           # the last solve's system and solution
+        self.split = shardmod.current_split(n, 1)
+        if self.split is not None:
+            # a sharded run: the rank's elements of every block and face
+            sp = self.split
+            self.sel = [torch.as_tensor(shardmod._touch(c, sp.n0,
+                                                        sp.n1_real)[0],
+                                        device=dev) for c in conns]
+            self.dofs_l = [d[s] for d, s in zip(self.dofs, self.sel)]
+            self.gather_l = _node_gather(
+                [c[s.cpu().numpy()] for c, s in zip(conns, self.sel)], n,
+                dev)
 
     def capacity(self, T: torch.Tensor) -> torch.Tensor:
         """Lumped capacity per node at T (gap interfaces carry none)."""
@@ -670,10 +691,24 @@ class _HeatSolver:
             return torch.as_tensor(x, device=self.dev), 0
         y_fix = op.matvec(u_fix) + dt_inv_C * u_fix
         b_c = (f - y_fix) * free + u_fix * (1.0 - free)
+        if self.split is not None:
+            op = femop.FEOperator(
+                kes=[k[s] for k, s in zip(kes, self.sel)], dofs=self.dofs_l,
+                gather=self.gather_l, n_node=self.model.n_node, ndof=1,
+                free_mask=free)
         D = (op.diag_blocks().reshape(-1) + dt_inv_C) * free ** 2
         D = torch.where(D == 0, 1.0, D)
         A_cg = A
         M = lambda r: r / D  # noqa: E731
+        if self.split is not None:
+            # rows sharded, x all-gathered, dots all-reduced
+            x, res = shardmod.row_pcg(self.split, A, b_c, M, self.tol,
+                                      self.maxiter, mpc=self.mpc, gfac=1.0)
+            if self.mpc is not None:
+                x = extras.mpc_recover(self.mpc, x, 1.0)
+            self.last = dict(kes=kes, dofs=self.dofs, dt_inv_C=dt_inv_C,
+                             b=b_c, x=x, free=free)
+            return x, res.iters
         if self.mpc is not None:
             # T_dep = sum c T_m + const at every solve (factor 1)
             b_c = extras.mpc_reduce_rhs(self.mpc, A, b_c, 1.0)

@@ -46,10 +46,20 @@ reference's blob stream; refused with !CONTACT, ROADMAP queue 3, fault
 8); PRECOND=10-12, 20, 21 precondition the CG
 with multicolor block SSOR (``solver/ssor.py``).  Shell, solid-shell and
 beam blocks take a constant tangent and qf = ke u, with no gauss state
-(an empty one in a checkpoint).  Sharding raises
-``NotImplementedError`` naming itself.  The JAX package's jit-argument
-carry (a TPU remote-compile workaround) has no counterpart: PyTorch runs
-eagerly.
+(an empty one in a checkpoint).  In a sharded run (a rank of
+``parallel/dist.py``) the solve is the row-sharded ``RowSolver`` of
+``parallel/shard.py`` (K1 on every rank over its rows, the AMG's level 0
+row-sharded); a rank keeps only the elements that touch its rows (the
+JAX package's ``ShardedNewton`` element ownership: tangent, update and
+QFORCE over those elements, the gauss states on their rank, each owned
+element's yield counted once), except on a follower-load deck, a
+rotational boundary, a non-solid block or contact, where every rank
+keeps the whole model (``_maybe_engine``'s exclusions; the contact
+arms' products run over the rank's elements, ``shard.RowFEOperator``,
+their Krylov vectors whole).  !RESTART and a contact deck's DIRECT arm
+under sharding raise ``NotImplementedError`` naming themselves.  The
+JAX package's jit-argument carry (a TPU remote-compile workaround) has
+no counterpart: PyTorch runs eagerly.
 """
 
 from __future__ import annotations
@@ -88,6 +98,8 @@ from frontistr_tpu_torch.io.hecmw_restart import (export_solid_state,
                                                   import_solid_state)
 from frontistr_tpu_torch.io.restart import load_restart, save_restart
 from frontistr_tpu_torch.io.stafile import sta_final, sta_init, sta_status
+from frontistr_tpu_torch.parallel import dist
+from frontistr_tpu_torch.parallel import shard as shardmod
 from frontistr_tpu_torch.post import nodal as postnodal
 from frontistr_tpu_torch.post.shellpost import check_recoverable, \
     shell_recover
@@ -585,7 +597,7 @@ def _precond_policy(sv) -> Optional[str]:
 
 def make_constrained_solver(model: StructModel, free: torch.Tensor,
                             gather: torch.Tensor, mixed: bool,
-                            timings: Optional[dict] = None):
+                            timings: Optional[dict] = None, shard=None):
     """The constrained solve of the whole analysis: the symbolic profiles,
     AMG maps and incidence are built here, once; each call
     ``solve(kes, B, dirichlet_inc, gfac=0.0)`` (``kes`` the element
@@ -601,10 +613,19 @@ def make_constrained_solver(model: StructModel, free: torch.Tensor,
     METHOD=DIRECT without !EQUATION factors K on the host instead.
     ``solve.last_iters``, ``solve.last_passes`` and ``solve.last_relres``
     describe the last call.  ``gather`` is the incidence gather of
-    ``femop.incidence_gather(model, device)``."""
+    ``femop.incidence_gather(model, device)``.  ``shard`` (a rank's
+    ``shard.NewtonShard``) gives the row-sharded ``RowSolver`` instead:
+    ``kes`` are then the matrices of the rank's elements when it owns
+    them, else of the whole model."""
     sv = model.cfg.solver
     method = check_solver(sv)
     timings = {} if timings is None else timings
+    if shard is not None:
+        pol = _precond_policy(sv)
+        shardmod.check_policy(method, pol)
+        return shardmod.RowSolver(model, shard.lm, shard.split, free, mixed,
+                                  timings, policy=pol,
+                                  select=not shard.owned)
     dev = model.device
     ex_kes, ex_dofs = extras.extra_tensors(model, dev)
     dofs = [torch.as_tensor(b.dofs, dtype=torch.int64, device=dev)
@@ -683,6 +704,9 @@ class ContactState:
         dynamic = eff is not None
         self.direct = not dynamic and \
             check_solver(model.cfg.solver) in direct_mod.METHODS
+        if self.direct and dist.current() is not None:
+            raise NotImplementedError("!SOLVER METHOD=DIRECT with !CONTACT "
+                                      "under FRONTISTR_TPU_SHARDS")
         slag_ok = cm.algo == "SLAGRANGE" and not cm.has_friction
         self.slag_mpc = False
         if model.mesh.equations:
@@ -990,8 +1014,8 @@ def _check_request(model: StructModel, restart_path=None,
     check_recoverable(model)
     if log_path is not None:
         check_log(model)
-    if os.environ.get("FRONTISTR_TPU_SHARDS", "") not in ("", "0"):
-        raise NotImplementedError("sharded Newton (FRONTISTR_TPU_SHARDS)")
+    if dist.current() is not None and restart_path:
+        raise NotImplementedError("!RESTART under FRONTISTR_TPU_SHARDS")
     if restart_path and model.mesh.contact_pairs and model.cfg.contacts:
         # the JAX package's static checkpoint holds no contact state, so
         # its resumed ALAGRANGE run leaves the uninterrupted one (ROADMAP,
@@ -1073,9 +1097,12 @@ def run_nonlinear_static(model: StructModel, log_path: Optional[str] = None,
     n = model.n_dof_total
     dev = model.device
     u = torch.zeros(n, dtype=torch.float64, device=dev)
-    programs = [BlockPrograms(model, b) for b in model.blocks]
+    # a sharded run: the rank's elements (or the whole model) and rows
+    shard = shardmod.newton_shard(model)
+    emodel = shard.lm.model if shard is not None and shard.owned else model
+    programs = [BlockPrograms(emodel, b) for b in emodel.blocks]
     states = [init_block_state(b, p.table, dev)
-              for b, p in zip(model.blocks, programs)]
+              for b, p in zip(emodel.blocks, programs)]
 
     def tensor(a):
         return torch.as_tensor(np.asarray(a, np.float64), device=dev)
@@ -1083,7 +1110,7 @@ def run_nonlinear_static(model: StructModel, log_path: Optional[str] = None,
     u_fix_total = tensor(old_ops.full_fixed_vector(n, model.fixed_dofs,
                                                    model.fixed_vals))
     free = tensor(old_ops.make_free_mask(n, model.fixed_dofs))
-    gather = femop.incidence_gather(model, dev)
+    gather = femop.incidence_gather(emodel, dev)
     f_total = tensor(model.f_ext)
     sta_path = None
     if log_path is not None:
@@ -1131,7 +1158,7 @@ def run_nonlinear_static(model: StructModel, log_path: Optional[str] = None,
             contact.build(free)
         elif multi or solver is None:
             solver = make_constrained_solver(model, free, gather, mixed,
-                                             timings)
+                                             timings, shard=shard)
         t_end = step.elapsetime
         dt = step.initdt
         ainc = _ainc_params(cfg, step)
@@ -1159,11 +1186,11 @@ def run_nonlinear_static(model: StructModel, log_path: Optional[str] = None,
             passes = []
             for cont_it in range(step.max_contiter if contact else 1):
                 converged, du, new_states, iters, Q_last = _newton_substep(
-                    model, programs, states, u, f_ramp, free, u_fix_total,
+                    emodel, programs, states, u, f_ramp, free, u_fix_total,
                     lam1, lam2, step, gather, solver, f_held=f_held,
                     follow=follow, timings=timings, stats=stats,
                     tag=(cstep, sub, cont_it + 1), ctime=t + dt,
-                    tincr=tincr, contact=contact)
+                    tincr=tincr, contact=contact, shard=shard)
                 passes.append(iters)
                 if contact is None or not converged or \
                         contact.settled(u + du):
@@ -1210,7 +1237,8 @@ def run_nonlinear_static(model: StructModel, log_path: Optional[str] = None,
                                     states, model.blocks, Q_last)
             if log_path is not None:
                 with Phase(timings, "post", dev):
-                    result = _postprocess(model, states, u, Q=Q_last)
+                    result = _postprocess(model, states, u, Q=Q_last,
+                                          shard=shard)
                     _append_log(log_path, model, result, step_count)
             if step.inc_type == "AUTO":
                 # !AUTOINC_PARAM heuristics (fstr_Ctrl_TimeInc.f90:168-210)
@@ -1229,7 +1257,7 @@ def run_nonlinear_static(model: StructModel, log_path: Optional[str] = None,
 
     if result is None:
         with Phase(timings, "post", dev):
-            result = _postprocess(model, states, u, Q=Q_last)
+            result = _postprocess(model, states, u, Q=Q_last, shard=shard)
             if log_path is not None:
                 _append_log(log_path, model, result, max(step_count, 1))
     if sta_path:
@@ -1317,13 +1345,17 @@ def _element_values(v: torch.Tensor, p: BlockPrograms, n_node: int,
 def _newton_substep(model, programs, states, u, f_total, free, u_fix_total,
                     lam1, lam2, step, gather, solve, f_held=None,
                     follow=None, timings=None, stats=None, tag=(1, 1, 1),
-                    ctime=0.0, tincr=0.0, contact=None):
+                    ctime=0.0, tincr=0.0, contact=None, shard=None):
     """One substep's Newton loop from the committed ``(u, states)``;
     ``follow(u, lam2)`` (``_follower``) replaces the external load at
     the start of every iteration; ``ctime``/``tincr`` the materials'
     time and increment; ``contact`` a contact deck's ``ContactState``
     (its arm solves instead of ``solve``); ``tag`` (step, substep,
-    contact pass).  Returns (converged, du, states, iterations, Q)."""
+    contact pass); ``shard`` a rank's ``shard.NewtonShard`` (``model``
+    then holds the rank's elements when it owns them: QFORCE is right on
+    its rows and is all-gathered).  Returns (converged, du, states,
+    iterations, Q)."""
+    sync = shard.sync if shard is not None else None
     if contact is not None:
         solve = contact.solver
     n_node, ndof = model.n_node, model.ndof
@@ -1348,7 +1380,7 @@ def _newton_substep(model, programs, states, u, f_total, free, u_fix_total,
     iters = 0
     with Phase(timings, "update", dev):
         Q_cur = _qforce(model, programs, states_cur, u, du, gather, ctime,
-                        tincr)
+                        tincr, sync=sync)
     for it in range(1, step.max_iter + 1):
         iters = it
         t0 = dict(timings)
@@ -1382,6 +1414,8 @@ def _newton_substep(model, programs, states, u, f_total, free, u_fix_total,
             states_cur = new_states
             Q = femop.gather_sum(qfs + _spring_forces(model, u + du),
                                  gather)
+            if sync is not None:
+                Q = sync(Q)
             Q_cur = Q
             # !EQUATION: the residual in the reduced space, so the forces
             # a constraint carries cancel (fstr_Update_NDForce_MPC)
@@ -1392,7 +1426,7 @@ def _newton_substep(model, programs, states, u, f_total, free, u_fix_total,
                         extras.mpc_Tt(solve.mpc, gl - Q)) * free
             # one device->host transfer per Newton iteration
             res_n, qnrm, xnrm, dunrm, n_yield = _conv_norms(
-                Bres, Q, dx, du, new_states)
+                Bres, Q, dx, du, new_states, shard)
         if qnrm < 1e-8:
             qnrm = 1.0
         if it == 1:
@@ -1428,13 +1462,18 @@ def _newton_substep(model, programs, states, u, f_total, free, u_fix_total,
     return conv, du, states_cur, iters, Q_cur
 
 
-def _conv_norms(Bres, Q, dx, du, states):
+def _conv_norms(Bres, Q, dx, du, states, shard=None):
     """|Bres|, |Q|, |dx|, |du| and the count of yielded gauss points in
-    one host transfer."""
+    one host transfer (the vectors are whole on every rank; a rank that
+    owns its elements counts the gauss points of its owned ones, summed
+    over the ranks)."""
     v = torch.sqrt(torch.stack([torch.dot(Bres, Bres), torch.dot(Q, Q),
                                 torch.dot(dx, dx), torch.dot(du, du)]))
-    ny = sum((s["yielded"].sum() for s in states if s),
-             v.new_zeros(())).to(v.dtype)
+    if shard is not None and shard.owned:
+        ny = shard.yielded(states).to(v.dtype)
+    else:
+        ny = sum((s["yielded"].sum() for s in states if s),
+                 v.new_zeros(())).to(v.dtype)
     return [float(x) for x in torch.cat([v, ny[None]]).cpu()]
 
 
@@ -1451,17 +1490,23 @@ def _spring_forces(model, u_tot):
             for k, d in zip(ex_kes, ex_dofs)]
 
 
-def _qforce(model, programs, states, u, du, gather, time=0.0, dtime=0.0):
+def _qforce(model, programs, states, u, du, gather, time=0.0, dtime=0.0,
+            sync=None):
     """Global internal force QFORCE from the per-block updates and the
-    springs."""
+    springs (``sync``: a sharded rank's all-gather of its rows)."""
     qfs = [p.update(_element_values(u, p, model.n_node, model.ndof),
                     _element_values(du, p, model.n_node, model.ndof),
                     s, time, dtime)[1]
            for p, s in zip(programs, states)]
-    return femop.gather_sum(qfs + _spring_forces(model, u + du), gather)
+    Q = femop.gather_sum(qfs + _spring_forces(model, u + du), gather)
+    return Q if sync is None else sync(Q)
 
 
-def _postprocess(model, states, u, Q=None) -> StaticResult:
+def _postprocess(model, states, u, Q=None, shard=None) -> StaticResult:
+    """The result of the committed state; a rank that owns its elements
+    smooths them and gathers the whole result (``NewtonShard.post``)."""
+    if shard is not None and shard.owned:
+        return shard.post(_postprocess(shard.lm.model, states, u, Q))
     un = u.cpu().numpy().reshape(model.n_node, model.ndof)
     # REACTION = the converged internal force minus the applied load
     # (fstrSOLID%REACTION, static_make_result.f90:97-102)

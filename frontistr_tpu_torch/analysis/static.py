@@ -31,6 +31,12 @@ assembled matrix (``solver/dump.py``) and ESTCOND prints a Lanczos
 estimate of the block-Jacobi-preconditioned operator's condition number
 (``solver/cond.py``).
 
+In a sharded run (a rank of ``parallel/dist.py``) CG takes the
+row-sharded cluster solve of ``parallel/shard.py`` instead
+(``sharded_solve_linear``, the JAX package's ``static.py:228-240``),
+!EQUATION included; the element matrices are the whole model's on every
+rank, and each rank assembles its own rows through K1.
+
 CG runs in the "mixed" policy (f32 CG + f64 refinement on the f64
 operator, the default of linear STATIC on CUDA; the cluster arm's f64
 operator is the matrix-free ``FEOperator``) or the "f64" policy (a plain
@@ -61,6 +67,8 @@ from frontistr_tpu_torch.assembly.structured import (StructuredHexOperator,
                                                      soa_from_blocks)
 from frontistr_tpu_torch.device import Phase
 from frontistr_tpu_torch.elements.tables import get_table
+from frontistr_tpu_torch.parallel import dist
+from frontistr_tpu_torch.parallel import shard
 from frontistr_tpu_torch.fem import beam, shell, solid
 from frontistr_tpu_torch.post import nodal as postnodal
 from frontistr_tpu_torch.post.shellpost import check_recoverable, \
@@ -296,6 +304,14 @@ def solve_linear(model: StructModel, kes,
         return LinearSolve(x, 1, 0.0, 0, "direct", op)
     hl = 2000 if sv.iterlog else 0
     policy = solve_policy(dev)
+    if dist.current() is not None:
+        shard.check_policy(method, None)
+        t1 = time.perf_counter()
+        x, iters, relres, passes = shard.sharded_solve_linear(
+            model, kes, f, u_fix, policy == "mixed", timings)
+        if sv.timelog:
+            print_timelog(t1 - t0, time.perf_counter() - t1)
+        return LinearSolve(x, iters, relres, passes, policy, op)
     cheby = os.environ.get("FRONTISTR_TPU_PRECOND", "") == "cheby" and \
         mpc is None
     mixed = policy == "mixed" and method == "CG" and mpc is None and \

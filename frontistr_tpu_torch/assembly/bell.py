@@ -129,6 +129,74 @@ def build_cluster_profile(conns: Sequence[np.ndarray], n_node: int,
         pair_counts=tuple(counts))
 
 
+def build_row_cluster_profile(conns: Sequence[np.ndarray], n_node: int,
+                              ndof: int, n0: int, n1: int,
+                              scalar_cols: np.ndarray,
+                              G: int = 8) -> ClusterProfile:
+    """The node rows [n0, n1) of ``build_cluster_profile``'s matrix
+    alone (n0 and n1 multiples of G): a rank's rows of the sharded
+    operator.  Its ``C = (n1 - n0) / G`` row clusters keep the global
+    column clusters of their neighbours in ``ccols``; ``perm`` picks, in
+    slot order, the entries of these rows out of all the raw entries of
+    ``conns`` (order (a, b, e), e fastest, per block), so a plan over it
+    reads the element matrices of ``conns`` whole and sums these rows
+    only, each slot in the order of the whole profile.
+    ``scalar_cols`` (n1 - n0, W) are the rows' scalar ELL columns (the
+    AMG's ``scal_src``)."""
+    Cg = (n_node + G - 1) // G
+    c0, Cl = n0 // G, (n1 - n0) // G
+    rows_l, cols_l, counts = [], [], []
+    for c in conns:
+        E, nn = c.shape
+        ct = c.T
+        rows_l.append(np.repeat(ct[:, None, :], nn, axis=1).reshape(-1))
+        cols_l.append(np.broadcast_to(ct[None, :, :],
+                                      (nn, nn, E)).reshape(-1))
+        counts.append(E * nn * nn)
+    rows = np.concatenate(rows_l).astype(np.int64)
+    colsv = np.concatenate(cols_l).astype(np.int64)
+    ridx = np.flatnonzero((rows >= n0) & (rows < n1))
+    rows, colsv = rows[ridx], colsv[ridx]
+    cr, cq = rows // G - c0, colsv // G
+    key = cr * Cg + cq
+    uniq = profsort.unique_sorted(key)
+    ur, uc = uniq // Cg, (uniq % Cg).astype(np.int32)
+    cnt = np.bincount(ur, minlength=Cl)
+    Wc = max(int(cnt.max()) if len(cnt) else 1, 1)
+    ccols = np.repeat((c0 + np.arange(Cl, dtype=np.int32))[:, None], Wc,
+                      axis=1)
+    starts = np.zeros(Cl + 1, np.int64)
+    np.cumsum(cnt, out=starts[1:])
+    within = np.arange(len(uniq), dtype=np.int64) - starts[ur]
+    ccols[ur, within] = uc
+    wc = within[np.searchsorted(uniq, key)]
+    slot2 = (((rows % G) * G + colsv % G) * Wc + wc) * Cl + cr
+    perm = profsort.stable_argsort(slot2.astype(np.int64))
+    seg_sorted = slot2[perm].astype(np.int32)
+    perm = ridx[perm]
+    diag_wc = np.zeros(Cl, np.int32)
+    isd = uc == ur + c0
+    diag_wc[ur[isd]] = within[isd].astype(np.int32)
+    N, W = scalar_cols.shape
+    n_idx = np.repeat(np.arange(n0, n1, dtype=np.int64), W)
+    m_idx = scalar_cols.reshape(-1).astype(np.int64)
+    scr, scq = n_idx // G - c0, m_idx // G
+    s_pair = np.searchsorted(uniq, scr * Cg + scq)
+    swc = within[np.clip(s_pair, 0, max(len(uniq) - 1, 0))] if len(uniq) \
+        else np.zeros_like(scr)
+    scal_src = ((((n_idx % G) * G + m_idx % G) * Wc + swc) * Cl + scr) \
+        .astype(np.int32).reshape(N, W)
+    upairs = profsort.unique_sorted(rows * np.int64(n_node) + colsv)
+    per_row_s = np.bincount((upairs // n_node - n0).astype(np.int64),
+                            minlength=N)
+    scal_src[np.arange(W)[None, :] >= per_row_s[:, None]] = -1
+    return ClusterProfile(
+        n_node=n1 - n0, ndof=ndof, G=G, C=Cl, Wc=Wc, ccols=ccols,
+        diag_wc=diag_wc, perm=perm.astype(np.int32),
+        seg_sorted=seg_sorted, scal_src=scal_src,
+        pair_counts=tuple(counts))
+
+
 def _planes_to_blocks(raw: torch.Tensor, nd: int, G: int, Wc: int,
                       C: int) -> torch.Tensor:
     """(nd*nd, G*G*Wc*C) slot planes -> plane-major cluster blocks

@@ -10,18 +10,24 @@ Layout: one uncompressed ``.npz`` per entry in
 ``$FRONTISTR_TPU_CACHE_DIR`` (default ``~/.cache/frontistr_tpu_torch``;
 ``0`` or empty turns the cache off).  The key carries the tag
 ``torch-<kind>``, so an entry of the JAX package is never read here.
-Writes are atomic (tmp + rename) so concurrent runs never observe torn
-files; a corrupt entry is rebuilt and overwritten.
+Writes are atomic (a temporary name, then ``os.replace``) so concurrent
+runs never observe torn files; a corrupt entry is rebuilt and
+overwritten.  The ranks of a sharded run (``parallel/dist.py``) build a
+profile under ``rank_zero_first``: rank 0 builds and saves it, the
+others wait at a barrier and load it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
 import tempfile
 from typing import Dict, Optional, Sequence
 
 import numpy as np
+
+from frontistr_tpu_torch.parallel import dist
 
 _VERSION = 1      # bump to invalidate all entries on layout change
 
@@ -75,3 +81,21 @@ def save(key: str, arrays: Dict[str, np.ndarray]) -> None:
         os.replace(tmp, os.path.join(d, key + ".npz"))
     except Exception:
         pass                   # cache is best-effort, never fail the run
+
+
+@contextlib.contextmanager
+def rank_zero_first():
+    """Rank 0 of a sharded run runs the block first, the other ranks
+    after it, behind a barrier: a profile is built and saved once, then
+    loaded by the others.  Without the cache or a group, a no-op."""
+    comm = dist.current()
+    if comm is None or comm.size == 1 or cache_dir() is None:
+        yield
+        return
+    if comm.rank != 0:
+        comm.barrier()
+    try:
+        yield
+    finally:
+        if comm.rank == 0:
+            comm.barrier()

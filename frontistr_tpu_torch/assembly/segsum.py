@@ -70,12 +70,14 @@ def make_plan(perm, seg_sorted, n_slots: int, pair_counts, device,
     in [0, n_slots) and ``perm`` (P,), raw entry of each sorted position
     (numpy arrays or tensors).  Every map goes onto ``device``, where the
     CSR pointer over ``seg_sorted`` (segment s is ``[slot_ptr[s],
-    slot_ptr[s+1])``) is computed by counting."""
+    slot_ptr[s+1])``) is computed by counting.  ``pair_counts`` count
+    the raw entries of each element block; ``perm`` may pick a part of
+    them (a rank's rows: ``bell.build_row_cluster_profile``)."""
     dev = torch.device(device)
     perm = torch.as_tensor(perm).to(dev, torch.int32).contiguous()
     seg = torch.as_tensor(seg_sorted).to(dev, torch.int32).contiguous()
     P = int(perm.numel())
-    if P >= 2 ** 31 or sum(pair_counts) != P or seg.numel() != P:
+    if P >= 2 ** 31 or sum(pair_counts) < P or seg.numel() != P:
         raise ValueError(f"bad sorted map: P={P}, {seg.numel()} slot ids, "
                          f"pair_counts={pair_counts}")
     # segment s is [slot_ptr[s], slot_ptr[s+1]): the counts' prefix sum,

@@ -55,15 +55,31 @@ runner does; an error of the device render propagates.  ``FSTR.dbg.0``
 in the work directory keeps the JAX runner's breadcrumbs
 (``io/dbgfile.py``).  ``FRONTISTR_TPU_PROFILE=<dir>`` runs the analysis
 under ``torch.profiler`` (CUDA activity on the card) and writes its
-Chrome trace ``<dir>/trace.json``.  ``FRONTISTR_TPU_SHARDS`` and
-``FRONTISTR_TPU_COORDINATOR`` (several devices) raise
-``NotImplementedError`` naming themselves.
+Chrome trace ``<dir>/trace.json``.
+
+Several devices (``parallel/dist.py``): ``FRONTISTR_TPU_SHARDS=n``
+spawns n ranks (``auto``: one a card), each running the deck in a
+``torch.distributed`` group, and returns rank 0's output;
+``FRONTISTR_TPU_SHARDS=1`` runs the sharded code with a group of one;
+under ``torchrun`` or ``FRONTISTR_TPU_COORDINATOR`` /
+``_NUM_PROCESSES`` / ``_PROCESS_ID`` the process joins its group before
+any device use (the JAX runner's ``multihost.maybe_init_distributed``).
+The sharded families are linear STATIC, NLSTATIC (contact included),
+implicit DYNAMIC, EIGEN and HEAT (``parallel/shard.py``); the others
+(!RESTART, explicit dynamics, frequency response, STATICEIGEN, the u-p
+flow) raise ``NotImplementedError`` naming themselves.  Rank 0 alone writes
+the run's files (0.log, FSTR.sta, FSTR.msg, results, pictures); every
+rank writes its ``FSTR.dbg.<rank>``.  A partitioned work directory is
+ordered by (rank, RCM) under sharding (``ordering.partition_reorder``),
+so the ranks' contiguous rows fall on the partition.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import shutil
+import tempfile
 import time
 import types
 
@@ -97,13 +113,12 @@ from frontistr_tpu_torch.io.refine import refine_mesh
 from frontistr_tpu_torch.io.resfile import (read_result_any, write_result,
                                             write_result_bin,
                                             write_static_result)
+from frontistr_tpu_torch.parallel import dist
 from frontistr_tpu_torch.precheck import nzprof, precheck
 from frontistr_tpu_torch.vis import psf
 
 # the mesh checks of fstr_main kstPRECHECK / kstNZPROF
 PRECHECK_TYPES = ("ELEMCHECK", "PRECHECK", "NZPROF")
-# JAX-package switches of several devices, not in the port yet
-_UNPORTED_ENV = ("FRONTISTR_TPU_SHARDS", "FRONTISTR_TPU_COORDINATOR")
 # the mesh readers of '!MESH, TYPE=' (hecmw_ctrl.dat)
 _READERS = {"HECMW-ENTIRE": read_mesh, "": read_mesh, "ABAQUS": read_abaqus,
             "NASTRAN": read_nastran, "GEOFEM": read_geofem}
@@ -118,13 +133,31 @@ _VISUAL_SKIPPED = (AttributeError, KeyError, IndexError, TypeError,
 
 
 def _check_request(ctrl, cfg) -> None:
-    for name in _UNPORTED_ENV:
-        if os.environ.get(name, "") not in ("", "0"):
-            raise NotImplementedError(f"{name} (not in the torch port yet)")
     sol = cfg.solution_type.upper()
     if sol not in ("STATIC", "NLSTATIC", "DYNAMIC", "HEAT", "EIGEN",
                    "STATICEIGEN") + PRECHECK_TYPES:
         raise NotImplementedError(f"solution type {sol}")
+    if dist.current() is not None:
+        _check_sharded(cfg)
+
+
+def _check_sharded(cfg) -> None:
+    """What a sharded run does not run raises, naming itself (before
+    any rank is started where the deck alone tells)."""
+    sol = cfg.solution_type.upper()
+    what = None
+    if cfg.restart is not None:
+        what = "!RESTART"
+    elif sol == "STATICEIGEN":
+        what = "STATICEIGEN"
+    elif sol == "DYNAMIC" and cfg.dynamic is not None and \
+            cfg.dynamic.idx_resp == 2:
+        what = "frequency response"
+    elif sol == "DYNAMIC" and cfg.dynamic is not None and \
+            cfg.dynamic.idx_eqa == 11:
+        what = "explicit dynamics"
+    if what:
+        raise NotImplementedError(f"{what} under FRONTISTR_TPU_SHARDS")
 
 
 def read_run_mesh(ctrl, timings: dict, dev):
@@ -154,7 +187,12 @@ def read_run_mesh(ctrl, timings: dict, dev):
         print(f"### mesh refined x{refine}: {mesh.n_node} nodes, "
               f"{mesh.n_elem} elements")
     with devmod.Phase(timings, "reorder", dev):
-        mesh = ordering.maybe_reorder(mesh)
+        if partinfo and dist.current() is not None:
+            # the JAX runner's order under sharding (run.py:113-116):
+            # by (rank, RCM), the ranks' rows on the partition
+            mesh = ordering.partition_reorder(mesh, partinfo)
+        else:
+            mesh = ordering.maybe_reorder(mesh)
     dbg(f"mesh read: {mesh.n_node} nodes, {mesh.n_elem} elements, "
         f"type={mtype or 'HECMW-ENTIRE'}")
     return mesh, partinfo
@@ -242,11 +280,51 @@ def run_directory(workdir: str, log_name: str = "0.log",
     None); "visual" (the path a static run's !WRITE, VISUAL wrote);
     "_snapshots", the steps whose result file was written during a
     transient run; "timings" (seconds by phase), "log_path" and
-    "total_time"."""
+    "total_time".
+
+    FRONTISTR_TPU_SHARDS=n (n > 1) spawns n ranks that run the deck
+    (``run_rank``) and returns rank 0's output, its tensors on the host;
+    under torchrun or FRONTISTR_TPU_COORDINATOR the process joins its
+    group first and runs as its rank."""
+    dev_type = torch.device(device).type
+    comm = dist.maybe_init_distributed(dev_type)
+    if comm is not None:
+        return _run(workdir, log_name, comm.device)
+    n = dist.requested_shards(dev_type)
+    if n == 0:
+        return _run(workdir, log_name, device)
+    devmod.resolve(device)
+    ctrl = read_hecmw_ctrl(os.path.join(workdir, "hecmw_ctrl.dat"))
+    _check_sharded(read_cnt(ctrl.path(ctrl.control())))
+    if n > 1:
+        print(f"### FRONTISTR_TPU_SHARDS={n}: starting {n} ranks on "
+              f"{dev_type}", flush=True)
+        return dist.spawn(run_rank, (workdir, log_name), n, dev_type,
+                          workdir)
+    dist.set_current(dist.single(devmod.resolve(device)))
+    try:
+        return _run(workdir, log_name, dist.current().device)
+    finally:
+        dist.set_current(None)
+
+
+def run_rank(workdir: str, log_name: str = "0.log") -> dict:
+    """A rank's run of the deck in its group (the entry point of the
+    spawned ranks): ``run_directory``'s output on the rank's device."""
+    return _run(workdir, log_name, dist.current().device)
+
+
+def _run(workdir: str, log_name: str, device) -> dict:
     dev = devmod.resolve(device)
     t_start = time.time()
     timings: dict = {}
-    dbg_open(workdir)                # FSTR.dbg.<rank> (fistr_main.f90:193)
+    comm = dist.current()
+    rank = 0 if comm is None else comm.rank
+    # FSTR.dbg.<rank> (fistr_main.f90:193); the other files are rank
+    # 0's: a rank above 0 logs into a private directory it removes
+    dbg_open(workdir, rank)
+    private = None if dist.is_writer() else \
+        tempfile.mkdtemp(prefix=f"fstr_rank{rank}_")
     try:
         ctrl = read_hecmw_ctrl(os.path.join(workdir, "hecmw_ctrl.dat"))
         cfg = read_cnt(ctrl.path(ctrl.control()))
@@ -255,7 +333,7 @@ def run_directory(workdir: str, log_name: str = "0.log",
         user.load_user_module()
         mesh, partinfo = read_run_mesh(ctrl, timings, dev)
         _read_temperature_result(ctrl, cfg, mesh)
-        log_path = os.path.join(workdir, log_name)
+        log_path = os.path.join(private or workdir, log_name)
         out = {"mesh": mesh, "cfg": cfg, "ctrl": ctrl, "timings": timings,
                "log_path": log_path, "partition": partinfo}
         dbg(f"setup done ({time.time() - t_start:.2f} s); solution type "
@@ -267,12 +345,14 @@ def run_directory(workdir: str, log_name: str = "0.log",
                 # (static_echo.f90 / heat_echo.f90 write through ILOG)
                 prepend_echo(log_path, mesh, cfg)
         total = time.time() - t_start
-        _write_msg(workdir, t_pre - t_start, total)
+        _write_msg(private or workdir, t_pre - t_start, total)
         out.update(results, total_time=total)
         dbg(f"analysis completed ({total:.2f} s)")
         return out
     finally:
         dbg_close()
+        if private:
+            shutil.rmtree(private, ignore_errors=True)
 
 
 def _analyse(workdir, out, dev):
@@ -284,11 +364,15 @@ def _analyse(workdir, out, dev):
     sol = cfg.solution_type.upper()
     d = cfg.dynamic
     if sol in PRECHECK_TYPES:
-        return time.time(), _run_precheck(sol, mesh, workdir, log_path)
+        return time.time(), _run_precheck(
+            sol, mesh, os.path.dirname(log_path), log_path)
     if sol == "DYNAMIC" and not (d is not None and d.idx_resp == 2) and \
             any(b.etype == 3414 for b in mesh.blocks):
         # u-p flow meshes take the SUPG/PSPG stepper (fstr_dynamic_
         # nlimplicit + the 3414 arm of dynamic_mat_ass_load)
+        if dist.current() is not None:
+            raise NotImplementedError("the u-p flow stepper under "
+                                      "FRONTISTR_TPU_SHARDS")
         t_pre = time.time()
         fr = run_flow(mesh, cfg, log_path=log_path, device=dev,
                       timings=timings)
@@ -315,14 +399,15 @@ def _analyse(workdir, out, dev):
         dr = run_dynamic(model, log_path=log_path, on_interval=cb, **rkw)
         dr.timings.update(timings)
         if cfg.write_result and ctrl.result() is not None and \
-                dr.steps not in written:
+                dr.steps not in written and dist.is_writer():
             with devmod.Phase(timings, "result", dev):
                 _dynamic_result_writer(ctrl, mesh)(dr.steps, None, dr.u,
                                                    dr.vel, dr.acc)
         return t_pre, dict(dynamic=dr, _snapshots=written)
     if sol == "EIGEN":
         er = run_eigen(model, log_path=log_path)
-        if cfg.write_result and ctrl.result() is not None:
+        if cfg.write_result and ctrl.result() is not None and \
+                dist.is_writer():
             with devmod.Phase(timings, "result", dev):
                 _write_modes(ctrl, mesh, model, er)
         return t_pre, dict(eigen=er)
@@ -345,11 +430,11 @@ def _analyse(workdir, out, dev):
             res.nodal_stress, res.nodal_mises, res.elem_strain,
             res.elem_stress, res.elem_mises, mesh.node_ids, res.elem_ids,
             node_count=res.node_count)
-    if cfg.write_visual:
+    if cfg.write_visual and dist.is_writer():
         # in-situ picture (!WRITE, VISUAL + !VISUAL; static_output.f90)
         got["visual"] = _visual("", psf.visualize, mesh, model, res,
                                 workdir, cfg, device=dev, timings=timings)
-    if cfg.write_result and ctrl.result() is not None:
+    if cfg.write_result and ctrl.result() is not None and dist.is_writer():
         with devmod.Phase(timings, "result", dev):
             _write_static_results(ctrl, mesh, model, res, out["partition"])
     got["static"] = res
@@ -417,7 +502,7 @@ def _run_heat(ctrl, cfg, mesh, workdir, log_path, dev, timings,
     hr = run_heat(mesh, cfg, log_path=log_path, on_interval=cb, device=dev,
                   timings=timings, **rkw)
     if cfg.write_result and ctrl.result() is not None and \
-            hr.steps not in written:
+            hr.steps not in written and dist.is_writer():
         # the final state, when the cadence did not write it
         with devmod.Phase(timings, "result", dev):
             _heat_result_writer(ctrl, mesh)(hr.steps, None, hr.T)
@@ -505,6 +590,8 @@ def _snapshot_cb(ctrl, cfg, writer, mesh, picture):
     rfreq = cfg.result_frequency if (cfg.write_result and
                                      ctrl.result() is not None) else 0
     vfreq = cfg.visual_frequency if cfg.write_visual else 0
+    if not dist.is_writer():
+        rfreq = vfreq = 0
     written: set = set()
     if not rfreq and not vfreq:
         return None, written

@@ -80,6 +80,20 @@ class AMGMaps:
         return cache[key]
 
 
+    def row_plan(self, device, n0: int, n1: int) -> segmod.SegsumPlan:
+        """The fine -> level-1 plan of the node rows [n0, n1) alone (a
+        rank's partial Galerkin sums), built once."""
+        cache = self.__dict__.setdefault("_row_plans", {})
+        key = (str(torch.device(device)), n0, n1)
+        if key not in cache:
+            W = len(self.perm01) // self.n_node
+            keep = (self.perm01 >= n0 * W) & (self.perm01 < n1 * W)
+            cache[key] = segmod.make_plan(
+                self.perm01[keep] - n0 * W, self.seg01[keep],
+                self.Na * self.Wc, ((n1 - n0) * W,), device)
+        return cache[key]
+
+
 def build_maps(cols: np.ndarray, n_node: int, nd: int,
                S0: int = 24, S1: int = 16) -> Optional[AMGMaps]:
     """Aggregation maps from the fine ELL columns (chunks of consecutive
@@ -126,10 +140,14 @@ def build_maps(cols: np.ndarray, n_node: int, nd: int,
 
 
 def _rigid_modes(maps: AMGMaps, coords: torch.Tensor,
-                 free_mask: torch.Tensor, dtype) -> torch.Tensor:
+                 free_mask: torch.Tensor, dtype,
+                 n_real: Optional[int] = None) -> torch.Tensor:
     """Per-node mode matrix (Na, S0, nd, nv): translations (+ rotations),
-    Dirichlet rows zeroed, orthonormalized per aggregate."""
+    Dirichlet rows zeroed, orthonormalized per aggregate.  ``n_real``:
+    the nodes before a sharded run's padding (the padded ones count in
+    no aggregate's centroid)."""
     nd, nv, S0, Na, N = maps.nd, maps.nv, maps.S0, maps.Na, maps.n_node
+    n_real = N if n_real is None else n_real
     dev = coords.device
     npad = Na * S0
     fm = free_mask.reshape(N, nd).to(dtype)
@@ -138,7 +156,7 @@ def _rigid_modes(maps: AMGMaps, coords: torch.Tensor,
     else:
         c = coords[:, :nd].to(dtype)
         cp = torch.nn.functional.pad(c, (0, 0, 0, npad - N))
-        cnt = torch.clamp(N - torch.arange(Na, device=dev) * S0,
+        cnt = torch.clamp(n_real - torch.arange(Na, device=dev) * S0,
                           min=1, max=S0).to(dtype)
         cent = cp.reshape(Na, S0, nd).sum(dim=1) / cnt[:, None]
         agg = torch.clamp(torch.arange(N, device=dev) // S0, max=Na - 1)
@@ -222,13 +240,15 @@ def _cheb(A: Callable, Minner: Callable, lmax, degree: int):
 
 
 def _lmax(A: Callable, Minner: Callable, v0: torch.Tensor,
-          iters: int = 12) -> torch.Tensor:
-    """Power-iteration estimate of the largest eigenvalue of Minner A."""
-    v = v0 / torch.linalg.norm(v0)
+          iters: int = 12, norm: Callable = torch.linalg.norm
+          ) -> torch.Tensor:
+    """Power-iteration estimate of the largest eigenvalue of Minner A
+    (``norm`` of a rank's rows: the sum over the ranks)."""
+    v = v0 / norm(v0)
     for _ in range(iters):
         w = Minner(A(v))
-        v = (w / torch.linalg.norm(w)).to(v.dtype)
-    return torch.linalg.norm(Minner(A(v)))
+        v = (w / norm(w)).to(v.dtype)
+    return norm(Minner(A(v)))
 
 
 def start_vectors(n0: int, n1: int, dtype, device,
@@ -260,11 +280,14 @@ class CoarseLevels:
 
 
 def coarse_levels(maps: AMGMaps, blocks: torch.Tensor, cols: torch.Tensor,
-                  coords: torch.Tensor,
-                  free_mask: torch.Tensor) -> CoarseLevels:
+                  coords: torch.Tensor, free_mask: torch.Tensor,
+                  part=None) -> CoarseLevels:
     """The Galerkin products P^T A P of both coarse levels, each level's
     sums in one K1 planes launch (``segsum_planes``, plans cached on the
-    maps): on the card, equal inputs give bit-equal levels."""
+    maps): on the card, equal inputs give bit-equal levels.  With
+    ``part`` (a rank's ``RowSplit``) ``blocks`` and ``cols`` are the
+    rank's fine rows: the level-1 sums are the rank's partial sums, then
+    one all-reduce, and both levels are the same on every rank."""
     nd, nv, Na, Wc, S0, S1, Na2, N = (maps.nd, maps.nv, maps.Na, maps.Wc,
                                       maps.S0, maps.S1, maps.Na2,
                                       maps.n_node)
@@ -272,14 +295,19 @@ def coarse_levels(maps: AMGMaps, blocks: torch.Tensor, cols: torch.Tensor,
     dev = blocks.device
     mt = maps.tensors(dev)
     plan01, plan12 = maps.plans(dev)
-    Bo = _rigid_modes(maps, coords, free_mask, dt)        # (Na,S0,nd,nv)
+    Bo = _rigid_modes(maps, coords, free_mask, dt,
+                      None if part is None else part.n_node)
     Bn = Bo.reshape(Na * S0, nd, nv)[:N]
     Bpl = Bn.permute(1, 2, 0)                             # (nd, nv, N)
+    Brow = Bpl
+    if part is not None:
+        plan01 = maps.row_plan(dev, part.n0, part.n1)
+        Brow = Bpl[:, :, part.n0:part.n1]
     # Galerkin level-1 blocks:
     #   C[n,w,p,q] = sum_ij Bn[n,i,p] A[n,w,i,j] Bn[cols[n,w],j,q]
     # as nv*nv (N, W) planes, segment-summed into the coarse slots:
     # blocks1[p*nv+q, a*Wc+w]
-    S_jp = [[sum(Bpl[i, p][:, None] * blocks[i * nd + j] for i in range(nd))
+    S_jp = [[sum(Brow[i, p][:, None] * blocks[i * nd + j] for i in range(nd))
              for p in range(nv)] for j in range(nd)]
     Bcols = Bpl[:, :, cols]                               # (nd, nv, N, W)
     C = torch.stack([sum(S_jp[j][p] * Bcols[j, q] for j in range(nd))
@@ -287,6 +315,8 @@ def coarse_levels(maps: AMGMaps, blocks: torch.Tensor, cols: torch.Tensor,
     del Bcols, S_jp
     blocks1 = segmod.segsum_planes(C, plan01)
     del C
+    if part is not None:
+        blocks1 = part.comm.all_reduce_sum(blocks1)
     ar1 = torch.arange(nv, device=dev)
     D1 = blocks1.T[torch.arange(Na, device=dev) * Wc
                    + mt["diag_slot1"]].reshape(Na, nv, nv)
@@ -320,7 +350,8 @@ def setup_amg(maps: AMGMaps, blocks: torch.Tensor, cols: torch.Tensor,
               A0: Callable, Dinv0_apply: Callable,
               deg0: int = 2, deg1: int = 4,
               generator: Optional[torch.Generator] = None,
-              start: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+              start: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              part=None):
     """Build the V-cycle preconditioner.
 
     A0: the constrained fine operator (node-major flat vectors).
@@ -329,6 +360,12 @@ def setup_amg(maps: AMGMaps, blocks: torch.Tensor, cols: torch.Tensor,
     cols: (N, W) int64 scalar ELL columns.
     start: optional (v0 (N*nd,), v1 (Na*nv,)) power-iteration start
     vectors; else drawn by ``start_vectors`` from ``generator``.
+    part: a rank's ``RowSplit`` (``parallel/shard.py``): level 0 is
+    row-sharded (``blocks``, ``cols``, ``A0``, ``Dinv0_apply`` and M's
+    vectors are the rank's rows; ``coords`` and ``free_mask`` stay whole),
+    the coarse levels are replicated: a rank restricts its rows into the
+    level-1 vector, the ranks all-reduce it, every rank solves the coarse
+    levels and prolongs back its own rows.
     Returns M(r) for node-major flat vectors of the blocks' dtype.
     """
     nd, nv, Na, Wc, S0, S1, Na2, N = (maps.nd, maps.nv, maps.Na, maps.Wc,
@@ -337,7 +374,7 @@ def setup_amg(maps: AMGMaps, blocks: torch.Tensor, cols: torch.Tensor,
     dt = blocks.dtype
     dev = blocks.device
     cols1 = maps.tensors(dev)["cols1"]
-    lv = coarse_levels(maps, blocks, cols, coords, free_mask)
+    lv = coarse_levels(maps, blocks, cols, coords, free_mask, part)
     Bo, Dinv1, A2inv, w1 = lv.Bo, lv.Dinv1, lv.A2inv, lv.w1
     blocks1 = lv.blocks1.reshape(nv, nv, Na, Wc)
     del lv
@@ -376,11 +413,24 @@ def setup_amg(maps: AMGMaps, blocks: torch.Tensor, cols: torch.Tensor,
         return y.reshape(-1)
 
     if start is None:
-        start = start_vectors(N * nd, Na * nv, dt, dev, generator)
+        # a sharded run draws the unpadded model's vectors, as one device
+        # does, and starts its padded rows at 0: the same estimates
+        n_draw = N if part is None else part.n_node
+        v0, v1 = start_vectors(n_draw * nd, Na * nv, dt, dev, generator)
+        start = (torch.nn.functional.pad(v0, (0, (N - n_draw) * nd)), v1)
     v0, v1 = (v.to(dtype=dt, device=dev) for v in start)
-    cheb0 = _cheb(A0, Dinv0_apply, _lmax(A0, Dinv0_apply, v0), deg0)
-    cheb1 = _cheb(A1, M1, _lmax(A1, M1, v1), deg1)
     fm = free_mask.to(dt)
+    norm0 = torch.linalg.norm
+    if part is not None:
+        restrict0, prolong0 = _row_transfer(Bt, part, Na, S0, nd, nv)
+        v0 = v0[part.n0 * nd:part.n1 * nd]
+        fm = fm[part.n0 * nd:part.n1 * nd]
+
+        def norm0(v):
+            return torch.sqrt(part.dot(v, v))
+    cheb0 = _cheb(A0, Dinv0_apply, _lmax(A0, Dinv0_apply, v0, norm=norm0),
+                  deg0)
+    cheb1 = _cheb(A1, M1, _lmax(A1, M1, v1), deg1)
 
     def M(r):
         r0 = r * fm
@@ -396,6 +446,35 @@ def setup_amg(maps: AMGMaps, blocks: torch.Tensor, cols: torch.Tensor,
         return x0 * fm + r * (1.0 - fm)
 
     return M
+
+
+def _row_transfer(Bt: torch.Tensor, part, Na: int, S0: int, nd: int,
+                  nv: int):
+    """Level 0 <-> 1 transfers of a rank's node rows [n0, n1): the
+    aggregates those rows touch (they may straddle a rank boundary)
+    restrict into the whole level-1 vector, all-reduced over the ranks;
+    the prolongation of the replicated level-1 vector is kept on the
+    rank's rows."""
+    n0, n1 = part.n0, part.n1
+    a0, a1 = n0 // S0, min(-(-n1 // S0), Na)
+    off = (n0 - a0 * S0) * nd
+    rows = (n1 - n0) * nd
+    Btl = Bt[:, a0:a1]
+
+    def restrict0(d):
+        dpa = d.new_zeros((a1 - a0) * S0 * nd)
+        dpa[off:off + rows] = d
+        loc = (Btl * dpa.reshape(a1 - a0, S0 * nd)).sum(dim=2).T
+        full = d.new_zeros((Na, nv))
+        full[a0:a1] = loc
+        return part.comm.all_reduce_sum(full.reshape(-1))
+
+    def prolong0(xc):
+        xn = xc.reshape(Na, nv)[a0:a1]
+        y = (Btl * xn.T[:, :, None]).sum(dim=0)
+        return y.reshape(-1)[off:off + rows]
+
+    return restrict0, prolong0
 
 
 def eligible_maps(profile, n_dof_total: int,

@@ -45,32 +45,35 @@ def _identity(r):
 
 def pcg(A: Callable, b: torch.Tensor, M: Optional[Callable] = None,
         x0: Optional[torch.Tensor] = None, tol: float = 1.0e-8,
-        maxiter: int = 10000, hist_len: int = 0) -> CGResult:
+        maxiter: int = 10000, hist_len: int = 0,
+        dot: Callable = torch.dot) -> CGResult:
     """Preconditioned CG (Fletcher-Reeves rho update, the recurrences of
     hecmw_solve_CG).  hist_len > 0 records the per-iteration relative
     residual for ITERLOG; unused slots hold -1, and iterations past the
-    buffer overwrite its last slot, as in the JAX package."""
+    buffer overwrite its last slot, as in the JAX package.  ``dot`` is
+    every inner product: a row-sharded solve (``parallel/shard.py``)
+    passes the rank's partial sum all-reduced over the ranks."""
     M = M or _identity
     x = torch.zeros_like(b) if x0 is None else x0
-    bnrm2 = torch.dot(b, b)
+    bnrm2 = dot(b, b)
     bnrm2 = torch.where(bnrm2 == 0.0, torch.ones_like(bnrm2), bnrm2)
     r = b - A(x)
     p = M(r)
-    rho = torch.dot(r, p)
+    rho = dot(r, p)
     hist = np.full(hist_len, -1.0, np.float32) if hist_len else None
-    resid = float(torch.sqrt(torch.dot(r, r) / bnrm2))
+    resid = float(torch.sqrt(dot(r, r) / bnrm2))
     k = 0
     while resid > tol and k < maxiter:
         q = A(p)
-        alpha = rho / torch.dot(p, q)
+        alpha = rho / dot(p, q)
         x = x + alpha * p
         r = r - alpha * q
         z = M(r)
-        rho_new = torch.dot(r, z)
+        rho_new = dot(r, z)
         beta = rho_new / rho
         p = z + beta * p
         rho = rho_new
-        resid = float(torch.sqrt(torch.dot(r, r) / bnrm2))
+        resid = float(torch.sqrt(dot(r, r) / bnrm2))
         if hist is not None:
             hist[min(k, hist_len - 1)] = resid
         k += 1

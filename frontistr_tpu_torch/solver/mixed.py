@@ -28,19 +28,22 @@ class RefinedResult(NamedTuple):
     hist: Optional[np.ndarray] = None   # (passes, hist_len) inner relres
 
 
-def _rel(r: torch.Tensor, bnrm: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.dot(r, r)) / bnrm
+def _rel(r: torch.Tensor, bnrm: torch.Tensor,
+         dot: Callable = torch.dot) -> torch.Tensor:
+    return torch.sqrt(dot(r, r)) / bnrm
 
 
 def refined_cg(A64: Callable, A32: Callable, M32: Callable,
                b: torch.Tensor, tol: float = 1e-10,
                inner_tol: float = 1e-6, maxiter: int = 10000,
                max_passes: int = 4, hist_len: int = 0,
-               x0: Optional[torch.Tensor] = None) -> RefinedResult:
+               x0: Optional[torch.Tensor] = None,
+               dot: Callable = torch.dot) -> RefinedResult:
     """Iteratively-refined CG.  b is f64; returns the f64 solution with
-    the TRUE residual ||b - A64 x|| / ||b|| <= tol (or max_passes)."""
+    the TRUE residual ||b - A64 x|| / ||b|| <= tol (or max_passes).
+    ``dot`` is every inner product (``pcg``'s hook)."""
     x = torch.zeros_like(b) if x0 is None else x0
-    bnrm = torch.sqrt(torch.dot(b, b))
+    bnrm = torch.sqrt(dot(b, b))
     bnrm = torch.where(bnrm == 0, torch.ones_like(bnrm), bnrm)
 
     if hist_len:
@@ -50,25 +53,25 @@ def refined_cg(A64: Callable, A32: Callable, M32: Callable,
         for p in range(max_passes):
             r = b if (p == 0 and x0 is None) else b - A64(x)
             res = pcg(A32, r.to(torch.float32), M=M32, tol=inner_tol,
-                      maxiter=maxiter, hist_len=hist_len)
+                      maxiter=maxiter, hist_len=hist_len, dot=dot)
             x = x + res.x.to(b.dtype)
             total_iters += res.iters
             hists.append(res.hist)
-        relres = float(_rel(b - A64(x), bnrm))
+        relres = float(_rel(b - A64(x), bnrm, dot))
         return RefinedResult(x, total_iters, relres, relres <= tol,
                              max_passes, np.stack(hists))
 
     # adaptive: refine until the true f64 residual meets tol
     r = b if x0 is None else b - A64(x)
-    relres = float(_rel(r, bnrm))
+    relres = float(_rel(r, bnrm, dot))
     total_iters = 0
     passes = 0
     while relres > tol and passes < max_passes:
         res = pcg(A32, r.to(torch.float32), M=M32, tol=inner_tol,
-                  maxiter=maxiter)
+                  maxiter=maxiter, dot=dot)
         x = x + res.x.to(b.dtype)
         r = b - A64(x)
-        relres = float(_rel(r, bnrm))
+        relres = float(_rel(r, bnrm, dot))
         total_iters += res.iters
         passes += 1
     return RefinedResult(x, total_iters, relres, relres <= tol, passes,

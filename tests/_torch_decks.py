@@ -4,9 +4,16 @@ B-bar/F-bar, tet10, load and dynamics slices: meshes from ``meshgen``
 tet10 generator), the top element layer and top faces as element and
 surface groups, work directories through
 ``io.neu.write_static_workdir`` (with ``!AMPLITUDE`` tables), and the
-DYNAMIC deck ``dyn_deck``."""
+DYNAMIC deck ``dyn_deck``.
+
+Importing it also sets PyTorch's intra-op pool to one thread: the
+suite runs under pytest-xdist, several workers on the machine's cores,
+and PyTorch's default of one thread a core in every worker
+oversubscribes them (the port's CPU tests ran about 3x slower so; the
+spawned ranks of the sharded tests set one thread too)."""
 
 import numpy as np
+import torch
 
 from frontistr_tpu_torch import ordering
 from frontistr_tpu_torch.assembly.loads import FACE_TABLES
@@ -15,6 +22,8 @@ from frontistr_tpu_torch.io.meshio import ElemBlock
 from frontistr_tpu_torch.io.neu import write_static_workdir
 from frontistr_tpu_torch.meshgen import (box_hex8, box_plane, box_tet4,
                                          hex8_pair_541)
+
+torch.set_num_threads(1)
 
 # the six edges of a tet in the FSTR order of 342's mid-edge nodes 4..9
 TET10_EDGES = ((0, 1), (1, 2), (2, 0), (0, 3), (1, 3), (2, 3))
@@ -170,6 +179,9 @@ DECK = ("!VERSION\n 3\n!SOLUTION, TYPE={sol}\n!BOUNDARY\n X0, 1, 3, 0.0\n"
         "{plastic}{extra}!STEP, SUBSTEPS={sub}{step}\n BOUNDARY, 1\n"
         " LOAD, 1\n!SOLVER, METHOD=CG, ITERLOG=NO, TIMELOG=NO\n 10000, 1\n"
         " 1.0e-8, 1.0, 0.0\n{write}!END\n")
+
+
+MISES_DECK = "!PLASTIC, YIELD=MISES, HARDEN=LINEAR\n 250.0, 1000.0\n"
 
 
 def deck(sol="NLSTATIC", loads="", el="", plastic="", extra="", sub=1,

@@ -124,9 +124,9 @@ def test_newton_arm_reduces_the_tie_residual(tmp_path, monkeypatch):
 def test_contact_refusals_name_themselves(tmp_path, monkeypatch, case):
     """Contact where the port does not run it: explicit dynamics,
     EIGEN, STATICEIGEN's Lanczos and HEAT (the JAX package drops the
-    card there: ROADMAP queue 3, fault 2), sharded contact and the
-    restart of a static contact run (the JAX package's checkpoint drops
-    the contact state: queue 3, fault 8;
+    card there: ROADMAP queue 3, fault 2), sharded contact's DIRECT arm
+    and the restart of a static contact run (the JAX package's
+    checkpoint drops the contact state: queue 3, fault 8;
     tests/test_torch_restart.py)."""
     from frontistr_tpu_torch.run import run_directory
     msg = "CONTACT"
@@ -134,9 +134,11 @@ def test_contact_refusals_name_themselves(tmp_path, monkeypatch, case):
         cnt = dyn_cnt(2, 1e-3, eqa=11)
         msg = "CONTACT in explicit dynamics"
     elif case == "shards":
+        # sharded contact runs (tests/test_torch_shard_contact.py); its
+        # DIRECT arm is refused by name
         monkeypatch.setenv("FRONTISTR_TPU_SHARDS", "2")
-        cnt = static_cnt()
-        msg = "FRONTISTR_TPU_SHARDS"
+        cnt = static_cnt(method="DIRECT")
+        msg = "DIRECT with !CONTACT under FRONTISTR_TPU_SHARDS"
     elif case == "restart":
         cnt = static_cnt().replace("!END\n", "!RESTART, FREQUENCY=1\n!END\n")
         msg = "RESTART"

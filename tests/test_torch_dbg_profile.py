@@ -1,8 +1,9 @@
 """``FSTR.dbg.0`` and ``FRONTISTR_TPU_PROFILE`` of the port's runner:
 the debug log equal to the JAX runner's with the clock and the seconds
 masked, for a HECMW-ENTIRE and an ABAQUS deck; the profiler's Chrome
-trace written on the CPU; FRONTISTR_TPU_SHARDS and
-FRONTISTR_TPU_COORDINATOR (several devices) still refused by name.
+trace written on the CPU; FRONTISTR_TPU_SHARDS (two spawned ranks,
+each its FSTR.dbg.<rank>) and a FRONTISTR_TPU_COORDINATOR without a
+process count (one process) give the single run's answer.
 """
 
 import json
@@ -63,9 +64,20 @@ def test_profile_writes_a_trace(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("name", ["FRONTISTR_TPU_SHARDS",
                                   "FRONTISTR_TPU_COORDINATOR"])
 def test_several_devices_still_raise(tmp_path, monkeypatch, name):
-    monkeypatch.setenv(name, "localhost:1234" if "COORD" in name else "2")
+    """Several devices, which the port used to refuse: SHARDS=2 runs two
+    ranks, each writing its FSTR.dbg.<rank>; a coordinator address
+    without FRONTISTR_TPU_NUM_PROCESSES joins nothing.  Both give the
+    single run's displacement."""
+    monkeypatch.setenv("FRONTISTR_TPU_CACHE_DIR", "0")
     wd = str(tmp_path / "wd")
     write_static_workdir(wd, box_tet4(2, 2, 2),
                          CNT.format(sol="STATIC", extra=""))
-    with pytest.raises(NotImplementedError, match=name):
-        run_directory(wd, device="cpu")
+    want = run_directory(wd, device="cpu")["static"].u
+    os.remove(os.path.join(wd, "FSTR.dbg.0"))
+    monkeypatch.setenv(name, "localhost:1234" if "COORD" in name else "2")
+    got = run_directory(wd, device="cpu")["static"].u
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-8 * np.abs(want).max())
+    dbgs = sorted(f for f in os.listdir(wd) if f.startswith("FSTR.dbg"))
+    assert dbgs == (["FSTR.dbg.0", "FSTR.dbg.1"] if "SHARDS" in name
+                    else ["FSTR.dbg.0"])

@@ -438,8 +438,10 @@ UNPORTED = {
     # the JAX package drops both without effect (ROADMAP fault 2)
     "equation": ({}, "", {}, _equation, "EQUATION in explicit dynamics"),
     "spring": ({"eqa": 1}, "!SPRING\n 1, 3, 10.0\n", {}, None, "SPRING"),
+    # sharded implicit dynamics runs (tests/test_torch_shard_families.py);
+    # the explicit run (this deck) under sharding is refused by name
     "shards": ({}, "", {"FRONTISTR_TPU_SHARDS": "2"}, None,
-               "FRONTISTR_TPU_SHARDS"),
+               "explicit dynamics under FRONTISTR_TPU_SHARDS"),
     # coupling is ported: without a peer the run waits out the timeout
     "coupler": ({}, "!COUPLE, TYPE=1\n WET\n",
                 {"FRONTISTR_TPU_COUPLE_DIR": "{tmp}/cpl",

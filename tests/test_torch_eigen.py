@@ -216,8 +216,9 @@ UNPORTED = {
     "spring": ("EIGEN", lambda c: c.replace("!MATERIAL", "!SPRING\n 1, 3, "
                                             "10.0\n!MATERIAL"),
                {}, None, "SPRING"),
-    "shards": ("EIGEN", None, {"FRONTISTR_TPU_SHARDS": "2"}, None,
-               "FRONTISTR_TPU_SHARDS"),
+    # sharded EIGEN runs (tests/test_torch_shard_families.py): the case
+    # holds two spawned ranks' answer to the single run's
+    "shards": ("EIGEN", None, {"FRONTISTR_TPU_SHARDS": "2"}, None, None),
     # the id predates the shell port: the case is the truss 301
     "shell_731": ("EIGEN", None, {}, "shell", "301"),
 }
@@ -243,5 +244,13 @@ def test_unported_eigen_requests_raise(tmp_path, monkeypatch, case):
         cnt = edit(cnt)
     wd = str(tmp_path / "wd")
     write_static_workdir(wd, mesh, cnt)
+    if msg is None:
+        got = run_directory(wd, device="cpu")["eigen"]
+        for k in envs:
+            monkeypatch.delenv(k)
+        want = run_directory(wd, device="cpu")["eigen"]
+        np.testing.assert_allclose(got.eigenvalues, want.eigenvalues,
+                                   rtol=1e-8)
+        return
     with pytest.raises(NotImplementedError, match=msg):
         run_directory(wd, device="cpu")

@@ -279,8 +279,10 @@ def test_write_visual_matches_jax(tmp_path, capsys):
 
 UNPORTED = {
     # name: (deck edit, env, mesh edit, message)
-    "shards": (None, {"FRONTISTR_TPU_SHARDS": "2"}, None,
-               "FRONTISTR_TPU_SHARDS"),
+    # sharded HEAT runs (tests/test_torch_shard_families.py): the case
+    # holds two spawned ranks' answer to the single run's; its !RESTART
+    # is refused by name
+    "shards": (None, {"FRONTISTR_TPU_SHARDS": "2"}, None, None),
 }
 
 
@@ -296,5 +298,20 @@ def test_unported_heat_requests_raise(tmp_path, monkeypatch, case):
     if edit is not None:
         cnt = edit(cnt)
     wd = write_heat_deck(tmp_path / "wd", mesh, cnt)
+    if msg is None:
+        got = run_directory(wd, device="cpu")["heat"]
+        cntp = os.path.join(wd, "case.cnt")
+        with open(cntp) as f:
+            txt = f.read()
+        with open(cntp, "w") as f:
+            f.write(txt.replace("!END", "!RESTART, FREQUENCY=1\n!END"))
+        with pytest.raises(NotImplementedError,
+                           match="RESTART under FRONTISTR_TPU_SHARDS"):
+            run_directory(wd, device="cpu")
+        for k in envs:
+            monkeypatch.delenv(k)
+        want = run_directory(wd, device="cpu")["heat"]
+        np.testing.assert_allclose(got.T, want.T, rtol=1e-8, atol=0)
+        return
     with pytest.raises(NotImplementedError, match=msg):
         run_directory(wd, device="cpu")

@@ -120,9 +120,23 @@ def test_unported_requests_raise(tmp_path, monkeypatch, card):
     if "NLSTATIC" in card:
         # the Newton driver runs NLSTATIC and every Krylov method (as CG,
         # tests/test_torch_nonlinear.py) and !WRITE, VISUAL
-        # (test_write_visual_nlstatic_matches_jax); several devices
-        # still raise
-        monkeypatch.setenv("FRONTISTR_TPU_COORDINATOR", "localhost:1234")
+        # (test_write_visual_nlstatic_matches_jax); several devices run
+        # (tests/test_torch_shard_*.py): here the sharded Newton driver
+        # in a group of one equals the single run, and its !RESTART is
+        # refused by name
+        monkeypatch.setenv("FRONTISTR_TPU_CACHE_DIR", "0")
+        wd = _workdir(tmp_path / "wd", n=(2, 2, 2), cnt=cnt)
+        want = run_directory(wd, device="cpu")["static"]
+        monkeypatch.setenv("FRONTISTR_TPU_SHARDS", "1")
+        got = run_directory(wd, device="cpu")["static"]
+        np.testing.assert_allclose(got.u, want.u, rtol=0,
+                                   atol=1e-8 * np.abs(want.u).max())
+        assert got.iters == want.iters
+        rs = cnt.replace("!END\n", "!RESTART, FREQUENCY=1\n!END\n")
+        wd = _workdir(tmp_path / "rs", n=(2, 2, 2), cnt=rs)
+        with pytest.raises(NotImplementedError, match="RESTART under"):
+            run_directory(wd, device="cpu")
+        return
     elif "EIGEN" in card:
         # Lanczos runs EIGEN; a card it lacks still raises
         cnt = cnt.replace("!END\n", "!SPRING\n 1, 3, 10.0\n!END\n")
